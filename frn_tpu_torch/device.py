@@ -1,0 +1,19 @@
+"""Device selection for the port's entry points."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """``None`` means the card. The CPU is used only when the caller asks for it."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run the plain "
+                "PyTorch path on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
