@@ -8,26 +8,41 @@ Phases:
      kernel of the port built from ``frn_tpu_torch/csrc`` (one nvcc each, in
      parallel);
   2. each kernel against its plain PyTorch version on the card, at the shapes
-     of the main path, then timed (CUDA events) beside its bound and a
-     one-call PyTorch yardstick (``library_ms``, never used by the port);
-  3. the main path, through ``frn_tpu_torch.entry.entry()``: DSEC 480x640
-     fusion inference, two ResNet-50 backbones, bf16, batch 16, forward +
-     pooled decode + NMS. Launch counts are zeroed just before the timed
-     batches and read just after. The outputs are checked: finite, of the
-     expected shapes, with detections; the logits agree with the same model
-     run with the plain attention; then the device time of each layer of
-     the path (CUDA events between layers), and a torch.profiler pass over
+     of its path (the forward; the forward with lse and the dQ and dK/dV
+     backward kernels, ragged N and head dims 8 and 16 included), then timed
+     (CUDA events) at its path's batch beside its bound and a one-call
+     PyTorch yardstick (``library_ms``, never used by the port), the timed
+     runs' outputs held against each other;
+  3. the inference path, through ``frn_tpu_torch.entry.entry()``: DSEC
+     480x640 fusion inference, two ResNet-50 backbones, bf16, batch 16,
+     forward + pooled decode + NMS. Launch counts are zeroed just before the
+     timed batches and read just after. The outputs are checked: finite, of
+     the expected shapes, with detections; the logits agree with the same
+     model run with the plain attention; then the device time of each layer
+     of the path (CUDA events between layers), and a torch.profiler pass over
      one batch for the device-busy share and the costliest kernels; last, a
      small f32 model on the card agrees with the same model on the CPU;
-  4. one JSON line listing the kernels, then the last line
+  4. the training path, through ``frn_tpu_torch.entry.train_entry()``: the
+     same detector at batch 8 with Adam and accum_steps 2. ``Trainer.fit``
+     over 48 seeded samples with launch counts zeroed just before and read
+     just after (4 forward-with-lse, 4 dQ and 4 dK/dV launches per
+     micro-step), finite losses, params still after each first micro-step
+     and moved after each second; timed micro-steps with img/s and peak
+     memory; the batch's gradients against the plain attention; a
+     checkpoint saved and resumed on the card; a profiler pass; a small f32
+     train step on the card against the CPU;
+  5. one JSON line listing the kernels, then the last line
      {"ok": true, "device": {...}}.
 """
 
 import copy
 import dataclasses
 import json
+import math
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -49,6 +64,38 @@ FLASH_ATOL, FLASH_RTOL = 2e-2, 2e-2
 # convs, each rounding to bf16 (relative step 2^-8)
 MAIN_REL_TOL = 5e-2
 MAIN_BATCH, MAIN_TIMED = 16, 5
+# lse of the kernel vs the plain version (f32): __expf against exp and another
+# summation order move the log of the denominator by about 1e-5
+LSE_ATOL = 1e-3
+# backward kernels vs plain versions on bf16 outputs: both round P and dS to
+# bf16 before their products, but a P or dS can land one bf16 ulp apart
+# (__expf against exp), and such differences add up over the N keys or
+# queries of a row; atol is a share of the output's max |value|
+BWD_ATOL, BWD_RTOL = 1e-2, 2e-2
+BWD_CHECK_SHAPES = ((2, 19200, 32), (2, 4800, 64), (2, 5655, 32), (2, 131, 32), (2, 517, 64),
+                    (2, 4800, 16), (2, 5655, 8))
+# the training step is launch-bound on the host, so its time varies with the
+# host's load: ten timed micro-steps, and the median beside the mean
+TRAIN_BATCH, TRAIN_SAMPLES, TRAIN_TIMED = 8, 48, 10
+# training gradients with the kernels vs with the plain attention, as the
+# global norm of the difference over that of the reference: the attention
+# outputs' and gradients' one-ulp bf16 differences pass through every layer
+# of the backward pass, each rounding to bf16 (relative step 2^-8)
+TRAIN_GRAD_REL_TOL = 5e-2
+# timing shapes (N, d): DSEC stages 1 and 2, two directions each per forward
+FLASH_SHAPES = ((19200, 32), (4800, 64))
+KERNEL_SOURCES = {
+    "flash_fwd": ("frn_tpu_torch/csrc/flash_attention.cu", "frn_tpu/ops/flash_attention.py:39"),
+    "flash_fwd_lse": ("frn_tpu_torch/csrc/flash_attention.cu", "frn_tpu/ops/flash_attention.py:39"),
+    "flash_bwd_dq": ("frn_tpu_torch/csrc/flash_attention_bwd.cu", "frn_tpu/ops/flash_attention.py:275"),
+    "flash_bwd_dkv": ("frn_tpu_torch/csrc/flash_attention_bwd.cu", "frn_tpu/ops/flash_attention.py:300"),
+}
+TRAIN_KERNELS = ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
+# the work of one launch: bytes per element of a (B, N, d) tensor and per
+# (B, N) row (each input read once, each output written once: bf16 Q, K, V,
+# dO, O, dQ, dK, dV; f32 lse and D), and matrix flops per B*N^2*d
+KERNEL_WORK = {"flash_fwd": (8, 0, 4), "flash_fwd_lse": (8, 4, 4),
+               "flash_bwd_dq": (10, 8, 6), "flash_bwd_dkv": (12, 8, 8)}
 
 
 def fail(msg: str) -> None:
@@ -56,25 +103,91 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+def cuda_ms(fn, reps: int, warmup: int = 2):
+    """(ms per call of ``fn`` over ``reps`` calls after ``warmup``, the last
+    call's result)."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, out
 
 
-def flash_bound(b: int, n: int, d: int):
-    """(ms, 'bytes' | 'operations'): Q, K, V read once and O written once, bf16;
-    4*B*N^2*d flops of the two products; B*N^2 exponentials."""
-    t_bytes = 4 * b * n * d * 2 / HBM_BYTES_PER_S
-    t_ops = max(4 * b * n * n * d / BF16_FLOP_PER_S, b * n * n / EXP_PER_S)
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+def check_close(kind: str, name: str, got, want, atol: float, rtol: float, shape, errs: dict) -> None:
+    """Fails unless ``got`` (a kernel's output) is finite and within atol +
+    rtol * |want| of ``want`` (its plain version's) everywhere; records the
+    largest error of ``kind`` in ``errs``."""
+    b, n, d = shape
+    err = (got.float() - want.float()).abs()
+    bad = err > atol + rtol * want.float().abs()
+    print(f"{kind} {name} vs plain B={b} N={n} d={d}: max_abs_err {err.max().item():.3e} "
+          f"(max|ref| {want.float().abs().max().item():.3e}), {int(bad.sum())} outside "
+          f"atol {atol:.3e} rtol {rtol}", flush=True)
+    if not torch.isfinite(got.float()).all() or bad.any():
+        fail(f"{kind} ({name}) disagrees with its plain version at B={b} N={n} d={d}")
+    errs[kind] = max(errs.get(kind, 0.0), err.max().item())
+
+
+def check_backward(shape, dq, dkv, dq_ref, dkv_ref, errs: dict) -> None:
+    """The dQ and dK/dV kernels' outputs against their plain versions': atol
+    a share of each output's max |value|."""
+    for kind, name, got, want in (("flash_bwd_dq", "dq", dq, dq_ref),
+                                  ("flash_bwd_dkv", "dk", dkv[0], dkv_ref[0]),
+                                  ("flash_bwd_dkv", "dv", dkv[1], dkv_ref[1])):
+        check_close(kind, name, got, want, BWD_ATOL * want.float().abs().max().item(), BWD_RTOL,
+                    shape, errs)
+
+
+def kernel_bound(kind: str, b: int, n: int, d: int):
+    """(bytes time, operations time) of one launch, in seconds: its bytes over
+    the memory rate; the larger of its matrix flops over the bf16 rate and its
+    B*N^2 exponentials over the exp rate. The bound is the larger of the two."""
+    elems, rows, flops = KERNEL_WORK[kind]
+    return ((elems * b * n * d + rows * b * n) / HBM_BYTES_PER_S,
+            max(flops * b * n * n * d / BF16_FLOP_PER_S, b * n * n / EXP_PER_S))
+
+
+class KernelTimes:
+    """One kernel's timings at the FLASH_SHAPES, summed over its 4 launches
+    per forward or micro-step (two directions at each shape), with the bound
+    of that sum, as a row of the kernels line."""
+
+    def __init__(self, kind: str):
+        self.kind, self.per_shape = kind, []
+        self.totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+        self.t_bytes = self.t_ops = 0.0
+
+    def add(self, b: int, n: int, d: int, kernel, plain, library_ms: float):
+        """Times ``kernel`` and ``plain``; returns their last outputs."""
+        t_bytes, t_ops = kernel_bound(self.kind, b, n, d)
+        ms, out = cuda_ms(kernel, reps=10)
+        plain_ms, plain_out = cuda_ms(plain, reps=2, warmup=1)
+        row = {"B": b, "N": n, "d": d, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        print(f"{self.kind} timing {json.dumps(row)}", flush=True)
+        self.per_shape.append(row)
+        for key in self.totals:
+            self.totals[key] += 2 * row[key]
+        self.t_bytes += 2 * t_bytes
+        self.t_ops += 2 * t_ops
+        return out, plain_out
+
+    def row(self, max_abs_err: float, per: str) -> dict:
+        bound_ms = max(self.t_bytes, self.t_ops) * 1e3
+        bound_by = "bytes" if self.t_bytes >= self.t_ops else "operations"
+        print(f"{self.kind} per {per} (4 launches): kernel {self.totals['ms']:.3f} ms, bound "
+              f"{bound_ms:.3f} ms ({bound_by}), plain {self.totals['plain_ms']:.3f} ms, "
+              f"library {self.totals['library_ms']:.3f} ms", flush=True)
+        source, replaces = KERNEL_SOURCES[self.kind]
+        return {"name": self.kind, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": None, "max_abs_err": max_abs_err, **self.totals,
+                "bound_ms": bound_ms, "bound_by": bound_by, "per_shape": self.per_shape}
 
 
 def phase_environment():
@@ -87,6 +200,11 @@ def phase_environment():
     print(smi.stdout.strip(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}", flush=True)
+    # every phase compares f32 work on the card with the CPU or a plain
+    # version at f32 tolerances, so no phase may run its products in TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("tf32: matmul off, cudnn off", flush=True)
 
     from frn_tpu_torch import build
 
@@ -103,57 +221,91 @@ def phase_environment():
 def phase_flash_kernel():
     from frn_tpu_torch.ops import flash_attention as fa
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print("tf32: matmul off, cudnn off", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def qkv(b, n, d):
         return [torch.randn((b, n, d), generator=gen, device="cuda").to(torch.bfloat16)
                 for _ in range(3)]
 
-    max_err = 0.0
-    for b, n, d in ((2, 19200, 32), (2, 4800, 64), (2, 5655, 32), (2, 131, 32), (2, 517, 64)):
-        q, k, v = qkv(b, n, d)
-        out = fa.flash_attention(q, k, v)
-        ref = fa.flash_attention_plain(q, k, v)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs()
-        bad = err > FLASH_ATOL + FLASH_RTOL * ref.float().abs()
-        print(f"flash_fwd vs plain B={b} N={n} d={d}: max_abs_err {err.max().item():.3e}, "
-              f"{int(bad.sum())} outside atol {FLASH_ATOL} rtol {FLASH_RTOL}", flush=True)
-        if not torch.isfinite(out.float()).all() or bad.any():
-            fail(f"flash kernel disagrees with its plain version at B={b} N={n} d={d}")
-        max_err = max(max_err, err.max().item())
+    errs = {}
+    for shape in BWD_CHECK_SHAPES:
+        q, k, v = qkv(*shape)
+        check_close("flash_fwd", "o", fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v),
+                    FLASH_ATOL, FLASH_RTOL, shape, errs)
 
-    # per main-path forward at batch 16: two directions at each of stages 1, 2
-    per_shape, totals = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    t_bytes = t_ops = 0.0
-    for n, d in ((19200, 32), (4800, 64)):
+    # per main-path forward at batch 16, and the outputs of the timed runs
+    # held against each other at that batch
+    times = KernelTimes("flash_fwd")
+    for n, d in FLASH_SHAPES:
         q, k, v = qkv(MAIN_BATCH, n, d)
         q4, k4, v4 = (x.unsqueeze(1) for x in (q, k, v))
-        ms = cuda_ms(lambda: fa.flash_attention(q, k, v), reps=10)
-        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), reps=2, warmup=1)
-        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        lib_ms, _ = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q4, k4, v4, scale=1.0), reps=10)
-        bound_ms, bound_by = flash_bound(MAIN_BATCH, n, d)
-        t_bytes += 4 * MAIN_BATCH * n * d * 2 / HBM_BYTES_PER_S
-        t_ops += max(4 * MAIN_BATCH * n * n * d / BF16_FLOP_PER_S, MAIN_BATCH * n * n / EXP_PER_S)
-        row = {"B": MAIN_BATCH, "N": n, "d": d, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-        per_shape.append(row)
-        print(f"flash_fwd timing {json.dumps(row)}", flush=True)
-        for key in totals:
-            totals[key] += 2 * row[key]
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"flash_fwd per forward (4 launches): kernel {totals['ms']:.3f} ms, bound "
-          f"{totals['bound_ms']:.3f} ms ({bound_by}), plain {totals['plain_ms']:.3f} ms, "
-          f"sdpa {totals['library_ms']:.3f} ms", flush=True)
-    return {"name": "flash_fwd", "route": "cuda",
-            "source": "frn_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "frn_tpu/ops/flash_attention.py:39",
-            "launches": None, "max_abs_err": max_err, "bound_by": bound_by,
-            **totals, "per_shape": per_shape}
+        out, ref = times.add(MAIN_BATCH, n, d, lambda: fa.flash_attention(q, k, v),
+                             lambda: fa.flash_attention_plain(q, k, v), lib_ms)
+        check_close("flash_fwd", "o", out, ref, FLASH_ATOL, FLASH_RTOL, q.shape, errs)
+    return times.row(errs["flash_fwd"], "forward")
+
+
+def phase_flash_backward():
+    """The forward with lse and both backward kernels against their plain
+    versions at every listed shape (ragged N, d 8 and 16 included), then each
+    timed at batch TRAIN_BATCH at the training path's two shapes, where the
+    timed runs' outputs are held against each other too."""
+    from frn_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def randn(b, n, d):
+        return torch.randn((b, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+
+    errs = {}
+    for shape in BWD_CHECK_SHAPES:
+        q, k, v, do = (randn(*shape) for _ in range(4))
+        o, lse = fa.flash_attention(q, k, v, return_lse=True)
+        o_ref, lse_ref = fa.flash_attention_plain(q, k, v, return_lse=True)
+        check_close("flash_fwd_lse", "o", o, o_ref, FLASH_ATOL, FLASH_RTOL, shape, errs)
+        check_close("flash_fwd_lse", "lse", lse, lse_ref, LSE_ATOL, 0.0, shape, errs)
+        # both backward versions get the same lse and D, from the plain forward
+        delta = fa.attention_delta(o_ref, do)
+        check_backward(shape, fa.flash_bwd_dq(q, k, v, do, lse_ref, delta),
+                       fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta),
+                       fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta),
+                       fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta), errs)
+
+    # per training micro-step at batch TRAIN_BATCH; the library yardstick is
+    # SDPA's forward, and its autograd backward (dQ, dK and dV together)
+    times = {kind: KernelTimes(kind) for kind in TRAIN_KERNELS}
+    for n, d in FLASH_SHAPES:
+        q, k, v, do = (randn(TRAIN_BATCH, n, d) for _ in range(4))
+        o, lse = fa.flash_attention(q, k, v, return_lse=True)
+        delta = fa.attention_delta(o, do)
+        q4, k4, v4, do4 = (x.unsqueeze(1).detach().requires_grad_() for x in (q, k, v, do))
+        with torch.enable_grad():
+            lib_out = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+        lib_fwd_ms, _ = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, scale=1.0), reps=10)
+        lib_bwd_ms, _ = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (q4, k4, v4), do4, retain_graph=True), reps=10)
+        del lib_out
+        (o_k, lse_k), (o_p, lse_p) = times["flash_fwd_lse"].add(
+            TRAIN_BATCH, n, d, lambda: fa.flash_attention(q, k, v, return_lse=True),
+            lambda: fa.flash_attention_plain(q, k, v, return_lse=True), lib_fwd_ms)
+        check_close("flash_fwd_lse", "o", o_k, o_p, FLASH_ATOL, FLASH_RTOL, q.shape, errs)
+        check_close("flash_fwd_lse", "lse", lse_k, lse_p, LSE_ATOL, 0.0, q.shape, errs)
+        del o_k, o_p, lse_k, lse_p
+        dq, dq_ref = times["flash_bwd_dq"].add(
+            TRAIN_BATCH, n, d, lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta),
+            lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta), lib_bwd_ms)
+        dkv, dkv_ref = times["flash_bwd_dkv"].add(
+            TRAIN_BATCH, n, d, lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta),
+            lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta), lib_bwd_ms)
+        check_backward(q.shape, dq, dkv, dq_ref, dkv_ref, errs)
+    out = {kind: t.row(errs[kind], "micro-step") for kind, t in times.items()}
+    total = sum(r["bound_ms"] for r in out.values())
+    print(f"flash bound per training micro-step (forward with lse + both backward kernels, "
+          f"4 launches each): {total:.3f} ms", flush=True)
+    return out
 
 
 def _random_head_outputs(model, seed: int) -> None:
@@ -181,22 +333,24 @@ def phase_main_path(kernel_rows):
     out = fn(rgb, event)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_fwd_launches = 0
+    _reset_flash_counts(fa)
     times = []
     for _ in range(MAIN_TIMED):
         t0 = time.perf_counter()
         out = fn(rgb, event)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = fa.flash_fwd_launches
+    counts = _flash_counts(fa)
+    launches = counts.pop("flash_fwd")
     peak = torch.cuda.max_memory_allocated()
     ms = sum(times) / len(times)
     print(f"main path: DSEC 480x640 fusion R50 bf16 batch {MAIN_BATCH}, forward + decode + NMS: "
           f"{ms:.2f} ms/batch (runs {', '.join(f'{t:.2f}' for t in times)}), "
           f"{MAIN_BATCH * 1e3 / ms:.1f} img/s, peak memory {peak / 2**30:.2f} GiB", flush=True)
     print(f"main path launches: flash_fwd {launches} over {MAIN_TIMED} batches", flush=True)
-    if launches != 4 * MAIN_TIMED:
-        fail(f"flash_fwd launched {launches} times over {MAIN_TIMED} forwards, expected 4 each")
+    if launches != 4 * MAIN_TIMED or any(counts.values()):
+        fail(f"flash_fwd launched {launches} times over {MAIN_TIMED} forwards, expected 4 each "
+             f"and no training kernel ({counts})")
     kernel_rows["flash_fwd"]["launches"] = launches
 
     scores, labels, boxes = out
@@ -210,13 +364,13 @@ def phase_main_path(kernel_rows):
         fail(f"{int(valid.sum())} detections, labels up to {int(labels.max())}")
     print(f"detections: {int(valid.sum())} valid slots over {MAIN_BATCH} images", flush=True)
 
-    # the same model with the plain attention in place of the kernel, batch 2
+    # the same model and batch with the plain attention in place of the kernel
     with torch.inference_mode():
-        got = fn.model(rgb[:2], event[:2], eval_output=fn.eval_output)
+        got = fn.model(rgb, event, eval_output=fn.eval_output)
         kernel_fn = attention.flash_attention
         attention.flash_attention = fa.flash_attention_plain
         try:
-            want = fn.model(rgb[:2], event[:2], eval_output=fn.eval_output)
+            want = fn.model(rgb, event, eval_output=fn.eval_output)
         finally:
             attention.flash_attention = kernel_fn
     for name, g, w in zip(("logits", "deltas"), got, want):
@@ -276,39 +430,41 @@ def phase_breakdown(fn, rgb, event, reps: int = 3) -> dict:
     return out
 
 
-def phase_profile(fn, rgb, event, main_ms: float) -> None:
-    """torch.profiler over one main-path batch (after one profiled warm-up
-    batch): the device-busy time summed over kernels, the idle share of the
-    unprofiled batch time ``main_ms``, and the costliest operators and
-    kernels."""
+def profile_pass(label: str, run_once, wall_ms: float, n_ops: int, n_kernels: int) -> None:
+    """torch.profiler over one call of ``run_once`` (after one profiled
+    warm-up call): the device-busy time summed over kernels, the idle share of
+    the unprofiled wall time ``wall_ms`` of one call, and the costliest
+    operators (by the device time of the kernels they launched) and kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     traced = []  # the active cycle's events, taken before the profiler clears them
-    with torch.inference_mode():
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda p: traced.extend(p.key_averages())) as prof:
-            for _ in range(2):
-                fn(rgb, event)
-                torch.cuda.synchronize()
-                prof.step()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.extend(p.key_averages())) as prof:
+        for _ in range(2):
+            run_once()
+            torch.cuda.synchronize()
+            prof.step()
     kernels, ops = [], []
     for ev in traced:
         ms = ev.self_device_time_total / 1e3
-        if ms > 0 and not ev.key.startswith("ProfilerStep"):  # the step's own span is no kernel
+        # a user annotation (the step's own span, Optimizer.step) is a range
+        # on the device timeline, not a kernel: counted, it would count twice
+        if ms > 0 and not (getattr(ev, "is_user_annotation", False)
+                           or ev.key.startswith(("ProfilerStep", "Optimizer."))):
             (kernels if ev.device_type == DeviceType.CUDA else ops).append((ms, ev.count, ev.key))
     kernels.sort(reverse=True)
     ops.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
-    idle = 1 - busy / main_ms if busy else float("nan")
-    print(f"profile: one batch of {MAIN_BATCH}: {len(kernels)} kernels, device busy "
-          f"{busy:.3f} ms; idle share of the unprofiled {main_ms:.3f} ms batch {idle:.3f}", flush=True)
+    idle = 1 - busy / wall_ms if busy else float("nan")
+    print(f"{label}: {len(kernels)} kernels ({sum(k[1] for k in kernels)} launches), device busy "
+          f"{busy:.3f} ms; idle share of the unprofiled {wall_ms:.3f} ms {idle:.3f}", flush=True)
     print("  operators by the device time of the kernels they launched:", flush=True)
-    for ms, count, key in ops[:15]:
+    for ms, count, key in ops[:n_ops]:
         print(f"  {ms:9.3f} ms  {count:5d}x  {key[:100]}", flush=True)
     print("  kernels:", flush=True)
-    for ms, count, key in kernels[:12]:
+    for ms, count, key in kernels[:n_kernels]:
         print(f"  {ms:9.3f} ms  {count:5d}x  {key[:100]}", flush=True)
 
 
@@ -344,15 +500,206 @@ def phase_small_reference():
         fail("small f32 model detection counts differ between card and CPU")
 
 
+def _batch_grads(state, config, batch):
+    """Loss and parameter gradients of one batch, RGB kept (no dropout), with
+    no change to the train state."""
+    from frn_tpu_torch.models.detector import detection_loss
+
+    cls, reg = state.model(batch["rgb"], batch["event"], train=True, drop=False)
+    loss = sum(detection_loss(cls, reg, batch["annot"], config))
+    return loss.detach(), torch.autograd.grad(loss, state.params)
+
+
+def _reset_flash_counts(fa) -> None:
+    fa.flash_fwd_launches = fa.flash_fwd_lse_launches = 0
+    fa.flash_bwd_dq_launches = fa.flash_bwd_dkv_launches = 0
+
+
+def _flash_counts(fa) -> dict:
+    return {"flash_fwd": fa.flash_fwd_launches, "flash_fwd_lse": fa.flash_fwd_lse_launches,
+            "flash_bwd_dq": fa.flash_bwd_dq_launches, "flash_bwd_dkv": fa.flash_bwd_dkv_launches}
+
+
+def phase_training(kernel_rows) -> None:
+    """The training path through ``frn_tpu_torch.entry.train_entry``: DSEC
+    480x640 fusion R50 bf16 at batch TRAIN_BATCH, Adam, accum_steps 2.
+    ``Trainer.fit`` over 48 seeded samples (6 micro-steps, 3 optimizer steps)
+    with launch counts zeroed just before and read just after; then timed
+    micro-steps, the batch's gradients against the plain attention, a
+    checkpoint round trip, a profile pass, and a small f32 train step on the
+    card against the CPU."""
+    from frn_tpu_torch.entry import train_entry
+    from frn_tpu_torch.ops import flash_attention as fa
+
+    trainer, batch = train_entry(device="cuda", batch=TRAIN_BATCH, num_samples=TRAIN_SAMPLES)
+    state, cfg = trainer.state, trainer.config
+    steps = TRAIN_SAMPLES // TRAIN_BATCH
+
+    # fit, watching every micro-step: its metrics and how far the params moved
+    record = []
+    step_fn = trainer.step_fn
+
+    def watched(st, b, gen):
+        before = [p.detach().clone() for p in st.params]
+        metrics = step_fn(st, b, gen)
+        moved = torch.stack([(p.detach() - q).abs().max() for p, q in zip(st.params, before)]).max()
+        record.append((metrics, moved))
+        return metrics
+
+    trainer.step_fn = watched
+    torch.cuda.synchronize()
+    _reset_flash_counts(fa)
+    t0 = time.perf_counter()
+    trainer.fit(epochs=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = _flash_counts(fa)
+    trainer.step_fn = step_fn
+    print(f"training: Trainer.fit(epochs=1), {len(record)} micro-steps of batch {TRAIN_BATCH} in "
+          f"{fit_s:.2f} s; flash launches {json.dumps(counts)}", flush=True)
+    want = {"flash_fwd": 0, "flash_fwd_lse": 4 * steps, "flash_bwd_dq": 4 * steps,
+            "flash_bwd_dkv": 4 * steps}
+    if len(record) != steps or counts != want:
+        fail(f"fit ran {len(record)} micro-steps with launches {counts}, expected {steps} and {want}")
+    for i, (metrics, moved) in enumerate(record):
+        loss, moved = metrics["loss"].item(), moved.item()
+        print(f"  micro-step {i + 1}: loss {loss:.5f} (cls {metrics['cls_loss'].item():.5f} reg "
+              f"{metrics['reg_loss'].item():.5f}), skipped {metrics['skipped'].item():.0f}, "
+              f"max |param change| {moved:.3e}", flush=True)
+        boundary = (i + 1) % cfg.train.accum_steps == 0
+        if not math.isfinite(loss) or metrics["skipped"].item() != 0:
+            fail(f"micro-step {i + 1}: loss {loss}")
+        if boundary != (moved > 0):
+            fail(f"micro-step {i + 1}: params {'unchanged' if boundary else 'moved'} "
+                 f"against the accumulation boundary")
+    for key in TRAIN_KERNELS:
+        kernel_rows[key]["launches"] = counts[key]
+
+    # timed micro-steps on the example batch
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flash_counts(fa)
+    times = []
+    for _ in range(TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step_fn(state, batch, trainer.generator)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = _flash_counts(fa)
+    peak = torch.cuda.max_memory_allocated()
+    ms, median = statistics.mean(times), statistics.median(times)
+    print(f"training path: DSEC 480x640 fusion R50 bf16 batch {TRAIN_BATCH}: {ms:.2f} ms per "
+          f"micro-step, median {median:.2f} (runs {', '.join(f'{t:.2f}' for t in times)}), "
+          f"{TRAIN_BATCH * 1e3 / ms:.1f} img/s (median {TRAIN_BATCH * 1e3 / median:.1f}), "
+          f"peak memory {peak / 2**30:.2f} GiB; flash launches {json.dumps(counts)}", flush=True)
+    if counts != {k: v // steps * TRAIN_TIMED for k, v in want.items()}:
+        fail(f"timed micro-steps launched {counts}")
+
+    # the same batch's gradients with the plain attention in place of the kernels
+    loss_k, grads_k = _batch_grads(state, cfg, batch)
+    # FlashAttentionFn looks both functions up when it runs
+    kernel_fns = fa.flash_attention, fa.flash_attention_backward
+    fa.flash_attention, fa.flash_attention_backward = (fa.flash_attention_plain,
+                                                       fa.flash_attention_backward_plain)
+    try:
+        loss_p, grads_p = _batch_grads(state, cfg, batch)
+    finally:
+        fa.flash_attention, fa.flash_attention_backward = kernel_fns
+    num = torch.stack([(a.float() - b.float()).norm() for a, b in zip(grads_k, grads_p)]).norm()
+    den = torch.stack([b.float().norm() for b in grads_p]).norm()
+    rel = (num / den).item()
+    worst = max((((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item(), name)
+                for a, b, name in zip(grads_k, grads_p, state.names))
+    print(f"training gradients, kernels vs plain attention (batch {TRAIN_BATCH}): loss {loss_k.item():.6f} vs "
+          f"{loss_p.item():.6f}; |g_kernel - g_plain| / |g_plain| over all params {rel:.3e}; "
+          f"worst tensor max|diff|/max|ref| {worst[0]:.3e} ({worst[1]})", flush=True)
+    if not rel <= TRAIN_GRAD_REL_TOL:
+        fail(f"training gradients disagree with the plain attention run ({rel:.3e})")
+    del grads_k, grads_p
+    check_resume(trainer, batch)
+    # one accumulation cycle: its micro-steps, one of them with the Adam step
+    cycle = cfg.train.accum_steps
+
+    def one_cycle():
+        for _ in range(cycle):
+            trainer.step_fn(state, batch, trainer.generator)
+
+    profile_pass(f"training profile: one accumulation cycle, {cycle} micro-steps of batch "
+                 f"{TRAIN_BATCH}", one_cycle, cycle * median, n_ops=20, n_kernels=15)
+    phase_small_train_reference()
+
+
+def check_resume(trainer, batch) -> None:
+    """A checkpoint round trip on the card: save, take one accumulation cycle
+    (the params move), then ``Trainer.resume`` must bring back the params, the
+    gradient sum, the counters and the dropout generator's state."""
+    from frn_tpu_torch.train.checkpoint import CheckpointManager
+
+    state = trainer.state
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer.ckpt = CheckpointManager(tmp)
+        trainer._save()
+        saved = [t.detach().clone() for t in (*state.params, *state.acc_grads)]
+        counters = (state.step, state.opt_steps, state.mini_step)
+        gen_state = trainer.generator.get_state()
+        for _ in range(trainer.config.train.accum_steps):
+            trainer.step_fn(state, batch, trainer.generator)
+        moved = max((p.detach() - q).abs().max().item() for p, q in zip(state.params, saved))
+        if not trainer.resume():
+            fail("Trainer.resume found no checkpoint")
+        trainer.ckpt = None
+    now = [t.detach() for t in (*state.params, *state.acc_grads)]
+    back = max((a - b).abs().max().item() for a, b in zip(now, saved))
+    print(f"checkpoint round trip on the card: params moved {moved:.3e} after save, "
+          f"max |restored - saved| {back:.3e}", flush=True)
+    if not (moved > 0 and back == 0 and (state.step, state.opt_steps, state.mini_step) == counters
+            and torch.equal(trainer.generator.get_state(), gen_state)):
+        fail("Trainer.resume on the card did not restore the saved state")
+
+
+def phase_small_train_reference() -> None:
+    """A small f32 fusion model: one micro-step on the card against the same
+    micro-step on the CPU (loss, and the running gradient sum it leaves)."""
+    from frn_tpu_torch import config as c
+    from frn_tpu_torch.data.collate import collate_fixed
+    from frn_tpu_torch.data.synthetic import box_samples
+    from frn_tpu_torch.models.detector import init_detector
+    from frn_tpu_torch.train.loop import create_train_state, make_train_step
+
+    geo = dataclasses.replace(c.DSEC, height=64, width=96)
+    cfg = c.FrameworkConfig(geometry=geo, model=c.ModelConfig(
+        variant="fusion", depth=18, num_classes=3, feature_size=32, attention_chunk=64),
+        train=c.TrainConfig(batch_size=2, max_annots_per_image=4))
+    cpu_model = init_detector(cfg, seed=6, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    batch = collate_fixed(box_samples(2, geo, seed=7), geo, 4, 2)
+    step = make_train_step(cfg)
+    results = []
+    for model in (cpu_model, gpu_model):
+        state = create_train_state(cfg, model=model)
+        metrics = step(state, batch, torch.Generator().manual_seed(8))
+        results.append((metrics["loss"].item(), [a.cpu() for a in state.acc_grads]))
+    (loss_cpu, acc_cpu), (loss_gpu, acc_gpu) = results
+    worst = max(((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+                for g, w in zip(acc_gpu, acc_cpu))
+    print(f"small f32 train step, card vs CPU: loss {loss_gpu:.6f} vs {loss_cpu:.6f}; "
+          f"gradient sum, worst tensor max|diff|/max|ref| {worst:.3e}", flush=True)
+    if not (abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu) and worst <= 1e-3):
+        fail("small f32 train step disagrees between card and CPU")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
     phase_environment()
-    rows = {"flash_fwd": phase_flash_kernel()}
+    rows = {"flash_fwd": phase_flash_kernel(), **phase_flash_backward()}
     fn, rgb, event, main_ms = phase_main_path(rows)
     phase_breakdown(fn, rgb, event)
-    phase_profile(fn, rgb, event, main_ms)
+    profile_pass(f"profile: one inference batch of {MAIN_BATCH}", lambda: fn(rgb, event), main_ms,
+                 n_ops=15, n_kernels=12)
     phase_small_reference()
+    del fn, rgb, event
+    phase_training(rows)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

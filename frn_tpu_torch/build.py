@@ -1,8 +1,9 @@
 """Build of the port's CUDA kernels, at first use, from the sources in ``csrc/``.
 
 Each ``csrc/<name>.cu`` compiles with nvcc into a shared library with a plain C
-interface, ``_build/<name>-<hash>.so``, where the hash covers the source and
-the flags, so an edited source is rebuilt and a stale library never loads.
+interface, ``_build/<name>-<hash>.so``, where the hash covers the source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source is rebuilt
+and a stale library never loads.
 Several sources build in parallel, one nvcc each. Nothing is built when the
 package is imported.
 """
@@ -20,7 +21,7 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_attention",)
+SOURCES = ("flash_attention", "flash_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,6 +41,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

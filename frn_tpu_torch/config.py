@@ -8,6 +8,9 @@ one set of settings describes a model in both packages. Two differences:
   ``flash_exp_bf16``, ``attention_quant``, ``fused_attention``,
   ``fused_heads``) keep their fields, and setting any of them raises
   ``NotImplementedError``;
+* ``TrainConfig.input_wire`` takes only ``'f32'``: the ``'compact'`` and
+  ``'events'`` wires (normalization and voxelization on the device) raise
+  ``NotImplementedError``;
 * ``EvalConfig.approx_topk`` defaults to ``False``: torch has no
   ``approx_max_k``, so the port implements only the exact candidate pool.
   ``exact_pool`` is kept for config parity; both of its values select the same
@@ -176,6 +179,12 @@ class TrainConfig:
     seed: int = 0
     input_wire: str = "f32"
     input_rgb_standardize: bool = False
+
+    def __post_init__(self):
+        if self.input_wire in ("compact", "events"):
+            raise NotImplementedError(f"TrainConfig.input_wire={self.input_wire!r}: {NOT_PORTED}")
+        if self.input_wire != "f32":
+            raise ValueError(f"unknown TrainConfig.input_wire {self.input_wire!r}")
 
 
 @dataclasses.dataclass(frozen=True)

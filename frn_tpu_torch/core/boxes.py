@@ -1,7 +1,7 @@
-"""Box geometry: pairwise IoU, delta decode, image clipping.
+"""Box geometry: pairwise IoU, delta encode and decode, image clipping.
 
-Counterpart of ``frn_tpu/core/boxes.py`` (``encode_boxes`` comes with training).
-The arithmetic is written in the same order as the JAX functions.
+Counterpart of ``frn_tpu/core/boxes.py``. The arithmetic is written in the
+same order as the JAX functions.
 """
 
 from __future__ import annotations
@@ -35,6 +35,25 @@ def _to_center(boxes: torch.Tensor):
     w = boxes[..., 2] - boxes[..., 0]
     h = boxes[..., 3] - boxes[..., 1]
     return boxes[..., 0] + 0.5 * w, boxes[..., 1] + 0.5 * h, w, h
+
+
+def encode_boxes(
+    anchors: torch.Tensor, gt: torch.Tensor, std: Sequence[float] = DEFAULT_STD,
+    min_size: float = 1.0,
+) -> torch.Tensor:
+    """Regression targets (dx, dy, log dw, log dh) / std of gt boxes against
+    anchors, both (..., 4) and broadcastable; gt widths and heights are clamped
+    to >= ``min_size`` before the log."""
+    acx, acy, aw, ah = _to_center(anchors)
+    gw = (gt[..., 2] - gt[..., 0]).clamp_min(min_size)
+    gh = (gt[..., 3] - gt[..., 1]).clamp_min(min_size)
+    gcx = gt[..., 0] + 0.5 * (gt[..., 2] - gt[..., 0])
+    gcy = gt[..., 1] + 0.5 * (gt[..., 3] - gt[..., 1])
+    dx = (gcx - acx) / aw / std[0]
+    dy = (gcy - acy) / ah / std[1]
+    dw = torch.log(gw / aw) / std[2]
+    dh = torch.log(gh / ah) / std[3]
+    return torch.stack([dx, dy, dw, dh], dim=-1)
 
 
 def decode_boxes(

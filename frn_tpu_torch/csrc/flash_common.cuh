@@ -1,0 +1,167 @@
+// Fragment helpers shared by the flash-attention kernels (forward and backward).
+//
+// Every product is mma.sync m16n8k16 (bf16 in, f32 accumulate). Head dims 8,
+// 16, 32 and 64 are template parameters; a contraction over d runs in
+// kSteps<D>() steps of 16, and for d = 8 the upper half of each 16-wide
+// fragment is zero in registers (no padded copy in memory).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace flash {
+
+constexpr int kWarps = 4;
+constexpr int kRows = kWarps * 16;  // rows a block owns (queries or keys)
+constexpr int kTile = 64;           // rows of the other side per shared-memory tile
+constexpr int kPad = 8;             // bf16 row padding: fewer bank conflicts
+
+// 16-wide contraction steps over a head dim D
+template <int D>
+__host__ __device__ constexpr int kSteps() { return (D + 15) / 16; }
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, column-major)
+__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p, bool valid) {
+  return valid ? *reinterpret_cast<const uint32_t*>(p) : 0u;
+}
+
+// A fragments of rows r0 and r0 + 8 (global memory, row length D) over the
+// whole head dim; rows past the end (ok = false) and columns past D read 0.
+template <int D>
+__device__ __forceinline__ void load_a_rows(uint32_t a[][4], const __nv_bfloat16* r0,
+                                            const __nv_bfloat16* r1, bool ok0, bool ok1, int t) {
+#pragma unroll
+  for (int kk = 0; kk < kSteps<D>(); ++kk) {
+    const int c = kk * 16 + 2 * t;
+    const bool hi = kk * 16 + 8 < D;
+    a[kk][0] = load_pair(r0 + c, ok0);
+    a[kk][1] = load_pair(r1 + c, ok1);
+    a[kk][2] = load_pair(r0 + c + 8, ok0 && hi);
+    a[kk][3] = load_pair(r1 + c + 8, ok1 && hi);
+  }
+}
+
+// B fragment (16 x 8, column-major) for contraction step kk over d, read from
+// a shared [n][d] tile row: column n = this thread's group g.
+template <int D>
+__device__ __forceinline__ void b_from_rows(uint32_t b[2], const __nv_bfloat16* row, int kk, int t) {
+  const int c = kk * 16 + 2 * t;
+  b[0] = *reinterpret_cast<const uint32_t*>(row + c);
+  b[1] = kk * 16 + 8 < D ? *reinterpret_cast<const uint32_t*>(row + c + 8) : 0u;
+}
+
+// B fragment for a contraction over 16 tile rows (keys or queries), read from
+// a transposed shared [d][row] tile: `col` is the tile row of output column g.
+__device__ __forceinline__ void b_from_cols(uint32_t b[2], const __nv_bfloat16* col, int kk, int t) {
+  b[0] = *reinterpret_cast<const uint32_t*>(col + kk * 16 + 2 * t);
+  b[1] = *reinterpret_cast<const uint32_t*>(col + kk * 16 + 2 * t + 8);
+}
+
+// Stage rows [r0, r0 + kTile) of two (n, D) bf16 matrices a and b, each into
+// a row-major shared tile and/or its transpose (a null tile is skipped); rows
+// past n are 0. One loop loads both 16-byte chunks before storing either: for
+// the forward and the dQ kernel (one transposed tile) that is faster than a
+// loop per matrix; the dK/dV kernel (two transposed tiles) uses stage_tile.
+template <int D>
+__device__ __forceinline__ void stage_chunk(uint4 x, __nv_bfloat16 (*rows)[D + kPad],
+                                            __nv_bfloat16 (*tr)[kTile + kPad], int r, int c) {
+  if (rows != nullptr) *reinterpret_cast<uint4*>(&rows[r][c]) = x;
+  if (tr != nullptr) {
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) tr[c + j][r] = e[j];
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void stage_tiles(int r0, int n,
+                                            const __nv_bfloat16* __restrict__ a,
+                                            __nv_bfloat16 (*a_rows)[D + kPad],
+                                            __nv_bfloat16 (*a_tr)[kTile + kPad],
+                                            const __nv_bfloat16* __restrict__ b,
+                                            __nv_bfloat16 (*b_rows)[D + kPad],
+                                            __nv_bfloat16 (*b_tr)[kTile + kPad]) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < kTile * kChunks; i += kWarps * 32) {
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * 8;
+    uint4 xa = make_uint4(0, 0, 0, 0), xb = make_uint4(0, 0, 0, 0);
+    if (r0 + r < n) {
+      const size_t off = static_cast<size_t>(r0 + r) * D + c;
+      xa = *reinterpret_cast<const uint4*>(a + off);
+      xb = *reinterpret_cast<const uint4*>(b + off);
+    }
+    stage_chunk<D>(xa, a_rows, a_tr, r, c);
+    stage_chunk<D>(xb, b_rows, b_tr, r, c);
+  }
+}
+
+// Stage rows [r0, r0 + kTile) of one (n, D) bf16 matrix into a row-major
+// shared tile and its transpose; rows past n are 0.
+template <int D>
+__device__ __forceinline__ void stage_tile(int r0, int n, const __nv_bfloat16* __restrict__ a,
+                                           __nv_bfloat16 (*rows)[D + kPad],
+                                           __nv_bfloat16 (*tr)[kTile + kPad]) {
+  constexpr int kChunks = D / 8;
+  for (int i = threadIdx.x; i < kTile * kChunks; i += kWarps * 32) {
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * 8;
+    uint4 x = make_uint4(0, 0, 0, 0);
+    if (r0 + r < n) x = *reinterpret_cast<const uint4*>(a + static_cast<size_t>(r0 + r) * D + c);
+    stage_chunk<D>(x, rows, tr, r, c);
+  }
+}
+
+// The C fragments of score tiles 2j and 2j + 1 (16 x 8 each, f32) are the A
+// fragment of the j-th 16-wide slice of the next product: store them as bf16.
+__device__ __forceinline__ void to_a_frag(uint32_t a[][4], int nt, float c0, float c1, float c2,
+                                          float c3) {
+  a[nt / 2][(nt % 2) * 2 + 0] = pack_bf16x2(c0, c1);
+  a[nt / 2][(nt % 2) * 2 + 1] = pack_bf16x2(c2, c3);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Writes the f32 accumulator rows r0 and r0 + 8 of a (n, D) bf16 matrix.
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float acc[][4], int r0, int r1,
+                                           bool ok0, bool ok1, int t, float s0 = 1.f,
+                                           float s1 = 1.f) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = j * 8 + 2 * t;
+    if (ok0) {
+      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r0) * D + c) =
+          __floats2bfloat162_rn(acc[j][0] * s0, acc[j][1] * s0);
+    }
+    if (ok1) {
+      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r1) * D + c) =
+          __floats2bfloat162_rn(acc[j][2] * s1, acc[j][3] * s1);
+    }
+  }
+}
+
+}  // namespace flash

@@ -11,8 +11,11 @@ outputs follow the JAX layouts for each ``eval_output``:
 
 Parameter names are the reference's torch state_dict names (``conv1``,
 ``layer1_event.0.conv1``, ``fus.0.rgb_cross_attention.g``, ``fpn.P5_1``,
-``classificationModel.output``...). Inference only: training, with its RGB
-modality dropout, is not ported yet.
+``classificationModel.output``...). In training (``train=True``, or the
+module in training mode) the output is the 'probs' emission and a fusion model
+blanks the whole RGB batch with probability ``modality_dropout``, drawn from a
+``torch.Generator`` the caller passes (JAX draws from its 'modality' stream;
+the two give different bits from one seed).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch.nn as nn
 
 from frn_tpu_torch.config import FrameworkConfig
 from frn_tpu_torch.core.anchors import anchors_tensor
+from frn_tpu_torch.core.losses import focal_detection_loss
 from frn_tpu_torch.core.nms import pooled_detection_postprocess
 from frn_tpu_torch.device import resolve_device
 from frn_tpu_torch.models.fpn import PyramidFeatures
@@ -38,6 +42,14 @@ _HEAD_MODES = {  # eval_output -> (classification mode, regression mode)
     "logits_chanlast": ("logits_chanlast", "rows"),
     "logits_chanlast36": ("logits_chanlast", "flat36"),
 }
+
+
+def draw_modality_drop(generator: Optional[torch.Generator], p: float) -> bool:
+    """Whether a training batch loses its RGB input: True with probability
+    ``p``, drawn from a CPU ``generator`` (no device sync)."""
+    if generator is None:
+        raise ValueError("training with modality dropout needs a generator or drop")
+    return bool(torch.rand((), generator=generator) < p)
 
 
 class FRNDetector(nn.Module):
@@ -82,9 +94,25 @@ class FRNDetector(nn.Module):
         self.classificationModel.init_weights(gen)
         self.regressionModel.init_weights(gen)
 
-    def forward(self, rgb: torch.Tensor, event: torch.Tensor, eval_output: str = "probs"):
-        if self.training:
-            raise NotImplementedError("training (RGB modality dropout) is not ported yet")
+    def forward(self, rgb: torch.Tensor, event: torch.Tensor, eval_output: str = "probs",
+                train: Optional[bool] = None, generator: Optional[torch.Generator] = None,
+                drop: Optional[bool] = None):
+        """(classification, regression) in the ``eval_output`` emission.
+
+        ``train`` (default: ``self.training``) selects the 'probs' emission and,
+        for a fusion model with ``modality_dropout`` > 0, whole-batch RGB
+        dropout: ``drop`` gives the decision, else it is drawn from
+        ``generator`` with probability ``modality_dropout``.
+        """
+        train = self.training if train is None else train
+        p_drop = self.config.model.modality_dropout
+        if train:
+            eval_output = "probs"
+            if self.config.model.variant == "fusion" and p_drop > 0:
+                if drop is None:
+                    drop = draw_modality_drop(generator, p_drop)
+                if drop:
+                    rgb = torch.zeros_like(rgb)
         cls_mode, reg_mode = _HEAD_MODES[eval_output]
         dtype = self.compute_dtype
         # NHWC -> NCHW view with channels_last strides: no copy
@@ -118,6 +146,21 @@ def eval_output_for(config: FrameworkConfig) -> str:
 def image_anchors(config: FrameworkConfig, device=None) -> torch.Tensor:
     geo = config.geometry
     return anchors_tensor((geo.height, geo.width), config.anchors, resolve_device(device))
+
+
+def detection_loss(
+    classification: torch.Tensor,
+    regression: torch.Tensor,
+    annotations: torch.Tensor,
+    config: FrameworkConfig,
+    anchors: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cls_loss, reg_loss) of the 'probs' emission against padded (B, N, 5)
+    annotations, with the reference's focal loss."""
+    if anchors is None:
+        anchors = image_anchors(config, classification.device)
+    return focal_detection_loss(classification, regression, anchors, annotations,
+                                std=config.box_coder.std)
 
 
 def decode_detections(

@@ -2,17 +2,21 @@
 
 softmax(phi . theta^T) . g with no 1/sqrt(d) scale. On a CUDA tensor, long
 sequences (HW >= FLASH_MIN_TOKENS) with a head dim under 128 go to the flash
-kernel (``ops/flash_attention.py``), as the JAX package routes them to its
-Pallas kernel on a TPU. The rest, and every CPU tensor, take the dense route:
-f32 scores, softmax, p cast to g's dtype, PV with f32 accumulation, over query
-blocks of ``chunk`` rows to bound memory.
+kernels (``ops/flash_attention.py``), as the JAX package routes them to its
+Pallas kernels on a TPU: through ``FlashAttentionFn`` (forward with lse, then
+the two backward kernels) when grad mode is on and an input requires grad,
+else the forward kernel alone. The kernels take bf16 with a head dim in
+``HEAD_DIMS``; any other CUDA input on that route raises. The rest, and every
+CPU tensor, take the dense route under autograd: f32 scores, softmax, p cast
+to g's dtype, PV with f32 accumulation, over query blocks of ``chunk`` rows to
+bound memory.
 """
 
 from __future__ import annotations
 
 import torch
 
-from frn_tpu_torch.ops.flash_attention import flash_attention
+from frn_tpu_torch.ops.flash_attention import FlashAttentionFn, flash_attention
 
 FLASH_MIN_TOKENS = 4096
 
@@ -32,7 +36,10 @@ def nonlocal_attention(
     """softmax(phi . theta^T) . g -> (B, HW, C8)."""
     hw, c8 = g.shape[1], g.shape[2]
     if g.is_cuda and hw >= FLASH_MIN_TOKENS and c8 < 128:
-        return flash_attention(phi.contiguous(), theta.contiguous(), g.contiguous())
+        q, k, v = phi.contiguous(), theta.contiguous(), g.contiguous()
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return FlashAttentionFn.apply(q, k, v)
+        return flash_attention(q, k, v)
     if hw <= chunk:
         return _dense(g, theta, phi)
     return torch.cat(

@@ -1,7 +1,8 @@
-"""The port's flash-attention wrapper and plain version vs the JAX package's kernel.
+"""The port's flash-attention wrappers and plain versions vs the JAX package's kernels.
 
-The Pallas kernel runs in interpret mode on the CPU, as its own tests run it,
-and the dense jnp reference beside it. Bounds are those of the JAX tests.
+The Pallas kernels run in interpret mode on the CPU, as their own tests run
+them, and the dense jnp reference beside them. Bounds are those of the JAX
+tests: forward atol 2e-5 rtol 1e-4; logsumexp and backward atol 2e-4 rtol 1e-3.
 """
 
 import importlib
@@ -12,8 +13,9 @@ import pytest
 import jax.numpy as jnp
 import torch
 
-from frn_tpu.ops.flash_attention import _flash_forward, _reference_attention
+from frn_tpu.ops.flash_attention import _flash_backward, _flash_forward, _reference_attention
 from frn_tpu_torch import build
+from frn_tpu_torch.ops import attention
 from frn_tpu_torch.ops import flash_attention as fa
 
 RNG = np.random.default_rng(19)
@@ -52,7 +54,7 @@ def test_cpu_tensor_routes_to_plain_without_launch():
     torch.testing.assert_close(got, fa.flash_attention_plain(q, k, v), atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("shape", [(1, 64, 128), (1, 64, 16)])
+@pytest.mark.parametrize("shape", [(1, 64, 128), (1, 64, 24)])
 def test_unsupported_head_dim_raises(shape):
     q = torch.zeros(shape)
     with pytest.raises(ValueError, match="head dim"):
@@ -72,10 +74,12 @@ def test_import_builds_nothing(monkeypatch):
     monkeypatch.setattr(build, "build", refuse)
     monkeypatch.setattr(build, "load", refuse)
     module = importlib.reload(fa)
-    assert module._lib is None
+    assert module._lib is None and module._bwd_lib is None
     q = torch.zeros((1, 8, 32))
     module.flash_attention(q, q, q)  # the CPU path needs no library either
-    assert module._lib is None
+    o, lse = module.flash_attention(q, q, q, return_lse=True)
+    module.flash_attention_backward(q, q, q, o, lse, q)
+    assert module._lib is None and module._bwd_lib is None
 
 
 def test_library_path_tracks_the_source():
@@ -83,3 +87,110 @@ def test_library_path_tracks_the_source():
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("flash_attention-") and path.suffix == ".so"
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
+    assert build.SOURCES == ("flash_attention", "flash_attention_bwd")
+    for name in build.SOURCES:
+        assert (build.CSRC / f"{name}.cu").is_file()
+
+
+def test_library_path_covers_the_shared_header(tmp_path, monkeypatch):
+    for name in ("flash_attention.cu", "flash_common.cuh"):
+        (tmp_path / name).write_bytes((build.CSRC / name).read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = build.library_path("flash_attention")
+    (tmp_path / "flash_common.cuh").write_text("// edited\n")
+    assert build.library_path("flash_attention") != before
+
+
+# ------------------------------------------------------------ logsumexp and backward
+
+BWD_SHAPES = [(1, 200, 32), (1, 256, 32), (2, 131, 16)]
+
+
+def _jax_forward_backward(q, k, v, do):
+    o, lse = _flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=128,
+                            block_k=128, interpret=True, return_lse=True)
+    grads = _flash_backward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), o, lse,
+                            jnp.asarray(do), block_q=128, block_k=128, interpret=True)
+    return [np.asarray(x) for x in (o, lse, *grads)]
+
+
+@pytest.mark.parametrize("b,n,d", BWD_SHAPES)
+def test_plain_lse_matches_pallas_kernel(b, n, d):
+    q, k, v = _inputs(b, n, d)
+    want_o, want_lse = _jax_forward_backward(q, k, v, q)[:2]
+    o, lse = fa.flash_attention_plain(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                                      block_k=64, return_lse=True)
+    assert lse.shape == (b, n) and lse.dtype == torch.float32
+    np.testing.assert_allclose(o.numpy(), want_o, atol=2e-5, rtol=1e-4)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("b,n,d", BWD_SHAPES)
+def test_plain_backward_matches_pallas_kernels(b, n, d):
+    q, k, v, do = _inputs(b, n, d) + _inputs(b, n, d)[:1]
+    _, _, want_dq, want_dk, want_dv = _jax_forward_backward(q, k, v, do)
+    t = [torch.tensor(x) for x in (q, k, v, do)]
+    o, lse = fa.flash_attention_plain(*t[:3], return_lse=True)
+    dq, dk, dv = fa.flash_attention_backward_plain(*t[:3], o, lse, t[3], block=64)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("block", [32, 100, 1100])
+def test_plain_backward_is_independent_of_tile(block):
+    # ragged last tiles (100 does not divide 300) and a single tile agree
+    q, k, v, do = (torch.tensor(x) for x in _inputs(2, 300, 16) + _inputs(2, 300, 16)[:1])
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+    want = fa.flash_attention_backward_plain(q, k, v, o, lse, do, block=300)
+    got = fa.flash_attention_backward_plain(q, k, v, o, lse, do, block=block)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,n,d", [(1, 96, 16), (2, 131, 8), (1, 300, 32)])
+def test_autograd_function_matches_dense_route(b, n, d):
+    # FlashAttentionFn on the CPU (plain forward with lse, plain backward)
+    # against autograd through the dense route; (q, k, v) = (phi, theta, g)
+    q, k, v, do = (torch.tensor(x) for x in _inputs(b, n, d) + _inputs(b, n, d)[:1])
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = fa.FlashAttentionFn.apply(*leaves)
+    got = torch.autograd.grad(out, leaves, do)
+    dense = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref = attention.nonlocal_attention(dense[2], dense[1], dense[0], chunk=64)
+    want = torch.autograd.grad(ref, dense, do)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=1e-4)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=2e-4, rtol=1e-3)
+
+
+def test_cpu_backward_wrappers_route_to_plain_without_launch():
+    q, k, v, do = (torch.tensor(x) for x in _inputs(1, 130, 16) + _inputs(1, 130, 16)[:1])
+    counts = (fa.flash_fwd_lse_launches, fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    dq, dk, dv = fa.flash_attention_backward(q, k, v, o, lse, do)
+    assert counts == (fa.flash_fwd_lse_launches, fa.flash_bwd_dq_launches,
+                      fa.flash_bwd_dkv_launches)
+    want = fa.flash_attention_backward_plain(q, k, v, o, lse, do)
+    for g, w in zip((dq, dk, dv), want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+def test_kernel_route_refuses_inputs_that_need_a_gradient(monkeypatch):
+    # on the card the kernel's output has no grad_fn: a direct call with an
+    # input that requires grad raises instead of returning a detached tensor
+    monkeypatch.setattr(fa, "_on_kernel_device", lambda q: True)
+    q = torch.zeros((1, 64, 32), dtype=torch.bfloat16, requires_grad=True)
+    k = torch.zeros((1, 64, 32), dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="FlashAttentionFn"):
+        fa.flash_attention(q, k, k)
+    with torch.no_grad(), pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_attention(q, k, k.float())  # past the gradient check, at the dtype check
+
+
+def test_backward_checks_row_statistics_shape():
+    q = torch.zeros((1, 64, 16))
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_bwd_dq(q, q, q, q, torch.zeros((1, 63)), torch.zeros((1, 64)))
+    with pytest.raises(ValueError, match="shape"):
+        fa.flash_bwd_dkv(q, q, q, torch.zeros((1, 64, 32)), torch.zeros((1, 64)),
+                         torch.zeros((1, 64)))
