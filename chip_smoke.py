@@ -31,8 +31,23 @@ Phases:
      memory; the batch's gradients against the plain attention; a
      checkpoint saved and resumed on the card; a profiler pass; a small f32
      train step on the card against the CPU;
-  5. one JSON line listing the kernels, then the last line
+  5. the opt-in inference kernels (the bf16-exp forward, the int8 forward in
+     both modes, the fused stem) against their plain versions at the same
+     check shapes (the stem at C 3 and 5, DSEC and DDD17 sizes), then timed
+     at the opt-in path's batches beside their bounds, their plain versions
+     and a PyTorch yardstick; run before phase 3, and phase 3 asserts that
+     the default path launches none of them;
+  6. the opt-in inference path through ``entry(..., **ModelConfig fields)``
+     at batch 16 in three configurations: stem kernel + bf16-exp; int8_qk;
+     int8 + fused attention. Each: ms per batch and img/s over 5 batches,
+     launch counts zeroed just before and read just after, finite
+     detections, logits and deltas against the same model with each kernel
+     swapped for its plain version, and (printed, not gated) against the
+     default path's; a torch.profiler pass over one batch;
+  7. one JSON line listing the kernels, then the last line
      {"ok": true, "device": {...}}.
+
+Phases run in the order 1, 2, 5, 3, 6, 4, 7.
 """
 
 import copy
@@ -52,6 +67,7 @@ import torch
 # its bytes over the memory rate and its operations over their unit's rate.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
 EXP_PER_S = 3.9e12
 
 # kernel vs plain on bf16 outputs: both round p to bf16 before PV, but their
@@ -89,13 +105,37 @@ KERNEL_SOURCES = {
     "flash_fwd_lse": ("frn_tpu_torch/csrc/flash_attention.cu", "frn_tpu/ops/flash_attention.py:39"),
     "flash_bwd_dq": ("frn_tpu_torch/csrc/flash_attention_bwd.cu", "frn_tpu/ops/flash_attention.py:275"),
     "flash_bwd_dkv": ("frn_tpu_torch/csrc/flash_attention_bwd.cu", "frn_tpu/ops/flash_attention.py:300"),
+    "flash_fwd_bf16exp": ("frn_tpu_torch/csrc/flash_attention.cu", "frn_tpu/ops/flash_attention.py:101"),
+    "flash_int8_qk": ("frn_tpu_torch/csrc/flash_attention_int8.cu", "frn_tpu/ops/flash_attention.py:656"),
+    "flash_int8": ("frn_tpu_torch/csrc/flash_attention_int8.cu", "frn_tpu/ops/flash_attention.py:656"),
+    "stem": ("frn_tpu_torch/csrc/stem.cu", "frn_tpu/ops/stem.py:71"),
 }
 TRAIN_KERNELS = ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
+OPTIN_KERNELS = ("flash_fwd_bf16exp", "flash_int8_qk", "flash_int8", "stem")
 # the work of one launch: bytes per element of a (B, N, d) tensor and per
 # (B, N) row (each input read once, each output written once: bf16 Q, K, V,
-# dO, O, dQ, dK, dV; f32 lse and D), and matrix flops per B*N^2*d
-KERNEL_WORK = {"flash_fwd": (8, 0, 4), "flash_fwd_lse": (8, 4, 4),
-               "flash_bwd_dq": (10, 8, 6), "flash_bwd_dkv": (12, 8, 8)}
+# dO, O, dQ, dK, dV; f32 lse and D), and bf16 matrix flops and int8 matrix
+# ops per B*N^2*d. The int8 rows are the wrapper's function: bf16 Q, K, V in
+# (its quantization pre-pass included), bf16 O out
+KERNEL_WORK = {"flash_fwd": (8, 0, 4, 0), "flash_fwd_lse": (8, 4, 4, 0),
+               "flash_bwd_dq": (10, 8, 6, 0), "flash_bwd_dkv": (12, 8, 8, 0),
+               "flash_fwd_bf16exp": (8, 0, 4, 0), "flash_int8_qk": (8, 0, 2, 2),
+               "flash_int8": (8, 0, 0, 4)}
+# the opt-in path (phase 6): configuration, ModelConfig fields, launches per
+# batch of each kernel (every other kernel of the port: none)
+OPTIN_CONFIGS = (
+    ("stem kernel + bf16-exp", {"stem_kernel": True, "flash_exp_bf16": True},
+     {"stem": 2, "flash_fwd_bf16exp": 4}),
+    ("int8_qk", {"attention_quant": "int8_qk"}, {"flash_int8_qk": 4}),
+    ("int8 + fused attention", {"attention_quant": "int8", "fused_attention": True},
+     {"flash_int8": 2}),
+)
+# stem kernel vs plain (bf16 out): both sum f32 products, in another order,
+# and round once, so an output can land one bf16 ulp (relative 2^-8 to
+# 2^-7) apart
+STEM_ATOL, STEM_RTOL = 1e-2, 1e-2
+# the stem at DSEC and DDD17 sizes, B 2, C 3 (RGB) and 5 (event voxels)
+STEM_CHECK_SHAPES = ((2, 480, 640, 3), (2, 480, 640, 5), (2, 260, 346, 3), (2, 260, 346, 5))
 
 
 def fail(msg: str) -> None:
@@ -118,18 +158,23 @@ def cuda_ms(fn, reps: int, warmup: int = 2):
     return start.elapsed_time(end) / reps, out
 
 
+def _shape_text(shape) -> str:
+    keys = "B N d" if len(shape) == 3 else "B H W C"
+    return " ".join(f"{k}={v}" for k, v in zip(keys.split(), shape))
+
+
 def check_close(kind: str, name: str, got, want, atol: float, rtol: float, shape, errs: dict) -> None:
     """Fails unless ``got`` (a kernel's output) is finite and within atol +
     rtol * |want| of ``want`` (its plain version's) everywhere; records the
-    largest error of ``kind`` in ``errs``."""
-    b, n, d = shape
+    largest error of ``kind`` in ``errs``. ``shape``: (B, N, d) or (B, H, W, C)."""
+    at = _shape_text(shape)
     err = (got.float() - want.float()).abs()
     bad = err > atol + rtol * want.float().abs()
-    print(f"{kind} {name} vs plain B={b} N={n} d={d}: max_abs_err {err.max().item():.3e} "
+    print(f"{kind} {name} vs plain {at}: max_abs_err {err.max().item():.3e} "
           f"(max|ref| {want.float().abs().max().item():.3e}), {int(bad.sum())} outside "
           f"atol {atol:.3e} rtol {rtol}", flush=True)
     if not torch.isfinite(got.float()).all() or bad.any():
-        fail(f"{kind} ({name}) disagrees with its plain version at B={b} N={n} d={d}")
+        fail(f"{kind} ({name}) disagrees with its plain version at {at}")
     errs[kind] = max(errs.get(kind, 0.0), err.max().item())
 
 
@@ -145,45 +190,63 @@ def check_backward(shape, dq, dkv, dq_ref, dkv_ref, errs: dict) -> None:
 
 def kernel_bound(kind: str, b: int, n: int, d: int):
     """(bytes time, operations time) of one launch, in seconds: its bytes over
-    the memory rate; the larger of its matrix flops over the bf16 rate and its
-    B*N^2 exponentials over the exp rate. The bound is the larger of the two."""
-    elems, rows, flops = KERNEL_WORK[kind]
-    return ((elems * b * n * d + rows * b * n) / HBM_BYTES_PER_S,
-            max(flops * b * n * n * d / BF16_FLOP_PER_S, b * n * n / EXP_PER_S))
+    the memory rate; the larger of its matrix operations over the tensor
+    cores' rates (bf16 and int8 terms added) and its B*N^2 exponentials over
+    the exp rate. The bound is the larger of the two."""
+    elems, rows, flops, int8_ops = KERNEL_WORK[kind]
+    mma = (flops / BF16_FLOP_PER_S + int8_ops / INT8_OP_PER_S) * b * n * n * d
+    return ((elems * b * n * d + rows * b * n) / HBM_BYTES_PER_S, max(mma, b * n * n / EXP_PER_S))
+
+
+def stem_bound(b: int, h: int, w: int, c: int):
+    """(bytes time, operations time) of one stem launch: bf16 x, weights and
+    output, f32 scale and bias, each once; 2 * 49 * C flops per output at the
+    bf16 rate (its inputs are bf16)."""
+    outputs = b * (h // 2) * (w // 2) * 64
+    nbytes = 2 * b * h * w * c + 2 * 49 * c * 64 + 2 * 4 * 64 + 2 * outputs
+    return nbytes / HBM_BYTES_PER_S, 2 * 49 * c * outputs / BF16_FLOP_PER_S
 
 
 class KernelTimes:
-    """One kernel's timings at the FLASH_SHAPES, summed over its 4 launches
-    per forward or micro-step (two directions at each shape), with the bound
-    of that sum, as a row of the kernels line."""
+    """One kernel's timings at its path's shapes, summed over its launches
+    per forward or micro-step (``count`` at each shape: two directions at
+    each flash shape), with the bound of that sum, as a row of the kernels
+    line."""
 
     def __init__(self, kind: str):
-        self.kind, self.per_shape = kind, []
+        self.kind, self.per_shape, self.launches_per = kind, [], 0
         self.totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
         self.t_bytes = self.t_ops = 0.0
 
-    def add(self, b: int, n: int, d: int, kernel, plain, library_ms: float):
-        """Times ``kernel`` and ``plain``; returns their last outputs."""
-        t_bytes, t_ops = kernel_bound(self.kind, b, n, d)
+    def add(self, shape: dict, bound, kernel, plain, library_ms, count: int = 2, extra=None):
+        """Times ``kernel`` and ``plain``; returns their last outputs.
+        ``bound``: (bytes time, operations time) of one launch; ``library_ms``
+        None where no PyTorch call computes the same function; ``extra``:
+        more times (ms) of this shape, summed like the others."""
+        t_bytes, t_ops = bound
         ms, out = cuda_ms(kernel, reps=10)
         plain_ms, plain_out = cuda_ms(plain, reps=2, warmup=1)
-        row = {"B": b, "N": n, "d": d, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": max(t_bytes, t_ops) * 1e3,
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        row = {**shape, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               **(extra or {}), "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations", "count": count}
         print(f"{self.kind} timing {json.dumps(row)}", flush=True)
         self.per_shape.append(row)
-        for key in self.totals:
-            self.totals[key] += 2 * row[key]
-        self.t_bytes += 2 * t_bytes
-        self.t_ops += 2 * t_ops
+        for key in ("ms", "plain_ms", "library_ms", *(extra or {})):
+            total = self.totals.get(key, 0.0)
+            self.totals[key] = None if total is None or row[key] is None else total + count * row[key]
+        self.launches_per += count
+        self.t_bytes += count * t_bytes
+        self.t_ops += count * t_ops
         return out, plain_out
 
     def row(self, max_abs_err: float, per: str) -> dict:
         bound_ms = max(self.t_bytes, self.t_ops) * 1e3
         bound_by = "bytes" if self.t_bytes >= self.t_ops else "operations"
-        print(f"{self.kind} per {per} (4 launches): kernel {self.totals['ms']:.3f} ms, bound "
-              f"{bound_ms:.3f} ms ({bound_by}), plain {self.totals['plain_ms']:.3f} ms, "
-              f"library {self.totals['library_ms']:.3f} ms", flush=True)
+        others = ", ".join(f"{k} {v:.3f} ms" if v is not None else f"{k} none"
+                           for k, v in self.totals.items() if k != "ms")
+        print(f"{self.kind} per {per} ({self.launches_per} launches): kernel "
+              f"{self.totals['ms']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), {others}",
+              flush=True)
         source, replaces = KERNEL_SOURCES[self.kind]
         return {"name": self.kind, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": None, "max_abs_err": max_abs_err, **self.totals,
@@ -241,7 +304,9 @@ def phase_flash_kernel():
         q4, k4, v4 = (x.unsqueeze(1) for x in (q, k, v))
         lib_ms, _ = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q4, k4, v4, scale=1.0), reps=10)
-        out, ref = times.add(MAIN_BATCH, n, d, lambda: fa.flash_attention(q, k, v),
+        out, ref = times.add({"B": MAIN_BATCH, "N": n, "d": d},
+                             kernel_bound("flash_fwd", MAIN_BATCH, n, d),
+                             lambda: fa.flash_attention(q, k, v),
                              lambda: fa.flash_attention_plain(q, k, v), lib_ms)
         check_close("flash_fwd", "o", out, ref, FLASH_ATOL, FLASH_RTOL, q.shape, errs)
     return times.row(errs["flash_fwd"], "forward")
@@ -288,17 +353,21 @@ def phase_flash_backward():
         lib_bwd_ms, _ = cuda_ms(lambda: torch.autograd.grad(
             lib_out, (q4, k4, v4), do4, retain_graph=True), reps=10)
         del lib_out
+        shape = {"B": TRAIN_BATCH, "N": n, "d": d}
         (o_k, lse_k), (o_p, lse_p) = times["flash_fwd_lse"].add(
-            TRAIN_BATCH, n, d, lambda: fa.flash_attention(q, k, v, return_lse=True),
+            shape, kernel_bound("flash_fwd_lse", TRAIN_BATCH, n, d),
+            lambda: fa.flash_attention(q, k, v, return_lse=True),
             lambda: fa.flash_attention_plain(q, k, v, return_lse=True), lib_fwd_ms)
         check_close("flash_fwd_lse", "o", o_k, o_p, FLASH_ATOL, FLASH_RTOL, q.shape, errs)
         check_close("flash_fwd_lse", "lse", lse_k, lse_p, LSE_ATOL, 0.0, q.shape, errs)
         del o_k, o_p, lse_k, lse_p
         dq, dq_ref = times["flash_bwd_dq"].add(
-            TRAIN_BATCH, n, d, lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta),
+            shape, kernel_bound("flash_bwd_dq", TRAIN_BATCH, n, d),
+            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta),
             lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta), lib_bwd_ms)
         dkv, dkv_ref = times["flash_bwd_dkv"].add(
-            TRAIN_BATCH, n, d, lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta),
+            shape, kernel_bound("flash_bwd_dkv", TRAIN_BATCH, n, d),
+            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta),
             lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta), lib_bwd_ms)
         check_backward(q.shape, dq, dkv, dq_ref, dkv_ref, errs)
     out = {kind: t.row(errs[kind], "micro-step") for kind, t in times.items()}
@@ -321,6 +390,180 @@ def _random_head_outputs(model, seed: int) -> None:
             head.output.bias.copy_(torch.randn(head.output.bias.shape, generator=gen) * b_std)
 
 
+def phase_optin_kernels() -> dict:
+    """The bf16-exp forward, the int8 forward in both modes and the stem
+    against their plain versions: the flash kernels at BWD_CHECK_SHAPES, the
+    stem at STEM_CHECK_SHAPES. Then each timed at the opt-in path's batch
+    and shapes (the int8 mode under fused attention at 2B), the timed runs'
+    outputs held against each other."""
+    import torch.nn.functional as F
+
+    from frn_tpu_torch.ops import flash_attention as fa
+    from frn_tpu_torch.ops import stem
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def qkv(b, n, d):
+        return [torch.randn((b, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(3)]
+
+    flash = {"flash_fwd_bf16exp": (fa.flash_attention_bf16exp, fa.flash_attention_bf16exp_plain),
+             "flash_int8_qk": (lambda q, k, v: fa.flash_attention_int8(q, k, v, "int8_qk"),
+                               lambda q, k, v: fa.flash_attention_int8_plain(q, k, v, "int8_qk")),
+             "flash_int8": (lambda q, k, v: fa.flash_attention_int8(q, k, v, "int8"),
+                            lambda q, k, v: fa.flash_attention_int8_plain(q, k, v, "int8"))}
+    errs = {}
+    for shape in BWD_CHECK_SHAPES:
+        q, k, v = qkv(*shape)
+        for kind, (kernel, plain) in flash.items():
+            check_close(kind, "o", kernel(q, k, v), plain(q, k, v), FLASH_ATOL, FLASH_RTOL, shape,
+                        errs)
+
+    def stem_inputs(b, h, w, c):
+        x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
+        wt = (torch.randn((64, c, 7, 7), generator=gen, device="cuda") / (49 * c) ** 0.5)
+        scale = torch.rand((64,), generator=gen, device="cuda") + 0.5
+        bias = torch.randn((64,), generator=gen, device="cuda") * 0.2
+        return x.permute(0, 3, 1, 2), wt.to(torch.bfloat16), scale, bias  # channels_last NCHW
+
+    for shape in STEM_CHECK_SHAPES:
+        args = stem_inputs(*shape)
+        check_close("stem", "out", stem.stem_conv_bn_relu(*args), stem.stem_conv_bn_relu_plain(*args),
+                    STEM_ATOL, STEM_RTOL, shape, errs)
+
+    rows = {}
+    # the flash kernels per opt-in forward: two directions at each shape, at
+    # batch 16, or one launch over 2B under fused attention (the int8 mode)
+    for kind, (kernel, plain) in flash.items():
+        times = KernelTimes(kind)
+        batch, count = (2 * MAIN_BATCH, 1) if kind == "flash_int8" else (MAIN_BATCH, 2)
+        for n, d in FLASH_SHAPES:
+            q, k, v = qkv(batch, n, d)
+            q4, k4, v4 = (x.unsqueeze(1) for x in (q, k, v))
+            sdpa_ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0),
+                                 reps=10)
+            if kind == "flash_fwd_bf16exp":
+                library_ms, extra = sdpa_ms, None
+            else:  # no PyTorch call computes the quantized function: SDPA in bf16 beside it
+                mode = kind[len("flash_"):]
+                prep_ms, _ = cuda_ms(lambda: fa.int8_kernel_inputs(q, k, v, mode), reps=10)
+                library_ms, extra = None, {"sdpa_bf16_ms": sdpa_ms, "prepass_ms": prep_ms}
+            out, ref = times.add({"B": batch, "N": n, "d": d}, kernel_bound(kind, batch, n, d),
+                                 lambda: kernel(q, k, v), lambda: plain(q, k, v), library_ms,
+                                 count=count, extra=extra)
+            check_close(kind, "o", out, ref, FLASH_ATOL, FLASH_RTOL, q.shape, errs)
+        rows[kind] = times.row(errs[kind], "opt-in forward")
+
+    # the stem per opt-in batch: the RGB and the event stem at batch 16; the
+    # yardstick is cuDNN's channels_last bf16 conv with the affine folded in
+    times = KernelTimes("stem")
+    for c in (3, 5):
+        shape = (MAIN_BATCH, 480, 640, c)
+        x, wt, scale, bias = stem_inputs(*shape)
+        w_fold = (wt.float() * scale[:, None, None, None]).to(torch.bfloat16)
+        b_fold = bias.to(torch.bfloat16)
+        library_ms, _ = cuda_ms(lambda: torch.relu(F.conv2d(x, w_fold, b_fold, stride=2, padding=3)),
+                                reps=10)
+        out, ref = times.add(dict(zip(("B", "H", "W", "C"), shape)), stem_bound(*shape),
+                             lambda: stem.stem_conv_bn_relu(x, wt, scale, bias),
+                             lambda: stem.stem_conv_bn_relu_plain(x, wt, scale, bias), library_ms,
+                             count=1)
+        check_close("stem", "out", out, ref, STEM_ATOL, STEM_RTOL, shape, errs)
+    rows["stem"] = times.row(errs["stem"], "opt-in batch")
+    return rows
+
+
+def _swap_in_plain_kernels():
+    """Replaces each opt-in kernel wrapper with its plain version where the
+    model looks it up; returns the function that puts them back."""
+    from frn_tpu_torch.models import resnet
+    from frn_tpu_torch.ops import attention, stem
+    from frn_tpu_torch.ops import flash_attention as fa
+
+    saved = [(attention, "flash_attention_bf16exp", fa.flash_attention_bf16exp_plain),
+             (attention, "flash_attention_int8", fa.flash_attention_int8_plain),
+             (resnet, "stem_conv_bn_relu", stem.stem_conv_bn_relu_plain)]
+    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in saved]
+    for mod, name, plain in saved:
+        setattr(mod, name, plain)
+
+    def restore():
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+    return restore
+
+
+def phase_optin_path(kernel_rows, default_ms: float, default_out) -> None:
+    """The opt-in inference path through ``entry(device="cuda", batch=16,
+    **fields)`` in each of OPTIN_CONFIGS: the same seeded weights and inputs
+    as the default path (the flags add no parameters). Launch counts over
+    the timed batches, a profiler pass, the outputs' checks."""
+    from frn_tpu_torch.entry import entry
+
+    totals = dict.fromkeys(OPTIN_KERNELS, 0)
+    for label, options, per_batch in OPTIN_CONFIGS:
+        fn, (rgb, event) = entry(device="cuda", batch=MAIN_BATCH, **options)
+        _random_head_outputs(fn.model, seed=1)
+        k = fn.config.model.num_classes
+        out = fn(rgb, event)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        times = []
+        for _ in range(MAIN_TIMED):
+            t0 = time.perf_counter()
+            out = fn(rgb, event)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        ms = sum(times) / len(times)
+        print(f"opt-in path ({label}, {json.dumps(options)}): DSEC 480x640 fusion R50 bf16 batch "
+              f"{MAIN_BATCH}: {ms:.2f} ms/batch (runs {', '.join(f'{t:.2f}' for t in times)}), "
+              f"{MAIN_BATCH * 1e3 / ms:.1f} img/s (default path {default_ms:.2f} ms, "
+              f"{MAIN_BATCH * 1e3 / default_ms:.1f} img/s), peak memory {peak / 2**30:.2f} GiB; "
+              f"launches {json.dumps(counts)}", flush=True)
+        want = {**dict.fromkeys(_COUNTERS, 0), **{kind: n * MAIN_TIMED for kind, n in per_batch.items()}}
+        if counts != want:
+            fail(f"opt-in path ({label}) launched {counts}, expected {want}")
+        for kind in per_batch:
+            totals[kind] += counts[kind]
+        profile_pass(f"opt-in profile ({label}): one batch of {MAIN_BATCH}", lambda: fn(rgb, event),
+                     ms, n_ops=8, n_kernels=8)
+
+        scores, labels, boxes = out
+        m = fn.config.eval.max_detections
+        if (scores.shape, labels.shape, boxes.shape) != ((MAIN_BATCH, m), (MAIN_BATCH, m),
+                                                         (MAIN_BATCH, m, 4)):
+            fail(f"opt-in path ({label}) output shapes {scores.shape} {labels.shape} {boxes.shape}")
+        if not (torch.isfinite(scores).all() and torch.isfinite(boxes).all()):
+            fail(f"opt-in path ({label}): non-finite detections")
+        valid = labels >= 0
+        if int(valid.sum()) == 0 or int(labels.max()) >= k:
+            fail(f"opt-in path ({label}): {int(valid.sum())} detections, labels up to "
+                 f"{int(labels.max())}")
+
+        # the same model and batch with each kernel swapped for its plain version
+        with torch.inference_mode():
+            got = fn.model(rgb, event, eval_output=fn.eval_output)
+            restore = _swap_in_plain_kernels()
+            try:
+                want_out = fn.model(rgb, event, eval_output=fn.eval_output)
+            finally:
+                restore()
+        for name, g, w, d in zip(("logits", "deltas"), got, want_out, default_out):
+            rel = ((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+            off = ((g.float() - d.float()).abs().max() / d.float().abs().max()).item()
+            print(f"opt-in path ({label}) {name}: kernels vs plain versions max|diff|/max|ref| = "
+                  f"{rel:.3e}; vs the default path (printed, not gated) {off:.3e}", flush=True)
+            if not rel <= MAIN_REL_TOL:
+                fail(f"opt-in path ({label}) {name} disagree with the plain versions ({rel:.3e})")
+        del fn, rgb, event, out, got, want_out
+    for kind in OPTIN_KERNELS:
+        kernel_rows[kind]["launches"] = totals[kind]
+
+
 def phase_main_path(kernel_rows):
     from frn_tpu_torch.entry import entry
     from frn_tpu_torch.ops import attention
@@ -333,14 +576,14 @@ def phase_main_path(kernel_rows):
     out = fn(rgb, event)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _reset_flash_counts(fa)
+    _reset_counts()
     times = []
     for _ in range(MAIN_TIMED):
         t0 = time.perf_counter()
         out = fn(rgb, event)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    counts = _flash_counts(fa)
+    counts = _counts()
     launches = counts.pop("flash_fwd")
     peak = torch.cuda.max_memory_allocated()
     ms = sum(times) / len(times)
@@ -350,7 +593,7 @@ def phase_main_path(kernel_rows):
     print(f"main path launches: flash_fwd {launches} over {MAIN_TIMED} batches", flush=True)
     if launches != 4 * MAIN_TIMED or any(counts.values()):
         fail(f"flash_fwd launched {launches} times over {MAIN_TIMED} forwards, expected 4 each "
-             f"and no training kernel ({counts})")
+             f"and no other kernel ({counts})")
     kernel_rows["flash_fwd"]["launches"] = launches
 
     scores, labels, boxes = out
@@ -378,7 +621,7 @@ def phase_main_path(kernel_rows):
         print(f"main path {name}, kernel vs plain attention: max|diff|/max|ref| = {rel:.3e}", flush=True)
         if not rel <= MAIN_REL_TOL:
             fail(f"main-path {name} disagree with the plain attention run ({rel:.3e})")
-    return fn, rgb, event, ms
+    return fn, rgb, event, ms, got
 
 
 def phase_breakdown(fn, rgb, event, reps: int = 3) -> dict:
@@ -510,14 +753,31 @@ def _batch_grads(state, config, batch):
     return loss.detach(), torch.autograd.grad(loss, state.params)
 
 
-def _reset_flash_counts(fa) -> None:
-    fa.flash_fwd_launches = fa.flash_fwd_lse_launches = 0
-    fa.flash_bwd_dq_launches = fa.flash_bwd_dkv_launches = 0
+# each kernel's launch counter: (module, attribute)
+_COUNTERS = {"flash_fwd": ("flash_attention", "flash_fwd_launches"),
+             "flash_fwd_lse": ("flash_attention", "flash_fwd_lse_launches"),
+             "flash_bwd_dq": ("flash_attention", "flash_bwd_dq_launches"),
+             "flash_bwd_dkv": ("flash_attention", "flash_bwd_dkv_launches"),
+             "flash_fwd_bf16exp": ("flash_attention", "flash_fwd_bf16exp_launches"),
+             "flash_int8_qk": ("flash_attention", "flash_int8_qk_launches"),
+             "flash_int8": ("flash_attention", "flash_int8_launches"),
+             "stem": ("stem", "stem_launches")}
 
 
-def _flash_counts(fa) -> dict:
-    return {"flash_fwd": fa.flash_fwd_launches, "flash_fwd_lse": fa.flash_fwd_lse_launches,
-            "flash_bwd_dq": fa.flash_bwd_dq_launches, "flash_bwd_dkv": fa.flash_bwd_dkv_launches}
+def _counter_modules():
+    from frn_tpu_torch.ops import flash_attention, stem
+    return {"flash_attention": flash_attention, "stem": stem}
+
+
+def _reset_counts() -> None:
+    mods = _counter_modules()
+    for module, attr in _COUNTERS.values():
+        setattr(mods[module], attr, 0)
+
+
+def _counts() -> dict:
+    mods = _counter_modules()
+    return {kind: getattr(mods[module], attr) for kind, (module, attr) in _COUNTERS.items()}
 
 
 def phase_training(kernel_rows) -> None:
@@ -548,17 +808,17 @@ def phase_training(kernel_rows) -> None:
 
     trainer.step_fn = watched
     torch.cuda.synchronize()
-    _reset_flash_counts(fa)
+    _reset_counts()
     t0 = time.perf_counter()
     trainer.fit(epochs=1)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    counts = _flash_counts(fa)
+    counts = _counts()
     trainer.step_fn = step_fn
     print(f"training: Trainer.fit(epochs=1), {len(record)} micro-steps of batch {TRAIN_BATCH} in "
           f"{fit_s:.2f} s; flash launches {json.dumps(counts)}", flush=True)
-    want = {"flash_fwd": 0, "flash_fwd_lse": 4 * steps, "flash_bwd_dq": 4 * steps,
-            "flash_bwd_dkv": 4 * steps}
+    want = {**dict.fromkeys(_COUNTERS, 0), "flash_fwd_lse": 4 * steps,
+            "flash_bwd_dq": 4 * steps, "flash_bwd_dkv": 4 * steps}
     if len(record) != steps or counts != want:
         fail(f"fit ran {len(record)} micro-steps with launches {counts}, expected {steps} and {want}")
     for i, (metrics, moved) in enumerate(record):
@@ -577,7 +837,7 @@ def phase_training(kernel_rows) -> None:
 
     # timed micro-steps on the example batch
     torch.cuda.reset_peak_memory_stats()
-    _reset_flash_counts(fa)
+    _reset_counts()
     times = []
     for _ in range(TRAIN_TIMED):
         torch.cuda.synchronize()
@@ -585,7 +845,7 @@ def phase_training(kernel_rows) -> None:
         trainer.step_fn(state, batch, trainer.generator)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    counts = _flash_counts(fa)
+    counts = _counts()
     peak = torch.cuda.max_memory_allocated()
     ms, median = statistics.mean(times), statistics.median(times)
     print(f"training path: DSEC 480x640 fusion R50 bf16 batch {TRAIN_BATCH}: {ms:.2f} ms per "
@@ -692,13 +952,15 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
     phase_environment()
-    rows = {"flash_fwd": phase_flash_kernel(), **phase_flash_backward()}
-    fn, rgb, event, main_ms = phase_main_path(rows)
+    rows = {"flash_fwd": phase_flash_kernel(), **phase_flash_backward(), **phase_optin_kernels()}
+    fn, rgb, event, main_ms, main_out = phase_main_path(rows)
     phase_breakdown(fn, rgb, event)
     profile_pass(f"profile: one inference batch of {MAIN_BATCH}", lambda: fn(rgb, event), main_ms,
                  n_ops=15, n_kernels=12)
     phase_small_reference()
     del fn, rgb, event
+    phase_optin_path(rows, main_ms, main_out)
+    del main_out
     phase_training(rows)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

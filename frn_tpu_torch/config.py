@@ -2,12 +2,12 @@
 
 A copy of the dataclasses of ``frn_tpu/config.py`` (the port imports nothing of
 the JAX package). Field names, defaults and geometry constants are the same, so
-one set of settings describes a model in both packages. Two differences:
+one set of settings describes a model in both packages. Three differences:
 
-* the opt-in model paths that have no Hopper kernel yet (``stem_kernel``,
-  ``flash_exp_bf16``, ``attention_quant``, ``fused_attention``,
-  ``fused_heads``) keep their fields, and setting any of them raises
-  ``NotImplementedError``;
+* ``ModelConfig.fused_heads`` keeps its field, and setting it raises
+  ``NotImplementedError``; ``attention_quant`` outside {None, 'int8_qk',
+  'int8'} raises ``ValueError`` here (the JAX package finds it only when a
+  kernel asserts);
 * ``TrainConfig.input_wire`` takes only ``'f32'``: the ``'compact'`` and
   ``'events'`` wires (normalization and voxelization on the device) raise
   ``NotImplementedError``;
@@ -117,18 +117,23 @@ class ModelConfig:
     compute_dtype: str = "float32"
     # query-block size of the dense attention route (memory bound, exact)
     attention_chunk: int = 1024
-    fused_heads: bool = False
+    fused_heads: bool = False  # not ported: raises
+    # inference only (a training forward ignores them): the stem as one fused
+    # conv + frozen BN + ReLU kernel (ops/stem.py); the flash forward with
+    # bf16 softmax weights; int8 attention, 'int8_qk' (QK^T in int8) or
+    # 'int8' (QK^T and PV in int8), which wins over flash_exp_bf16
     stem_kernel: bool = False
     flash_exp_bf16: bool = False
     attention_quant: Optional[str] = None
+    # both cross-attention directions of a fusion stage in one attention call
+    # over 2B (the same parameters; equal up to f32 summation order)
     fused_attention: bool = False
 
     def __post_init__(self):
-        for name in ("fused_heads", "stem_kernel", "flash_exp_bf16", "fused_attention"):
-            if getattr(self, name):
-                raise NotImplementedError(f"ModelConfig.{name}: {NOT_PORTED}")
-        if self.attention_quant is not None:
-            raise NotImplementedError(f"ModelConfig.attention_quant: {NOT_PORTED}")
+        if self.fused_heads:
+            raise NotImplementedError(f"ModelConfig.fused_heads: {NOT_PORTED}")
+        if self.attention_quant not in (None, "int8_qk", "int8"):
+            raise ValueError(f"Unknown attention_quant {self.attention_quant!r}")
 
     @property
     def block_layers(self) -> Tuple[int, ...]:

@@ -10,7 +10,13 @@
 // lse = m + log(l) in f32, natural log, as _flash_forward(return_lse=True).
 // Scores, the running row max and the running denominator are f32; p is rounded
 // to bf16 before the PV product; the output accumulator is f32 and is divided by
-// the denominator once, at the end. The key and query tails of any N are masked
+// the denominator once, at the end.
+//
+// The kExpBf16 instance replaces the same Pallas kernel with exp_bf16=True
+// (flash_nonlocal_attention_bf16exp, inference only, no lse): there
+// p = bf16(__expf(bf16(s - m))), m the running row max, and the denominator
+// sums those bf16 p, as the TPU kernel's ones lane does. It is a compile-time
+// flag, so the default instance's code is unchanged. The key and query tails of any N are masked
 // here, so no padded copy of Q, K or V is ever made.
 //
 // What bounds it on an H100: at the DSEC stage-1 shape (N = 19,200, d = 32)
@@ -38,7 +44,7 @@ namespace {
 
 using namespace flash;
 
-template <int D>
+template <int D, bool kExpBf16>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
@@ -103,15 +109,24 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     m0 = mx0;
     m1 = mx1;
 
-    // p = exp(s - m) in f32 for the denominator, rounded to bf16 for PV
+    // p = exp(s - m) in f32 for the denominator, rounded to bf16 for PV; with
+    // kExpBf16, p = bf16(exp(bf16(s - m))) for both
     uint32_t pa[kTile / 16][4];
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
     for (int nt = 0; nt < kTile / 8; ++nt) {
-      const float p0 = __expf(s[nt][0] - mx0);
-      const float p1 = __expf(s[nt][1] - mx0);
-      const float p2 = __expf(s[nt][2] - mx1);
-      const float p3 = __expf(s[nt][3] - mx1);
+      float p0, p1, p2, p3;
+      if constexpr (kExpBf16) {
+        p0 = round_bf16(__expf(round_bf16(s[nt][0] - mx0)));
+        p1 = round_bf16(__expf(round_bf16(s[nt][1] - mx0)));
+        p2 = round_bf16(__expf(round_bf16(s[nt][2] - mx1)));
+        p3 = round_bf16(__expf(round_bf16(s[nt][3] - mx1)));
+      } else {
+        p0 = __expf(s[nt][0] - mx0);
+        p1 = __expf(s[nt][1] - mx0);
+        p2 = __expf(s[nt][2] - mx1);
+        p3 = __expf(s[nt][3] - mx1);
+      }
       rs0 += p0 + p1;
       rs1 += p2 + p3;
       to_a_frag(pa, nt, p0, p1, p2, p3);
@@ -144,10 +159,31 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
 }
 
-template <int D>
+template <int D, bool kExpBf16>
 void launch(dim3 grid, cudaStream_t s, const __nv_bfloat16* q, const __nv_bfloat16* k,
             const __nv_bfloat16* v, __nv_bfloat16* o, float* lse, int n) {
-  flash_fwd_kernel<D><<<grid, kWarps * 32, 0, s>>>(q, k, v, o, lse, n);
+  flash_fwd_kernel<D, kExpBf16><<<grid, kWarps * 32, 0, s>>>(q, k, v, o, lse, n);
+}
+
+template <bool kExpBf16>
+int launch_d(int batch, int n, int d, void* stream, const void* q, const void* k, const void* v,
+             void* o, void* lse) {
+  if (batch <= 0 || n <= 0 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kRows - 1) / kRows, batch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* kb = static_cast<const __nv_bfloat16*>(k);
+  const auto* vb = static_cast<const __nv_bfloat16*>(v);
+  auto* ob = static_cast<__nv_bfloat16*>(o);
+  auto* lf = static_cast<float*>(lse);
+  switch (d) {
+    case 8: launch<8, kExpBf16>(grid, s, qb, kb, vb, ob, lf, n); break;
+    case 16: launch<16, kExpBf16>(grid, s, qb, kb, vb, ob, lf, n); break;
+    case 32: launch<32, kExpBf16>(grid, s, qb, kb, vb, ob, lf, n); break;
+    case 64: launch<64, kExpBf16>(grid, s, qb, kb, vb, ob, lf, n); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -159,20 +195,11 @@ void launch(dim3 grid, cudaStream_t s, const __nv_bfloat16* q, const __nv_bfloat
 // checks all of this.
 extern "C" int frn_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
                                   int batch, int n, int d, void* stream) {
-  if (batch <= 0 || n <= 0 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kRows - 1) / kRows, batch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  auto* ob = static_cast<__nv_bfloat16*>(o);
-  auto* lf = static_cast<float*>(lse);
-  switch (d) {
-    case 8: launch<8>(grid, s, qb, kb, vb, ob, lf, n); break;
-    case 16: launch<16>(grid, s, qb, kb, vb, ob, lf, n); break;
-    case 32: launch<32>(grid, s, qb, kb, vb, ob, lf, n); break;
-    case 64: launch<64>(grid, s, qb, kb, vb, ob, lf, n); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_d<false>(batch, n, d, stream, q, k, v, o, lse);
+}
+
+// The bf16-exp forward (inference only): the same arguments without lse.
+extern "C" int frn_flash_fwd_bf16exp_bf16(const void* q, const void* k, const void* v, void* o,
+                                          int batch, int n, int d, void* stream) {
+  return launch_d<true>(batch, n, d, stream, q, k, v, o, nullptr);
 }

@@ -27,6 +27,11 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// x rounded to bf16 (to nearest even), as f32
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // c (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, column-major)
 __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
   asm volatile(

@@ -6,9 +6,13 @@ from seeded weights.
 
 ``entry()`` mirrors ``__graft_entry__.entry()`` of the JAX package: an
 inference function (rgb, event) -> (scores, labels, boxes) with example inputs.
+Keyword arguments are ``ModelConfig`` fields; they select the opt-in
+inference path (the flags add no parameters, so the weights are the same):
 
     fn, (rgb, event) = entry(batch=16)   # on the card
     scores, labels, boxes = fn(rgb, event)
+    fn, _ = entry(batch=16, stem_kernel=True, flash_exp_bf16=True)
+    fn, _ = entry(batch=16, attention_quant="int8", fused_attention=True)
 
 ``train_entry()`` is the counterpart of the single-device train step of
 ``__graft_entry__.dryrun_multichip`` at full width: a ``Trainer`` with the
@@ -57,18 +61,24 @@ class InferenceFn:
         return decode_detections(cls, reg, self.config, anchors=self.anchors)
 
 
-def dsec_fusion_config() -> FrameworkConfig:
+def dsec_fusion_config(**model_options) -> FrameworkConfig:
+    """DSEC fusion ResNet-50 in bf16; ``model_options`` are further
+    ``ModelConfig`` fields."""
     return FrameworkConfig(
         geometry=DSEC,
-        model=ModelConfig(variant="fusion", depth=50, num_classes=3, compute_dtype="bfloat16"),
+        model=ModelConfig(variant="fusion", depth=50, num_classes=3, compute_dtype="bfloat16",
+                          **model_options),
     )
 
 
-def entry(device=None, batch: int = 1, seed: int = 0) -> Tuple[InferenceFn, Tuple[torch.Tensor, torch.Tensor]]:
-    """(fn, (rgb, event)): the DSEC fusion ResNet-50 bf16 inference function and
-    seeded normal example inputs (B, 480, 640, 3) and (B, 480, 640, 5)."""
+def entry(device=None, batch: int = 1, seed: int = 0,
+          **model_options) -> Tuple[InferenceFn, Tuple[torch.Tensor, torch.Tensor]]:
+    """(fn, (rgb, event)): the DSEC fusion ResNet-50 bf16 inference function,
+    with the ``ModelConfig`` fields ``model_options`` (e.g. ``stem_kernel``,
+    ``flash_exp_bf16``, ``attention_quant``, ``fused_attention``), and seeded
+    normal example inputs (B, 480, 640, 3) and (B, 480, 640, 5)."""
     device = resolve_device(device)
-    cfg = dsec_fusion_config()
+    cfg = dsec_fusion_config(**model_options)
     model = init_detector(cfg, seed=seed, device=device)
     geo = cfg.geometry
     gen = torch.Generator().manual_seed(seed + 1)

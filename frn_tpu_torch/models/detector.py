@@ -15,7 +15,10 @@ Parameter names are the reference's torch state_dict names (``conv1``,
 module in training mode) the output is the 'probs' emission and a fusion model
 blanks the whole RGB batch with probability ``modality_dropout``, drawn from a
 ``torch.Generator`` the caller passes (JAX draws from its 'modality' stream;
-the two give different bits from one seed).
+the two give different bits from one seed). The inference-only options of
+``ModelConfig`` (``stem_kernel``, ``flash_exp_bf16``, ``attention_quant``) reach
+the backbones and the fusion stages only when not training, as in the JAX
+package; ``fused_attention`` applies in both.
 """
 
 from __future__ import annotations
@@ -74,7 +77,8 @@ class FRNDetector(nn.Module):
             self._backbones[stream] = bb
         stage_channels = bb.stage_channels
         if mc.variant == "fusion":
-            self.fus = nn.ModuleList(REFusion(c, mc.attention_chunk) for c in stage_channels)
+            self.fus = nn.ModuleList(REFusion(c, mc.attention_chunk, mc.fused_attention)
+                                     for c in stage_channels)
             fpn_in = tuple(2 * c for c in stage_channels)  # concat of two directions
         else:
             fpn_in = stage_channels
@@ -115,17 +119,23 @@ class FRNDetector(nn.Module):
                     rgb = torch.zeros_like(rgb)
         cls_mode, reg_mode = _HEAD_MODES[eval_output]
         dtype = self.compute_dtype
+        mc = self.config.model
+        # the inference-only kernels define no gradient: off in training
+        stem_kernel = mc.stem_kernel and not train
+        exp_bf16 = mc.flash_exp_bf16 and not train
+        quant = None if train else mc.attention_quant
         # NHWC -> NCHW view with channels_last strides: no copy
         rgb = rgb.to(dtype).permute(0, 3, 1, 2)
         event = event.to(dtype).permute(0, 3, 1, 2)
-        variant = self.config.model.variant
+        variant = mc.variant
         if variant == "fusion":
-            rgb_feats = self._backbones["rgb"](rgb)
-            evt_feats = self._backbones["event"](event)
+            rgb_feats = self._backbones["rgb"](rgb, stem_kernel)
+            evt_feats = self._backbones["event"](event, stem_kernel)
             # (event, rgb) argument order, as the reference calls its fusion
-            feats = tuple(f(e, r) for f, e, r in zip(self.fus, evt_feats, rgb_feats))
+            feats = tuple(f(e, r, exp_bf16, quant)
+                          for f, e, r in zip(self.fus, evt_feats, rgb_feats))
         else:
-            feats = self._backbones[variant](rgb if variant == "rgb" else event)
+            feats = self._backbones[variant](rgb if variant == "rgb" else event, stem_kernel)
         pyramid = self.fpn(feats)
         cls, reg = apply_heads(self.classificationModel, self.regressionModel, pyramid,
                                cls_mode, reg_mode)

@@ -3,7 +3,11 @@
 Child names are the reference's torch names: ``conv1``, ``bn1``,
 ``layer{1..4}.{i}.conv1``, ``...downsample.0`` (conv) and ``...downsample.1``
 (BN). ``suffix`` names the event stream's copy (``conv1_event``,
-``layer1_event.0...``), as the reference does.
+``layer1_event.0...``), as the reference does. With ``stem_kernel`` (the
+inference path of ``ModelConfig.stem_kernel``) and even H and W, the stem runs
+as one fused conv + frozen BN + ReLU (``ops/stem.py``), the BN folded into a
+per-channel affine in f32 as the JAX package folds it; elsewhere it takes the
+conv path.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from frn_tpu_torch.models.layers import Conv, FrozenBatchNorm, conv_init_, max_pool_3x3_s2
+from frn_tpu_torch.ops.stem import stem_conv_bn_relu
 
 
 def _downsample(in_ch: int, out_ch: int, stride: int) -> nn.Sequential:
@@ -90,9 +95,15 @@ class ResNetBackbone(nn.Module):
             if isinstance(m, Conv):
                 conv_init_(m, gen)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def forward(self, x: torch.Tensor, stem_kernel: bool = False) -> Tuple[torch.Tensor, ...]:
         s = self.suffix
-        x = torch.relu(getattr(self, f"bn1{s}")(getattr(self, f"conv1{s}")(x)))
+        conv1, bn1 = getattr(self, f"conv1{s}"), getattr(self, f"bn1{s}")
+        if stem_kernel and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:
+            inv = torch.rsqrt(bn1.running_var + bn1.eps) * bn1.weight
+            x = stem_conv_bn_relu(x, conv1.weight.to(x.dtype), inv,
+                                  bn1.bias - bn1.running_mean * inv)
+        else:
+            x = torch.relu(bn1(conv1(x)))
         x = max_pool_3x3_s2(x)
         feats = []
         for stage in range(1, 5):

@@ -1,14 +1,21 @@
-"""Flash attention for the non-local fusion attention: forward, logsumexp, backward.
+"""Flash attention for the non-local fusion attention: forward, logsumexp,
+backward, and the inference-only bf16-exp and int8 forwards.
 
 Counterpart of ``frn_tpu/ops/flash_attention.py`` (``_flash_forward`` with
-``return_lse`` and ``_flash_backward``). All tensors are (B, N, d) with
-Q = phi, K = theta, V = g, and there is no 1/sqrt(d) scale:
+``return_lse`` and ``exp_bf16``, ``_flash_backward``, ``_flash_forward_int8``).
+All tensors are (B, N, d) with Q = phi, K = theta, V = g, and there is no
+1/sqrt(d) scale:
 
 * ``csrc/flash_attention.cu``: O = softmax(Q K^T) V and, on request, the
-  per-row logsumexp lse (B, N) f32, natural log;
+  per-row logsumexp lse (B, N) f32, natural log; with the bf16-exp flag the
+  softmax weights are p = bf16(exp(bf16(s - m))), m the running row max;
 * ``csrc/flash_attention_bwd.cu``: with P = exp(Q K^T - lse) and
   D = rowsum(dO * O) in f32, the dQ kernel computes dS = P * (dO V^T - D) and
-  dQ = dS K, the dK/dV kernel dK = dS^T Q and dV = P^T dO.
+  dQ = dS K, the dK/dV kernel dK = dS^T Q and dV = P^T dO;
+* ``csrc/flash_attention_int8.cu``: per-slice dynamic int8 quantization
+  (``quantize_int8``, plain torch before the launch), S = int32(Qi Ki^T) *
+  sq * sk / 127^2, and PV in bf16 (mode 'int8_qk') or, on p_q = round(127 p)
+  and int8 V, in int8 (mode 'int8').
 
 The kernels are Hopper CUDA C++ for bf16 and d in HEAD_DIMS, built at first use
 and bound with ctypes (``frn_tpu_torch/build.py``). Each wrapper launches its
@@ -16,7 +23,8 @@ kernel for a CUDA tensor and, for a CPU tensor, runs its plain version, which
 follows the kernel's tile loop in PyTorch; on a CUDA tensor it launches the
 kernel or raises, and never falls back. ``FlashAttentionFn`` is the
 differentiable route (forward with lse, then both backward kernels); the
-module-level counters count each kernel's launches.
+bf16-exp and int8 forwards define no gradient. The module-level counters count
+each kernel's launches.
 """
 
 from __future__ import annotations
@@ -29,12 +37,18 @@ import torch
 from frn_tpu_torch import build
 
 HEAD_DIMS = (8, 16, 32, 64)
+INT8_MODES = ("int8_qk", "int8")
+KERNEL_TILE = 64  # keys per tile of the bf16-exp and int8 kernels
 flash_fwd_launches = 0  # forward without lse (inference)
 flash_fwd_lse_launches = 0  # forward with lse (the forward of training)
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
+flash_fwd_bf16exp_launches = 0
+flash_int8_qk_launches = 0
+flash_int8_launches = 0
 _lib = None  # csrc/flash_attention.cu
 _bwd_lib = None  # csrc/flash_attention_bwd.cu
+_int8_lib = None  # csrc/flash_attention_int8.cu
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,7 +59,8 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load("flash_attention")
         lib.frn_flash_fwd_bf16.argtypes = [_P] * 5 + [_I] * 3 + [_P]
-        lib.frn_flash_fwd_bf16.restype = _I
+        lib.frn_flash_fwd_bf16exp_bf16.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+        lib.frn_flash_fwd_bf16.restype = lib.frn_flash_fwd_bf16exp_bf16.restype = _I
         _lib = lib
     return _lib
 
@@ -61,7 +76,42 @@ def _bwd_library() -> ctypes.CDLL:
     return _bwd_lib
 
 
+def _int8_library() -> ctypes.CDLL:
+    global _int8_lib
+    if _int8_lib is None:
+        lib = build.load("flash_attention_int8")
+        lib.frn_flash_int8.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+        lib.frn_flash_int8.restype = _I
+        _int8_lib = lib
+    return _int8_lib
+
+
 # ------------------------------------------------------------ plain versions
+
+
+def _online_softmax(q, k, v, block_k: int, weights, scale=None):
+    """The kernels' recurrence over key tiles of ``block_k``: f32 scores s
+    (times the (B,) ``scale`` if given), running row max m and denominator l,
+    f32 accumulator. ``weights(x)`` maps x = s - m_new to (the weights of the
+    PV product, those of the denominator), both f32. Returns (acc / l, m, l)."""
+    b, n, _ = q.shape
+    qf = q.float()
+    m = torch.full((b, n, 1), float("-inf"), dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, n, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, n, v.shape[2]), dtype=torch.float32, device=q.device)
+    for start in range(0, n, block_k):
+        kb = k[:, start:start + block_k].float()
+        vb = v[:, start:start + block_k].float()
+        s = torch.bmm(qf, kb.transpose(1, 2))
+        if scale is not None:
+            s = s * scale[:, None, None]
+        m_new = torch.maximum(m, s.amax(dim=2, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p_pv, p_sum = weights(s - m_new)
+        l = l * alpha + p_sum.sum(dim=2, keepdim=True)
+        acc = acc * alpha + torch.bmm(p_pv, vb)
+        m = m_new
+    return acc / l, m, l
 
 
 def flash_attention_plain(
@@ -72,25 +122,77 @@ def flash_attention_plain(
     denominator, p rounded to v's dtype before the PV product, f32 accumulator
     divided by the denominator at the end. (B, N, d) in, (B, N, d) out; with
     ``return_lse`` also lse = m + log(l), (B, N) f32."""
-    b, n, d = q.shape
-    qf = q.float()
-    m = torch.full((b, n, 1), float("-inf"), dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, n, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, n, v.shape[2]), dtype=torch.float32, device=q.device)
-    for start in range(0, n, block_k):
-        kb = k[:, start:start + block_k].float()
-        vb = v[:, start:start + block_k]
-        s = torch.bmm(qf, kb.transpose(1, 2))
-        m_new = torch.maximum(m, s.amax(dim=2, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new)
-        l = l * alpha + p.sum(dim=2, keepdim=True)
-        acc = acc * alpha + torch.bmm(p.to(v.dtype).float(), vb.float())
-        m = m_new
-    o = (acc / l).to(v.dtype)
+
+    def weights(x):
+        p = torch.exp(x)
+        return p.to(v.dtype).float(), p
+
+    o, m, l = _online_softmax(q, k, v, block_k, weights)
+    o = o.to(v.dtype)
     if return_lse:
         return o, (m + torch.log(l)).squeeze(2)
     return o
+
+
+def flash_attention_bf16exp_plain(q, k, v, block_k: int = KERNEL_TILE) -> torch.Tensor:
+    """softmax(q k^T) v by the bf16-exp kernel's recurrence: as
+    ``flash_attention_plain``, but p = exp(bf16(s - m_new)) rounded to v's
+    dtype (for the kernel's bf16 v: bf16(exp(bf16(s - m_new)))), m_new the
+    running max over the key tiles seen so far (so the result depends on
+    ``block_k``, the kernel's KERNEL_TILE), and the denominator sums those
+    rounded p, as the JAX kernel's ones lane does."""
+
+    def weights(x):
+        p = torch.exp(x.to(torch.bfloat16).float()).to(v.dtype).float()
+        return p, p
+
+    return _online_softmax(q, k, v, block_k, weights)[0].to(v.dtype)
+
+
+def quantize_int8(x: torch.Tensor):
+    """Dynamic symmetric int8 quantization per batch slice, as the JAX
+    package's pre-pass: s = max|x| over (N, d), at least 1e-30, and
+    xi = round(x * (127 / s)) (ties to even). Returns (xi int8, s (B,) f32)."""
+    xf = x.float()
+    s = xf.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-30)
+    return torch.round(xf * (127.0 / s)).to(torch.int8), s[:, 0, 0]
+
+
+def quantize_qk(q: torch.Tensor, k: torch.Tensor):
+    """(qi, ki int8, the (B,) score scale c = sq * sk / 127^2)."""
+    qi, sq = quantize_int8(q)
+    ki, sk = quantize_int8(k)
+    return qi, ki, sq * sk * (1.0 / (127.0 * 127.0))
+
+
+def flash_attention_int8_plain(q, k, v, mode: str = "int8",
+                               block_k: int = KERNEL_TILE) -> torch.Tensor:
+    """The int8 kernel's function by its recurrence over key tiles of
+    ``block_k``: S = (Qi Ki^T) * c in f32, online softmax in f32. 'int8_qk':
+    p rounded to v's dtype feeds the PV product and the denominator. 'int8':
+    p_q = round(127 p) against the running max (so the result depends on
+    ``block_k``), PV on p_q and the int8 V, denominator 127 * sum(p_q); the
+    output is rounded to q's dtype, multiplied by sv and rounded again. The
+    int8 dot products over d <= 64 stay below 2^24: f32 holds them exactly."""
+    _check_mode(mode)
+    qi, ki, c = quantize_qk(q, k)
+    qi, ki = qi.float(), ki.float()
+    if mode == "int8_qk":
+
+        def weights(x):
+            p = torch.exp(x).to(v.dtype).float()
+            return p, p
+
+        return _online_softmax(qi, ki, v, block_k, weights, c)[0].to(v.dtype)
+
+    vi, sv = quantize_int8(v)
+
+    def weights(x):
+        p_q = torch.round(torch.exp(x) * 127.0)
+        return p_q, p_q * 127.0
+
+    o = _online_softmax(qi, ki, vi.float(), block_k, weights, c)[0].to(q.dtype)
+    return (o.float() * sv[:, None, None]).to(q.dtype)
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, block_k: int = 512) -> torch.Tensor:
@@ -124,6 +226,24 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, block_q: int = 512):
         dst = (pt * (dpt - delta[:, None, start:start + block_q])).to(q.dtype)
         dk += torch.bmm(dst.float(), qb)
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def quantized_attention_reference(g, theta, phi, mode: str = "int8") -> torch.Tensor:
+    """Dense simulation of the int8 kernel's quantization algebra (the JAX
+    package's ``quantized_attention_reference``): with one key tile covering
+    all keys the kernel's running max is the row max, and the two agree up to
+    f32 summation order."""
+    _check_mode(mode)
+    qi, ki, c = quantize_qk(phi, theta)
+    s = torch.bmm(qi.float(), ki.float().transpose(1, 2)) * c[:, None, None]
+    if mode == "int8_qk":
+        attn = torch.softmax(s, dim=-1).to(g.dtype)
+        return torch.bmm(attn.float(), g.float()).to(g.dtype)
+    p_q = torch.round(torch.exp(s - s.amax(dim=-1, keepdim=True)) * 127.0)
+    vi, sv = quantize_int8(g)
+    num = torch.bmm(p_q, vi.float())
+    den = p_q.sum(dim=-1, keepdim=True)
+    return ((num / den) * (sv / 127.0)[:, None, None]).to(g.dtype)
 
 
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -167,21 +287,35 @@ def _check_kernel_args(q: torch.Tensor, *args: Tuple[str, torch.Tensor, torch.dt
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def _check_mode(mode: str) -> None:
+    if mode not in INT8_MODES:
+        raise ValueError(f"int8 attention mode must be one of {INT8_MODES}, got {mode!r}")
+
+
+def _refuse_grad(what: str, *xs: torch.Tensor) -> None:
+    """A kernel output carries no gradient: on the card an input that requires
+    grad (with grad mode on) raises instead of returning a detached tensor."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        raise RuntimeError(what)
+
+
 def _on_kernel_device(q: torch.Tensor) -> bool:
     """False for a CPU tensor (plain version), True for CUDA; raises otherwise."""
     if q.device.type == "cpu":
         return False
     if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+        raise ValueError(f"the port's kernels run on cuda or cpu, not {q.device}")
     return True
 
 
 def _launch(fn, q: torch.Tensor, *args) -> None:
+    """Calls the C entry point ``fn(*args, stream)`` on q's device and current
+    stream; raises on the CUDA error code it returns."""
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
 
 
 # ------------------------------------------------------------ kernel wrappers
@@ -204,10 +338,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_ls
     _check_shapes(q, k, v)
     if not _on_kernel_device(q):
         return flash_attention_plain(q, k, v, return_lse=return_lse)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise RuntimeError(
-            "flash_attention's kernel output carries no gradient; use "
-            "FlashAttentionFn.apply(q, k, v) where a gradient is needed")
+    _refuse_grad("flash_attention's kernel output carries no gradient; use "
+                 "FlashAttentionFn.apply(q, k, v) where a gradient is needed", q, k, v)
     _check_kernel_args(q, ("q", q, _BF16), ("k", k, _BF16), ("v", v, _BF16))
     b, n, d = q.shape
     o = torch.empty_like(q)
@@ -220,6 +352,83 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_ls
         else:
             flash_fwd_launches += 1
     return (o, lse) if return_lse else o
+
+
+def flash_attention_bf16exp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """O = softmax(q k^T) v with bf16 softmax weights, (B, N, d): the forward
+    kernel with its bf16-exp flag on CUDA, ``flash_attention_bf16exp_plain``
+    on CPU. Inference only: on CUDA an input that requires grad raises."""
+    global flash_fwd_bf16exp_launches
+    _check_shapes(q, k, v)
+    if not _on_kernel_device(q):
+        return flash_attention_bf16exp_plain(q, k, v)
+    _refuse_grad("the bf16-exp flash forward is inference only: it defines no gradient", q, k, v)
+    _check_kernel_args(q, ("q", q, _BF16), ("k", k, _BF16), ("v", v, _BF16))
+    b, n, d = q.shape
+    o = torch.empty_like(q)
+    if o.numel():
+        _launch(_library().frn_flash_fwd_bf16exp_bf16, q, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(), b, n, d)
+        flash_fwd_bf16exp_launches += 1
+    return o
+
+
+# slot s of each 32-key group of the int8 PV product holds key _PV_KEY_ORDER[s]:
+# the order in which a thread's QK^T C fragments (keys 2t, 2t+1 of each 8-key
+# tile) sit in the m16n8k32 A fragment (slots 4t..4t+3, 16+4t..16+4t+3)
+_PV_KEY_ORDER = [16 * (s // 16) + 2 * (s % 16 // 4) + (s % 2) + 8 * (s % 4 // 2) for s in range(32)]
+
+
+def int8_v_layout(vi: torch.Tensor) -> torch.Tensor:
+    """int8 V (B, N, d) -> (B, d, N_pad), the 'int8' kernel's B operand: keys
+    padded with zeros to a multiple of KERNEL_TILE and put in _PV_KEY_ORDER
+    within each group of 32, so each fragment register is one 32-bit load."""
+    b, n, d = vi.shape
+    n_pad = -(-n // KERNEL_TILE) * KERNEL_TILE
+    vp = torch.nn.functional.pad(vi, (0, 0, 0, n_pad - n)).view(b, n_pad // 32, 32, d)
+    order = torch.tensor(_PV_KEY_ORDER, device=vi.device)
+    return vp.index_select(2, order).permute(0, 3, 1, 2).contiguous().view(b, d, n_pad)
+
+
+def int8_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mode: str):
+    """The int8 kernel's inputs from bf16 (B, N, d) q, k, v: (qi, ki, V as the
+    kernel takes it, the (B,) score scale sq * sk / 127^2, the (B,) V scale or
+    None). Mode 'int8_qk' keeps v; 'int8' quantizes it into ``int8_v_layout``."""
+    qi, ki, scale = quantize_qk(q, k)
+    if mode == "int8_qk":
+        return qi, ki, v, scale, None
+    vi, sv = quantize_int8(v)
+    return qi, ki, int8_v_layout(vi), scale, sv
+
+
+def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         mode: str = "int8") -> torch.Tensor:
+    """softmax(q k^T) v with int8 quantization, mode 'int8_qk' or 'int8', (B,
+    N, d) bf16 in and out: the quantization pre-pass in torch (per batch
+    slice, ``int8_kernel_inputs``), then the int8 kernel on CUDA;
+    ``flash_attention_int8_plain`` on CPU. Inference only: on CUDA an input
+    that requires grad raises."""
+    global flash_int8_qk_launches, flash_int8_launches
+    _check_mode(mode)
+    _check_shapes(q, k, v)
+    if not _on_kernel_device(q):
+        return flash_attention_int8_plain(q, k, v, mode)
+    _refuse_grad("the int8 flash forward is inference only: it defines no gradient", q, k, v)
+    _check_kernel_args(q, ("q", q, _BF16), ("k", k, _BF16), ("v", v, _BF16))
+    b, n, d = q.shape
+    o = torch.empty_like(q)
+    if not o.numel():
+        return o
+    qi, ki, vk, scale, v_scale = int8_kernel_inputs(q, k, v, mode)
+    full = mode == "int8"
+    _launch(_int8_library().frn_flash_int8, q, qi.data_ptr(), ki.data_ptr(), vk.data_ptr(),
+            scale.data_ptr(), None if v_scale is None else v_scale.data_ptr(), o.data_ptr(),
+            b, n, vk.shape[2] if full else n, d, int(full))
+    if full:
+        flash_int8_launches += 1
+    else:
+        flash_int8_qk_launches += 1
+    return o
 
 
 def _check_bwd(q, k, v, do, lse, delta) -> bool:

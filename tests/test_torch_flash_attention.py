@@ -87,7 +87,8 @@ def test_library_path_tracks_the_source():
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("flash_attention-") and path.suffix == ".so"
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
-    assert build.SOURCES == ("flash_attention", "flash_attention_bwd")
+    assert build.SOURCES == ("flash_attention", "flash_attention_bwd", "flash_attention_int8",
+                             "stem")
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").is_file()
 

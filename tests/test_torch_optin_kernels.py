@@ -1,0 +1,297 @@
+"""The port's opt-in inference kernels' plain versions and wrappers vs the JAX package.
+
+The bf16-exp forward (B3), the int8 forward in both modes (B4) and the fused
+stem (B5): each plain version against the Pallas kernel in interpret mode on
+the CPU, at f32 unless stated, with the JAX kernel's key tile where the result
+depends on it. Tolerances: the flash forwards atol 2e-5 rtol 1e-4 (the JAX
+forward tests'); the bf16-exp forward against the f32-exp one 2e-2 (JAX's
+``test_flash_exp_bf16_close_to_f32``); int8_qk on the int8 grid against exact
+attention atol 5e-5 rtol 1e-4 (JAX's); the stem at f32 1e-5 (JAX's stem test),
+at bf16 1e-2 (both sum in f32 and round once, so at most a bf16 ulp apart).
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from frn_tpu.ops.flash_attention import (
+    _flash_forward,
+    _flash_forward_int8,
+    _reference_attention,
+    quantized_attention_reference as j_quantized_reference,
+)
+from frn_tpu.ops.stem import stem_conv_bn_relu as j_stem
+from frn_tpu_torch import build
+from frn_tpu_torch import config as tconfig
+from frn_tpu_torch.ops import attention
+from frn_tpu_torch.ops import flash_attention as fa
+from frn_tpu_torch.ops import stem
+
+RNG = np.random.default_rng(31)
+
+
+def _inputs(b, n, d, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(0, 1, (b, n, d)).astype(np.float32) for _ in range(3)]
+
+
+def _t(*xs):
+    return [torch.tensor(x) for x in xs]
+
+
+# ------------------------------------------------------------ B3: bf16-exp forward
+
+
+@pytest.mark.parametrize("b,n,d,block", [(1, 100, 32, 128), (2, 330, 32, 128), (1, 260, 64, 256),
+                                         (2, 131, 16, 64), (1, 200, 8, 64)])
+def test_bf16exp_plain_matches_pallas_kernel(b, n, d, block):
+    q, k, v = _inputs(b, n, d, seed=n + d)
+    want = np.asarray(_flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=128,
+                                     block_k=block, interpret=True, exp_bf16=True))
+    got = fa.flash_attention_bf16exp_plain(*_t(q, k, v), block_k=block).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
+
+
+def test_bf16exp_plain_close_to_f32_exp():
+    q, k, v = _t(*_inputs(2, 300, 32, seed=44))
+    np.testing.assert_allclose(fa.flash_attention_bf16exp_plain(q, k, v).numpy(),
+                               fa.flash_attention_plain(q, k, v).numpy(), atol=2e-2, rtol=2e-2)
+
+
+def test_bf16exp_plain_rounds_the_weights_to_bf16_for_bf16_values():
+    # with bf16 v (the kernel's input) the weights are bf16(exp(bf16(s - m))):
+    # a one-tile plain run equals the dense formula with those weights
+    q, k, v = _t(*_inputs(1, 64, 16, seed=3))
+    vb = v.to(torch.bfloat16)
+    s = q @ k.transpose(1, 2)
+    x = (s - s.amax(dim=2, keepdim=True)).to(torch.bfloat16).float()
+    p = torch.exp(x).to(torch.bfloat16).float()
+    want = ((p @ vb.float()) / p.sum(dim=2, keepdim=True)).to(torch.bfloat16)
+    got = fa.flash_attention_bf16exp_plain(q, k, vb, block_k=64)
+    torch.testing.assert_close(got.float(), want.float(), atol=0, rtol=2 ** -7)  # one bf16 ulp
+
+
+# ------------------------------------------------------------ B4: int8 forward
+
+
+@pytest.mark.parametrize("mode", fa.INT8_MODES)
+@pytest.mark.parametrize("b,n,d", [(2, 330, 32), (1, 300, 16), (2, 131, 64)])
+def test_int8_plain_matches_pallas_kernel(mode, b, n, d):
+    q, k, v = _inputs(b, n, d, seed=56)
+    want = np.asarray(_flash_forward_int8(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mode=mode,
+                                          block_q=128, block_k=128, interpret=True))
+    got = fa.flash_attention_int8_plain(*_t(q, k, v), mode, block_k=128).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode", fa.INT8_MODES)
+def test_int8_one_tile_matches_dense_simulations(mode):
+    # one key tile covers all keys: the running max is the row max, and the
+    # kernel's recurrence, the ported dense simulation and JAX's agree
+    g, th, ph = _inputs(2, 200, 32, seed=55)
+    want = np.asarray(j_quantized_reference(jnp.asarray(g), jnp.asarray(th), jnp.asarray(ph),
+                                            mode=mode))
+    ref = fa.quantized_attention_reference(*_t(g, th, ph), mode).numpy()
+    got = fa.flash_attention_int8_plain(*_t(ph, th, g), mode, block_k=256).numpy()
+    np.testing.assert_allclose(ref, want, atol=2e-5, rtol=1e-4)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
+
+
+def test_int8_qk_exact_when_inputs_representable():
+    rng = np.random.default_rng(57)
+    qi = rng.integers(-127, 128, (1, 260, 32)).astype(np.float32)
+    ki = rng.integers(-127, 128, (1, 260, 32)).astype(np.float32)
+    qi[0, 0, 0], ki[0, 0, 0] = 127.0, -127.0  # the dynamic scale reproduces the grid
+    q, k = qi * 0.031, ki * 0.017
+    v = rng.normal(0, 1, (1, 260, 32)).astype(np.float32)
+    want = np.asarray(_reference_attention(jnp.asarray(v), jnp.asarray(k), jnp.asarray(q)))
+    got = fa.flash_attention_int8_plain(*_t(q, k, v), "int8_qk").numpy()
+    np.testing.assert_allclose(got, want, atol=5e-5, rtol=1e-4)
+
+
+def test_quantize_int8_matches_the_jax_pre_pass():
+    x = RNG.normal(0, 3, (3, 50, 16)).astype(np.float32)
+    x[1] = 0.0  # an all-zero slice keeps the 1e-30 floor
+    xf = jnp.asarray(x)
+    s = jnp.maximum(jnp.max(jnp.abs(xf), axis=(1, 2), keepdims=True), 1e-30)
+    want = np.asarray(jnp.round(xf * (127.0 / s)).astype(jnp.int8))
+    got, scale = fa.quantize_int8(torch.tensor(x))
+    assert got.dtype == torch.int8 and scale.shape == (3,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(scale.numpy(), np.asarray(s)[:, 0, 0])
+
+
+def test_int8_pv_key_order_follows_the_fragment_layouts():
+    # the QK^T C fragment gives thread t keys 2t, 2t+1 of each 8-key tile; the
+    # m16n8k32 A register a0 (a2) holds slots 4t..4t+3 (16+4t..16+4t+3), byte j
+    # = slot + j; the kernel packs a0 from tiles 0 and 1, a2 from tiles 2 and 3
+    order = [None] * 32
+    for t in range(4):
+        for half in range(2):
+            tiles = (2 * half, 2 * half + 1)
+            keys = [8 * tile + 2 * t + e for tile in tiles for e in range(2)]
+            for j, key in enumerate(keys):
+                order[16 * half + 4 * t + j] = key
+    assert order == fa._PV_KEY_ORDER
+    assert sorted(order) == list(range(32))
+
+
+def test_int8_v_layout_transposes_orders_and_pads():
+    vi = torch.tensor(RNG.integers(-127, 128, (2, 100, 16)), dtype=torch.int8)
+    vt = fa.int8_v_layout(vi)
+    assert vt.shape == (2, 16, 128) and vt.is_contiguous()
+    for slot in range(128):
+        key = 32 * (slot // 32) + fa._PV_KEY_ORDER[slot % 32]
+        want = vi[:, key, :] if key < 100 else torch.zeros((2, 16), dtype=torch.int8)
+        torch.testing.assert_close(vt[:, :, slot], want, atol=0, rtol=0)
+    # PV contracts over keys, so the reordered product equals the plain one
+    p = torch.tensor(RNG.integers(0, 128, (2, 7, 100)), dtype=torch.float32)
+    p_slots = torch.nn.functional.pad(p, (0, 28))[..., [32 * (s // 32) + fa._PV_KEY_ORDER[s % 32]
+                                                        for s in range(128)]]
+    torch.testing.assert_close(p_slots @ vt.float().transpose(1, 2), p @ vi.float(), atol=0, rtol=0)
+
+
+def test_int8_mode_is_checked():
+    q = torch.zeros((1, 64, 32))
+    with pytest.raises(ValueError, match="mode"):
+        fa.flash_attention_int8(q, q, q, "int4")
+    with pytest.raises(ValueError, match="mode"):
+        fa.flash_attention_int8_plain(q, q, q, "fp8")
+
+
+# ------------------------------------------------------------ B5: stem
+
+
+def _oracle_inputs(shape, f, dtype=np.float32, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, shape).astype(np.float32)
+    w = rng.normal(0, 0.1, (7, 7, shape[-1], f)).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, f).astype(np.float32)
+    bias = rng.normal(0, 0.2, f).astype(np.float32)
+    return x, w, scale, bias
+
+
+def _port_stem(x, w, scale, bias, dtype=torch.float32):
+    """The port's layouts: x NHWC -> channels_last NCHW, w HWIO -> (F, C, 7, 7)."""
+    xt = torch.tensor(x).to(dtype).permute(0, 3, 1, 2)
+    wt = torch.tensor(w).permute(3, 2, 0, 1).to(dtype)
+    out = stem.stem_conv_bn_relu(xt, wt, torch.tensor(scale), torch.tensor(bias))
+    return out.permute(0, 2, 3, 1).float().numpy()
+
+
+@pytest.mark.parametrize("shape,f", [((2, 32, 48, 3), 64), ((1, 26, 34, 5), 32), ((1, 64, 96, 3), 8)])
+def test_stem_plain_matches_pallas_kernel(shape, f):
+    x, w, scale, bias = _oracle_inputs(shape, f)
+    want = np.asarray(j_stem(jnp.asarray(x), jnp.asarray(w), jnp.asarray(scale), jnp.asarray(bias),
+                             interpret=True))
+    got = _port_stem(x, w, scale, bias)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_stem_plain_bf16_matches_pallas_kernel():
+    x, w, scale, bias = _oracle_inputs((1, 16, 24, 3), 16, seed=1)
+    xb, wb = (np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)) for a in (x, w))
+    want = np.asarray(j_stem(jnp.asarray(xb, jnp.bfloat16), jnp.asarray(wb, jnp.bfloat16),
+                             jnp.asarray(scale), jnp.asarray(bias), interpret=True)).astype(np.float32)
+    got = _port_stem(xb, wb, scale, bias, dtype=torch.bfloat16)
+    np.testing.assert_allclose(got, want, rtol=1e-2, atol=1e-2)
+
+
+def test_stem_checks_shapes():
+    x = torch.zeros((1, 3, 32, 48))
+    w, s = torch.zeros((64, 3, 7, 7)), torch.ones(64)
+    with pytest.raises(ValueError, match="even"):
+        stem.stem_conv_bn_relu(torch.zeros((1, 3, 31, 48)), w, s, s)
+    with pytest.raises(ValueError, match=r"\(F, C, 7, 7\)"):
+        stem.stem_conv_bn_relu(x, torch.zeros((64, 5, 7, 7)), s, s)
+    with pytest.raises(ValueError, match="scale"):
+        stem.stem_conv_bn_relu(x, w, torch.ones(63), s)
+
+
+# ------------------------------------------------------------ wrappers on the CPU and the card
+
+
+def test_cpu_wrappers_run_plain_versions_without_launch_or_build(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a kernel build was started")
+
+    monkeypatch.setattr(build, "build", refuse)
+    monkeypatch.setattr(build, "load", refuse)
+    mod_fa, mod_stem = importlib.reload(fa), importlib.reload(stem)
+    q, k, v = _t(*_inputs(2, 150, 16, seed=8))
+    counts = (mod_fa.flash_fwd_bf16exp_launches, mod_fa.flash_int8_qk_launches,
+              mod_fa.flash_int8_launches, mod_stem.stem_launches)
+    torch.testing.assert_close(mod_fa.flash_attention_bf16exp(q, k, v),
+                               mod_fa.flash_attention_bf16exp_plain(q, k, v), atol=0, rtol=0)
+    for mode in mod_fa.INT8_MODES:
+        torch.testing.assert_close(mod_fa.flash_attention_int8(q, k, v, mode),
+                                   mod_fa.flash_attention_int8_plain(q, k, v, mode), atol=0, rtol=0)
+    args = [torch.tensor(a) for a in _oracle_inputs((1, 16, 24, 5), 64)]
+    x, w = args[0].permute(0, 3, 1, 2), args[1].permute(3, 2, 0, 1)
+    torch.testing.assert_close(mod_stem.stem_conv_bn_relu(x, w, *args[2:]),
+                               mod_stem.stem_conv_bn_relu_plain(x, w, *args[2:]), atol=0, rtol=0)
+    assert counts == (mod_fa.flash_fwd_bf16exp_launches, mod_fa.flash_int8_qk_launches,
+                      mod_fa.flash_int8_launches, mod_stem.stem_launches)
+    assert mod_fa._lib is None and mod_fa._int8_lib is None and mod_stem._lib is None
+
+
+@pytest.mark.parametrize("route", ["bf16exp", "int8_qk", "int8", "stem"])
+def test_kernel_routes_refuse_inputs_that_need_a_gradient(monkeypatch, route):
+    # on the card these kernels define no gradient: an input that requires
+    # grad raises before any build or launch
+    monkeypatch.setattr(fa, "_on_kernel_device", lambda x: True)
+    monkeypatch.setattr(stem, "_on_kernel_device", lambda x: True)
+    q = torch.zeros((1, 64, 32), dtype=torch.bfloat16, requires_grad=True)
+    k = torch.zeros((1, 64, 32), dtype=torch.bfloat16)
+    call = {"bf16exp": lambda: fa.flash_attention_bf16exp(q, k, k),
+            "int8_qk": lambda: fa.flash_attention_int8(k, q, k, "int8_qk"),
+            "int8": lambda: fa.flash_attention_int8(k, k, q, "int8"),
+            "stem": lambda: stem.stem_conv_bn_relu(
+                torch.zeros((1, 3, 16, 16), dtype=torch.bfloat16),
+                torch.zeros((64, 3, 7, 7), dtype=torch.bfloat16, requires_grad=True),
+                torch.ones(64), torch.zeros(64))}[route]
+    with pytest.raises(RuntimeError, match="inference only"):
+        call()
+
+
+def test_kernel_route_precedence(monkeypatch):
+    # on the kernels' route: quant, else exp_bf16, else the B1 forward (the
+    # JAX package's order); below it, the exact dense route whatever the flags
+    calls = []
+    monkeypatch.setattr(attention, "flash_attention_int8",
+                        lambda q, k, v, mode: calls.append(("int8", mode)) or v)
+    monkeypatch.setattr(attention, "flash_attention_bf16exp",
+                        lambda q, k, v: calls.append(("bf16exp",)) or v)
+    monkeypatch.setattr(attention, "flash_attention", lambda q, k, v: calls.append(("b1",)) or v)
+    g, th, ph = _t(*_inputs(1, 80, 16, seed=9))
+    dense = attention.nonlocal_attention(g, th, ph, chunk=32)
+    for quant, exp_bf16 in (("int8", True), ("int8_qk", False), (None, True), (None, False)):
+        torch.testing.assert_close(
+            attention.nonlocal_attention(g, th, ph, chunk=32, exp_bf16=exp_bf16, quant=quant),
+            dense, atol=0, rtol=0)
+    assert calls == []
+    monkeypatch.setattr(attention, "_kernel_route", lambda x: True)
+    for quant, exp_bf16 in (("int8", True), ("int8_qk", False), (None, True), (None, False)):
+        attention.nonlocal_attention(g, th, ph, exp_bf16=exp_bf16, quant=quant)
+    assert calls == [("int8", "int8"), ("int8", "int8_qk"), ("bf16exp",), ("b1",)]
+
+
+def test_config_accepts_the_opt_in_flags():
+    mc = tconfig.ModelConfig(stem_kernel=True, flash_exp_bf16=True, attention_quant="int8_qk",
+                             fused_attention=True)
+    assert (mc.stem_kernel, mc.flash_exp_bf16, mc.attention_quant, mc.fused_attention) == (
+        True, True, "int8_qk", True)
+    with pytest.raises(ValueError, match="attention_quant"):
+        tconfig.ModelConfig(attention_quant="int4")
+    with pytest.raises(NotImplementedError, match="fused_heads"):
+        tconfig.ModelConfig(fused_heads=True)
+
+
+def test_build_lists_the_new_sources():
+    for name in ("flash_attention_int8", "stem"):
+        assert name in build.SOURCES and (build.CSRC / f"{name}.cu").is_file()
