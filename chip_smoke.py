@@ -2,17 +2,23 @@
 """On-card smoke test of the PyTorch/CUDA port (``frn_tpu_torch``).
 
     python3 chip_smoke.py          # one CUDA card; exits non-zero on any failure
+    python3 chip_smoke.py --other-source OLD/csrc/flash_attention.cu
+                                   # the same, and another revision's forward timed beside
 
 Phases:
   1. environment and build: the card's name and power limit, then every CUDA
      kernel of the port built from ``frn_tpu_torch/csrc`` (one nvcc each, in
-     parallel);
+     parallel), with each forward instance's registers and spills (the path's
+     instances may not spill);
   2. each kernel against its plain PyTorch version on the card, at the shapes
      of its path (the forward; the forward with lse and the dQ and dK/dV
-     backward kernels, ragged N and head dims 8 and 16 included), then timed
-     (CUDA events) at its path's batch beside its bound and a one-call
-     PyTorch yardstick (``library_ms``, never used by the port), the timed
-     runs' outputs held against each other;
+     backward kernels, ragged N and head dims 8 and 16 included, and the
+     forward's block edges: N 40, 128, 129 and 4,800), then timed (CUDA
+     events) at its path's batch beside its bound and a one-call PyTorch
+     yardstick (``library_ms``, never used by the port), the timed runs'
+     outputs held against each other; with ``--other-source``, each other
+     revision's forward entry points (B1, B1 with lse, B3) built by the same
+     flags and timed in turns with this revision's at the path's shapes;
   3. the inference path, through ``frn_tpu_torch.entry.entry()``: DSEC
      480x640 fusion inference, two ResNet-50 backbones, bf16, batch 16,
      forward + pooled decode + NMS. Launch counts are zeroed just before the
@@ -90,6 +96,12 @@ LSE_ATOL = 1e-3
 BWD_ATOL, BWD_RTOL = 1e-2, 2e-2
 BWD_CHECK_SHAPES = ((2, 19200, 32), (2, 4800, 64), (2, 5655, 32), (2, 131, 32), (2, 517, 64),
                     (2, 4800, 16), (2, 5655, 8))
+# the forward's own edge cases: one partial key tile with a wholly idle half
+# block (N 40 < 64 of a 128-row block), the path's half-idle last block
+# (N 4,800 = 37.5 x 128), an exact fit and one ragged row past it
+FWD_EDGE_SHAPES = ((2, 40, 8), (2, 40, 16), (2, 40, 32), (2, 40, 64), (2, 4800, 64), (2, 128, 32),
+                   (2, 129, 32))
+FWD_CHECK_SHAPES = BWD_CHECK_SHAPES + FWD_EDGE_SHAPES
 # the training step is launch-bound on the host, so its time varies with the
 # host's load: ten timed micro-steps, and the median beside the mean
 TRAIN_BATCH, TRAIN_SAMPLES, TRAIN_TIMED = 8, 48, 10
@@ -276,9 +288,53 @@ def phase_environment():
     print(f"build: {time.perf_counter() - t0:.1f} s wall for {len(built)} kernel sources", flush=True)
     for name, (path, seconds, log) in built.items():
         print(f"  {name}: {seconds:.1f} s -> {path.name}", flush=True)
+        if name != "flash_attention":
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"    {line.strip()}", flush=True)
+            continue
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "warning" in line.lower():
                 print(f"    {line.strip()}", flush=True)
+        # the path's instances are the wgmma kernel's (d 32 and 64, with and
+        # without exp_bf16): each must be in the log, and none may spill
+        path = {(d, e): [] for d in (32, 64) for e in (0, 1)}
+        for (kernel, d, exp_bf16, groups), (regs, stores, loads) in forward_instances(log).items():
+            label = f"{kernel}<d {d}, exp_bf16 {exp_bf16}" + (f", {groups} warpgroups>" if groups else ">")
+            print(f"    {label}: {regs} registers, {stores} bytes spill stores, {loads} bytes spill "
+                  f"loads", flush=True)
+            if kernel == "flash_fwd_wgmma" and (d, exp_bf16) in path:
+                path[d, exp_bf16].append((label, stores + loads))
+        missing = [key for key, found in path.items() if len(found) != 1]
+        if missing:
+            fail(f"the compiler's log has not one wgmma forward instance at (d, exp_bf16) {missing}")
+        spilled = [label for found in path.values() for label, spill in found if spill]
+        if spilled:
+            fail(f"the path's forward instances spill registers: {spilled}")
+
+
+def forward_instances(log: str) -> dict:
+    """{(kernel, d, exp_bf16, warpgroups or None): (registers, spill store bytes,
+    spill load bytes)} of every forward instance in an nvcc -Xptxas -v log."""
+    import re
+
+    out, current = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            m = re.search(r"(flash_fwd_(?:mma|wgmma))ILi(\d+)ELb([01])E(?:Li(\d+)E)?", entry.group(1))
+            current = None if m is None else (m.group(1), int(m.group(2)), int(m.group(3)),
+                                              int(m.group(4)) if m.group(4) else None)
+            if current is not None:
+                out[current] = [0, 0, 0]
+        elif current is not None:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if spill:
+                out[current][1:] = [int(spill.group(1)), int(spill.group(2))]
+            if regs:
+                out[current][0] = int(regs.group(1))
+    return {key: tuple(v) for key, v in out.items()}
 
 
 def phase_flash_kernel():
@@ -291,7 +347,7 @@ def phase_flash_kernel():
                 for _ in range(3)]
 
     errs = {}
-    for shape in BWD_CHECK_SHAPES:
+    for shape in FWD_CHECK_SHAPES:
         q, k, v = qkv(*shape)
         check_close("flash_fwd", "o", fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v),
                     FLASH_ATOL, FLASH_RTOL, shape, errs)
@@ -325,6 +381,12 @@ def phase_flash_backward():
         return torch.randn((b, n, d), generator=gen, device="cuda").to(torch.bfloat16)
 
     errs = {}
+    for shape in FWD_EDGE_SHAPES:
+        q, k, v = (randn(*shape) for _ in range(3))
+        o, lse = fa.flash_attention(q, k, v, return_lse=True)
+        o_ref, lse_ref = fa.flash_attention_plain(q, k, v, return_lse=True)
+        check_close("flash_fwd_lse", "o", o, o_ref, FLASH_ATOL, FLASH_RTOL, shape, errs)
+        check_close("flash_fwd_lse", "lse", lse, lse_ref, LSE_ATOL, 0.0, shape, errs)
     for shape in BWD_CHECK_SHAPES:
         q, k, v, do = (randn(*shape) for _ in range(4))
         o, lse = fa.flash_attention(q, k, v, return_lse=True)
@@ -377,6 +439,102 @@ def phase_flash_backward():
     return out
 
 
+def build_others(sources):
+    """Builds other revisions' ``flash_attention.cu`` (each with the headers
+    beside it) by the port's nvcc flags into the build directory, in
+    parallel; returns {source: the loaded library, its two forward entry
+    points bound}."""
+    import ctypes
+
+    from frn_tpu_torch import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for i, src in enumerate(sources):
+        out = build.BUILD_DIR / f"other{i}_flash_attention.so"
+        procs[src] = (out, subprocess.Popen([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out), src],
+                                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                            text=True))
+    logs = {src: proc.communicate(timeout=900)[0] for src, (_, proc) in procs.items()}
+    libs = {}
+    for src, (out, proc) in procs.items():
+        if proc.returncode != 0:
+            fail(f"{src} did not build:\n{logs[src]}")
+        lib = ctypes.CDLL(str(out))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.frn_flash_fwd_bf16.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+        lib.frn_flash_fwd_bf16exp_bf16.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+        lib.frn_flash_fwd_bf16.restype = lib.frn_flash_fwd_bf16exp_bf16.restype = i32
+        libs[src] = lib
+    print(f"other revisions built in {time.perf_counter() - t0:.1f} s: {list(sources)}", flush=True)
+    return libs
+
+
+def other_forward(lib, q, k, v, exp_bf16: bool = False, return_lse: bool = False):
+    """The forward of a ``build_others`` library, called as its wrapper
+    calls it: o, or (o, lse). Uncounted: it serves the A/B, never a path."""
+    from frn_tpu_torch.ops import flash_attention as fa
+
+    b, n, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, n), dtype=torch.float32, device=q.device) if return_lse else None
+    if exp_bf16:
+        fa._launch(lib.frn_flash_fwd_bf16exp_bf16, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   o.data_ptr(), b, n, d)
+    else:
+        fa._launch(lib.frn_flash_fwd_bf16, q, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                   None if lse is None else lse.data_ptr(), b, n, d)
+    return (o, lse) if return_lse else o
+
+
+def phase_other_forwards(others: dict) -> None:
+    """This revision's forward entry points (B1, B1 with lse, B3) timed in
+    turns with other revisions' (``build_others``) at the path's shapes and
+    batches (B1 and B3 at MAIN_BATCH, B1-lse at TRAIN_BATCH): the others,
+    this revision, this revision, the others reversed. Each timed output is
+    held against the plain version."""
+    from frn_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    kinds = {"flash_fwd": (False, False, MAIN_BATCH), "flash_fwd_lse": (False, True, TRAIN_BATCH),
+             "flash_fwd_bf16exp": (True, False, MAIN_BATCH)}
+    errs, per_forward = {}, {}
+    for kind, (exp_bf16, with_lse, batch) in kinds.items():
+        for n, d in FLASH_SHAPES:
+            q, k, v = (torch.randn((batch, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+                       for _ in range(3))
+            if exp_bf16:
+                this = lambda: fa.flash_attention_bf16exp(q, k, v)
+                want = fa.flash_attention_bf16exp_plain(q, k, v)
+            else:
+                this = lambda: fa.flash_attention(q, k, v, return_lse=with_lse)
+                want = fa.flash_attention_plain(q, k, v, return_lse=with_lse)
+            runs = {src: (lambda lib=lib: other_forward(lib, q, k, v, exp_bf16, with_lse))
+                    for src, lib in others.items()}
+            order = list(runs) + ["this", "this"] + list(reversed(runs))
+            runs["this"] = this
+            turns = {name: [] for name in runs}
+            for name in order:
+                ms, out = cuda_ms(runs[name], reps=10)
+                turns[name].append(ms)
+                label = f"{kind} {'this revision' if name == 'this' else name}"
+                for part, got, ref, atol, rtol in (
+                        (("o", out[0], want[0], FLASH_ATOL, FLASH_RTOL),
+                         ("lse", out[1], want[1], LSE_ATOL, 0.0)) if with_lse else
+                        (("o", out, want, FLASH_ATOL, FLASH_RTOL),)):
+                    check_close(label, part, got, ref, atol, rtol, q.shape, errs)
+                del out
+            row = {"kind": kind, "B": batch, "N": n, "d": d,
+                   **{name: statistics.mean(ts) for name, ts in turns.items()}, "turns": turns}
+            print(f"revisions timing {json.dumps(row)}", flush=True)
+            for name, ts in turns.items():
+                per_forward[kind, name] = per_forward.get((kind, name), 0.0) + 2 * statistics.mean(ts)
+    for (kind, name), ms in per_forward.items():
+        print(f"revisions: {kind} {'this revision' if name == 'this' else name}: {ms:.3f} ms per "
+              f"{'micro-step' if kind == 'flash_fwd_lse' else 'forward'} (4 launches)", flush=True)
+
+
 def _random_head_outputs(model, seed: int) -> None:
     """Seeded random head output convs (stock init scores every anchor at the
     0.01 prior, under the 0.05 threshold, and NMS would have nothing to do)."""
@@ -413,11 +571,12 @@ def phase_optin_kernels() -> dict:
              "flash_int8": (lambda q, k, v: fa.flash_attention_int8(q, k, v, "int8"),
                             lambda q, k, v: fa.flash_attention_int8_plain(q, k, v, "int8"))}
     errs = {}
-    for shape in BWD_CHECK_SHAPES:
+    for shape in FWD_CHECK_SHAPES:
         q, k, v = qkv(*shape)
         for kind, (kernel, plain) in flash.items():
-            check_close(kind, "o", kernel(q, k, v), plain(q, k, v), FLASH_ATOL, FLASH_RTOL, shape,
-                        errs)
+            if kind == "flash_fwd_bf16exp" or shape in BWD_CHECK_SHAPES:
+                check_close(kind, "o", kernel(q, k, v), plain(q, k, v), FLASH_ATOL, FLASH_RTOL,
+                            shape, errs)
 
     def stem_inputs(b, h, w, c):
         x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
@@ -948,11 +1107,23 @@ def phase_small_train_reference() -> None:
         fail("small f32 train step disagrees between card and CPU")
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="On-card smoke test of frn_tpu_torch.")
+    parser.add_argument("--other-source", metavar="FLASH_ATTENTION_CU", action="append", default=[],
+                        help="another revision's csrc/flash_attention.cu (its headers beside it), "
+                             "built and its forward entry points timed in turns with this "
+                             "revision's; repeatable")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
     phase_environment()
-    rows = {"flash_fwd": phase_flash_kernel(), **phase_flash_backward(), **phase_optin_kernels()}
+    others = build_others(args.other_source) if args.other_source else {}
+    rows = {"flash_fwd": phase_flash_kernel(), **phase_flash_backward()}
+    if others:
+        phase_other_forwards(others)
+    rows.update(phase_optin_kernels())
     fn, rgb, event, main_ms, main_out = phase_main_path(rows)
     phase_breakdown(fn, rgb, event)
     profile_pass(f"profile: one inference batch of {MAIN_BATCH}", lambda: fn(rgb, event), main_ms,

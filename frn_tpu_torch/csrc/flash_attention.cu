@@ -8,198 +8,493 @@
 // with Q = phi, K = theta, V = g, all (B, N, d) bf16 row-major, d in
 // {8, 16, 32, 64}, and on request (training) the per-row logsumexp
 // lse = m + log(l) in f32, natural log, as _flash_forward(return_lse=True).
-// Scores, the running row max and the running denominator are f32; p is rounded
-// to bf16 before the PV product; the output accumulator is f32 and is divided by
-// the denominator once, at the end.
+// Scores, the running row max m and the running denominator l are f32; p is
+// rounded to bf16 before the PV product while l sums the f32 p; the output
+// accumulator is f32 and is divided by l once, at the end.
 //
-// The kExpBf16 instance replaces the same Pallas kernel with exp_bf16=True
+// The kExpBf16 instances replace the same Pallas kernel with exp_bf16=True
 // (flash_nonlocal_attention_bf16exp, inference only, no lse): there
-// p = bf16(__expf(bf16(s - m))), m the running row max, and the denominator
-// sums those bf16 p, as the TPU kernel's ones lane does. It is a compile-time
-// flag, so the default instance's code is unchanged. The key and query tails of any N are masked
-// here, so no padded copy of Q, K or V is ever made.
+// p = bf16(exp(bf16(s - m))), m the running row max over 64-key tiles, and l
+// sums those bf16 p, as the TPU kernel's ones lane does. The key and query
+// tails of any N are masked here, so no padded copy of Q, K or V is ever made.
 //
-// What bounds it on an H100: at the DSEC stage-1 shape (N = 19,200, d = 32)
-// every score costs one exponential and 4d = 128 flops of the two products, so
-// the special-function units (about 3.9e12 exp/s) cap it before the tensor cores
-// (989 TFLOP/s bf16). Device memory is not the limit: Q, K, V and O are read or
-// written once from device memory (K and V tiles are re-read by every query
-// block, but from L2).
+// What bounds it on an H100: every score costs one exponential and 4d flops of
+// the two products. At the DSEC stage-1 shape (N = 19,200, d = 32) the
+// special-function units' exponentials (about 3.9e12/s) bound it, at 3.7x the
+// tensor cores' time for the products (989 TFLOP/s bf16). At stage 2
+// (N = 4,800, d = 64) the products' term (0.0954 ms at B 16) is 1% above the
+// exponentials' (0.0945 ms): both units are near their limits. Device memory
+// is not the limit: Q, K, V and O cross it once; K and V tiles are re-read by
+// every query block, from L2.
 //
-// Design (first, simple version): one block of 4 warps owns 64 query rows of one
-// batch; each warp owns 16 rows and keeps its Q fragments, its scores, its row
-// statistics and its output accumulator in registers. A loop over 64-key tiles
-// takes the place of the TPU's sequential grid axis: the block stages the K tile
-// and the transposed V tile in shared memory, each warp runs QK^T and PV as
-// mma.sync m16n8k16 (bf16 in, f32 accumulate) and the online-softmax update in
-// between. The score fragment layout of QK^T is the A-operand layout of PV, so p
-// never leaves registers. Not yet done: cp.async/TMA double buffering of the
-// tiles, wgmma, and exp2 with the log2(e) scale folded into Q.
+// Design. A block owns 64 or 128 query rows of one batch and loops over
+// 64-key tiles, in place of the TPU's sequential grid axis; the row
+// statistics and the output accumulator stay in registers. Two kernels:
+//  - flash_fwd_wgmma (d 32 and 64, the path's shapes): one warpgroup of 64
+//    rows per block at d 32, two at d 64 (launch_d). Q K^T is wgmma
+//    m64n64k16 with Q in registers and the K tile K-major in shared memory;
+//    P V is wgmma m64n{d}k16 with P (the Q K^T accumulator re-packed to
+//    bf16) in registers and the V tile MN-major (the transpose bit), so V is
+//    never transposed and a warpgroup reads each tile from shared memory
+//    once. Thread 0 stages K and V by TMA (a 3-D tensor map per launch, box =
+//    one tile, swizzled by the hardware into the layout wgmma reads, rows
+//    past N zero-filled) into a ring of kStages slots, kAhead tiles ahead,
+//    each slot completing on an mbarrier. The PV product of tile j runs on
+//    while the block passes the next tile's barrier and issues its Q K^T.
+//    The two warpgroups of a d 64 block run in step, one __syncthreads per
+//    tile: taking turns to issue (FlashAttention-3's ping-pong, the slots
+//    freed by mbarriers) measured slower on the H100 (PERF.md).
+//  - flash_fwd_mma (d 8 and 16): 8 warps of 16 rows on mma.sync m16n8k16;
+//    all threads stage the same swizzled ring by 16-byte cp.async, K
+//    fragments come by ldmatrix.x4 and V fragments by ldmatrix.x4.trans.
+// Both compute p = ex2(s * log2(e) - m * log2(e)), one FFMA and one ex2 per
+// score: log2(e) multiplies the f32 scores, never Q in bf16. The key-tail mask
+// is a separate code path, taken on the last, ragged tile only; the rescale of
+// the accumulator is skipped when no row max of the warp moved (exact). The
+// bf16-exp instances round s - m and p in pairs (cvt.rn.bf16x2.f32) and use
+// the packed p as the PV A fragment, unpacking it only for l. The rows of a
+// ragged last query block (whole idle warps included) take part in every
+// barrier and product and store neither O nor lse.
 
 #include <math.h>
 
-#include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
 using namespace flash;
 
-template <int D, bool kExpBf16>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                 float* __restrict__ lse, int n) {
-  static_assert(D % 8 == 0 && D <= 64, "head dim must be 8, 16, 32 or 64");
-  constexpr int KD = kSteps<D>();
-  __shared__ __align__(16) __nv_bfloat16 k_tile[kTile][D + kPad];  // [key][d]
-  __shared__ __align__(16) __nv_bfloat16 vt_tile[D][kTile + kPad];  // [d][key]
+constexpr int kStages = 4;  // K/V ring depth (tiles)
+constexpr int kAhead = 2;   // tiles in flight ahead of the one being computed
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  const size_t base = static_cast<size_t>(blockIdx.y) * n * D;
-  const int row0 = blockIdx.x * kRows + warp * 16 + g;  // rows row0 and row0 + 8
-  const int row1 = row0 + 8;
-  const bool ok0 = row0 < n, ok1 = row1 < n;
-
-  // Q as A fragments, one per 16-wide slice of d; rows past n read as zeros
-  uint32_t qa[KD][4];
-  load_a_rows<D>(qa, q + base + static_cast<size_t>(ok0 ? row0 : 0) * D,
-                 q + base + static_cast<size_t>(ok1 ? row1 : 0) * D, ok0, ok1, t);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running row max (rows row0, row1)
-  float l0 = 0.f, l1 = 0.f;              // this thread's share of the denominators
-
-  for (int kt = 0; kt < n; kt += kTile) {
-    __syncthreads();  // the previous tile has been read by every warp
-    stage_tiles<D>(kt, n, k + base, k_tile, nullptr, v + base, nullptr, vt_tile);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows: kTile / 8 tiles of 16x8
-    float s[kTile / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t b[2];
-        b_from_rows<D>(b, k_tile[nt * 8 + g], kk, t);
-        mma_16816(s[nt], qa[kk], b);
-      }
-    }
-
-    // mask the key tail, then the online-softmax update
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      const int key = kt + nt * 8 + 2 * t;
-      if (key >= n) { s[nt][0] = -INFINITY; s[nt][2] = -INFINITY; }
-      if (key + 1 >= n) { s[nt][1] = -INFINITY; s[nt][3] = -INFINITY; }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    mx0 = quad_max(mx0);  // every tile holds a valid key, so mx is finite
-    mx1 = quad_max(mx1);
-    const float alpha0 = __expf(m0 - mx0);  // 0 on the first tile (m = -inf)
-    const float alpha1 = __expf(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-
-    // p = exp(s - m) in f32 for the denominator, rounded to bf16 for PV; with
-    // kExpBf16, p = bf16(exp(bf16(s - m))) for both
-    uint32_t pa[kTile / 16][4];
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      float p0, p1, p2, p3;
-      if constexpr (kExpBf16) {
-        p0 = round_bf16(__expf(round_bf16(s[nt][0] - mx0)));
-        p1 = round_bf16(__expf(round_bf16(s[nt][1] - mx0)));
-        p2 = round_bf16(__expf(round_bf16(s[nt][2] - mx1)));
-        p3 = round_bf16(__expf(round_bf16(s[nt][3] - mx1)));
-      } else {
-        p0 = __expf(s[nt][0] - mx0);
-        p1 = __expf(s[nt][1] - mx0);
-        p2 = __expf(s[nt][2] - mx1);
-        p3 = __expf(s[nt][3] - mx1);
-      }
-      rs0 += p0 + p1;
-      rs1 += p2 + p3;
-      to_a_frag(pa, nt, p0, p1, p2, p3);
-    }
-    l0 = l0 * alpha0 + rs0;
-    l1 = l1 * alpha1 + rs1;
-
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= alpha0;
-      acc[j][1] *= alpha0;
-      acc[j][2] *= alpha1;
-      acc[j][3] *= alpha1;
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        uint32_t b[2];
-        b_from_cols(b, vt_tile[j * 8 + g], kk, t);
-        mma_16816(acc[j], pa[kk], b);
-      }
-    }
-  }
-
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  store_rows<D>(o + base, acc, row0, row1, ok0, ok1, t, 1.f / l0, 1.f / l1);
-  if (lse != nullptr && t == 0) {
-    float* out = lse + static_cast<size_t>(blockIdx.y) * n;
-    if (ok0) out[row0] = m0 + logf(l0);
-    if (ok1) out[row1] = m1 + logf(l1);
-  }
+// dynamic shared memory of the ring, with room to align it to 1024 bytes
+template <int D>
+constexpr int ring_bytes() {
+  return kStages * 2 * kTile * D * 2 + 1024;
 }
 
-template <int D, bool kExpBf16>
-void launch(dim3 grid, cudaStream_t s, const __nv_bfloat16* q, const __nv_bfloat16* k,
-            const __nv_bfloat16* v, __nv_bfloat16* o, float* lse, int n) {
-  flash_fwd_kernel<D, kExpBf16><<<grid, kWarps * 32, 0, s>>>(q, k, v, o, lse, n);
+__device__ __forceinline__ __nv_bfloat16* ring_base(uint8_t* raw) {
+  return reinterpret_cast<__nv_bfloat16*>(raw + ((1024 - (smem_addr(raw) & 1023)) & 1023));
+}
+
+// the K tile of ring slot `slot` (its V tile follows it)
+template <int D>
+__device__ __forceinline__ __nv_bfloat16* slot_tile(__nv_bfloat16* ring, int slot) {
+  return ring + 2 * slot * kTile * D;
+}
+
+template <int D, int kThreads>
+__device__ __forceinline__ void load_tile(const __nv_bfloat16* k, const __nv_bfloat16* v, int tile,
+                                          int n, __nv_bfloat16* ring) {
+  __nv_bfloat16* kt = slot_tile<D>(ring, tile % kStages);
+  load_kv_async<D, kThreads>(k, v, tile * kTile, n, kt, kt + kTile * D);
+}
+
+// One 64-key tile of the online softmax for this thread's rows g and g + 8:
+// s holds its warp's 16 x 64 scores as C fragments (s[nt][0..1] row g,
+// s[nt][2..3] row g + 8, keys key + nt * 8 + {0, 1}, key = tile start + 2t).
+// Updates m and l, returns the rescale factors of the accumulator's two rows
+// in alpha and p (bf16) as the A fragments of the PV product in pa. l is this
+// thread's share of the f32 p (its quad holds the row), except with kExpBf16:
+// there the bf16 p are summed by the tensor core against a ones B fragment,
+// as the TPU kernel's ones lane sums them, and l is the whole row's sum.
+template <bool kExpBf16, bool kMask>
+__device__ __forceinline__ void softmax_tile(float (&s)[kTile / 8][4], int key, int n,
+                                             float (&m)[2], float (&l)[2], float (&alpha)[2],
+                                             uint32_t (&pa)[kTile / 16][4]) {
+  if constexpr (kMask) {
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+      if (key + nt * 8 >= n) s[nt][0] = s[nt][2] = -INFINITY;
+      if (key + nt * 8 + 1 >= n) s[nt][1] = s[nt][3] = -INFINITY;
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int nt = 0; nt < kTile / 8; ++nt) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+  }
+  float rs[2] = {0.f, 0.f};  // the f32 p's shares of l (not with kExpBf16)
+  float mb[2];               // m * log2(e)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = quad_max(mx[i]);  // every tile holds a valid key, so mx is finite
+    alpha[i] = ex2((m[i] - mx[i]) * kLog2e);  // 0 on the first tile (m = -inf)
+    m[i] = mx[i];
+    mb[i] = mx[i] * kLog2e;
+  }
+#pragma unroll
+  for (int nt = 0; nt < kTile / 8; ++nt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // h = 0: row g, h = 1: row g + 8
+      uint32_t p;
+      if constexpr (kExpBf16) {
+        const uint32_t x = pack_bf16x2(s[nt][2 * h] - mx[h], s[nt][2 * h + 1] - mx[h]);
+        p = pack_bf16x2(ex2(bf16_lo(x) * kLog2e), ex2(bf16_hi(x) * kLog2e));
+      } else {
+        const float p0 = ex2(fmaf(s[nt][2 * h], kLog2e, -mb[h]));
+        const float p1 = ex2(fmaf(s[nt][2 * h + 1], kLog2e, -mb[h]));
+        p = pack_bf16x2(p0, p1);
+        rs[h] += p0 + p1;
+      }
+      pa[nt / 2][(nt % 2) * 2 + h] = p;
+    }
+  }
+  if constexpr (kExpBf16) {  // c0 (row g) and c2 (row g + 8) carry the running sums
+    float c[4] = {l[0] * alpha[0], 0.f, l[1] * alpha[1], 0.f};
+    const uint32_t ones[2] = {0x3f803f80u, 0x3f803f80u};  // bf16 1.0 pairs
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) mma_16816(c, pa[kk], ones);
+    l[0] = c[0];
+    l[1] = c[2];
+  } else {
+    l[0] = l[0] * alpha[0] + rs[0];
+    l[1] = l[1] * alpha[1] + rs[1];
+  }
 }
 
 template <bool kExpBf16>
-int launch_d(int batch, int n, int d, void* stream, const void* q, const void* k, const void* v,
-             void* o, void* lse) {
-  if (batch <= 0 || n <= 0 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kRows - 1) / kRows, batch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  auto* ob = static_cast<__nv_bfloat16*>(o);
-  auto* lf = static_cast<float*>(lse);
+__device__ __forceinline__ void softmax_any(bool last_ragged, float (&s)[kTile / 8][4], int key,
+                                            int n, float (&m)[2], float (&l)[2], float (&alpha)[2],
+                                            uint32_t (&pa)[kTile / 16][4]) {
+  if (last_ragged) {
+    softmax_tile<kExpBf16, true>(s, key, n, m, l, alpha, pa);
+  } else {
+    softmax_tile<kExpBf16, false>(s, key, n, m, l, alpha, pa);
+  }
+}
+
+// acc rows times alpha; skipped when no row max of the warp moved (alpha = 1,
+// exact), as on most tiles once the running max has settled
+template <int J>
+__device__ __forceinline__ void rescale(float (&acc)[J][4], const float (&alpha)[2]) {
+  if (!__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) return;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    acc[j][0] *= alpha[0];
+    acc[j][1] *= alpha[0];
+    acc[j][2] *= alpha[1];
+    acc[j][3] *= alpha[1];
+  }
+}
+
+// O = acc / l for this thread's rows, and lse = m + log(l) when asked; l as
+// softmax_tile leaves it (a quad's shares, or with kExpBf16 whole rows)
+template <int D, bool kExpBf16>
+__device__ __forceinline__ void write_rows(__nv_bfloat16* o, float* lse, const float acc[][4],
+                                           const float (&m)[2], const float (&l)[2], int row0,
+                                           int n, int t) {
+  const float l0 = kExpBf16 ? l[0] : quad_sum(l[0]), l1 = kExpBf16 ? l[1] : quad_sum(l[1]);
+  const int row1 = row0 + 8;
+  const bool ok0 = row0 < n, ok1 = row1 < n;
+  store_rows<D>(o, acc, row0, row1, ok0, ok1, t, 1.f / l0, 1.f / l1);
+  if (lse != nullptr && t == 0) {
+    if (ok0) lse[row0] = m[0] + logf(l0);
+    if (ok1) lse[row1] = m[1] + logf(l1);
+  }
+}
+
+// ------------------------------------------------------------ mma.sync variant
+
+// S (16 x 64) = Q K^T for this warp's rows, K fragments by ldmatrix.x4
+template <int D>
+__device__ __forceinline__ void qk_mma(float (&s)[kTile / 8][4], const uint32_t qa[][4],
+                                       const __nv_bfloat16* kt, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < kTile / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+  const int r8 = lane & 7, mat = lane >> 3;  // this lane's row address: row r8 of matrix mat
+  if constexpr (D == 16) {  // matrices: key tiles nt, nt + 1 x chunks 0, 1
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; nt += 2) {
+      uint32_t r[4];
+      ldmatrix_x4(r, kt + swz<D>((nt + (mat >> 1)) * 8 + r8, mat & 1));
+      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      mma_16816(s[nt], qa[0], b0);
+      mma_16816(s[nt + 1], qa[0], b1);
+    }
+  } else {  // D == 8, matrices: key tiles nt..nt + 3; the upper k half is 0
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; nt += 4) {
+      uint32_t r[4];
+      ldmatrix_x4(r, kt + swz<D>((nt + mat) * 8 + r8, 0));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t b[2] = {r[i], 0u};
+        mma_16816(s[nt + i], qa[0], b);
+      }
+    }
+  }
+}
+
+// acc (16 x D) += P V for this warp's rows, V fragments by ldmatrix.x4.trans
+template <int D>
+__device__ __forceinline__ void pv_mma(float (&acc)[D / 8][4], const uint32_t pa[][4],
+                                       const __nv_bfloat16* vt, int lane) {
+  const int r8 = lane & 7, mat = lane >> 3;
+  if constexpr (D == 16) {  // matrices: keys +0 / +8 of the step x d chunks 0, 1
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < D / 8; j += 2) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, vt + swz<D>(kk * 16 + (mat & 1) * 8 + r8, j + (mat >> 1)));
+        const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+        mma_16816(acc[j], pa[kk], b0);
+        mma_16816(acc[j + 1], pa[kk], b1);
+      }
+    }
+  } else {  // D == 8, matrices: keys +0, +8, +16, +24 of two steps
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; kk += 2) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, vt + swz<D>(kk * 16 + mat * 8 + r8, 0));
+      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      mma_16816(acc[0], pa[kk], b0);
+      mma_16816(acc[0], pa[kk + 1], b1);
+    }
+  }
+}
+
+// 8 warps of 16 query rows each; every warp reads the whole K and V tile
+template <int D, bool kExpBf16>
+__global__ void __launch_bounds__(256, 2)
+flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+              float* __restrict__ lse, int n) {
+  static_assert(D == 8 || D == 16, "the mma.sync forward takes head dims 8 and 16");
+  constexpr int kThreads = 256;
+  extern __shared__ uint8_t smem_raw[];
+  __nv_bfloat16* ring = ring_base(smem_raw);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t base = static_cast<size_t>(blockIdx.y) * n * D;
+  const int row0 = blockIdx.x * 128 + warp * 16 + g;  // rows row0 and row0 + 8
+  const int tiles = (n + kTile - 1) / kTile;
+  const bool ragged = n % kTile != 0;
+
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) {
+    if (j < tiles) load_tile<D, kThreads>(k + base, v + base, j, n, ring);
+    cp_async_commit();
+  }
+  uint32_t qa[kSteps<D>()][4];  // rows past n read as zeros
+  load_a_rows<D>(qa, q + base + static_cast<size_t>(row0 < n ? row0 : 0) * D,
+                 q + base + static_cast<size_t>(row0 + 8 < n ? row0 + 8 : 0) * D, row0 < n,
+                 row0 + 8 < n, t);
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait<kAhead - 1>();  // this thread's copies of tile j have landed
+    __syncthreads();              // everyone's have, and tile j - 1 is no longer read
+    if (j + kAhead < tiles) load_tile<D, kThreads>(k + base, v + base, j + kAhead, n, ring);
+    cp_async_commit();
+    const __nv_bfloat16* kt = slot_tile<D>(ring, j % kStages);
+
+    float s[kTile / 8][4];
+    qk_mma<D>(s, qa, kt, lane);
+    float alpha[2];
+    uint32_t pa[kTile / 16][4];
+    softmax_any<kExpBf16>(ragged && j == tiles - 1, s, j * kTile + 2 * t, n, m, l, alpha, pa);
+    rescale(acc, alpha);
+    pv_mma<D>(acc, pa, kt + kTile * D, lane);
+  }
+  float* lse_b = lse == nullptr ? nullptr : lse + static_cast<size_t>(blockIdx.y) * n;
+  write_rows<D, kExpBf16>(o + base, lse_b, acc, m, l, row0, n, t);
+}
+
+// ------------------------------------------------------------ wgmma variant
+
+// One thread stages tile `tile` of this block's batch (K, then V) into its
+// ring slot by TMA; the slot's barrier completes when both have landed.
+template <int D>
+__device__ __forceinline__ void stage_tma(const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                          int tile, __nv_bfloat16* ring, uint64_t* full) {
+  __nv_bfloat16* kt = slot_tile<D>(ring, tile % kStages);
+  uint64_t* bar = full + tile % kStages;
+  mbar_expect_tx(bar, 2 * kTile * D * 2);
+  tma_load_3d(kt, kmap, 0, tile * kTile, blockIdx.y, bar);
+  tma_load_3d(kt + kTile * D, vmap, 0, tile * kTile, blockIdx.y, bar);
+}
+
+// kGroups warpgroups of 64 query rows each; both products are wgmma, and
+// thread 0 stages K and V by TMA (kmap, vmap: encode_tile_map of K and V)
+template <int D, bool kExpBf16, int kGroups>
+__global__ void __launch_bounds__(kGroups * 128, 4 / kGroups)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+                const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
+                float* __restrict__ lse, int n) {
+  static_assert(D == 32 || D == 64, "the wgmma forward takes head dims 32 and 64");
+  constexpr int KD = D / 16;
+  extern __shared__ uint8_t smem_raw[];
+  __nv_bfloat16* ring = ring_base(smem_raw);
+  __shared__ uint64_t full[kStages];  // ring slot s holds its next tile
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t base = static_cast<size_t>(blockIdx.y) * n * D;
+  // warp w owns the block's rows 16 w .. 16 w + 15: rows 16 (w % 4).. of warpgroup w / 4
+  const int row0 = blockIdx.x * (64 * kGroups) + warp * 16 + g;
+  const int tiles = (n + kTile - 1) / kTile;
+  const bool ragged = n % kTile != 0;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+    fence_mbar_init();
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      if (j < tiles) stage_tma<D>(&kmap, &vmap, j, ring, full);
+    }
+  }
+  uint32_t qa[KD][4];
+  load_a_rows<D>(qa, q + base + static_cast<size_t>(row0 < n ? row0 : 0) * D,
+                 q + base + static_cast<size_t>(row0 + 8 < n ? row0 + 8 : 0) * D, row0 < n,
+                 row0 + 8 < n, t);
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < tiles; ++j) {
+    __syncthreads();  // the barriers are set up; every warpgroup has waited for PV of tile j - 2
+    if (threadIdx.x == 0 && j + kAhead < tiles) {
+      stage_tma<D>(&kmap, &vmap, j + kAhead, ring, full);  // into tile j - 2's slot
+    }
+    mbar_wait(&full[j % kStages], (j / kStages) & 1);
+    const __nv_bfloat16* kt = slot_tile<D>(ring, j % kStages);
+
+    float s[kTile / 8][4];
+    const uint64_t kdesc = tile_desc<D>(kt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      wgmma_m64n64k16<0>(s, qa[kk], kdesc + 2 * kk, kk);  // 32 bytes on along d
+    }
+    wgmma_commit();
+    wgmma_wait<0>();  // S of tile j, and PV of tile j - 1
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fence_reg(s[nt][i]);
+    }
+#pragma unroll
+    for (int jd = 0; jd < D / 8; ++jd) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fence_reg(acc[jd][i]);
+    }
+    float alpha[2];
+    uint32_t pa[kTile / 16][4];
+    softmax_any<kExpBf16>(ragged && j == tiles - 1, s, j * kTile + 2 * t, n, m, l, alpha, pa);
+    rescale(acc, alpha);
+
+    const uint64_t vdesc = tile_desc<D>(kt + kTile * D);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      wgmma_m64k16<1>(acc, pa[kk], vdesc + ((16 * 2 * D) >> 4) * kk, 1);  // 16 keys on
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int jd = 0; jd < D / 8; ++jd) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) fence_reg(acc[jd][i]);
+  }
+  float* lse_b = lse == nullptr ? nullptr : lse + static_cast<size_t>(blockIdx.y) * n;
+  write_rows<D, kExpBf16>(o + base, lse_b, acc, m, l, row0, n, t);
+}
+
+// ------------------------------------------------------------ launch
+
+struct Args {
+  const __nv_bfloat16 *q, *k, *v;
+  __nv_bfloat16* o;
+  float* lse;
+  int batch, n;
+  cudaStream_t stream;
+};
+
+// Lets `kernel` use `bytes` of dynamic shared memory, once per instance (and
+// again if the current device changes); returns the CUDA error code.
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, int& set_for_device) {
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess && set_for_device != dev) {
+    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (rc == cudaSuccess) set_for_device = dev;
+  }
+  return static_cast<int>(rc);
+}
+
+template <int D, bool kExpBf16>
+int launch_mma(const Args& a) {
+  static int set_for_device = -1;
+  const int rc = allow_smem(flash_fwd_mma<D, kExpBf16>, ring_bytes<D>(), set_for_device);
+  if (rc != 0) return rc;
+  const dim3 grid((a.n + 127) / 128, a.batch);
+  flash_fwd_mma<D, kExpBf16>
+      <<<grid, 256, ring_bytes<D>(), a.stream>>>(a.q, a.k, a.v, a.o, a.lse, a.n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool kExpBf16, int kGroups>
+int launch_wgmma(const Args& a) {
+  static int set_for_device = -1;
+  int rc = allow_smem(flash_fwd_wgmma<D, kExpBf16, kGroups>, ring_bytes<D>(), set_for_device);
+  CUtensorMap kmap, vmap;
+  if (rc == 0) rc = encode_tile_map<D>(&kmap, a.k, a.batch, a.n);
+  if (rc == 0) rc = encode_tile_map<D>(&vmap, a.v, a.batch, a.n);
+  if (rc != 0) return rc;
+  const dim3 grid((a.n + 64 * kGroups - 1) / (64 * kGroups), a.batch);
+  flash_fwd_wgmma<D, kExpBf16, kGroups>
+      <<<grid, kGroups * 128, ring_bytes<D>(), a.stream>>>(kmap, vmap, a.q, a.o, a.lse, a.n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// By measurement on the H100 (PERF.md): at d 32 one warpgroup of 64 rows per
+// block (five warpgroups fit on an SM, four in 128-row blocks: registers); at
+// d 64 two (the ring's 66 KB of shared memory fits only three 64-row blocks on
+// an SM, two 128-row ones four warpgroups). mma.sync at d 8 and 16.
+template <bool kExpBf16>
+int launch_d(int d, const Args& a) {
+  if (a.batch <= 0 || a.n <= 0 || a.batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
-    case 8: launch<8, kExpBf16>(grid, s, qb, kb, vb, ob, lf, n); break;
-    case 16: launch<16, kExpBf16>(grid, s, qb, kb, vb, ob, lf, n); break;
-    case 32: launch<32, kExpBf16>(grid, s, qb, kb, vb, ob, lf, n); break;
-    case 64: launch<64, kExpBf16>(grid, s, qb, kb, vb, ob, lf, n); break;
+    case 8: return launch_mma<8, kExpBf16>(a);
+    case 16: return launch_mma<16, kExpBf16>(a);
+    case 32: return launch_wgmma<32, kExpBf16, 1>(a);
+    case 64: return launch_wgmma<64, kExpBf16, 2>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+Args make_args(const void* q, const void* k, const void* v, void* o, void* lse, int batch, int n,
+               void* stream) {
+  return {static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+          static_cast<float*>(lse), batch, n, static_cast<cudaStream_t>(stream)};
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes. Launches on `stream` and returns the
-// cudaGetLastError() code of the launch (0 on success). Pointers must be
-// 16-byte aligned and contiguous (B, N, d); `lse` is a (B, N) f32 output, or
-// null when the caller needs no logsumexp (inference). The Python wrapper
-// checks all of this.
+// CUDA error code of the launch (0 on success). Pointers must be 16-byte
+// aligned and contiguous (B, N, d); `lse` is a (B, N) f32 output, or null when
+// the caller needs no logsumexp (inference). The Python wrapper checks all of
+// this.
 extern "C" int frn_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
                                   int batch, int n, int d, void* stream) {
-  return launch_d<false>(batch, n, d, stream, q, k, v, o, lse);
+  return launch_d<false>(d, make_args(q, k, v, o, lse, batch, n, stream));
 }
 
 // The bf16-exp forward (inference only): the same arguments without lse.
 extern "C" int frn_flash_fwd_bf16exp_bf16(const void* q, const void* k, const void* v, void* o,
                                           int batch, int n, int d, void* stream) {
-  return launch_d<true>(batch, n, d, stream, q, k, v, o, nullptr);
+  return launch_d<true>(d, make_args(q, k, v, o, nullptr, batch, n, stream));
 }

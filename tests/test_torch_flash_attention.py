@@ -93,18 +93,25 @@ def test_library_path_tracks_the_source():
         assert (build.CSRC / f"{name}.cu").is_file()
 
 
-def test_library_path_covers_the_shared_header(tmp_path, monkeypatch):
-    for name in ("flash_attention.cu", "flash_common.cuh"):
-        (tmp_path / name).write_bytes((build.CSRC / name).read_bytes())
+@pytest.mark.parametrize("header", ["flash_common.cuh", "flash_sm90.cuh"])
+def test_library_path_covers_the_shared_header(tmp_path, monkeypatch, header):
+    # every source rebuilds when any shared header changes
+    for src in [build.CSRC / "flash_attention.cu", *build.CSRC.glob("*.cuh")]:
+        (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "CSRC", tmp_path)
     before = build.library_path("flash_attention")
-    (tmp_path / "flash_common.cuh").write_text("// edited\n")
+    (tmp_path / header).write_text("// edited\n")
     assert build.library_path("flash_attention") != before
 
 
 # ------------------------------------------------------------ logsumexp and backward
 
 BWD_SHAPES = [(1, 200, 32), (1, 256, 32), (2, 131, 16)]
+# the Hopper forward's block edges (64-key tiles; 64- and 128-row query
+# blocks): one partial key tile with whole idle warps, an exact fit, one
+# ragged row past it, a ragged tile after full ones, at every head dim
+FWD_EDGE_SHAPES = [(2, 40, 8), (2, 40, 16), (2, 40, 32), (2, 40, 64), (2, 128, 32), (2, 129, 32),
+                   (1, 200, 64)]
 
 
 def _jax_forward_backward(q, k, v, do):
@@ -115,10 +122,12 @@ def _jax_forward_backward(q, k, v, do):
     return [np.asarray(x) for x in (o, lse, *grads)]
 
 
-@pytest.mark.parametrize("b,n,d", BWD_SHAPES)
+@pytest.mark.parametrize("b,n,d", BWD_SHAPES + FWD_EDGE_SHAPES)
 def test_plain_lse_matches_pallas_kernel(b, n, d):
     q, k, v = _inputs(b, n, d)
-    want_o, want_lse = _jax_forward_backward(q, k, v, q)[:2]
+    want_o, want_lse = (np.asarray(x) for x in _flash_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=128, block_k=128, interpret=True,
+        return_lse=True))
     o, lse = fa.flash_attention_plain(torch.tensor(q), torch.tensor(k), torch.tensor(v),
                                       block_k=64, return_lse=True)
     assert lse.shape == (b, n) and lse.dtype == torch.float32

@@ -46,8 +46,12 @@ def _t(*xs):
 # ------------------------------------------------------------ B3: bf16-exp forward
 
 
+# block 64 is KERNEL_TILE, the Hopper kernel's running-max step, at the
+# kernel's block edges: one partial key tile, an exact fit, one ragged row
 @pytest.mark.parametrize("b,n,d,block", [(1, 100, 32, 128), (2, 330, 32, 128), (1, 260, 64, 256),
-                                         (2, 131, 16, 64), (1, 200, 8, 64)])
+                                         (2, 131, 16, 64), (1, 200, 8, 64), (2, 40, 8, 64),
+                                         (2, 40, 16, 64), (2, 40, 32, 64), (2, 40, 64, 64),
+                                         (2, 128, 32, 64), (2, 129, 32, 64)])
 def test_bf16exp_plain_matches_pallas_kernel(b, n, d, block):
     q, k, v = _inputs(b, n, d, seed=n + d)
     want = np.asarray(_flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=128,
