@@ -2,23 +2,26 @@
 """On-card smoke test of the PyTorch/CUDA port (``frn_tpu_torch``).
 
     python3 chip_smoke.py          # one CUDA card; exits non-zero on any failure
-    python3 chip_smoke.py --other-source OLD/csrc/flash_attention.cu
-                                   # the same, and another revision's forward timed beside
+    python3 chip_smoke.py --other-source OLD/csrc/flash_attention.cu \
+                          --other-source OLD/csrc/flash_attention_bwd.cu
+                                   # the same, and another revision's kernels timed beside
 
 Phases:
   1. environment and build: the card's name and power limit, then every CUDA
      kernel of the port built from ``frn_tpu_torch/csrc`` (one nvcc each, in
-     parallel), with each forward instance's registers and spills (the path's
-     instances may not spill);
+     parallel), with each flash kernel instance's registers and spills (the
+     path's wgmma instances of the forward and of the backward must each be
+     there, and may not spill);
   2. each kernel against its plain PyTorch version on the card, at the shapes
      of its path (the forward; the forward with lse and the dQ and dK/dV
      backward kernels, ragged N and head dims 8 and 16 included, and the
-     forward's block edges: N 40, 128, 129 and 4,800), then timed (CUDA
-     events) at its path's batch beside its bound and a one-call PyTorch
-     yardstick (``library_ms``, never used by the port), the timed runs'
-     outputs held against each other; with ``--other-source``, each other
-     revision's forward entry points (B1, B1 with lse, B3) built by the same
-     flags and timed in turns with this revision's at the path's shapes;
+     kernels' block edges: N 40 at every head dim, 128, 129 and 4,800), then
+     timed (CUDA events) at its path's batch beside its bound and a one-call
+     PyTorch yardstick (``library_ms``, never used by the port), the timed
+     runs' outputs held against each other; with ``--other-source``, each
+     other revision's forward entry points (B1, B1 with lse, B3) or backward
+     entry points (B2a dQ, B2b dK/dV) built by the same flags and timed in
+     turns with this revision's at the path's shapes and batches;
   3. the inference path, through ``frn_tpu_torch.entry.entry()``: DSEC
      480x640 fusion inference, two ResNet-50 backbones, bf16, batch 16,
      forward + pooled decode + NMS. Launch counts are zeroed just before the
@@ -65,6 +68,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import torch
 
@@ -94,14 +98,20 @@ LSE_ATOL = 1e-3
 # (__expf against exp), and such differences add up over the N keys or
 # queries of a row; atol is a share of the output's max |value|
 BWD_ATOL, BWD_RTOL = 1e-2, 2e-2
-BWD_CHECK_SHAPES = ((2, 19200, 32), (2, 4800, 64), (2, 5655, 32), (2, 131, 32), (2, 517, 64),
-                    (2, 4800, 16), (2, 5655, 8))
-# the forward's own edge cases: one partial key tile with a wholly idle half
-# block (N 40 < 64 of a 128-row block), the path's half-idle last block
-# (N 4,800 = 37.5 x 128), an exact fit and one ragged row past it
+# the paths' shapes (DSEC stages 1 and 2, DDD17's ragged N) and more ragged N,
+# head dims 8 and 16 included
+PATH_CHECK_SHAPES = ((2, 19200, 32), (2, 4800, 64), (2, 5655, 32), (2, 131, 32), (2, 517, 64),
+                     (2, 4800, 16), (2, 5655, 8))
+# the block edges of the forward and the backward kernels (64-row tiles,
+# blocks of 64 or 128 rows): one partial tile with a wholly idle half block
+# (N 40 < 64 of a 128-row block) at every head dim, the path's half-idle last
+# 128-row block (N 4,800 = 37.5 x 128), an exact fit and one ragged row past it
 FWD_EDGE_SHAPES = ((2, 40, 8), (2, 40, 16), (2, 40, 32), (2, 40, 64), (2, 4800, 64), (2, 128, 32),
                    (2, 129, 32))
-FWD_CHECK_SHAPES = BWD_CHECK_SHAPES + FWD_EDGE_SHAPES
+# the forward, its bf16-exp variant and both backward kernels are held to
+# their plain versions at both
+BWD_CHECK_SHAPES = PATH_CHECK_SHAPES + tuple(
+    s for s in FWD_EDGE_SHAPES if s not in PATH_CHECK_SHAPES)
 # the training step is launch-bound on the host, so its time varies with the
 # host's load: ten timed micro-steps, and the median beside the mean
 TRAIN_BATCH, TRAIN_SAMPLES, TRAIN_TIMED = 8, 48, 10
@@ -123,6 +133,15 @@ KERNEL_SOURCES = {
     "stem": ("frn_tpu_torch/csrc/stem.cu", "frn_tpu/ops/stem.py:71"),
 }
 TRAIN_KERNELS = ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
+# the path's wgmma instances of each flash source, as (kernel, its first
+# template arguments): the forward at d 32 and 64, with and without exp_bf16;
+# the dQ and dK/dV kernels at d 32 and 64. Phase 1 fails unless each is in
+# the compiler's log once, unspilled
+PATH_INSTANCES = {
+    "flash_attention": [("flash_fwd_wgmma", d, e) for d in (32, 64) for e in (0, 1)],
+    "flash_attention_bwd": [(kernel, d) for kernel in ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
+                            for d in (32, 64)],
+}
 OPTIN_KERNELS = ("flash_fwd_bf16exp", "flash_int8_qk", "flash_int8", "stem")
 # the work of one launch: bytes per element of a (B, N, d) tensor and per
 # (B, N) row (each input read once, each output written once: bf16 Q, K, V,
@@ -288,43 +307,52 @@ def phase_environment():
     print(f"build: {time.perf_counter() - t0:.1f} s wall for {len(built)} kernel sources", flush=True)
     for name, (path, seconds, log) in built.items():
         print(f"  {name}: {seconds:.1f} s -> {path.name}", flush=True)
-        if name != "flash_attention":
+        if name not in PATH_INSTANCES:
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"    {line.strip()}", flush=True)
             continue
-        for line in log.splitlines():
-            if "warning" in line.lower():
+        for line in log.splitlines():  # warnings, and ptxas's notes of serialized wgmma
+            if "warning" in line.lower() or "Performance Loss" in line:
                 print(f"    {line.strip()}", flush=True)
-        # the path's instances are the wgmma kernel's (d 32 and 64, with and
-        # without exp_bf16): each must be in the log, and none may spill
-        path = {(d, e): [] for d in (32, 64) for e in (0, 1)}
-        for (kernel, d, exp_bf16, groups), (regs, stores, loads) in forward_instances(log).items():
-            label = f"{kernel}<d {d}, exp_bf16 {exp_bf16}" + (f", {groups} warpgroups>" if groups else ">")
-            print(f"    {label}: {regs} registers, {stores} bytes spill stores, {loads} bytes spill "
-                  f"loads", flush=True)
-            if kernel == "flash_fwd_wgmma" and (d, exp_bf16) in path:
-                path[d, exp_bf16].append((label, stores + loads))
-        missing = [key for key, found in path.items() if len(found) != 1]
-        if missing:
-            fail(f"the compiler's log has not one wgmma forward instance at (d, exp_bf16) {missing}")
-        spilled = [label for found in path.values() for label, spill in found if spill]
-        if spilled:
-            fail(f"the path's forward instances spill registers: {spilled}")
+        check_path_instances(name, log)
 
 
-def forward_instances(log: str) -> dict:
-    """{(kernel, d, exp_bf16, warpgroups or None): (registers, spill store bytes,
-    spill load bytes)} of every forward instance in an nvcc -Xptxas -v log."""
+
+def check_path_instances(name: str, log: str) -> None:
+    """Prints every flash kernel instance of ``name``'s compiler log with its
+    registers and spills; fails unless each of PATH_INSTANCES[name] is there
+    exactly once and none of them spills."""
+    found = {key: [] for key in PATH_INSTANCES[name]}
+    for (kernel, *targs), (regs, stores, loads) in kernel_instances(log).items():
+        label = f"{kernel}<{', '.join(map(str, targs))}>"
+        print(f"    {label}: {regs} registers, {stores} bytes spill stores, {loads} bytes spill "
+              f"loads", flush=True)
+        for key in found:
+            if (kernel, *targs[:len(key) - 1]) == key:
+                found[key].append((label, stores + loads))
+    missing = [key for key, hits in found.items() if len(hits) != 1]
+    if missing:
+        fail(f"the compiler's log of {name} has not one path instance of {missing}")
+    spilled = [label for hits in found.values() for label, spill in hits if spill]
+    if spilled:
+        fail(f"the path's instances spill registers: {spilled}")
+
+
+def kernel_instances(log: str) -> dict:
+    """{(kernel, template arguments...): (registers, spill store bytes, spill
+    load bytes)} of every flash kernel instance in an nvcc -Xptxas -v log
+    (template arguments from the mangled name: ints, and bools as 0 or 1)."""
     import re
 
     out, current = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            m = re.search(r"(flash_fwd_(?:mma|wgmma))ILi(\d+)ELb([01])E(?:Li(\d+)E)?", entry.group(1))
-            current = None if m is None else (m.group(1), int(m.group(2)), int(m.group(3)),
-                                              int(m.group(4)) if m.group(4) else None)
+            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_(?:mma|wgmma))I((?:L[ib]\d+E)+)E",
+                          entry.group(1))
+            current = None if m is None else (
+                m.group(1), *(int(x) for x in re.findall(r"L[ib](\d+)E", m.group(2))))
             if current is not None:
                 out[current] = [0, 0, 0]
         elif current is not None:
@@ -347,7 +375,7 @@ def phase_flash_kernel():
                 for _ in range(3)]
 
     errs = {}
-    for shape in FWD_CHECK_SHAPES:
+    for shape in BWD_CHECK_SHAPES:
         q, k, v = qkv(*shape)
         check_close("flash_fwd", "o", fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v),
                     FLASH_ATOL, FLASH_RTOL, shape, errs)
@@ -370,9 +398,10 @@ def phase_flash_kernel():
 
 def phase_flash_backward():
     """The forward with lse and both backward kernels against their plain
-    versions at every listed shape (ragged N, d 8 and 16 included), then each
-    timed at batch TRAIN_BATCH at the training path's two shapes, where the
-    timed runs' outputs are held against each other too."""
+    versions at every listed shape (the paths' shapes and the kernels' block
+    edges, ragged N and d 8 and 16 included), then each timed at batch
+    TRAIN_BATCH at the training path's two shapes, where the timed runs'
+    outputs are held against each other too."""
     from frn_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -381,12 +410,6 @@ def phase_flash_backward():
         return torch.randn((b, n, d), generator=gen, device="cuda").to(torch.bfloat16)
 
     errs = {}
-    for shape in FWD_EDGE_SHAPES:
-        q, k, v = (randn(*shape) for _ in range(3))
-        o, lse = fa.flash_attention(q, k, v, return_lse=True)
-        o_ref, lse_ref = fa.flash_attention_plain(q, k, v, return_lse=True)
-        check_close("flash_fwd_lse", "o", o, o_ref, FLASH_ATOL, FLASH_RTOL, shape, errs)
-        check_close("flash_fwd_lse", "lse", lse, lse_ref, LSE_ATOL, 0.0, shape, errs)
     for shape in BWD_CHECK_SHAPES:
         q, k, v, do = (randn(*shape) for _ in range(4))
         o, lse = fa.flash_attention(q, k, v, return_lse=True)
@@ -440,19 +463,25 @@ def phase_flash_backward():
 
 
 def build_others(sources):
-    """Builds other revisions' ``flash_attention.cu`` (each with the headers
-    beside it) by the port's nvcc flags into the build directory, in
-    parallel; returns {source: the loaded library, its two forward entry
-    points bound}."""
+    """Builds other revisions' ``flash_attention.cu`` or
+    ``flash_attention_bwd.cu`` (told apart by file name, each with the
+    headers beside it) by the port's nvcc flags into the build directory, in
+    parallel; returns {source: the loaded library, its entry points bound as
+    this revision's wrappers bind them}."""
     import ctypes
 
     from frn_tpu_torch import build
+    from frn_tpu_torch.ops import flash_attention as fa
 
+    binders = {"flash_attention.cu": fa.bind_forward, "flash_attention_bwd.cu": fa.bind_backward}
+    for src in sources:
+        if Path(src).name not in binders:
+            fail(f"--other-source takes a flash_attention.cu or flash_attention_bwd.cu, not {src}")
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
     for i, src in enumerate(sources):
-        out = build.BUILD_DIR / f"other{i}_flash_attention.so"
+        out = build.BUILD_DIR / f"other{i}_{Path(src).stem}.so"
         procs[src] = (out, subprocess.Popen([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out), src],
                                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                             text=True))
@@ -461,12 +490,10 @@ def build_others(sources):
     for src, (out, proc) in procs.items():
         if proc.returncode != 0:
             fail(f"{src} did not build:\n{logs[src]}")
-        lib = ctypes.CDLL(str(out))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.frn_flash_fwd_bf16.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
-        lib.frn_flash_fwd_bf16exp_bf16.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
-        lib.frn_flash_fwd_bf16.restype = lib.frn_flash_fwd_bf16exp_bf16.restype = i32
-        libs[src] = lib
+        for (kernel, *targs), (regs, stores, loads) in kernel_instances(logs[src]).items():
+            print(f"  {src}: {kernel}<{', '.join(map(str, targs))}>: {regs} registers, "
+                  f"{stores} bytes spill stores, {loads} bytes spill loads", flush=True)
+        libs[src] = binders[Path(src).name](ctypes.CDLL(str(out)))
     print(f"other revisions built in {time.perf_counter() - t0:.1f} s: {list(sources)}", flush=True)
     return libs
 
@@ -488,18 +515,61 @@ def other_forward(lib, q, k, v, exp_bf16: bool = False, return_lse: bool = False
     return (o, lse) if return_lse else o
 
 
+def other_backward(lib, kind: str, q, k, v, do, lse, delta):
+    """dQ (kind 'flash_bwd_dq') or (dK, dV) of a ``build_others`` backward
+    library, called as this revision's wrappers call it. Uncounted, as
+    ``other_forward``."""
+    from frn_tpu_torch.ops import flash_attention as fa
+
+    b, n, d = q.shape
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    if kind == "flash_bwd_dq":
+        dq = torch.empty_like(q)
+        fa._launch(lib.frn_flash_bwd_dq_bf16, q, *ins, dq.data_ptr(), b, n, d)
+        return dq
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fa._launch(lib.frn_flash_bwd_dkv_bf16, q, *ins, dk.data_ptr(), dv.data_ptr(), b, n, d)
+    return dk, dv
+
+
+def time_in_turns(kind: str, shape: dict, runs: dict, check, per_step: dict) -> None:
+    """Times ``runs`` ({source or 'this': fn}) in turns: the others, this
+    revision, this revision, the others reversed, 10 calls each (CUDA
+    events); ``check(label, out)`` holds each timed output against the plain
+    version. Prints the row and adds two launches' mean (one per direction)
+    to ``per_step[kind, name]``."""
+    others = [name for name in runs if name != "this"]
+    turns = {name: [] for name in runs}
+    for name in others + ["this", "this"] + others[::-1]:
+        ms, out = cuda_ms(runs[name], reps=10)
+        turns[name].append(ms)
+        check(f"{kind} {'this revision' if name == 'this' else name}", out)
+        del out
+    row = {"kind": kind, **shape, **{name: statistics.mean(ts) for name, ts in turns.items()},
+           "turns": turns}
+    print(f"revisions timing {json.dumps(row)}", flush=True)
+    for name, ts in turns.items():
+        per_step[kind, name] = per_step.get((kind, name), 0.0) + 2 * statistics.mean(ts)
+
+
+def print_per_step(per_step: dict) -> None:
+    for (kind, name), ms in per_step.items():
+        per = "forward" if kind in ("flash_fwd", "flash_fwd_bf16exp") else "micro-step"
+        print(f"revisions: {kind} {'this revision' if name == 'this' else name}: {ms:.3f} ms per "
+              f"{per} (4 launches)", flush=True)
+
+
 def phase_other_forwards(others: dict) -> None:
     """This revision's forward entry points (B1, B1 with lse, B3) timed in
     turns with other revisions' (``build_others``) at the path's shapes and
-    batches (B1 and B3 at MAIN_BATCH, B1-lse at TRAIN_BATCH): the others,
-    this revision, this revision, the others reversed. Each timed output is
-    held against the plain version."""
+    batches (B1 and B3 at MAIN_BATCH, B1-lse at TRAIN_BATCH). Each timed
+    output is held against the plain version."""
     from frn_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     kinds = {"flash_fwd": (False, False, MAIN_BATCH), "flash_fwd_lse": (False, True, TRAIN_BATCH),
              "flash_fwd_bf16exp": (True, False, MAIN_BATCH)}
-    errs, per_forward = {}, {}
+    errs, per_step = {}, {}
     for kind, (exp_bf16, with_lse, batch) in kinds.items():
         for n, d in FLASH_SHAPES:
             q, k, v = (torch.randn((batch, n, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -512,27 +582,50 @@ def phase_other_forwards(others: dict) -> None:
                 want = fa.flash_attention_plain(q, k, v, return_lse=with_lse)
             runs = {src: (lambda lib=lib: other_forward(lib, q, k, v, exp_bf16, with_lse))
                     for src, lib in others.items()}
-            order = list(runs) + ["this", "this"] + list(reversed(runs))
             runs["this"] = this
-            turns = {name: [] for name in runs}
-            for name in order:
-                ms, out = cuda_ms(runs[name], reps=10)
-                turns[name].append(ms)
-                label = f"{kind} {'this revision' if name == 'this' else name}"
+
+            def check(label, out):
                 for part, got, ref, atol, rtol in (
                         (("o", out[0], want[0], FLASH_ATOL, FLASH_RTOL),
                          ("lse", out[1], want[1], LSE_ATOL, 0.0)) if with_lse else
                         (("o", out, want, FLASH_ATOL, FLASH_RTOL),)):
                     check_close(label, part, got, ref, atol, rtol, q.shape, errs)
-                del out
-            row = {"kind": kind, "B": batch, "N": n, "d": d,
-                   **{name: statistics.mean(ts) for name, ts in turns.items()}, "turns": turns}
-            print(f"revisions timing {json.dumps(row)}", flush=True)
-            for name, ts in turns.items():
-                per_forward[kind, name] = per_forward.get((kind, name), 0.0) + 2 * statistics.mean(ts)
-    for (kind, name), ms in per_forward.items():
-        print(f"revisions: {kind} {'this revision' if name == 'this' else name}: {ms:.3f} ms per "
-              f"{'micro-step' if kind == 'flash_fwd_lse' else 'forward'} (4 launches)", flush=True)
+
+            time_in_turns(kind, {"B": batch, "N": n, "d": d}, runs, check, per_step)
+    print_per_step(per_step)
+
+
+def phase_other_backwards(others: dict) -> None:
+    """This revision's dQ and dK/dV entry points (B2a, B2b) timed in turns
+    with other revisions' (``build_others``) at the training path's shapes and
+    batch (FLASH_SHAPES, TRAIN_BATCH), on the same inputs, lse and D. Each
+    timed output is held against the plain versions, as in phase 2."""
+    from frn_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    errs, per_step = {}, {}
+    for n, d in FLASH_SHAPES:
+        q, k, v, do = (torch.randn((TRAIN_BATCH, n, d), generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        o, lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+        delta = fa.attention_delta(o, do)
+        args = (q, k, v, do, lse, delta)
+        dq_ref, dkv_ref = fa.flash_bwd_dq_plain(*args), fa.flash_bwd_dkv_plain(*args)
+        for kind, this in (("flash_bwd_dq", fa.flash_bwd_dq), ("flash_bwd_dkv", fa.flash_bwd_dkv)):
+            runs = {src: (lambda lib=lib, kind=kind: other_backward(lib, kind, *args))
+                    for src, lib in others.items()}
+            runs["this"] = lambda this=this: this(*args)
+
+            def check(label, out, kind=kind):
+                pairs = ((("dq", out, dq_ref),) if kind == "flash_bwd_dq" else
+                         (("dk", out[0], dkv_ref[0]), ("dv", out[1], dkv_ref[1])))
+                for part, got, want in pairs:
+                    check_close(label, part, got, want, BWD_ATOL * want.float().abs().max().item(),
+                                BWD_RTOL, q.shape, errs)
+
+            time_in_turns(kind, {"B": TRAIN_BATCH, "N": n, "d": d}, runs, check, per_step)
+        del o, lse, delta, dq_ref, dkv_ref
+    print_per_step(per_step)
 
 
 def _random_head_outputs(model, seed: int) -> None:
@@ -550,7 +643,8 @@ def _random_head_outputs(model, seed: int) -> None:
 
 def phase_optin_kernels() -> dict:
     """The bf16-exp forward, the int8 forward in both modes and the stem
-    against their plain versions: the flash kernels at BWD_CHECK_SHAPES, the
+    against their plain versions: the bf16-exp forward at BWD_CHECK_SHAPES,
+    the int8 forward at PATH_CHECK_SHAPES, the
     stem at STEM_CHECK_SHAPES. Then each timed at the opt-in path's batch
     and shapes (the int8 mode under fused attention at 2B), the timed runs'
     outputs held against each other."""
@@ -571,10 +665,10 @@ def phase_optin_kernels() -> dict:
              "flash_int8": (lambda q, k, v: fa.flash_attention_int8(q, k, v, "int8"),
                             lambda q, k, v: fa.flash_attention_int8_plain(q, k, v, "int8"))}
     errs = {}
-    for shape in FWD_CHECK_SHAPES:
+    for shape in BWD_CHECK_SHAPES:
         q, k, v = qkv(*shape)
         for kind, (kernel, plain) in flash.items():
-            if kind == "flash_fwd_bf16exp" or shape in BWD_CHECK_SHAPES:
+            if kind == "flash_fwd_bf16exp" or shape in PATH_CHECK_SHAPES:
                 check_close(kind, "o", kernel(q, k, v), plain(q, k, v), FLASH_ATOL, FLASH_RTOL,
                             shape, errs)
 
@@ -1111,18 +1205,21 @@ def main(argv=None) -> None:
     import argparse
 
     parser = argparse.ArgumentParser(description="On-card smoke test of frn_tpu_torch.")
-    parser.add_argument("--other-source", metavar="FLASH_ATTENTION_CU", action="append", default=[],
-                        help="another revision's csrc/flash_attention.cu (its headers beside it), "
-                             "built and its forward entry points timed in turns with this "
-                             "revision's; repeatable")
+    parser.add_argument("--other-source", metavar="CU_SOURCE", action="append", default=[],
+                        help="another revision's csrc/flash_attention.cu or "
+                             "csrc/flash_attention_bwd.cu (its headers beside it), built and its "
+                             "entry points timed in turns with this revision's; repeatable")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
     phase_environment()
     others = build_others(args.other_source) if args.other_source else {}
     rows = {"flash_fwd": phase_flash_kernel(), **phase_flash_backward()}
-    if others:
-        phase_other_forwards(others)
+    forwards = {src: lib for src, lib in others.items() if Path(src).name == "flash_attention.cu"}
+    if forwards:
+        phase_other_forwards(forwards)
+    if len(forwards) < len(others):
+        phase_other_backwards({src: lib for src, lib in others.items() if src not in forwards})
     rows.update(phase_optin_kernels())
     fn, rgb, event, main_ms, main_out = phase_main_path(rows)
     phase_breakdown(fn, rgb, event)

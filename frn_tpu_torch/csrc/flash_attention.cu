@@ -64,25 +64,7 @@ namespace {
 
 using namespace flash;
 
-constexpr int kStages = 4;  // K/V ring depth (tiles)
-constexpr int kAhead = 2;   // tiles in flight ahead of the one being computed
-
-// dynamic shared memory of the ring, with room to align it to 1024 bytes
-template <int D>
-constexpr int ring_bytes() {
-  return kStages * 2 * kTile * D * 2 + 1024;
-}
-
-__device__ __forceinline__ __nv_bfloat16* ring_base(uint8_t* raw) {
-  return reinterpret_cast<__nv_bfloat16*>(raw + ((1024 - (smem_addr(raw) & 1023)) & 1023));
-}
-
-// the K tile of ring slot `slot` (its V tile follows it)
-template <int D>
-__device__ __forceinline__ __nv_bfloat16* slot_tile(__nv_bfloat16* ring, int slot) {
-  return ring + 2 * slot * kTile * D;
-}
-
+// the K/V ring (flash_sm90.cuh): slot s holds a K tile and then a V tile
 template <int D, int kThreads>
 __device__ __forceinline__ void load_tile(const __nv_bfloat16* k, const __nv_bfloat16* v, int tile,
                                           int n, __nv_bfloat16* ring) {
@@ -309,18 +291,6 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 
 // ------------------------------------------------------------ wgmma variant
 
-// One thread stages tile `tile` of this block's batch (K, then V) into its
-// ring slot by TMA; the slot's barrier completes when both have landed.
-template <int D>
-__device__ __forceinline__ void stage_tma(const CUtensorMap* kmap, const CUtensorMap* vmap,
-                                          int tile, __nv_bfloat16* ring, uint64_t* full) {
-  __nv_bfloat16* kt = slot_tile<D>(ring, tile % kStages);
-  uint64_t* bar = full + tile % kStages;
-  mbar_expect_tx(bar, 2 * kTile * D * 2);
-  tma_load_3d(kt, kmap, 0, tile * kTile, blockIdx.y, bar);
-  tma_load_3d(kt + kTile * D, vmap, 0, tile * kTile, blockIdx.y, bar);
-}
-
 // kGroups warpgroups of 64 query rows each; both products are wgmma, and
 // thread 0 stages K and V by TMA (kmap, vmap: encode_tile_map of K and V)
 template <int D, bool kExpBf16, int kGroups>
@@ -419,19 +389,6 @@ struct Args {
   int batch, n;
   cudaStream_t stream;
 };
-
-// Lets `kernel` use `bytes` of dynamic shared memory, once per instance (and
-// again if the current device changes); returns the CUDA error code.
-template <typename Kernel>
-int allow_smem(Kernel kernel, int bytes, int& set_for_device) {
-  int dev = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc == cudaSuccess && set_for_device != dev) {
-    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (rc == cudaSuccess) set_for_device = dev;
-  }
-  return static_cast<int>(rc);
-}
 
 template <int D, bool kExpBf16>
 int launch_mma(const Args& a) {

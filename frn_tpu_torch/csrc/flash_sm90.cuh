@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks of the flash-attention forward: a ring of
-// asynchronously filled K/V tiles in shared memory (cp.async, or TMA with
-// mbarriers), ldmatrix fragment loads, ex2, and warpgroup matrix multiplies
-// (wgmma) with A in registers.
+// Hopper (sm_90a) building blocks of the flash-attention forward and
+// backward: a ring of asynchronously filled tiles in shared memory (K and V,
+// or in the dK/dV kernel Q and dO; by cp.async, or by TMA with mbarriers),
+// ldmatrix fragment loads, ex2, and warpgroup matrix multiplies (wgmma) with
+// A in registers.
 //
-// Every K/V tile is kTile rows x D bf16, row-major ([key][d]), in the layout
+// Every tile is kTile rows x D bf16, row-major ([key][d] or [query][d]), in the layout
 // that wgmma's swizzled canonical forms expect: the 16-byte chunk c of row r
 // sits at chunk c ^ ((r / (8 / C)) % C) of its row, C = D / 8 chunks per row.
 // For D = 64 that is the 128-byte swizzle (chunk ^= r % 8), for D = 32 the
@@ -44,6 +45,13 @@ __device__ __forceinline__ int swz(int r, int c) {
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// the same for 4 bytes (src 4-byte aligned), through L1
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
                : "memory");
 }
 
@@ -150,6 +158,54 @@ inline int encode_tile_map(CUtensorMap* map, const void* base, int batch, int n)
                              D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ------------------------------------------------------------ the TMA ring
+
+constexpr int kStages = 4;  // ring depth (tiles)
+constexpr int kAhead = 2;   // tiles in flight ahead of the one being computed
+
+// dynamic shared memory of a ring of two [kTile][D] tiles per slot, with room
+// to align it to 1024 bytes
+template <int D>
+constexpr int ring_bytes() {
+  return kStages * 2 * kTile * D * 2 + 1024;
+}
+
+__device__ __forceinline__ __nv_bfloat16* ring_base(uint8_t* raw) {
+  return reinterpret_cast<__nv_bfloat16*>(raw + ((1024 - (smem_addr(raw) & 1023)) & 1023));
+}
+
+// the first tile of ring slot `slot` (its second tile follows it)
+template <int D>
+__device__ __forceinline__ __nv_bfloat16* slot_tile(__nv_bfloat16* ring, int slot) {
+  return ring + 2 * slot * kTile * D;
+}
+
+// One thread stages tile `tile` of this block's batch of two (batch, n, D)
+// tensors (amap's, then bmap's) into its ring slot by TMA; the slot's barrier
+// completes when both have landed.
+template <int D>
+__device__ __forceinline__ void stage_tma(const CUtensorMap* amap, const CUtensorMap* bmap,
+                                          int tile, __nv_bfloat16* ring, uint64_t* full) {
+  __nv_bfloat16* at = slot_tile<D>(ring, tile % kStages);
+  uint64_t* bar = full + tile % kStages;
+  mbar_expect_tx(bar, 2 * kTile * D * 2);
+  tma_load_3d(at, amap, 0, tile * kTile, blockIdx.y, bar);
+  tma_load_3d(at + kTile * D, bmap, 0, tile * kTile, blockIdx.y, bar);
+}
+
+// Host: lets `kernel` use `bytes` of dynamic shared memory, once per instance
+// (and again if the current device changes); returns the CUDA error code.
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, int& set_for_device) {
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess && set_for_device != dev) {
+    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (rc == cudaSuccess) set_for_device = dev;
+  }
+  return static_cast<int>(rc);
 }
 
 // ------------------------------------------------------------ ldmatrix

@@ -54,25 +54,34 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+def bind_forward(lib):
+    """Declares the C signatures of ``csrc/flash_attention.cu``'s entry points
+    on a loaded library; returns it."""
+    lib.frn_flash_fwd_bf16.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+    lib.frn_flash_fwd_bf16exp_bf16.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+    lib.frn_flash_fwd_bf16.restype = lib.frn_flash_fwd_bf16exp_bf16.restype = _I
+    return lib
+
+
+def bind_backward(lib):
+    """The same for ``csrc/flash_attention_bwd.cu``."""
+    lib.frn_flash_bwd_dq_bf16.argtypes = [_P] * 7 + [_I] * 3 + [_P]
+    lib.frn_flash_bwd_dkv_bf16.argtypes = [_P] * 8 + [_I] * 3 + [_P]
+    lib.frn_flash_bwd_dq_bf16.restype = lib.frn_flash_bwd_dkv_bf16.restype = _I
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = build.load("flash_attention")
-        lib.frn_flash_fwd_bf16.argtypes = [_P] * 5 + [_I] * 3 + [_P]
-        lib.frn_flash_fwd_bf16exp_bf16.argtypes = [_P] * 4 + [_I] * 3 + [_P]
-        lib.frn_flash_fwd_bf16.restype = lib.frn_flash_fwd_bf16exp_bf16.restype = _I
-        _lib = lib
+        _lib = bind_forward(build.load("flash_attention"))
     return _lib
 
 
 def _bwd_library() -> ctypes.CDLL:
     global _bwd_lib
     if _bwd_lib is None:
-        lib = build.load("flash_attention_bwd")
-        lib.frn_flash_bwd_dq_bf16.argtypes = [_P] * 7 + [_I] * 3 + [_P]
-        lib.frn_flash_bwd_dkv_bf16.argtypes = [_P] * 8 + [_I] * 3 + [_P]
-        lib.frn_flash_bwd_dq_bf16.restype = lib.frn_flash_bwd_dkv_bf16.restype = _I
-        _bwd_lib = lib
+        _bwd_lib = bind_backward(build.load("flash_attention_bwd"))
     return _bwd_lib
 
 

@@ -5,7 +5,10 @@ them, and the dense jnp reference beside them. Bounds are those of the JAX
 tests: forward atol 2e-5 rtol 1e-4; logsumexp and backward atol 2e-4 rtol 1e-3.
 """
 
+import ctypes
 import importlib
+import re
+import types
 
 import numpy as np
 import pytest
@@ -135,7 +138,7 @@ def test_plain_lse_matches_pallas_kernel(b, n, d):
     np.testing.assert_allclose(lse.numpy(), want_lse, atol=2e-4, rtol=1e-3)
 
 
-@pytest.mark.parametrize("b,n,d", BWD_SHAPES)
+@pytest.mark.parametrize("b,n,d", BWD_SHAPES + FWD_EDGE_SHAPES)
 def test_plain_backward_matches_pallas_kernels(b, n, d):
     q, k, v, do = _inputs(b, n, d) + _inputs(b, n, d)[:1]
     _, _, want_dq, want_dk, want_dv = _jax_forward_backward(q, k, v, do)
@@ -144,6 +147,48 @@ def test_plain_backward_matches_pallas_kernels(b, n, d):
     dq, dk, dv = fa.flash_attention_backward_plain(*t[:3], o, lse, t[3], block=64)
     for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
         np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=1e-3)
+
+
+def test_plain_backward_is_finite_where_lse_is_below_minus_88():
+    # Scores shifted far below zero at a ragged N (the last 64-row tile holds
+    # 3 rows): a zero-filled key past N would give s = 0 and P = exp(-lse) =
+    # inf, so the kernels mask those keys; the plain version never sees them,
+    # and it is the function the mask must keep: finite, and the dense VJP
+    b, n, d = 2, 131, 16
+    q, k, v, do = (RNG.normal(0, 0.5, (b, n, d)).astype(np.float32) for _ in range(4))
+    q[..., 0], k[..., 0] = 10.0, -10.0  # s = -100 + O(1)
+    q, k, v, do = (torch.tensor(x) for x in (q, k, v, do))
+    o, lse = fa.flash_attention_plain(q, k, v, block_k=64, return_lse=True)
+    assert lse.max() < -88 and torch.isinf(torch.exp(-lse)).all()
+    got = fa.flash_attention_backward_plain(q, k, v, o, lse, do, block=64)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref = attention.nonlocal_attention(leaves[2], leaves[1], leaves[0], chunk=64)
+    want = torch.autograd.grad(ref, leaves, do)
+    torch.testing.assert_close(o, ref, atol=2e-5, rtol=1e-4)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("source,bind,name", [
+    ("flash_attention", fa.bind_forward, "frn_flash_fwd_bf16"),
+    ("flash_attention", fa.bind_forward, "frn_flash_fwd_bf16exp_bf16"),
+    ("flash_attention_bwd", fa.bind_backward, "frn_flash_bwd_dq_bf16"),
+    ("flash_attention_bwd", fa.bind_backward, "frn_flash_bwd_dkv_bf16"),
+])
+def test_entry_points_take_the_arguments_ctypes_declares(source, bind, name):
+    # ctypes passes what argtypes declares, so a C signature that gains or
+    # loses an argument, or turns a pointer into an int, would go unnoticed
+    # until the card: each extern "C" signature against its binding
+    src = (build.CSRC / f"{source}.cu").read_text()
+    params = re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1).split(",")
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+    assert all("*" in p or p.split()[0] == "int" for p in params)
+    names = ("frn_flash_fwd_bf16", "frn_flash_fwd_bf16exp_bf16", "frn_flash_bwd_dq_bf16",
+             "frn_flash_bwd_dkv_bf16")
+    lib = bind(types.SimpleNamespace(**{n: types.SimpleNamespace() for n in names}))
+    assert getattr(lib, name).argtypes == want
+    assert getattr(lib, name).restype is ctypes.c_int
 
 
 @pytest.mark.parametrize("block", [32, 100, 1100])
