@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py          # one CUDA card; exits non-zero on any failure
     python3 chip_smoke.py --other-source OLD/csrc/flash_attention.cu \
-                          --other-source OLD/csrc/flash_attention_bwd.cu
+                          --other-source OLD/csrc/flash_attention_bwd.cu \
+                          --other-source OLD/csrc/flash_attention_int8.cu
                                    # the same, and another revision's kernels timed beside
 
 Phases:
   1. environment and build: the card's name and power limit, then every CUDA
      kernel of the port built from ``frn_tpu_torch/csrc`` (one nvcc each, in
      parallel), with each flash kernel instance's registers and spills (the
-     path's wgmma instances of the forward and of the backward must each be
-     there, and may not spill);
+     path's wgmma instances of the forward, the backward and the int8
+     forward must each be there, and may not spill);
   2. each kernel against its plain PyTorch version on the card, at the shapes
      of its path (the forward; the forward with lse and the dQ and dK/dV
      backward kernels, ragged N and head dims 8 and 16 included, and the
@@ -42,10 +43,14 @@ Phases:
      train step on the card against the CPU;
   5. the opt-in inference kernels (the bf16-exp forward, the int8 forward in
      both modes, the fused stem) against their plain versions at the same
-     check shapes (the stem at C 3 and 5, DSEC and DDD17 sizes), then timed
-     at the opt-in path's batches beside their bounds, their plain versions
-     and a PyTorch yardstick; run before phase 3, and phase 3 asserts that
-     the default path launches none of them;
+     check shapes (the stem at C 3 and 5, DSEC and DDD17 sizes), and the
+     int8 forward's quantization pre-pass kernel bitwise against its plain
+     version there, then timed at the opt-in path's batches beside their
+     bounds, their plain versions and a PyTorch yardstick; with
+     ``--other-source``, another revision's int8 forward (after the torch
+     pre-pass, as its wrapper ran it) timed in turns with this revision's,
+     whole and kernel alone; run before phase 3, and phase 3 asserts that the
+     default path launches none of them;
   6. the opt-in inference path through ``entry(..., **ModelConfig fields)``
      at batch 16 in three configurations: stem kernel + bf16-exp; int8_qk;
      int8 + fused attention. Each: ms per batch and img/s over 5 batches,
@@ -130,19 +135,28 @@ KERNEL_SOURCES = {
     "flash_fwd_bf16exp": ("frn_tpu_torch/csrc/flash_attention.cu", "frn_tpu/ops/flash_attention.py:101"),
     "flash_int8_qk": ("frn_tpu_torch/csrc/flash_attention_int8.cu", "frn_tpu/ops/flash_attention.py:656"),
     "flash_int8": ("frn_tpu_torch/csrc/flash_attention_int8.cu", "frn_tpu/ops/flash_attention.py:656"),
+    # the int8 forward's quantization pre-pass (the JAX wrapper's `quantize`,
+    # no Pallas kernel of its own)
+    "int8_qk_prepass": ("frn_tpu_torch/csrc/flash_attention_int8.cu",
+                        "frn_tpu/ops/flash_attention.py:728"),
+    "int8_prepass": ("frn_tpu_torch/csrc/flash_attention_int8.cu",
+                     "frn_tpu/ops/flash_attention.py:728"),
     "stem": ("frn_tpu_torch/csrc/stem.cu", "frn_tpu/ops/stem.py:71"),
 }
 TRAIN_KERNELS = ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
 # the path's wgmma instances of each flash source, as (kernel, its first
 # template arguments): the forward at d 32 and 64, with and without exp_bf16;
-# the dQ and dK/dV kernels at d 32 and 64. Phase 1 fails unless each is in
-# the compiler's log once, unspilled
+# the dQ and dK/dV kernels at d 32 and 64; the int8 forward at d 32 and 64 in
+# modes int8_qk (0) and int8 (1). Phase 1 fails unless each is in the
+# compiler's log once, unspilled
 PATH_INSTANCES = {
     "flash_attention": [("flash_fwd_wgmma", d, e) for d in (32, 64) for e in (0, 1)],
     "flash_attention_bwd": [(kernel, d) for kernel in ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
                             for d in (32, 64)],
+    "flash_attention_int8": [("flash_int8_wgmma", d, f) for d in (32, 64) for f in (0, 1)],
 }
-OPTIN_KERNELS = ("flash_fwd_bf16exp", "flash_int8_qk", "flash_int8", "stem")
+OPTIN_KERNELS = ("flash_fwd_bf16exp", "flash_int8_qk", "flash_int8", "int8_qk_prepass",
+                 "int8_prepass", "stem")
 # the work of one launch: bytes per element of a (B, N, d) tensor and per
 # (B, N) row (each input read once, each output written once: bf16 Q, K, V,
 # dO, O, dQ, dK, dV; f32 lse and D), and bf16 matrix flops and int8 matrix
@@ -157,9 +171,9 @@ KERNEL_WORK = {"flash_fwd": (8, 0, 4, 0), "flash_fwd_lse": (8, 4, 4, 0),
 OPTIN_CONFIGS = (
     ("stem kernel + bf16-exp", {"stem_kernel": True, "flash_exp_bf16": True},
      {"stem": 2, "flash_fwd_bf16exp": 4}),
-    ("int8_qk", {"attention_quant": "int8_qk"}, {"flash_int8_qk": 4}),
+    ("int8_qk", {"attention_quant": "int8_qk"}, {"flash_int8_qk": 4, "int8_qk_prepass": 4}),
     ("int8 + fused attention", {"attention_quant": "int8", "fused_attention": True},
-     {"flash_int8": 2}),
+     {"flash_int8": 2, "int8_prepass": 2}),
 )
 # stem kernel vs plain (bf16 out): both sum f32 products, in another order,
 # and round once, so an output can land one bf16 ulp (relative 2^-8 to
@@ -187,6 +201,25 @@ def cuda_ms(fn, reps: int, warmup: int = 2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def device_ms(fn, kernel_names, reps: int = 10) -> float:
+    """Device time per call of ``fn`` summed over the kernels whose names
+    contain one of ``kernel_names``, by torch.profiler over ``reps`` calls
+    after one warm-up: a kernel whose launches are shorter than the host's
+    time to enqueue them shows its own time here, not the host's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA and any(k in ev.key for k in kernel_names))
+    return total / 1e3 / reps
 
 
 def _shape_text(shape) -> str:
@@ -227,6 +260,32 @@ def kernel_bound(kind: str, b: int, n: int, d: int):
     elems, rows, flops, int8_ops = KERNEL_WORK[kind]
     mma = (flops / BF16_FLOP_PER_S + int8_ops / INT8_OP_PER_S) * b * n * n * d
     return ((elems * b * n * d + rows * b * n) / HBM_BYTES_PER_S, max(mma, b * n * n / EXP_PER_S))
+
+
+def prepass_bound(mode: str, b: int, n: int, d: int):
+    """(bytes time, operations time) of one int8 pre-pass: bf16 q, k (and in
+    mode 'int8' v) read once; int8 qi, ki (and V^T, padded to whole 64-key
+    tiles) and the f32 scales written once. Its operations are not counted
+    (a max and a multiply per element, far under the bytes)."""
+    n_pad = -(-n // 64) * 64
+    if mode == "int8_qk":
+        nbytes = 2 * (2 + 1) * b * n * d + 4 * b
+    else:
+        nbytes = 3 * 2 * b * n * d + 2 * b * n * d + b * d * n_pad + 2 * 4 * b
+    return nbytes / HBM_BYTES_PER_S, 0.0
+
+
+def check_prepass(label: str, got, want, shape) -> None:
+    """The pre-pass kernel's outputs (qi, ki, V as the kernel takes it, c, sv)
+    bitwise against ``int8_kernel_inputs``'s."""
+    for name, g, w in zip(("qi", "ki", "v", "c", "sv"), got, want):
+        same = (g is None and w is None) or (
+            g is not None and w is not None and g.dtype == w.dtype and g.shape == w.shape
+            and torch.equal(g, w))
+        if not same:
+            fail(f"{label} {name} differs from int8_kernel_inputs at {_shape_text(shape)}")
+    print(f"{label} vs int8_kernel_inputs {_shape_text(shape)}: qi, ki, V, c, sv bitwise equal",
+          flush=True)
 
 
 def stem_bound(b: int, h: int, w: int, c: int):
@@ -349,7 +408,7 @@ def kernel_instances(log: str) -> dict:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_(?:mma|wgmma))I((?:L[ib]\d+E)+)E",
+            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv|int8)_(?:mma|wgmma))I((?:L[ib]\d+E)+)E",
                           entry.group(1))
             current = None if m is None else (
                 m.group(1), *(int(x) for x in re.findall(r"L[ib](\d+)E", m.group(2))))
@@ -463,20 +522,22 @@ def phase_flash_backward():
 
 
 def build_others(sources):
-    """Builds other revisions' ``flash_attention.cu`` or
-    ``flash_attention_bwd.cu`` (told apart by file name, each with the
-    headers beside it) by the port's nvcc flags into the build directory, in
-    parallel; returns {source: the loaded library, its entry points bound as
-    this revision's wrappers bind them}."""
+    """Builds other revisions' ``flash_attention.cu``,
+    ``flash_attention_bwd.cu`` or ``flash_attention_int8.cu`` (told apart by
+    file name, each with the headers beside it) by the port's nvcc flags into
+    the build directory, in parallel; returns {source: the loaded library,
+    its entry points bound as this revision's wrappers bind them}."""
     import ctypes
 
     from frn_tpu_torch import build
     from frn_tpu_torch.ops import flash_attention as fa
 
-    binders = {"flash_attention.cu": fa.bind_forward, "flash_attention_bwd.cu": fa.bind_backward}
+    binders = {"flash_attention.cu": fa.bind_forward, "flash_attention_bwd.cu": fa.bind_backward,
+               "flash_attention_int8.cu": fa.bind_int8}
     for src in sources:
         if Path(src).name not in binders:
-            fail(f"--other-source takes a flash_attention.cu or flash_attention_bwd.cu, not {src}")
+            fail(f"--other-source takes a flash_attention.cu, flash_attention_bwd.cu or "
+                 f"flash_attention_int8.cu, not {src}")
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
@@ -493,6 +554,9 @@ def build_others(sources):
         for (kernel, *targs), (regs, stores, loads) in kernel_instances(logs[src]).items():
             print(f"  {src}: {kernel}<{', '.join(map(str, targs))}>: {regs} registers, "
                   f"{stores} bytes spill stores, {loads} bytes spill loads", flush=True)
+        for line in logs[src].splitlines():  # ptxas's notes of serialized wgmma
+            if "Performance Loss" in line:
+                print(f"  {src}: {line.strip()}", flush=True)
         libs[src] = binders[Path(src).name](ctypes.CDLL(str(out)))
     print(f"other revisions built in {time.perf_counter() - t0:.1f} s: {list(sources)}", flush=True)
     return libs
@@ -532,12 +596,29 @@ def other_backward(lib, kind: str, q, k, v, do, lse, delta):
     return dk, dv
 
 
-def time_in_turns(kind: str, shape: dict, runs: dict, check, per_step: dict) -> None:
+def other_int8(lib, q, inputs, mode: str):
+    """The int8 kernel of a ``build_others`` library (or of this revision's)
+    on the inputs ``int8_kernel_inputs`` gives, called as the wrappers call
+    it. Uncounted, as ``other_forward``."""
+    from frn_tpu_torch.ops import flash_attention as fa
+
+    qi, ki, vk, scale, v_scale = inputs
+    b, n, d = q.shape
+    full = mode == "int8"
+    o = torch.empty_like(q)
+    fa._launch(lib.frn_flash_int8, q, qi.data_ptr(), ki.data_ptr(), vk.data_ptr(), scale.data_ptr(),
+               None if v_scale is None else v_scale.data_ptr(), o.data_ptr(), b, n,
+               vk.shape[2] if full else n, d, int(full))
+    return o
+
+
+def time_in_turns(kind: str, shape: dict, runs: dict, check, per_step: dict,
+                  count: int = 2) -> None:
     """Times ``runs`` ({source or 'this': fn}) in turns: the others, this
     revision, this revision, the others reversed, 10 calls each (CUDA
     events); ``check(label, out)`` holds each timed output against the plain
-    version. Prints the row and adds two launches' mean (one per direction)
-    to ``per_step[kind, name]``."""
+    version. Prints the row and adds ``count`` launches' mean (two: one per
+    direction) to ``per_step[kind, name]``."""
     others = [name for name in runs if name != "this"]
     turns = {name: [] for name in runs}
     for name in others + ["this", "this"] + others[::-1]:
@@ -549,14 +630,15 @@ def time_in_turns(kind: str, shape: dict, runs: dict, check, per_step: dict) -> 
            "turns": turns}
     print(f"revisions timing {json.dumps(row)}", flush=True)
     for name, ts in turns.items():
-        per_step[kind, name] = per_step.get((kind, name), 0.0) + 2 * statistics.mean(ts)
+        ms, launches = per_step.get((kind, name), (0.0, 0))
+        per_step[kind, name] = (ms + count * statistics.mean(ts), launches + count)
 
 
 def print_per_step(per_step: dict) -> None:
-    for (kind, name), ms in per_step.items():
-        per = "forward" if kind in ("flash_fwd", "flash_fwd_bf16exp") else "micro-step"
+    for (kind, name), (ms, launches) in per_step.items():
+        per = "micro-step" if kind in TRAIN_KERNELS else "batch"
         print(f"revisions: {kind} {'this revision' if name == 'this' else name}: {ms:.3f} ms per "
-              f"{per} (4 launches)", flush=True)
+              f"{per} ({launches} launches)", flush=True)
 
 
 def phase_other_forwards(others: dict) -> None:
@@ -628,6 +710,43 @@ def phase_other_backwards(others: dict) -> None:
     print_per_step(per_step)
 
 
+def phase_other_int8(others: dict) -> None:
+    """This revision's int8 forward timed in turns with other revisions'
+    (``build_others``) in both modes at the opt-in path's shapes and batches
+    (int8_qk at MAIN_BATCH, two launches per shape; int8 at 2 MAIN_BATCH, one):
+    whole, as each revision's wrapper ran it (another revision after the
+    torch pre-pass, ``int8_kernel_inputs``; this one after its pre-pass
+    kernel), and the kernel alone on the same quantized inputs. Each timed
+    output is held against the plain version."""
+    from frn_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    errs, per_step = {}, {}
+    for mode in fa.INT8_MODES:
+        batch, count = (2 * MAIN_BATCH, 1) if mode == "int8" else (MAIN_BATCH, 2)
+        for n, d in FLASH_SHAPES:
+            q, k, v = (torch.randn((batch, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+                       for _ in range(3))
+            want = fa.flash_attention_int8_plain(q, k, v, mode)
+            inputs = fa.int8_kernel_inputs(q, k, v, mode)
+
+            def check(label, out):
+                check_close(label, "o", out, want, FLASH_ATOL, FLASH_RTOL, q.shape, errs)
+
+            shape = {"B": batch, "N": n, "d": d}
+            runs = {src: (lambda lib=lib: other_int8(lib, q, fa.int8_kernel_inputs(q, k, v, mode),
+                                                     mode))
+                    for src, lib in others.items()}
+            runs["this"] = lambda: fa.flash_attention_int8(q, k, v, mode)
+            time_in_turns(f"flash_{mode}", shape, runs, check, per_step, count)
+            runs = {src: (lambda lib=lib: other_int8(lib, q, inputs, mode))
+                    for src, lib in others.items()}
+            runs["this"] = lambda: other_int8(fa._int8_library(), q, inputs, mode)
+            time_in_turns(f"flash_{mode} kernel alone", shape, runs, check, per_step, count)
+            del want, inputs
+    print_per_step(per_step)
+
+
 def _random_head_outputs(model, seed: int) -> None:
     """Seeded random head output convs (stock init scores every anchor at the
     0.01 prior, under the 0.05 threshold, and NMS would have nothing to do)."""
@@ -643,11 +762,12 @@ def _random_head_outputs(model, seed: int) -> None:
 
 def phase_optin_kernels() -> dict:
     """The bf16-exp forward, the int8 forward in both modes and the stem
-    against their plain versions: the bf16-exp forward at BWD_CHECK_SHAPES,
-    the int8 forward at PATH_CHECK_SHAPES, the
-    stem at STEM_CHECK_SHAPES. Then each timed at the opt-in path's batch
+    against their plain versions: the flash forwards at BWD_CHECK_SHAPES
+    (with the int8 pre-pass kernel held bitwise to ``int8_kernel_inputs``),
+    the stem at STEM_CHECK_SHAPES. Then each timed at the opt-in path's batch
     and shapes (the int8 mode under fused attention at 2B), the timed runs'
-    outputs held against each other."""
+    outputs held against each other; the pre-pass is timed on its own beside
+    its bytes bound and its plain version."""
     import torch.nn.functional as F
 
     from frn_tpu_torch.ops import flash_attention as fa
@@ -668,9 +788,11 @@ def phase_optin_kernels() -> dict:
     for shape in BWD_CHECK_SHAPES:
         q, k, v = qkv(*shape)
         for kind, (kernel, plain) in flash.items():
-            if kind == "flash_fwd_bf16exp" or shape in PATH_CHECK_SHAPES:
-                check_close(kind, "o", kernel(q, k, v), plain(q, k, v), FLASH_ATOL, FLASH_RTOL,
-                            shape, errs)
+            check_close(kind, "o", kernel(q, k, v), plain(q, k, v), FLASH_ATOL, FLASH_RTOL,
+                        shape, errs)
+        for mode in fa.INT8_MODES:
+            check_prepass(f"{mode}_prepass", fa.int8_prepass(q, k, v, mode),
+                          fa.int8_kernel_inputs(q, k, v, mode), shape)
 
     def stem_inputs(b, h, w, c):
         x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
@@ -686,26 +808,43 @@ def phase_optin_kernels() -> dict:
 
     rows = {}
     # the flash kernels per opt-in forward: two directions at each shape, at
-    # batch 16, or one launch over 2B under fused attention (the int8 mode)
+    # batch 16, or one launch over 2B under fused attention (the int8 mode).
+    # The int8 rows time the wrapper (pre-pass and kernel); the pre-pass gets
+    # rows of its own, its plain version being the torch pre-pass
     for kind, (kernel, plain) in flash.items():
         times = KernelTimes(kind)
         batch, count = (2 * MAIN_BATCH, 1) if kind == "flash_int8" else (MAIN_BATCH, 2)
+        mode = kind[len("flash_"):]
+        prep = KernelTimes(f"{mode}_prepass") if kind != "flash_fwd_bf16exp" else None
         for n, d in FLASH_SHAPES:
             q, k, v = qkv(batch, n, d)
             q4, k4, v4 = (x.unsqueeze(1) for x in (q, k, v))
             sdpa_ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0),
                                  reps=10)
-            if kind == "flash_fwd_bf16exp":
+            shape = {"B": batch, "N": n, "d": d}
+            if prep is None:
                 library_ms, extra = sdpa_ms, None
             else:  # no PyTorch call computes the quantized function: SDPA in bf16 beside it
-                mode = kind[len("flash_"):]
-                prep_ms, _ = cuda_ms(lambda: fa.int8_kernel_inputs(q, k, v, mode), reps=10)
-                library_ms, extra = None, {"sdpa_bf16_ms": sdpa_ms, "prepass_ms": prep_ms}
-            out, ref = times.add({"B": batch, "N": n, "d": d}, kernel_bound(kind, batch, n, d),
+                # the pre-pass's launches are shorter than their enqueue on
+                # the host: its device time is read by the profiler too
+                dev_ms = device_ms(lambda: fa.int8_prepass(q, k, v, mode),
+                                   ("int8_absmax_partial", "int8_quantize"))
+                got, want = prep.add(shape, prepass_bound(mode, batch, n, d),
+                                     lambda: fa.int8_prepass(q, k, v, mode),
+                                     lambda: fa.int8_kernel_inputs(q, k, v, mode), None,
+                                     count=count, extra={"device_ms": dev_ms})
+                check_prepass(f"{mode}_prepass", got, want, q.shape)
+                library_ms = None
+                extra = {"sdpa_bf16_ms": sdpa_ms, "prepass_ms": prep.per_shape[-1]["ms"],
+                         "prepass_device_ms": dev_ms}
+                del got, want
+            out, ref = times.add(shape, kernel_bound(kind, batch, n, d),
                                  lambda: kernel(q, k, v), lambda: plain(q, k, v), library_ms,
                                  count=count, extra=extra)
             check_close(kind, "o", out, ref, FLASH_ATOL, FLASH_RTOL, q.shape, errs)
         rows[kind] = times.row(errs[kind], "opt-in forward")
+        if prep is not None:
+            rows[prep.kind] = prep.row(0.0, "opt-in forward")
 
     # the stem per opt-in batch: the RGB and the event stem at batch 16; the
     # yardstick is cuDNN's channels_last bf16 conv with the affine folded in
@@ -1014,6 +1153,8 @@ _COUNTERS = {"flash_fwd": ("flash_attention", "flash_fwd_launches"),
              "flash_fwd_bf16exp": ("flash_attention", "flash_fwd_bf16exp_launches"),
              "flash_int8_qk": ("flash_attention", "flash_int8_qk_launches"),
              "flash_int8": ("flash_attention", "flash_int8_launches"),
+             "int8_qk_prepass": ("flash_attention", "int8_qk_prepass_launches"),
+             "int8_prepass": ("flash_attention", "int8_prepass_launches"),
              "stem": ("stem", "stem_launches")}
 
 
@@ -1206,21 +1347,25 @@ def main(argv=None) -> None:
 
     parser = argparse.ArgumentParser(description="On-card smoke test of frn_tpu_torch.")
     parser.add_argument("--other-source", metavar="CU_SOURCE", action="append", default=[],
-                        help="another revision's csrc/flash_attention.cu or "
-                             "csrc/flash_attention_bwd.cu (its headers beside it), built and its "
-                             "entry points timed in turns with this revision's; repeatable")
+                        help="another revision's csrc/flash_attention.cu, "
+                             "csrc/flash_attention_bwd.cu or csrc/flash_attention_int8.cu (its "
+                             "headers beside it), built and its entry points timed in turns with "
+                             "this revision's; repeatable")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
     phase_environment()
     others = build_others(args.other_source) if args.other_source else {}
     rows = {"flash_fwd": phase_flash_kernel(), **phase_flash_backward()}
-    forwards = {src: lib for src, lib in others.items() if Path(src).name == "flash_attention.cu"}
-    if forwards:
-        phase_other_forwards(forwards)
-    if len(forwards) < len(others):
-        phase_other_backwards({src: lib for src, lib in others.items() if src not in forwards})
+    by_name = {name: {src: lib for src, lib in others.items() if Path(src).name == name}
+               for name in ("flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_int8.cu")}
+    if by_name["flash_attention.cu"]:
+        phase_other_forwards(by_name["flash_attention.cu"])
+    if by_name["flash_attention_bwd.cu"]:
+        phase_other_backwards(by_name["flash_attention_bwd.cu"])
     rows.update(phase_optin_kernels())
+    if by_name["flash_attention_int8.cu"]:
+        phase_other_int8(by_name["flash_attention_int8.cu"])
     fn, rgb, event, main_ms, main_out = phase_main_path(rows)
     phase_breakdown(fn, rgb, event)
     profile_pass(f"profile: one inference batch of {MAIN_BATCH}", lambda: fn(rgb, event), main_ms,

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the flash-attention forward and
 // backward: a ring of asynchronously filled tiles in shared memory (K and V,
 // or in the dK/dV kernel Q and dO; by cp.async, or by TMA with mbarriers),
-// ldmatrix fragment loads, ex2, and warpgroup matrix multiplies (wgmma) with
-// A in registers.
+// ldmatrix fragment loads, ex2, and warpgroup matrix multiplies (wgmma, bf16
+// and s8) with A in registers.
 //
 // Every tile is kTile rows x D bf16, row-major ([key][d] or [query][d]), in the layout
 // that wgmma's swizzled canonical forms expect: the 16-byte chunk c of row r
@@ -12,6 +12,9 @@
 // unswizzled. The swizzle is a function of the shared-memory address, so each
 // tile starts on a 1024-byte boundary. The same layout makes every 8x8
 // ldmatrix read (8 rows of one chunk) touch 8 distinct 16-byte bank groups.
+// The int8 forward's tiles follow the same rule by their row width in bytes:
+// a [kTile][32] int8 K tile takes the 32-byte swizzle, [kTile][64] and the
+// transposed [D][kTile] int8 V tile the 64-byte one.
 
 #pragma once
 
@@ -127,13 +130,24 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
-// Host: the tensor map of a contiguous (batch, n, D) bf16 tensor whose box is
-// one [kTile][D] tile of one batch, written by TMA in the swizzled tile layout
-// above (D = 32: 64-byte swizzle, D = 64: 128-byte); rows past n read as
-// zeros. Returns 0 or a CUDA error code.
-template <int D>
-inline int encode_tile_map(CUtensorMap* map, const void* base, int batch, int n) {
-  static_assert(D == 32 || D == 64, "TMA tiles are 32 or 64 wide");
+// the TMA swizzle that writes a tile of kRowBytes-wide rows (32, 64 or 128
+// bytes: one swizzle atom per row) in the layout above
+template <int kRowBytes>
+constexpr CUtensorMapSwizzle tma_swizzle() {
+  static_assert(kRowBytes == 32 || kRowBytes == 64 || kRowBytes == 128,
+                "swizzled rows are 32, 64 or 128 bytes");
+  return kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+         : kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+// Host: the tensor map of a contiguous (batch, rows, row_elems) tensor of
+// `type` (elem_bytes each) whose box is [box_rows][kRowBytes / elem_bytes] of
+// one batch, written by TMA in the swizzled tile layout of kRowBytes-wide
+// rows; rows past `rows` read as zeros. Returns 0 or a CUDA error code.
+template <int kRowBytes>
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                      const void* base, int batch, int rows, int row_elems, int box_rows) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -149,15 +163,25 @@ inline int encode_tile_map(CUtensorMap* map, const void* base, int batch, int n)
     return reinterpret_cast<Encode>(fn);
   }();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const cuuint64_t dims[3] = {D, static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[2] = {2 * D, static_cast<cuuint64_t>(n) * 2 * D};  // bytes, dims 1, 2
-  const cuuint32_t box[3] = {D, kTile, 1};
+  const cuuint64_t row = static_cast<cuuint64_t>(row_elems) * elem_bytes;  // bytes
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(row_elems), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {row, static_cast<cuuint64_t>(rows) * row};  // bytes, dims 1, 2
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kRowBytes / elem_bytes),
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t steps[3] = {1, 1, 1};
-  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-                             dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                             D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+  const CUresult rc = encode(map, type, 3, const_cast<void*>(base), dims, strides, box, steps,
+                             CU_TENSOR_MAP_INTERLEAVE_NONE, tma_swizzle<kRowBytes>(),
                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Host: the tensor map of a contiguous (batch, n, D) bf16 tensor whose box is
+// one [kTile][D] tile of one batch (D = 32: 64-byte swizzle, D = 64: 128-byte).
+template <int D>
+inline int encode_tile_map(CUtensorMap* map, const void* base, int batch, int n) {
+  static_assert(D == 32 || D == 64, "TMA tiles are 32 or 64 wide");
+  return encode_map<2 * D>(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, batch, n, D, kTile);
 }
 
 // ------------------------------------------------------------ the TMA ring
@@ -256,6 +280,21 @@ __device__ __forceinline__ void wgmma_wait() {
 // across the asynchronous products
 __device__ __forceinline__ void fence_reg(float& x) { asm volatile("" : "+f"(x)::"memory"); }
 
+// Shared-memory matrix descriptor of a swizzled tile of kRowBytes-wide rows
+// (32, 64 or 128 bytes, one swizzle atom wide), K-major along its rows or
+// MN-major through the transpose bit: groups of 8 rows are 8 * kRowBytes
+// apart; the other offset is unused (1, as CUTLASS sets it). The layout field
+// is 1 for the 128-byte swizzle, 2 for 64-byte, 3 for 32-byte.
+template <int kRowBytes>
+__device__ __forceinline__ uint64_t swizzled_desc(const void* tile) {
+  static_assert(kRowBytes == 32 || kRowBytes == 64 || kRowBytes == 128,
+                "swizzled rows are 32, 64 or 128 bytes");
+  constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  constexpr uint64_t kSbo = (8 * kRowBytes) >> 4;
+  return static_cast<uint64_t>((smem_addr(tile) & 0x3ffff) >> 4) | (uint64_t{1} << 16) |
+         (kSbo << 32) | (kLayout << 62);
+}
+
 // Shared-memory matrix descriptor of a swizzled [kTile][D] tile (D = 32: 64-byte
 // swizzle, D = 64: 128-byte), for both uses: as the K-major B of Q K^T (K
 // contiguous along d) and as the MN-major B of P V (V contiguous along d, the
@@ -265,10 +304,7 @@ __device__ __forceinline__ void fence_reg(float& x) { asm volatile("" : "+f"(x):
 template <int D>
 __device__ __forceinline__ uint64_t tile_desc(const __nv_bfloat16* tile) {
   static_assert(D == 32 || D == 64, "wgmma tiles are 32 or 64 wide");
-  constexpr uint64_t kSwizzle = D == 64 ? 1 : 2;  // 1: 128-byte, 2: 64-byte
-  constexpr uint64_t kSbo = (8 * 2 * D) >> 4;
-  return static_cast<uint64_t>((smem_addr(tile) & 0x3ffff) >> 4) | (uint64_t{1} << 16) |
-         (kSbo << 32) | (kSwizzle << 62);
+  return swizzled_desc<2 * D>(tile);
 }
 
 // c (64 x 64 f32, the warpgroup's accumulator: c[j] = columns 8j..8j+7 in the
@@ -318,6 +354,59 @@ __device__ __forceinline__ void wgmma_m64k16(float (&c)[J][4], const uint32_t (&
   } else {
     static_assert(J == 4, "wgmma widths 32 and 64 only");
     wgmma_m64n32k16<kTransB>(c, a, b, accumulate);
+  }
+}
+
+// ------------------------------------------------------------ int8 wgmma
+
+__device__ __forceinline__ void fence_reg(int& x) { asm volatile("" : "+r"(x)::"memory"); }
+
+// c (64 x 64 s32, laid out as the f32 accumulator above) (+)= a (64 x 32 s8
+// in registers: this warp's m16n8k32 A fragment, register i holding 4 bytes)
+// * b (32 x 64 s8 from shared memory). 8-bit operands are K-major only: there
+// is no transpose bit.
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int (&c)[8][4], const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(c[0][0]), "+r"(c[0][1]), "+r"(c[0][2]), "+r"(c[0][3]), "+r"(c[1][0]), "+r"(c[1][1]),
+        "+r"(c[1][2]), "+r"(c[1][3]), "+r"(c[2][0]), "+r"(c[2][1]), "+r"(c[2][2]), "+r"(c[2][3]),
+        "+r"(c[3][0]), "+r"(c[3][1]), "+r"(c[3][2]), "+r"(c[3][3]), "+r"(c[4][0]), "+r"(c[4][1]),
+        "+r"(c[4][2]), "+r"(c[4][3]), "+r"(c[5][0]), "+r"(c[5][1]), "+r"(c[5][2]), "+r"(c[5][3]),
+        "+r"(c[6][0]), "+r"(c[6][1]), "+r"(c[6][2]), "+r"(c[6][3]), "+r"(c[7][0]), "+r"(c[7][1]),
+        "+r"(c[7][2]), "+r"(c[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate)
+      : "memory");
+}
+
+// the same with 32 columns
+__device__ __forceinline__ void wgmma_m64n32k32_s8(int (&c)[4][4], const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(c[0][0]), "+r"(c[0][1]), "+r"(c[0][2]), "+r"(c[0][3]), "+r"(c[1][0]), "+r"(c[1][1]),
+        "+r"(c[1][2]), "+r"(c[1][3]), "+r"(c[2][0]), "+r"(c[2][1]), "+r"(c[2][2]), "+r"(c[2][3]),
+        "+r"(c[3][0]), "+r"(c[3][1]), "+r"(c[3][2]), "+r"(c[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate)
+      : "memory");
+}
+
+// c (64 x 8J s32) (+)= a * b for 8J = 32 or 64 columns, by the accumulator's width
+template <int J>
+__device__ __forceinline__ void wgmma_m64k32_s8(int (&c)[J][4], const uint32_t (&a)[4], uint64_t b,
+                                                int accumulate) {
+  if constexpr (J == 8) {
+    wgmma_m64n64k32_s8(c, a, b, accumulate);
+  } else {
+    static_assert(J == 4, "wgmma widths 32 and 64 only");
+    wgmma_m64n32k32_s8(c, a, b, accumulate);
   }
 }
 

@@ -12,10 +12,11 @@ All tensors are (B, N, d) with Q = phi, K = theta, V = g, and there is no
 * ``csrc/flash_attention_bwd.cu``: with P = exp(Q K^T - lse) and
   D = rowsum(dO * O) in f32, the dQ kernel computes dS = P * (dO V^T - D) and
   dQ = dS K, the dK/dV kernel dK = dS^T Q and dV = P^T dO;
-* ``csrc/flash_attention_int8.cu``: per-slice dynamic int8 quantization
-  (``quantize_int8``, plain torch before the launch), S = int32(Qi Ki^T) *
-  sq * sk / 127^2, and PV in bf16 (mode 'int8_qk') or, on p_q = round(127 p)
-  and int8 V, in int8 (mode 'int8').
+* ``csrc/flash_attention_int8.cu``: per-slice dynamic int8 quantization (a
+  pre-pass kernel before the launch, ``int8_prepass``; its plain version is
+  ``int8_kernel_inputs``), S = int32(Qi Ki^T) * sq * sk / 127^2, and PV in
+  bf16 (mode 'int8_qk') or, on p_q = round(127 p) and int8 V, in int8 (mode
+  'int8').
 
 The kernels are Hopper CUDA C++ for bf16 and d in HEAD_DIMS, built at first use
 and bound with ctypes (``frn_tpu_torch/build.py``). Each wrapper launches its
@@ -46,6 +47,9 @@ flash_bwd_dkv_launches = 0
 flash_fwd_bf16exp_launches = 0
 flash_int8_qk_launches = 0
 flash_int8_launches = 0
+int8_qk_prepass_launches = 0  # the int8 kernel's quantization pre-pass, by mode
+int8_prepass_launches = 0
+INT8_PARTIALS = 32  # the pre-pass's partial maxima per batch slice (kPartials in the source)
 _lib = None  # csrc/flash_attention.cu
 _bwd_lib = None  # csrc/flash_attention_bwd.cu
 _int8_lib = None  # csrc/flash_attention_int8.cu
@@ -85,13 +89,22 @@ def _bwd_library() -> ctypes.CDLL:
     return _bwd_lib
 
 
+def bind_int8(lib):
+    """The same for ``csrc/flash_attention_int8.cu``: the kernel and its
+    quantization pre-pass (an earlier revision without the pre-pass binds the
+    kernel alone)."""
+    lib.frn_flash_int8.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+    lib.frn_flash_int8.restype = _I
+    if hasattr(lib, "frn_flash_int8_prepass"):
+        lib.frn_flash_int8_prepass.argtypes = [_P] * 9 + [_I] * 5 + [_P]
+        lib.frn_flash_int8_prepass.restype = _I
+    return lib
+
+
 def _int8_library() -> ctypes.CDLL:
     global _int8_lib
     if _int8_lib is None:
-        lib = build.load("flash_attention_int8")
-        lib.frn_flash_int8.argtypes = [_P] * 6 + [_I] * 5 + [_P]
-        lib.frn_flash_int8.restype = _I
-        _int8_lib = lib
+        _int8_lib = bind_int8(build.load("flash_attention_int8"))
     return _int8_lib
 
 
@@ -161,10 +174,12 @@ def flash_attention_bf16exp_plain(q, k, v, block_k: int = KERNEL_TILE) -> torch.
 def quantize_int8(x: torch.Tensor):
     """Dynamic symmetric int8 quantization per batch slice, as the JAX
     package's pre-pass: s = max|x| over (N, d), at least 1e-30, and
-    xi = round(x * (127 / s)) (ties to even). Returns (xi int8, s (B,) f32)."""
+    xi = round(x * (127 / s)) (ties to even), 127 / s an IEEE f32 division
+    (torch computes ``127.0 / s`` as 127 * (1 / s), which is one ulp off a
+    quarter of the time). Returns (xi int8, s (B,) f32)."""
     xf = x.float()
     s = xf.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-30)
-    return torch.round(xf * (127.0 / s)).to(torch.int8), s[:, 0, 0]
+    return torch.round(xf * (torch.full_like(s, 127.0) / s)).to(torch.int8), s[:, 0, 0]
 
 
 def quantize_qk(q: torch.Tensor, k: torch.Tensor):
@@ -410,13 +425,45 @@ def int8_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mode: 
     return qi, ki, int8_v_layout(vi), scale, sv
 
 
+def int8_prepass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mode: str):
+    """The int8 kernel's inputs, as ``int8_kernel_inputs`` returns them: on
+    CUDA the pre-pass kernel (two launches: partial maxima per batch slice,
+    then the quantization into the kernel's layouts), bitwise equal to
+    ``int8_kernel_inputs``, which is its plain version and runs on CPU."""
+    global int8_qk_prepass_launches, int8_prepass_launches
+    _check_mode(mode)
+    _check_shapes(q, k, v)
+    if not _on_kernel_device(q):
+        return int8_kernel_inputs(q, k, v, mode)
+    _check_kernel_args(q, ("q", q, _BF16), ("k", k, _BF16), ("v", v, _BF16))
+    b, n, d = q.shape
+    full = mode == "int8"
+    n_pad = -(-n // KERNEL_TILE) * KERNEL_TILE
+    dev = q.device
+    qi = torch.empty((b, n, d), dtype=torch.int8, device=dev)
+    ki = torch.empty_like(qi)
+    vk = torch.empty((b, d, n_pad), dtype=torch.int8, device=dev) if full else v
+    scale = torch.empty((b,), dtype=_F32, device=dev)
+    v_scale = torch.empty((b,), dtype=_F32, device=dev) if full else None
+    if not qi.numel():
+        return qi, ki, vk, scale, v_scale
+    partial = torch.empty((3 if full else 2, b, INT8_PARTIALS), dtype=torch.int32, device=dev)
+    _launch(_int8_library().frn_flash_int8_prepass, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            partial.data_ptr(), qi.data_ptr(), ki.data_ptr(), vk.data_ptr() if full else None,
+            scale.data_ptr(), v_scale.data_ptr() if full else None, b, n, n_pad, d, int(full))
+    if full:
+        int8_prepass_launches += 1
+    else:
+        int8_qk_prepass_launches += 1
+    return qi, ki, vk, scale, v_scale
+
+
 def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          mode: str = "int8") -> torch.Tensor:
     """softmax(q k^T) v with int8 quantization, mode 'int8_qk' or 'int8', (B,
-    N, d) bf16 in and out: the quantization pre-pass in torch (per batch
-    slice, ``int8_kernel_inputs``), then the int8 kernel on CUDA;
-    ``flash_attention_int8_plain`` on CPU. Inference only: on CUDA an input
-    that requires grad raises."""
+    N, d) bf16 in and out: on CUDA the pre-pass kernel (``int8_prepass``),
+    then the int8 kernel; ``flash_attention_int8_plain`` on CPU. Inference
+    only: on CUDA an input that requires grad raises."""
     global flash_int8_qk_launches, flash_int8_launches
     _check_mode(mode)
     _check_shapes(q, k, v)
@@ -428,7 +475,7 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     if not o.numel():
         return o
-    qi, ki, vk, scale, v_scale = int8_kernel_inputs(q, k, v, mode)
+    qi, ki, vk, scale, v_scale = int8_prepass(q, k, v, mode)
     full = mode == "int8"
     _launch(_int8_library().frn_flash_int8, q, qi.data_ptr(), ki.data_ptr(), vk.data_ptr(),
             scale.data_ptr(), None if v_scale is None else v_scale.data_ptr(), o.data_ptr(),

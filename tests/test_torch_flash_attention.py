@@ -175,6 +175,8 @@ def test_plain_backward_is_finite_where_lse_is_below_minus_88():
     ("flash_attention", fa.bind_forward, "frn_flash_fwd_bf16exp_bf16"),
     ("flash_attention_bwd", fa.bind_backward, "frn_flash_bwd_dq_bf16"),
     ("flash_attention_bwd", fa.bind_backward, "frn_flash_bwd_dkv_bf16"),
+    ("flash_attention_int8", fa.bind_int8, "frn_flash_int8"),
+    ("flash_attention_int8", fa.bind_int8, "frn_flash_int8_prepass"),
 ])
 def test_entry_points_take_the_arguments_ctypes_declares(source, bind, name):
     # ctypes passes what argtypes declares, so a C signature that gains or
@@ -185,7 +187,7 @@ def test_entry_points_take_the_arguments_ctypes_declares(source, bind, name):
     want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
     assert all("*" in p or p.split()[0] == "int" for p in params)
     names = ("frn_flash_fwd_bf16", "frn_flash_fwd_bf16exp_bf16", "frn_flash_bwd_dq_bf16",
-             "frn_flash_bwd_dkv_bf16")
+             "frn_flash_bwd_dkv_bf16", "frn_flash_int8", "frn_flash_int8_prepass")
     lib = bind(types.SimpleNamespace(**{n: types.SimpleNamespace() for n in names}))
     assert getattr(lib, name).argtypes == want
     assert getattr(lib, name).restype is ctypes.c_int

@@ -11,6 +11,7 @@ at bf16 1e-2 (both sum in f32 and round once, so at most a bf16 ulp apart).
 """
 
 import importlib
+import re
 
 import numpy as np
 import pytest
@@ -32,6 +33,16 @@ from frn_tpu_torch.ops import flash_attention as fa
 from frn_tpu_torch.ops import stem
 
 RNG = np.random.default_rng(31)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The suite runs in several processes at once; torch's default of one
+    intra-op thread per core in each of them oversubscribes the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _inputs(b, n, d, seed):
@@ -83,12 +94,18 @@ def test_bf16exp_plain_rounds_the_weights_to_bf16_for_bf16_values():
 
 
 @pytest.mark.parametrize("mode", fa.INT8_MODES)
-@pytest.mark.parametrize("b,n,d", [(2, 330, 32), (1, 300, 16), (2, 131, 64)])
-def test_int8_plain_matches_pallas_kernel(mode, b, n, d):
+@pytest.mark.parametrize("b,n,d,block", [
+    pytest.param(2, 330, 32, 128, id="2-330-32"), pytest.param(1, 300, 16, 128, id="1-300-16"),
+    pytest.param(2, 131, 64, 128, id="2-131-64"),
+    # the kernels' key tile (KERNEL_TILE), on which mode 'int8' depends through
+    # its running max: ragged last tiles at d 32 and 64, one partial tile, an
+    # exact fit
+    (2, 131, 32, 64), (1, 200, 64, 64), (2, 40, 32, 64), (1, 128, 64, 64)])
+def test_int8_plain_matches_pallas_kernel(mode, b, n, d, block):
     q, k, v = _inputs(b, n, d, seed=56)
     want = np.asarray(_flash_forward_int8(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mode=mode,
-                                          block_q=128, block_k=128, interpret=True))
-    got = fa.flash_attention_int8_plain(*_t(q, k, v), mode, block_k=128).numpy()
+                                          block_q=128, block_k=block, interpret=True))
+    got = fa.flash_attention_int8_plain(*_t(q, k, v), mode, block_k=block).numpy()
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
 
 
@@ -118,21 +135,30 @@ def test_int8_qk_exact_when_inputs_representable():
 
 
 def test_quantize_int8_matches_the_jax_pre_pass():
-    x = RNG.normal(0, 3, (3, 50, 16)).astype(np.float32)
+    # 64 slices of 16,000 values: enough that a 127 / s one ulp off JAX's
+    # division (torch's 127.0 / s is 127 * (1 / s)) moves some x * (127 / s)
+    # across a rounding boundary
+    x = np.random.default_rng(5).normal(0, 3, (64, 500, 32)).astype(np.float32)
     x[1] = 0.0  # an all-zero slice keeps the 1e-30 floor
     xf = jnp.asarray(x)
     s = jnp.maximum(jnp.max(jnp.abs(xf), axis=(1, 2), keepdims=True), 1e-30)
     want = np.asarray(jnp.round(xf * (127.0 / s)).astype(jnp.int8))
     got, scale = fa.quantize_int8(torch.tensor(x))
-    assert got.dtype == torch.int8 and scale.shape == (3,)
+    assert got.dtype == torch.int8 and scale.shape == (64,)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(scale.numpy(), np.asarray(s)[:, 0, 0])
+    # the test's data does tell the two divisions apart
+    st = torch.tensor(np.asarray(s))
+    assert not torch.equal(torch.round(torch.tensor(x) * (127.0 / st)).to(torch.int8), got)
 
 
 def test_int8_pv_key_order_follows_the_fragment_layouts():
-    # the QK^T C fragment gives thread t keys 2t, 2t+1 of each 8-key tile; the
-    # m16n8k32 A register a0 (a2) holds slots 4t..4t+3 (16+4t..16+4t+3), byte j
-    # = slot + j; the kernel packs a0 from tiles 0 and 1, a2 from tiles 2 and 3
+    # the QK^T accumulator (mma.sync m16n8k32 C, and wgmma m64nNk32 s32 per
+    # warp: the same layout) gives thread t keys 2t, 2t+1 of each 8-key tile;
+    # the 8-bit A register a0 (a2) of mma.sync m16n8k32 and of wgmma
+    # m64nNk32 (per warp, the same figure in the PTX ISA) holds slots 4t..4t+3
+    # (16+4t..16+4t+3), byte j = slot + j; the kernel packs a0 from tiles 0 and
+    # 1, a2 from tiles 2 and 3
     order = [None] * 32
     for t in range(4):
         for half in range(2):
@@ -142,6 +168,93 @@ def test_int8_pv_key_order_follows_the_fragment_layouts():
                 order[16 * half + 4 * t + j] = key
     assert order == fa._PV_KEY_ORDER
     assert sorted(order) == list(range(32))
+    # the pre-pass kernel's inverse (csrc/flash_attention_int8.cu,
+    # int8_quantize): the slot of key r of a 64-key tile
+    for r in range(64):
+        slot = 32 * (r >> 5) + 16 * ((r >> 4) & 1) + 4 * ((r >> 1) & 3) + 2 * ((r >> 3) & 1) + (r & 1)
+        assert 32 * (slot // 32) + fa._PV_KEY_ORDER[slot % 32] == r
+    src = (build.CSRC / "flash_attention_int8.cu").read_text()
+    assert ("32 * (r >> 5) + 16 * ((r >> 4) & 1) + 4 * ((r >> 1) & 3) + 2 * ((r >> 3) & 1) + "
+            "(r & 1)") in " ".join(src.split())
+
+
+def test_int8_prepass_scratch_matches_the_source():
+    # the wrapper allocates INT8_PARTIALS partial maxima per slice; the
+    # pre-pass kernel writes and reads kPartials of them
+    src = (build.CSRC / "flash_attention_int8.cu").read_text()
+    assert re.search(r"constexpr int kPartials = (\d+);", src).group(1) == str(fa.INT8_PARTIALS)
+
+
+# the kernel's integer and float bit tricks, emulated in torch through the
+# same bit patterns (int32 <-> f32 views), over the whole range the kernel
+# feeds them
+_MAGIC = 0x4B400000  # the bits of 1.5 * 2^23
+_MAGIC_F = 12582912.0
+
+
+def test_int8_small_int_to_float_is_exact_below_2_22():
+    # float(s) = bits(s + 0x4B400000) - 1.5 * 2^23 for every |s| < 2^22; the
+    # scores are at most 64 * 127^2 = 1,032,256 in magnitude
+    s = torch.arange(-(2 ** 22) + 1, 2 ** 22, dtype=torch.int32)
+    got = (s + _MAGIC).view(torch.float32) - torch.tensor(_MAGIC_F, dtype=torch.float32)
+    assert torch.equal(got, s.float())
+    assert 64 * 127 ** 2 < 2 ** 22
+
+
+def _round_by_magic(x: torch.Tensor) -> torch.Tensor:
+    """fadd_rn(x, 1.5 * 2^23)'s bits less 0x4B400000: round(x), ties to even."""
+    return (x + torch.tensor(_MAGIC_F, dtype=torch.float32)).view(torch.int32) - _MAGIC
+
+
+def test_int8_round_by_magic_matches_torch_round_ties_included():
+    # every f32 x in [1/4, 128) (the binades where the fraction bits round),
+    # one bit pattern in 64 below 1/4, every tie k + 1/2 of [0, 127] and its
+    # neighbours: round(x) ties to even, as torch.round
+    lo, hi = int(np.float32(0.25).view(np.int32)), int(np.float32(128.0).view(np.int32))
+    for start in range(lo, hi, 1 << 23):
+        x = torch.arange(start, min(start + (1 << 23), hi), dtype=torch.int32).view(torch.float32)
+        assert torch.equal(_round_by_magic(x), torch.round(x).to(torch.int32))
+    x = torch.arange(0, lo, 64, dtype=torch.int32).view(torch.float32)
+    assert torch.equal(_round_by_magic(x), torch.round(x).to(torch.int32))
+    ties = torch.arange(0, 128, dtype=torch.float32) + 0.5
+    near = torch.cat([ties, torch.nextafter(ties, torch.tensor(0.0)),
+                      torch.nextafter(ties, torch.tensor(200.0))])
+    assert torch.equal(_round_by_magic(near), torch.round(near).to(torch.int32))
+    assert torch.equal(_round_by_magic(ties[:4]), torch.tensor([0, 2, 2, 4], dtype=torch.int32))
+
+
+def test_int8_p_q_by_magic_matches_the_plain_rounding():
+    # the kernel's p_q = bits(fadd_rn(127 p, 1.5 * 2^23)) less 0x4B400000
+    # against the plain torch.round(p * 127.0), for p in [0, 1] and the few
+    # ulps above 1 that an ex2 of a rounded exponent can give (the kernel
+    # takes 127 p from its ex2, log2(127) added to the exponent); the low
+    # byte of the bits is p_q, and a row's p_q sum is the sum of the bits
+    # modulo 2^32 less 16 * 0x4B400000 (a thread's 16 keys of a row per tile)
+    rng = np.random.default_rng(61)
+    p = np.concatenate([rng.random(1 << 20, dtype=np.float32),
+                        np.arange(128, dtype=np.float32) / 127.0,
+                        (np.arange(127, dtype=np.float32) + 0.5) / 127.0,
+                        1.0 + np.arange(16, dtype=np.float32) * np.float32(2 ** -23)])
+    p = torch.tensor(p)
+    x = p * 127.0
+    bits = _round_by_magic(x) + _MAGIC
+    want = torch.round(x)
+    assert torch.equal((bits - _MAGIC).float(), want) and int(want.max()) == 127
+    assert torch.equal(bits & 0xFF, want.to(torch.int32))
+    rows = bits[: (bits.numel() // 16) * 16].view(-1, 16).to(torch.int64)
+    sums = (rows.sum(dim=1) - 16 * _MAGIC) & 0xFFFFFFFF
+    assert torch.equal(sums, want[: rows.numel()].view(-1, 16).to(torch.int64).sum(dim=1))
+
+
+def test_int8_row_max_on_integer_scores():
+    # c > 0 and rounding is monotone: c * float(max(s)) is max(c * float(s))
+    # bitwise, so the kernel converts one integer max per row
+    rng = np.random.default_rng(62)
+    s = torch.tensor(rng.integers(-64 * 127 ** 2, 64 * 127 ** 2 + 1, (4096, 64)), dtype=torch.int32)
+    c = torch.tensor(np.exp(rng.uniform(-60, 10, (4096, 1))).astype(np.float32))
+    want = (s.float() * c).amax(dim=1)
+    got = c[:, 0] * s.amax(dim=1).float()
+    assert torch.equal(got, want)
 
 
 def test_int8_v_layout_transposes_orders_and_pads():
@@ -229,18 +342,23 @@ def test_cpu_wrappers_run_plain_versions_without_launch_or_build(monkeypatch):
     mod_fa, mod_stem = importlib.reload(fa), importlib.reload(stem)
     q, k, v = _t(*_inputs(2, 150, 16, seed=8))
     counts = (mod_fa.flash_fwd_bf16exp_launches, mod_fa.flash_int8_qk_launches,
-              mod_fa.flash_int8_launches, mod_stem.stem_launches)
+              mod_fa.flash_int8_launches, mod_fa.int8_qk_prepass_launches,
+              mod_fa.int8_prepass_launches, mod_stem.stem_launches)
     torch.testing.assert_close(mod_fa.flash_attention_bf16exp(q, k, v),
                                mod_fa.flash_attention_bf16exp_plain(q, k, v), atol=0, rtol=0)
     for mode in mod_fa.INT8_MODES:
         torch.testing.assert_close(mod_fa.flash_attention_int8(q, k, v, mode),
                                    mod_fa.flash_attention_int8_plain(q, k, v, mode), atol=0, rtol=0)
+        for got, want in zip(mod_fa.int8_prepass(q, k, v, mode),
+                             mod_fa.int8_kernel_inputs(q, k, v, mode)):
+            assert (got is None and want is None) or torch.equal(got, want)
     args = [torch.tensor(a) for a in _oracle_inputs((1, 16, 24, 5), 64)]
     x, w = args[0].permute(0, 3, 1, 2), args[1].permute(3, 2, 0, 1)
     torch.testing.assert_close(mod_stem.stem_conv_bn_relu(x, w, *args[2:]),
                                mod_stem.stem_conv_bn_relu_plain(x, w, *args[2:]), atol=0, rtol=0)
     assert counts == (mod_fa.flash_fwd_bf16exp_launches, mod_fa.flash_int8_qk_launches,
-                      mod_fa.flash_int8_launches, mod_stem.stem_launches)
+                      mod_fa.flash_int8_launches, mod_fa.int8_qk_prepass_launches,
+                      mod_fa.int8_prepass_launches, mod_stem.stem_launches)
     assert mod_fa._lib is None and mod_fa._int8_lib is None and mod_stem._lib is None
 
 
