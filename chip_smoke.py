@@ -4,19 +4,21 @@
     python3 chip_smoke.py          # one CUDA card; exits non-zero on any failure
     python3 chip_smoke.py --other-source OLD/csrc/flash_attention.cu \
                           --other-source OLD/csrc/flash_attention_bwd.cu \
-                          --other-source OLD/csrc/flash_attention_int8.cu
+                          --other-source OLD/csrc/flash_attention_int8.cu \
+                          --other-source OLD/csrc/stem.cu
                                    # the same, and another revision's kernels timed beside
 
 Phases:
   1. environment and build: the card's name and power limit, then every CUDA
      kernel of the port built from ``frn_tpu_torch/csrc`` (one nvcc each, in
-     parallel), with each flash kernel instance's registers and spills (the
-     path's wgmma instances of the forward, the backward and the int8
-     forward must each be there, and may not spill);
+     parallel), with each kernel instance's registers and spills (the
+     path's wgmma instances of the forward, the backward, the int8 forward
+     and the stem must each be there, and may not spill);
   2. each kernel against its plain PyTorch version on the card, at the shapes
      of its path (the forward; the forward with lse and the dQ and dK/dV
      backward kernels, ragged N and head dims 8 and 16 included, and the
-     kernels' block edges: N 40 at every head dim, 128, 129 and 4,800), then
+     kernels' block edges: N 40 at every head dim, 128, 129 and 4,800; the
+     forward's lse also in its mean gap, MEAN_LSE_ATOL), then
      timed (CUDA events) at its path's batch beside its bound and a one-call
      PyTorch yardstick (``library_ms``, never used by the port), the timed
      runs' outputs held against each other; with ``--other-source``, each
@@ -43,21 +45,26 @@ Phases:
      train step on the card against the CPU;
   5. the opt-in inference kernels (the bf16-exp forward, the int8 forward in
      both modes, the fused stem) against their plain versions at the same
-     check shapes (the stem at C 3 and 5, DSEC and DDD17 sizes), and the
+     check shapes (the stem at C 3 and 5, DSEC and DDD17 sizes, a tiny image
+     and a ragged last 64-pixel tile), and the
      int8 forward's quantization pre-pass kernel bitwise against its plain
      version there, then timed at the opt-in path's batches beside their
      bounds, their plain versions and a PyTorch yardstick; with
      ``--other-source``, another revision's int8 forward (after the torch
      pre-pass, as its wrapper ran it) timed in turns with this revision's,
-     whole and kernel alone; run before phase 3, and phase 3 asserts that the
-     default path launches none of them;
+     whole and kernel alone, and another revision's stem timed in turns with
+     this revision's at the opt-in batch; run before phase 3, and phase 3
+     asserts that the default path launches none of them;
   6. the opt-in inference path through ``entry(..., **ModelConfig fields)``
      at batch 16 in three configurations: stem kernel + bf16-exp; int8_qk;
      int8 + fused attention. Each: ms per batch and img/s over 5 batches,
      launch counts zeroed just before and read just after, finite
-     detections, logits and deltas against the same model with each kernel
-     swapped for its plain version, and (printed, not gated) against the
-     default path's; a torch.profiler pass over one batch;
+     detections, the stem's output on the batch's own inputs against its
+     plain version, logits and deltas against the same model with the
+     attention kernels swapped for their plain versions, and (printed, not
+     gated) against the model with every kernel swapped and against the
+     default path's, beside a witness of what the stem's one-ulp differences
+     alone do to the all-plain model; a torch.profiler pass over one batch;
   7. one JSON line listing the kernels, then the last line
      {"ok": true, "device": {...}}.
 
@@ -98,6 +105,13 @@ MAIN_BATCH, MAIN_TIMED = 16, 5
 # lse of the kernel vs the plain version (f32): __expf against exp and another
 # summation order move the log of the denominator by about 1e-5
 LSE_ATOL = 1e-3
+# mean |lse gap| of B1-lse (B1's instances) against the plain version. Both sum
+# the bf16-rounded p into the denominator, as frn_tpu's ones lane does, from
+# the same scores and exp2 argument: what is left (ex2.approx against exp2,
+# summation order) came to 1e-7 to 2.4e-7 on an H100. Summing the f32 p, as
+# the port did before, leaves each row's denominator off by the sum of its
+# p's rounding errors: 1.1e-4 to 3.5e-4 there
+MEAN_LSE_ATOL = 2e-5
 # backward kernels vs plain versions on bf16 outputs: both round P and dS to
 # bf16 before their products, but a P or dS can land one bf16 ulp apart
 # (__expf against exp), and such differences add up over the N keys or
@@ -144,16 +158,17 @@ KERNEL_SOURCES = {
     "stem": ("frn_tpu_torch/csrc/stem.cu", "frn_tpu/ops/stem.py:71"),
 }
 TRAIN_KERNELS = ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
-# the path's wgmma instances of each flash source, as (kernel, its first
-# template arguments): the forward at d 32 and 64, with and without exp_bf16;
-# the dQ and dK/dV kernels at d 32 and 64; the int8 forward at d 32 and 64 in
-# modes int8_qk (0) and int8 (1). Phase 1 fails unless each is in the
-# compiler's log once, unspilled
+# the path's wgmma instances of each source, as (kernel, its first template
+# arguments): the forward at d 32 and 64, with and without exp_bf16; the dQ
+# and dK/dV kernels at d 32 and 64; the int8 forward at d 32 and 64 in modes
+# int8_qk (0) and int8 (1); the stem at C 3 and 5. Phase 1 fails unless each
+# is in the compiler's log once, unspilled
 PATH_INSTANCES = {
     "flash_attention": [("flash_fwd_wgmma", d, e) for d in (32, 64) for e in (0, 1)],
     "flash_attention_bwd": [(kernel, d) for kernel in ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
                             for d in (32, 64)],
     "flash_attention_int8": [("flash_int8_wgmma", d, f) for d in (32, 64) for f in (0, 1)],
+    "stem": [("stem_wgmma", c) for c in (3, 5)],
 }
 OPTIN_KERNELS = ("flash_fwd_bf16exp", "flash_int8_qk", "flash_int8", "int8_qk_prepass",
                  "int8_prepass", "stem")
@@ -179,8 +194,15 @@ OPTIN_CONFIGS = (
 # and round once, so an output can land one bf16 ulp (relative 2^-8 to
 # 2^-7) apart
 STEM_ATOL, STEM_RTOL = 1e-2, 1e-2
-# the stem at DSEC and DDD17 sizes, B 2, C 3 (RGB) and 5 (event voxels)
-STEM_CHECK_SHAPES = ((2, 480, 640, 3), (2, 480, 640, 5), (2, 260, 346, 3), (2, 260, 346, 5))
+# a stem launch takes about 0.1 ms, and single timings of 10 or 50 of them
+# moved by up to 80% between two turns of one source: each stem timing is the
+# median of 9 timings of 10 launches
+STEM_WINDOWS = 9
+# the stem at DSEC and DDD17 sizes, B 2, C 3 (RGB) and 5 (event voxels); a
+# tiny image (3 output rows, W/2 = 5: one ragged tile), and W/2 = 131 (a
+# ragged third 64-pixel tile) over 3 images of 17 output rows
+STEM_CHECK_SHAPES = ((2, 480, 640, 3), (2, 480, 640, 5), (2, 260, 346, 3), (2, 260, 346, 5),
+                     (1, 6, 10, 3), (3, 34, 262, 5))
 
 
 def fail(msg: str) -> None:
@@ -188,19 +210,23 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2):
+def cuda_ms(fn, reps: int, warmup: int = 2, windows: int = 1):
     """(ms per call of ``fn`` over ``reps`` calls after ``warmup``, the last
-    call's result)."""
+    call's result); with ``windows`` > 1, the median of that many such
+    timings."""
     for _ in range(warmup):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps, out
+    times = []
+    for _ in range(windows):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times), out
 
 
 def device_ms(fn, kernel_names, reps: int = 10) -> float:
@@ -240,6 +266,16 @@ def check_close(kind: str, name: str, got, want, atol: float, rtol: float, shape
     if not torch.isfinite(got.float()).all() or bad.any():
         fail(f"{kind} ({name}) disagrees with its plain version at {at}")
     errs[kind] = max(errs.get(kind, 0.0), err.max().item())
+
+
+def check_mean_lse(kind: str, lse, lse_ref, shape) -> None:
+    """Fails unless B1-lse's mean |lse gap| to the plain version is within
+    MEAN_LSE_ATOL (the denominator's check: see MEAN_LSE_ATOL)."""
+    gap = (lse - lse_ref).abs().mean().item()
+    print(f"{kind} lse vs plain {_shape_text(shape)}: mean |gap| {gap:.3e} (at most "
+          f"{MEAN_LSE_ATOL:.1e})", flush=True)
+    if not gap <= MEAN_LSE_ATOL:
+        fail(f"{kind}: mean |lse gap| {gap:.3e} to the plain version at {_shape_text(shape)}")
 
 
 def check_backward(shape, dq, dkv, dq_ref, dkv_ref, errs: dict) -> None:
@@ -308,13 +344,15 @@ class KernelTimes:
         self.totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
         self.t_bytes = self.t_ops = 0.0
 
-    def add(self, shape: dict, bound, kernel, plain, library_ms, count: int = 2, extra=None):
-        """Times ``kernel`` and ``plain``; returns their last outputs.
-        ``bound``: (bytes time, operations time) of one launch; ``library_ms``
-        None where no PyTorch call computes the same function; ``extra``:
-        more times (ms) of this shape, summed like the others."""
+    def add(self, shape: dict, bound, kernel, plain, library_ms, count: int = 2, extra=None,
+            windows: int = 1):
+        """Times ``kernel`` (10 calls; the median of ``windows`` such timings)
+        and ``plain``; returns their last outputs. ``bound``: (bytes time,
+        operations time) of one launch; ``library_ms`` None where no PyTorch
+        call computes the same function; ``extra``: more times (ms) of this
+        shape, summed like the others."""
         t_bytes, t_ops = bound
-        ms, out = cuda_ms(kernel, reps=10)
+        ms, out = cuda_ms(kernel, reps=10, windows=windows)
         plain_ms, plain_out = cuda_ms(plain, reps=2, warmup=1)
         row = {**shape, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                **(extra or {}), "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -379,7 +417,7 @@ def phase_environment():
 
 
 def check_path_instances(name: str, log: str) -> None:
-    """Prints every flash kernel instance of ``name``'s compiler log with its
+    """Prints every kernel instance of ``name``'s compiler log with its
     registers and spills; fails unless each of PATH_INSTANCES[name] is there
     exactly once and none of them spills."""
     found = {key: [] for key in PATH_INSTANCES[name]}
@@ -400,7 +438,7 @@ def check_path_instances(name: str, log: str) -> None:
 
 def kernel_instances(log: str) -> dict:
     """{(kernel, template arguments...): (registers, spill store bytes, spill
-    load bytes)} of every flash kernel instance in an nvcc -Xptxas -v log
+    load bytes)} of every flash or stem kernel instance in an nvcc -Xptxas -v log
     (template arguments from the mangled name: ints, and bools as 0 or 1)."""
     import re
 
@@ -408,8 +446,8 @@ def kernel_instances(log: str) -> dict:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv|int8)_(?:mma|wgmma))I((?:L[ib]\d+E)+)E",
-                          entry.group(1))
+            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv|int8)_(?:mma|wgmma)|stem_wgmma)"
+                          r"I((?:L[ib]\d+E)+)E", entry.group(1))
             current = None if m is None else (
                 m.group(1), *(int(x) for x in re.findall(r"L[ib](\d+)E", m.group(2))))
             if current is not None:
@@ -475,6 +513,7 @@ def phase_flash_backward():
         o_ref, lse_ref = fa.flash_attention_plain(q, k, v, return_lse=True)
         check_close("flash_fwd_lse", "o", o, o_ref, FLASH_ATOL, FLASH_RTOL, shape, errs)
         check_close("flash_fwd_lse", "lse", lse, lse_ref, LSE_ATOL, 0.0, shape, errs)
+        check_mean_lse("flash_fwd_lse", lse, lse_ref, shape)
         # both backward versions get the same lse and D, from the plain forward
         delta = fa.attention_delta(o_ref, do)
         check_backward(shape, fa.flash_bwd_dq(q, k, v, do, lse_ref, delta),
@@ -504,6 +543,7 @@ def phase_flash_backward():
             lambda: fa.flash_attention_plain(q, k, v, return_lse=True), lib_fwd_ms)
         check_close("flash_fwd_lse", "o", o_k, o_p, FLASH_ATOL, FLASH_RTOL, q.shape, errs)
         check_close("flash_fwd_lse", "lse", lse_k, lse_p, LSE_ATOL, 0.0, q.shape, errs)
+        check_mean_lse("flash_fwd_lse", lse_k, lse_p, q.shape)
         del o_k, o_p, lse_k, lse_p
         dq, dq_ref = times["flash_bwd_dq"].add(
             shape, kernel_bound("flash_bwd_dq", TRAIN_BATCH, n, d),
@@ -523,21 +563,23 @@ def phase_flash_backward():
 
 def build_others(sources):
     """Builds other revisions' ``flash_attention.cu``,
-    ``flash_attention_bwd.cu`` or ``flash_attention_int8.cu`` (told apart by
-    file name, each with the headers beside it) by the port's nvcc flags into
+    ``flash_attention_bwd.cu``, ``flash_attention_int8.cu`` or ``stem.cu``
+    (told apart by file name, each with the headers beside it) by the port's
+    nvcc flags into
     the build directory, in parallel; returns {source: the loaded library,
     its entry points bound as this revision's wrappers bind them}."""
     import ctypes
 
     from frn_tpu_torch import build
     from frn_tpu_torch.ops import flash_attention as fa
+    from frn_tpu_torch.ops import stem
 
     binders = {"flash_attention.cu": fa.bind_forward, "flash_attention_bwd.cu": fa.bind_backward,
-               "flash_attention_int8.cu": fa.bind_int8}
+               "flash_attention_int8.cu": fa.bind_int8, "stem.cu": stem.bind_stem}
     for src in sources:
         if Path(src).name not in binders:
-            fail(f"--other-source takes a flash_attention.cu, flash_attention_bwd.cu or "
-                 f"flash_attention_int8.cu, not {src}")
+            fail(f"--other-source takes a flash_attention.cu, flash_attention_bwd.cu, "
+                 f"flash_attention_int8.cu or stem.cu, not {src}")
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
@@ -612,17 +654,35 @@ def other_int8(lib, q, inputs, mode: str):
     return o
 
 
+def other_stem(src, lib, x, w, scale, bias):
+    """The stem of a ``build_others`` library built from ``src``, called as
+    its wrapper calls it: torch's (F, C, 7, 7) weights, or (7, 7, C, F) where
+    its source says so (the revisions before the implicit GEMM). Uncounted,
+    as ``other_forward``."""
+    from frn_tpu_torch.ops import flash_attention as fa
+    from frn_tpu_torch.ops import stem
+
+    b, c, h, wd = x.shape
+    hwcf = "w: bf16 (7, 7, C, 64)" in Path(src).read_text()
+    wk = w.permute(2, 3, 1, 0).contiguous() if hwcf else w.contiguous()
+    out = torch.empty((b, h // 2, wd // 2, stem.STEM_FILTERS), dtype=x.dtype, device=x.device)
+    fa._launch(lib.frn_stem_conv_bn_relu, x, x.permute(0, 2, 3, 1).data_ptr(), wk.data_ptr(),
+               scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, wd, c)
+    return out.permute(0, 3, 1, 2)
+
+
 def time_in_turns(kind: str, shape: dict, runs: dict, check, per_step: dict,
-                  count: int = 2) -> None:
+                  count: int = 2, windows: int = 1) -> None:
     """Times ``runs`` ({source or 'this': fn}) in turns: the others, this
-    revision, this revision, the others reversed, 10 calls each (CUDA
-    events); ``check(label, out)`` holds each timed output against the plain
+    revision, this revision, the others reversed, 10 calls each (CUDA events;
+    the median of ``windows`` such timings); ``check(label, out)`` holds each
+    timed output against the plain
     version. Prints the row and adds ``count`` launches' mean (two: one per
     direction) to ``per_step[kind, name]``."""
     others = [name for name in runs if name != "this"]
     turns = {name: [] for name in runs}
     for name in others + ["this", "this"] + others[::-1]:
-        ms, out = cuda_ms(runs[name], reps=10)
+        ms, out = cuda_ms(runs[name], reps=10, windows=windows)
         turns[name].append(ms)
         check(f"{kind} {'this revision' if name == 'this' else name}", out)
         del out
@@ -645,7 +705,10 @@ def phase_other_forwards(others: dict) -> None:
     """This revision's forward entry points (B1, B1 with lse, B3) timed in
     turns with other revisions' (``build_others``) at the path's shapes and
     batches (B1 and B3 at MAIN_BATCH, B1-lse at TRAIN_BATCH). Each timed
-    output is held against the plain version."""
+    output is held against the plain version, B1-lse's lse only for this
+    revision: of every revision's, the largest and the mean |lse gap| and
+    the share of bf16 outputs that differ at all are printed (a revision
+    that sums the f32 p into the denominator shows here)."""
     from frn_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -667,11 +730,20 @@ def phase_other_forwards(others: dict) -> None:
             runs["this"] = this
 
             def check(label, out):
-                for part, got, ref, atol, rtol in (
-                        (("o", out[0], want[0], FLASH_ATOL, FLASH_RTOL),
-                         ("lse", out[1], want[1], LSE_ATOL, 0.0)) if with_lse else
-                        (("o", out, want, FLASH_ATOL, FLASH_RTOL),)):
-                    check_close(label, part, got, ref, atol, rtol, q.shape, errs)
+                o = out[0] if with_lse else out
+                check_close(label, "o", o, want[0] if with_lse else want, FLASH_ATOL, FLASH_RTOL,
+                            q.shape, errs)
+                if not with_lse:
+                    return
+                gap = (out[1] - want[1]).abs()
+                share = (out[0] != want[0]).float().mean().item()
+                print(f"denominator {label} {_shape_text(q.shape)}: lse max |gap| "
+                      f"{gap.max().item():.3e} ({int((gap > LSE_ATOL).sum())} rows over "
+                      f"{LSE_ATOL:.0e}), mean |gap| {gap.mean().item():.3e}; {share:.4%} of "
+                      f"the bf16 outputs differ from the plain version", flush=True)
+                if label.endswith("this revision"):  # another revision's lse is reported
+                    check_close(label, "lse", out[1], want[1], LSE_ATOL, 0.0, q.shape, errs)
+                    check_mean_lse(label, out[1], want[1], q.shape)
 
             time_in_turns(kind, {"B": batch, "N": n, "d": d}, runs, check, per_step)
     print_per_step(per_step)
@@ -747,6 +819,50 @@ def phase_other_int8(others: dict) -> None:
     print_per_step(per_step)
 
 
+def stem_inputs(gen, b, h, w, c):
+    """Seeded stem inputs on the card: channels_last bf16 x (B, C, H, W), bf16
+    weights (64, C, 7, 7) at unit gain, f32 scale in [0.5, 1.5) and bias."""
+    x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
+    wt = (torch.randn((64, c, 7, 7), generator=gen, device="cuda") / (49 * c) ** 0.5)
+    scale = torch.rand((64,), generator=gen, device="cuda") + 0.5
+    bias = torch.randn((64,), generator=gen, device="cuda") * 0.2
+    return x.permute(0, 3, 1, 2), wt.to(torch.bfloat16), scale, bias
+
+
+def phase_other_stem(others: dict) -> None:
+    """This revision's stem timed in turns with other revisions'
+    (``build_others``) at the opt-in batch (MAIN_BATCH, 480x640, C 3 and 5,
+    one launch each per batch), on the same inputs; each timed output is held
+    against the plain version."""
+    from frn_tpu_torch.ops import stem
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    errs, per_step, device = {}, {}, {}
+    for c in stem.STEM_CHANNELS:
+        shape = (MAIN_BATCH, 480, 640, c)
+        args = stem_inputs(gen, *shape)
+        want = stem.stem_conv_bn_relu_plain(*args)
+        runs = {src: (lambda src=src, lib=lib: other_stem(src, lib, *args))
+                for src, lib in others.items()}
+        runs["this"] = lambda: stem.stem_conv_bn_relu(*args)
+
+        def check(label, out):
+            check_close(label, "out", out, want, STEM_ATOL, STEM_RTOL, shape, errs)
+
+        time_in_turns("stem", dict(zip(("B", "H", "W", "C"), shape)), runs, check, per_step, 1,
+                      windows=STEM_WINDOWS)
+        # the kernels' own time: a launch is about as short as its enqueue
+        dev = {name: device_ms(run, ("stem_",)) for name, run in runs.items()}
+        print(f"revisions device ms stem C {c}: {json.dumps(dev)}", flush=True)
+        for name, ms in dev.items():
+            device[name] = device.get(name, 0.0) + ms
+        del want, args
+    print_per_step(per_step)
+    for name, ms in device.items():
+        print(f"revisions: stem {'this revision' if name == 'this' else name}: {ms:.4f} ms device "
+              f"time per batch (2 launches)", flush=True)
+
+
 def _random_head_outputs(model, seed: int) -> None:
     """Seeded random head output convs (stock init scores every anchor at the
     0.01 prior, under the 0.05 threshold, and NMS would have nothing to do)."""
@@ -794,15 +910,8 @@ def phase_optin_kernels() -> dict:
             check_prepass(f"{mode}_prepass", fa.int8_prepass(q, k, v, mode),
                           fa.int8_kernel_inputs(q, k, v, mode), shape)
 
-    def stem_inputs(b, h, w, c):
-        x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
-        wt = (torch.randn((64, c, 7, 7), generator=gen, device="cuda") / (49 * c) ** 0.5)
-        scale = torch.rand((64,), generator=gen, device="cuda") + 0.5
-        bias = torch.randn((64,), generator=gen, device="cuda") * 0.2
-        return x.permute(0, 3, 1, 2), wt.to(torch.bfloat16), scale, bias  # channels_last NCHW
-
     for shape in STEM_CHECK_SHAPES:
-        args = stem_inputs(*shape)
+        args = stem_inputs(gen, *shape)
         check_close("stem", "out", stem.stem_conv_bn_relu(*args), stem.stem_conv_bn_relu_plain(*args),
                     STEM_ATOL, STEM_RTOL, shape, errs)
 
@@ -851,30 +960,35 @@ def phase_optin_kernels() -> dict:
     times = KernelTimes("stem")
     for c in (3, 5):
         shape = (MAIN_BATCH, 480, 640, c)
-        x, wt, scale, bias = stem_inputs(*shape)
+        x, wt, scale, bias = stem_inputs(gen, *shape)
         w_fold = (wt.float() * scale[:, None, None, None]).to(torch.bfloat16)
         b_fold = bias.to(torch.bfloat16)
         library_ms, _ = cuda_ms(lambda: torch.relu(F.conv2d(x, w_fold, b_fold, stride=2, padding=3)),
-                                reps=10)
+                                reps=10, windows=STEM_WINDOWS)
+        # the kernel's own time beside the wrapper's: a launch is about as
+        # short as its enqueue on the host
+        dev_ms = device_ms(lambda: stem.stem_conv_bn_relu(x, wt, scale, bias), ("stem_wgmma",))
         out, ref = times.add(dict(zip(("B", "H", "W", "C"), shape)), stem_bound(*shape),
                              lambda: stem.stem_conv_bn_relu(x, wt, scale, bias),
                              lambda: stem.stem_conv_bn_relu_plain(x, wt, scale, bias), library_ms,
-                             count=1)
+                             count=1, extra={"device_ms": dev_ms}, windows=STEM_WINDOWS)
         check_close("stem", "out", out, ref, STEM_ATOL, STEM_RTOL, shape, errs)
     rows["stem"] = times.row(errs["stem"], "opt-in batch")
     return rows
 
 
-def _swap_in_plain_kernels():
-    """Replaces each opt-in kernel wrapper with its plain version where the
-    model looks it up; returns the function that puts them back."""
+def _swap_in_plain_kernels(stem_fn=None):
+    """Replaces each opt-in attention kernel wrapper with its plain version
+    where the model looks it up, and the stem with ``stem_fn`` if given;
+    returns the function that puts them back."""
     from frn_tpu_torch.models import resnet
-    from frn_tpu_torch.ops import attention, stem
+    from frn_tpu_torch.ops import attention
     from frn_tpu_torch.ops import flash_attention as fa
 
     saved = [(attention, "flash_attention_bf16exp", fa.flash_attention_bf16exp_plain),
-             (attention, "flash_attention_int8", fa.flash_attention_int8_plain),
-             (resnet, "stem_conv_bn_relu", stem.stem_conv_bn_relu_plain)]
+             (attention, "flash_attention_int8", fa.flash_attention_int8_plain)]
+    if stem_fn is not None:
+        saved.append((resnet, "stem_conv_bn_relu", stem_fn))
     originals = [(mod, name, getattr(mod, name)) for mod, name, _ in saved]
     for mod, name, plain in saved:
         setattr(mod, name, plain)
@@ -886,12 +1000,57 @@ def _swap_in_plain_kernels():
     return restore
 
 
+def _ulp_perturbed_plain_stem(share: float, seed: int):
+    """The plain stem with one bf16 ulp added to or taken from a seeded
+    ``share`` (at least one) of its positive outputs: the size of the
+    differences the kernel's output shows against it."""
+    from frn_tpu_torch.ops.stem import stem_conv_bn_relu_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def perturbed(x, w, scale, bias):
+        y = stem_conv_bn_relu_plain(x, w, scale, bias)
+        bits = y.flatten().view(torch.int16).clone()
+        pos = torch.nonzero(bits > 0).squeeze(1)
+        count = max(1, round(share * bits.numel()))
+        pick = pos[torch.randperm(pos.numel(), generator=gen, device=pos.device)[:count]]
+        step = torch.randint(0, 2, (pick.numel(),), generator=gen, device=pos.device) * 2 - 1
+        bits[pick] += step.to(torch.int16)
+        out = torch.empty_like(y)
+        out.copy_(bits.view(torch.bfloat16).view(y.shape))
+        return out
+
+    return perturbed
+
+
+def _record_stem():
+    """Wraps the stem where the model looks it up so that each call records
+    its inputs and output; returns (the record, the function that restores
+    the stem)."""
+    from frn_tpu_torch.models import resnet
+
+    kernel, calls = resnet.stem_conv_bn_relu, []
+
+    def recorded(x, w, scale, bias):
+        y = kernel(x, w, scale, bias)
+        calls.append((x, w, scale, bias, y))
+        return y
+
+    resnet.stem_conv_bn_relu = recorded
+
+    def restore():
+        resnet.stem_conv_bn_relu = kernel
+
+    return calls, restore
+
+
 def phase_optin_path(kernel_rows, default_ms: float, default_out) -> None:
     """The opt-in inference path through ``entry(device="cuda", batch=16,
     **fields)`` in each of OPTIN_CONFIGS: the same seeded weights and inputs
     as the default path (the flags add no parameters). Launch counts over
     the timed batches, a profiler pass, the outputs' checks."""
     from frn_tpu_torch.entry import entry
+    from frn_tpu_torch.ops.stem import stem_conv_bn_relu_plain
 
     totals = dict.fromkeys(OPTIN_KERNELS, 0)
     for label, options, per_batch in OPTIN_CONFIGS:
@@ -936,22 +1095,63 @@ def phase_optin_path(kernel_rows, default_ms: float, default_out) -> None:
             fail(f"opt-in path ({label}): {int(valid.sum())} detections, labels up to "
                  f"{int(labels.max())}")
 
-        # the same model and batch with each kernel swapped for its plain version
+        # The stem kernel on the batch's own stem inputs against its plain
+        # version, element by element; then the same model and batch with the
+        # attention kernels swapped for their plain versions, the stem's
+        # output shared, gated; and with every kernel swapped, printed: the
+        # stem's one-ulp differences alone move the logits past MAIN_REL_TOL
+        # (the two ResNet-50s, at random weights, carry them to the end),
+        # which the witness shows: the all-plain model with the plain stem's
+        # output moved by one ulp at as many positions as the kernel's
+        # differs, at two seeds, against the all-plain model
         with torch.inference_mode():
-            got = fn.model(rgb, event, eval_output=fn.eval_output)
-            restore = _swap_in_plain_kernels()
+            stem_calls, restore = _record_stem()
             try:
-                want_out = fn.model(rgb, event, eval_output=fn.eval_output)
+                got = fn.model(rgb, event, eval_output=fn.eval_output)
             finally:
                 restore()
-        for name, g, w, d in zip(("logits", "deltas"), got, want_out, default_out):
-            rel = ((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
-            off = ((g.float() - d.float()).abs().max() / d.float().abs().max()).item()
-            print(f"opt-in path ({label}) {name}: kernels vs plain versions max|diff|/max|ref| = "
-                  f"{rel:.3e}; vs the default path (printed, not gated) {off:.3e}", flush=True)
+            differ, total = 0, 0
+            for x, wt, scale, bias, y in stem_calls:
+                y_ref = stem_conv_bn_relu_plain(x, wt, scale, bias)
+                check_close("stem", "out", y, y_ref, STEM_ATOL, STEM_RTOL,
+                            tuple(x.permute(0, 2, 3, 1).shape), {})
+                differ, total = differ + int((y != y_ref).sum()), total + y.numel()
+                del y_ref
+            del stem_calls
+            outs = []
+            for stem_fn in (None, stem_conv_bn_relu_plain):
+                restore = _swap_in_plain_kernels(stem_fn)
+                try:
+                    outs.append(fn.model(rgb, event, eval_output=fn.eval_output))
+                finally:
+                    restore()
+            if total:
+                share = differ / total
+                print(f"opt-in path ({label}) stem: {differ} of {total} outputs ({share:.4%}) "
+                      f"differ from the plain version", flush=True)
+                for seed in (1, 2):
+                    restore = _swap_in_plain_kernels(_ulp_perturbed_plain_stem(share, seed))
+                    try:
+                        moved = fn.model(rgb, event, eval_output=fn.eval_output)
+                    finally:
+                        restore()
+                    rel = [((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                           for a, b in zip(moved, outs[1])]
+                    print(f"opt-in path ({label}) witness: the all-plain model with the plain "
+                          f"stem moved one ulp at {share:.4%} of its outputs (seed {seed}): "
+                          f"logits {rel[0]:.3e}, deltas {rel[1]:.3e} max|diff|/max|ref| against "
+                          f"the all-plain model", flush=True)
+                    del moved
+        want_out, all_plain = outs
+        for name, g, w, a, d in zip(("logits", "deltas"), got, want_out, all_plain, default_out):
+            rel, every, off = (((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+                               for r in (w, a, d))
+            print(f"opt-in path ({label}) {name}: kernels vs plain attention max|diff|/max|ref| = "
+                  f"{rel:.3e}; printed, not gated: vs every kernel plain {every:.3e}, vs the "
+                  f"default path {off:.3e}", flush=True)
             if not rel <= MAIN_REL_TOL:
                 fail(f"opt-in path ({label}) {name} disagree with the plain versions ({rel:.3e})")
-        del fn, rgb, event, out, got, want_out
+        del fn, rgb, event, out, got, outs, want_out, all_plain
     for kind in OPTIN_KERNELS:
         kernel_rows[kind]["launches"] = totals[kind]
 
@@ -1348,9 +1548,9 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="On-card smoke test of frn_tpu_torch.")
     parser.add_argument("--other-source", metavar="CU_SOURCE", action="append", default=[],
                         help="another revision's csrc/flash_attention.cu, "
-                             "csrc/flash_attention_bwd.cu or csrc/flash_attention_int8.cu (its "
-                             "headers beside it), built and its entry points timed in turns with "
-                             "this revision's; repeatable")
+                             "csrc/flash_attention_bwd.cu, csrc/flash_attention_int8.cu or "
+                             "csrc/stem.cu (its headers beside it), built and its entry points "
+                             "timed in turns with this revision's; repeatable")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -1358,7 +1558,8 @@ def main(argv=None) -> None:
     others = build_others(args.other_source) if args.other_source else {}
     rows = {"flash_fwd": phase_flash_kernel(), **phase_flash_backward()}
     by_name = {name: {src: lib for src, lib in others.items() if Path(src).name == name}
-               for name in ("flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_int8.cu")}
+               for name in ("flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_int8.cu",
+                            "stem.cu")}
     if by_name["flash_attention.cu"]:
         phase_other_forwards(by_name["flash_attention.cu"])
     if by_name["flash_attention_bwd.cu"]:
@@ -1366,6 +1567,8 @@ def main(argv=None) -> None:
     rows.update(phase_optin_kernels())
     if by_name["flash_attention_int8.cu"]:
         phase_other_int8(by_name["flash_attention_int8.cu"])
+    if by_name["stem.cu"]:
+        phase_other_stem(by_name["stem.cu"])
     fn, rgb, event, main_ms, main_out = phase_main_path(rows)
     phase_breakdown(fn, rgb, event)
     profile_pass(f"profile: one inference batch of {MAIN_BATCH}", lambda: fn(rgb, event), main_ms,

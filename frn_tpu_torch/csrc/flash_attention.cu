@@ -9,8 +9,9 @@
 // {8, 16, 32, 64}, and on request (training) the per-row logsumexp
 // lse = m + log(l) in f32, natural log, as _flash_forward(return_lse=True).
 // Scores, the running row max m and the running denominator l are f32; p is
-// rounded to bf16 before the PV product while l sums the f32 p; the output
-// accumulator is f32 and is divided by l once, at the end.
+// rounded to bf16 before the PV product, and l sums those rounded p, as the
+// TPU kernel's ones lane of V sums them; the output accumulator is f32 and is
+// divided by l once, at the end.
 //
 // The kExpBf16 instances replace the same Pallas kernel with exp_bf16=True
 // (flash_nonlocal_attention_bf16exp, inference only, no lse): there
@@ -52,9 +53,20 @@
 // is a separate code path, taken on the last, ragged tile only; the rescale of
 // the accumulator is skipped when no row max of the warp moved (exact). The
 // bf16-exp instances round s - m and p in pairs (cvt.rn.bf16x2.f32) and use
-// the packed p as the PV A fragment, unpacking it only for l. The rows of a
-// ragged last query block (whole idle warps included) take part in every
-// barrier and product and store neither O nor lse.
+// the packed p as the PV A fragment. The denominator sums the bf16 p, as the
+// TPU kernel does: in the wgmma kernel B1 and B1-lse multiply P by a ones tile
+// (wgmma m64n8k16, B an all-ones shared-memory matrix) in the same commit
+// group as P V, so the sums ride the tensor core (adding the two halves of
+// each packed p in f32 instead, or a ones mma.sync, cost 5-6% there;
+// PERF.md); B3, and B1 in the mma.sync kernel, sum the packed p against a
+// ones mma.sync fragment. Either way each tile's sums start from zero and are
+// added to l in f32 registers: the tensor core truncates what it adds, and l
+// carried through its accumulator came out 4e-5 low (relative) at N 19,200.
+// At bf16 p is rounded against the running
+// max of the tiles seen so far, so the result depends on the 64-key tile, as
+// B3's and B4's do (ops/flash_attention.py KERNEL_TILE). The rows of a ragged
+// last query block (whole idle warps included) take part in every barrier and
+// product and store neither O nor lse.
 
 #include <math.h>
 
@@ -76,11 +88,12 @@ __device__ __forceinline__ void load_tile(const __nv_bfloat16* k, const __nv_bfl
 // s holds its warp's 16 x 64 scores as C fragments (s[nt][0..1] row g,
 // s[nt][2..3] row g + 8, keys key + nt * 8 + {0, 1}, key = tile start + 2t).
 // Updates m and l, returns the rescale factors of the accumulator's two rows
-// in alpha and p (bf16) as the A fragments of the PV product in pa. l is this
-// thread's share of the f32 p (its quad holds the row), except with kExpBf16:
-// there the bf16 p are summed by the tensor core against a ones B fragment,
-// as the TPU kernel's ones lane sums them, and l is the whole row's sum.
-template <bool kExpBf16, bool kMask>
+// in alpha and p (bf16) as the A fragments of the PV product in pa. With kSum
+// the tensor core sums the tile's bf16 p against a ones B fragment, as the TPU
+// kernel's ones lane sums them, and l (the whole row's sum) = l alpha + that;
+// without it l is left to the caller (the wgmma kernel's B1 sums p on the
+// tensor core beside P V).
+template <bool kExpBf16, bool kMask, bool kSum>
 __device__ __forceinline__ void softmax_tile(float (&s)[kTile / 8][4], int key, int n,
                                              float (&m)[2], float (&l)[2], float (&alpha)[2],
                                              uint32_t (&pa)[kTile / 16][4]) {
@@ -97,8 +110,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kTile / 8][4], int key, 
     mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
     mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
   }
-  float rs[2] = {0.f, 0.f};  // the f32 p's shares of l (not with kExpBf16)
-  float mb[2];               // m * log2(e)
+  float mb[2];  // m * log2(e)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     mx[i] = quad_max(mx[i]);  // every tile holds a valid key, so mx is finite
@@ -118,32 +130,28 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kTile / 8][4], int key, 
         const float p0 = ex2(fmaf(s[nt][2 * h], kLog2e, -mb[h]));
         const float p1 = ex2(fmaf(s[nt][2 * h + 1], kLog2e, -mb[h]));
         p = pack_bf16x2(p0, p1);
-        rs[h] += p0 + p1;
       }
       pa[nt / 2][(nt % 2) * 2 + h] = p;
     }
   }
-  if constexpr (kExpBf16) {  // c0 (row g) and c2 (row g + 8) carry the running sums
-    float c[4] = {l[0] * alpha[0], 0.f, l[1] * alpha[1], 0.f};
+  if constexpr (kSum) {  // c0 (row g) and c2 (row g + 8): the tile's sums
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
     const uint32_t ones[2] = {0x3f803f80u, 0x3f803f80u};  // bf16 1.0 pairs
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) mma_16816(c, pa[kk], ones);
-    l[0] = c[0];
-    l[1] = c[2];
-  } else {
-    l[0] = l[0] * alpha[0] + rs[0];
-    l[1] = l[1] * alpha[1] + rs[1];
+    l[0] = fmaf(l[0], alpha[0], c[0]);
+    l[1] = fmaf(l[1], alpha[1], c[2]);
   }
 }
 
-template <bool kExpBf16>
+template <bool kExpBf16, bool kSum>
 __device__ __forceinline__ void softmax_any(bool last_ragged, float (&s)[kTile / 8][4], int key,
                                             int n, float (&m)[2], float (&l)[2], float (&alpha)[2],
                                             uint32_t (&pa)[kTile / 16][4]) {
   if (last_ragged) {
-    softmax_tile<kExpBf16, true>(s, key, n, m, l, alpha, pa);
+    softmax_tile<kExpBf16, true, kSum>(s, key, n, m, l, alpha, pa);
   } else {
-    softmax_tile<kExpBf16, false>(s, key, n, m, l, alpha, pa);
+    softmax_tile<kExpBf16, false, kSum>(s, key, n, m, l, alpha, pa);
   }
 }
 
@@ -161,13 +169,13 @@ __device__ __forceinline__ void rescale(float (&acc)[J][4], const float (&alpha)
   }
 }
 
-// O = acc / l for this thread's rows, and lse = m + log(l) when asked; l as
-// softmax_tile leaves it (a quad's shares, or with kExpBf16 whole rows)
-template <int D, bool kExpBf16>
+// O = acc / l for this thread's rows, and lse = m + log(l) when asked; l the
+// whole rows' sums
+template <int D>
 __device__ __forceinline__ void write_rows(__nv_bfloat16* o, float* lse, const float acc[][4],
                                            const float (&m)[2], const float (&l)[2], int row0,
                                            int n, int t) {
-  const float l0 = kExpBf16 ? l[0] : quad_sum(l[0]), l1 = kExpBf16 ? l[1] : quad_sum(l[1]);
+  const float l0 = l[0], l1 = l[1];
   const int row1 = row0 + 8;
   const bool ok0 = row0 < n, ok1 = row1 < n;
   store_rows<D>(o, acc, row0, row1, ok0, ok1, t, 1.f / l0, 1.f / l1);
@@ -281,12 +289,13 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     qk_mma<D>(s, qa, kt, lane);
     float alpha[2];
     uint32_t pa[kTile / 16][4];
-    softmax_any<kExpBf16>(ragged && j == tiles - 1, s, j * kTile + 2 * t, n, m, l, alpha, pa);
+    softmax_any<kExpBf16, true>(ragged && j == tiles - 1, s, j * kTile + 2 * t, n, m, l, alpha,
+                                pa);
     rescale(acc, alpha);
     pv_mma<D>(acc, pa, kt + kTile * D, lane);
   }
   float* lse_b = lse == nullptr ? nullptr : lse + static_cast<size_t>(blockIdx.y) * n;
-  write_rows<D, kExpBf16>(o + base, lse_b, acc, m, l, row0, n, t);
+  write_rows<D>(o + base, lse_b, acc, m, l, row0, n, t);
 }
 
 // ------------------------------------------------------------ wgmma variant
@@ -303,6 +312,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap kmap, const __grid_constant_
   extern __shared__ uint8_t smem_raw[];
   __nv_bfloat16* ring = ring_base(smem_raw);
   __shared__ uint64_t full[kStages];  // ring slot s holds its next tile
+  // B of the denominator's product: bf16 ones (only the first 256 bytes are read)
+  __shared__ __align__(128) uint32_t ones[64];
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -321,6 +332,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap kmap, const __grid_constant_
       if (j < tiles) stage_tma<D>(&kmap, &vmap, j, ring, full);
     }
   }
+  if constexpr (!kExpBf16) {
+    if (threadIdx.x < 64) ones[threadIdx.x] = 0x3f803f80u;  // bf16 1.0 pairs
+    fence_proxy_async();  // the first __syncthreads of the loop hands them to wgmma
+  }
+  const uint64_t ones_desc = interleaved_desc(ones);
   uint32_t qa[KD][4];
   load_a_rows<D>(qa, q + base + static_cast<size_t>(row0 < n ? row0 : 0) * D,
                  q + base + static_cast<size_t>(row0 + 8 < n ? row0 + 8 : 0) * D, row0 < n,
@@ -329,6 +345,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap kmap, const __grid_constant_
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  // without kExpBf16, a tile's row sums of the bf16 p: P times a ones B (n8)
+  // on the tensor core beside P V, from zero each tile; columns equal
+  float lsum[1][4] = {{0.f, 0.f, 0.f, 0.f}};
 
   for (int j = 0; j < tiles; ++j) {
     __syncthreads();  // the barriers are set up; every warpgroup has waited for PV of tile j - 2
@@ -357,16 +376,29 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap kmap, const __grid_constant_
 #pragma unroll
       for (int i = 0; i < 4; ++i) fence_reg(acc[jd][i]);
     }
+    if constexpr (!kExpBf16) {  // l += tile j - 1's sums (zero at j = 0), then zero them
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fence_reg(lsum[0][i]);
+      l[0] += lsum[0][0];
+      l[1] += lsum[0][2];
+      lsum[0][0] = lsum[0][1] = lsum[0][2] = lsum[0][3] = 0.f;
+    }
     float alpha[2];
     uint32_t pa[kTile / 16][4];
-    softmax_any<kExpBf16>(ragged && j == tiles - 1, s, j * kTile + 2 * t, n, m, l, alpha, pa);
+    softmax_any<kExpBf16, kExpBf16>(ragged && j == tiles - 1, s, j * kTile + 2 * t, n, m, l,
+                                    alpha, pa);
     rescale(acc, alpha);
+    if constexpr (!kExpBf16) {
+      l[0] *= alpha[0];
+      l[1] *= alpha[1];
+    }
 
     const uint64_t vdesc = tile_desc<D>(kt + kTile * D);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) {
       wgmma_m64k16<1>(acc, pa[kk], vdesc + ((16 * 2 * D) >> 4) * kk, 1);  // 16 keys on
+      if constexpr (!kExpBf16) wgmma_m64n8k16<0>(lsum[0], pa[kk], ones_desc, 1);
     }
     wgmma_commit();
   }
@@ -376,8 +408,14 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap kmap, const __grid_constant_
 #pragma unroll
     for (int i = 0; i < 4; ++i) fence_reg(acc[jd][i]);
   }
+  if constexpr (!kExpBf16) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) fence_reg(lsum[0][i]);
+    l[0] += lsum[0][0];
+    l[1] += lsum[0][2];
+  }
   float* lse_b = lse == nullptr ? nullptr : lse + static_cast<size_t>(blockIdx.y) * n;
-  write_rows<D, kExpBf16>(o + base, lse_b, acc, m, l, row0, n, t);
+  write_rows<D>(o + base, lse_b, acc, m, l, row0, n, t);
 }
 
 // ------------------------------------------------------------ launch

@@ -276,6 +276,13 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// makes this thread's generic-proxy writes to shared memory visible to the
+// async proxy (TMA, wgmma's shared-memory operands); before the barrier that
+// hands them over
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // keeps the compiler from moving reads or writes of an accumulator register
 // across the asynchronous products
 __device__ __forceinline__ void fence_reg(float& x) { asm volatile("" : "+f"(x)::"memory"); }
@@ -343,6 +350,28 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&c)[4][4], const uint32_t
         "+f"(c[3][0]), "+f"(c[3][1]), "+f"(c[3][2]), "+f"(c[3][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(kTransB)
       : "memory");
+}
+
+// the same with 8 columns (c[0..1] row g, c[2..3] row g + 8)
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n8k16(float (&c)[4], const uint32_t (&a)[4], uint64_t b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(kTransB)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of an unswizzled K-major tile of 8 x 8
+// core matrices (8 rows of 16 bytes each, 128 bytes apart along both K and
+// N): for a constant B such as all ones, where only its extent matters (the
+// first 256 bytes for k16 x n8)
+__device__ __forceinline__ uint64_t interleaved_desc(const void* tile) {
+  constexpr uint64_t kOff = 128 >> 4;
+  return static_cast<uint64_t>((smem_addr(tile) & 0x3ffff) >> 4) | (kOff << 16) | (kOff << 32);
 }
 
 // c (64 x 8J) (+)= a * b for 8J = 32 or 64 columns, by the accumulator's width

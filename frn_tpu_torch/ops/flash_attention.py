@@ -39,7 +39,8 @@ from frn_tpu_torch import build
 
 HEAD_DIMS = (8, 16, 32, 64)
 INT8_MODES = ("int8_qk", "int8")
-KERNEL_TILE = 64  # keys per tile of the bf16-exp and int8 kernels
+KERNEL_TILE = 64  # keys per tile of the forward kernels (B1, B3, B4)
+_LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)  # the kernels' kLog2e
 flash_fwd_launches = 0  # forward without lse (inference)
 flash_fwd_lse_launches = 0  # forward with lse (the forward of training)
 flash_bwd_dq_launches = 0
@@ -114,22 +115,29 @@ def _int8_library() -> ctypes.CDLL:
 def _online_softmax(q, k, v, block_k: int, weights, scale=None):
     """The kernels' recurrence over key tiles of ``block_k``: f32 scores s
     (times the (B,) ``scale`` if given), running row max m and denominator l,
-    f32 accumulator. ``weights(x)`` maps x = s - m_new to (the weights of the
-    PV product, those of the denominator), both f32. Returns (acc / l, m, l)."""
+    f32 accumulator. Scores of bf16 or f16 inputs on the card are summed by
+    the tensor cores (``torch.bmm`` with ``out_dtype=float32``), which
+    truncate what they add, as the kernels' products do; elsewhere in f32.
+    ``weights(s, m_new)`` gives (the weights of the PV product, those of the
+    denominator), both f32. Returns (acc / l, m, l)."""
     b, n, _ = q.shape
     qf = q.float()
+    tensor_core = q.is_cuda and q.dtype in (torch.bfloat16, torch.float16)
     m = torch.full((b, n, 1), float("-inf"), dtype=torch.float32, device=q.device)
     l = torch.zeros((b, n, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, n, v.shape[2]), dtype=torch.float32, device=q.device)
     for start in range(0, n, block_k):
-        kb = k[:, start:start + block_k].float()
+        kb = k[:, start:start + block_k]
         vb = v[:, start:start + block_k].float()
-        s = torch.bmm(qf, kb.transpose(1, 2))
+        if tensor_core:
+            s = torch.bmm(q, kb.transpose(1, 2).contiguous(), out_dtype=torch.float32)
+        else:
+            s = torch.bmm(qf, kb.float().transpose(1, 2))
         if scale is not None:
             s = s * scale[:, None, None]
         m_new = torch.maximum(m, s.amax(dim=2, keepdim=True))
         alpha = torch.exp(m - m_new)
-        p_pv, p_sum = weights(s - m_new)
+        p_pv, p_sum = weights(s, m_new)
         l = l * alpha + p_sum.sum(dim=2, keepdim=True)
         acc = acc * alpha + torch.bmm(p_pv, vb)
         m = m_new
@@ -137,17 +145,25 @@ def _online_softmax(q, k, v, block_k: int, weights, scale=None):
 
 
 def flash_attention_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_k: int = 512,
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_k: int = KERNEL_TILE,
     return_lse: bool = False,
 ):
     """softmax(q k^T) v by the kernel's recurrence: f32 scores, running max and
-    denominator, p rounded to v's dtype before the PV product, f32 accumulator
-    divided by the denominator at the end. (B, N, d) in, (B, N, d) out; with
-    ``return_lse`` also lse = m + log(l), (B, N) f32."""
+    denominator, p rounded to v's dtype before the PV product and summed so
+    rounded into the denominator (as the JAX kernel's ones lane sums it), f32
+    accumulator divided by the denominator at the end. (B, N, d) in,
+    (B, N, d) out; with ``return_lse`` also lse = m + log(l), (B, N) f32.
+    Below f32, p is rounded against the running max of the key tiles seen so
+    far, so the result depends on ``block_k`` (by up to about 1e-3 in lse at
+    bf16): the default is the kernels' KERNEL_TILE. p is the kernel's
+    ex2(fma(s, log2 e, -m log2 e)), its argument rounded once as the FMA
+    rounds it (the f64 product of two f32 is exact), so that p rounds to the
+    kernel's bf16 p wherever the two exps agree to the bf16 rounding."""
 
-    def weights(x):
-        p = torch.exp(x)
-        return p.to(v.dtype).float(), p
+    def weights(s, m_new):
+        mb = (m_new * _LOG2E).double()
+        p = torch.exp2((s.double() * _LOG2E.double() - mb).float()).to(v.dtype).float()
+        return p, p
 
     o, m, l = _online_softmax(q, k, v, block_k, weights)
     o = o.to(v.dtype)
@@ -164,8 +180,8 @@ def flash_attention_bf16exp_plain(q, k, v, block_k: int = KERNEL_TILE) -> torch.
     ``block_k``, the kernel's KERNEL_TILE), and the denominator sums those
     rounded p, as the JAX kernel's ones lane does."""
 
-    def weights(x):
-        p = torch.exp(x.to(torch.bfloat16).float()).to(v.dtype).float()
+    def weights(s, m_new):
+        p = torch.exp((s - m_new).to(torch.bfloat16).float()).to(v.dtype).float()
         return p, p
 
     return _online_softmax(q, k, v, block_k, weights)[0].to(v.dtype)
@@ -203,16 +219,16 @@ def flash_attention_int8_plain(q, k, v, mode: str = "int8",
     qi, ki = qi.float(), ki.float()
     if mode == "int8_qk":
 
-        def weights(x):
-            p = torch.exp(x).to(v.dtype).float()
+        def weights(s, m_new):
+            p = torch.exp(s - m_new).to(v.dtype).float()
             return p, p
 
         return _online_softmax(qi, ki, v, block_k, weights, c)[0].to(v.dtype)
 
     vi, sv = quantize_int8(v)
 
-    def weights(x):
-        p_q = torch.round(torch.exp(x) * 127.0)
+    def weights(s, m_new):
+        p_q = torch.round(torch.exp(s - m_new) * 127.0)
         return p_q, p_q * 127.0
 
     o = _online_softmax(qi, ki, vi.float(), block_k, weights, c)[0].to(q.dtype)

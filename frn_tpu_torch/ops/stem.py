@@ -9,10 +9,12 @@ with f32 accumulation and one rounding to x's dtype. Layouts are the port's
 (NCHW, torch's (F, C, 7, 7) weights); the kernel reads x as the NHWC memory of
 a channels_last tensor, which is what the detector's input permute gives, and
 returns a channels_last (B, 64, H/2, W/2) tensor, the layout the max pool
-takes next. The kernel (``csrc/stem.cu``, Hopper CUDA C++, bf16, C in {3, 5},
-64 filters, even H and W) runs for a CUDA tensor, the plain version for a CPU
-tensor; on a CUDA tensor the wrapper launches the kernel or raises. Inference
-only: it defines no gradient.
+takes next. The kernel (``csrc/stem.cu``, Hopper CUDA C++: an implicit GEMM on
+the tensor cores, bf16, C in {3, 5}, 64 filters, even H and W; each block
+packs torch's weights into its K order, which
+``tests/test_torch_optin_kernels.py`` models in torch) runs for a CUDA
+tensor, the plain version for a CPU tensor; on a CUDA tensor the wrapper
+launches the kernel or raises. Inference only: it defines no gradient.
 """
 
 from __future__ import annotations
@@ -31,14 +33,19 @@ stem_launches = 0
 _lib = None  # csrc/stem.cu
 
 
+def bind_stem(lib):
+    """Declares the C signature of ``csrc/stem.cu``'s entry point on a loaded
+    library; returns it."""
+    lib.frn_stem_conv_bn_relu.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    lib.frn_stem_conv_bn_relu.restype = ctypes.c_int
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = build.load("stem")
-        lib.frn_stem_conv_bn_relu.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-        lib.frn_stem_conv_bn_relu.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind_stem(build.load("stem"))
     return _lib
 
 
@@ -83,8 +90,8 @@ def stem_conv_bn_relu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"stem kernel takes C in {STEM_CHANNELS} and {STEM_FILTERS} filters, "
                          f"got C {c} and {w.shape[0]}")
     x_nhwc = x.permute(0, 2, 3, 1)
-    w_hwio = w.permute(2, 3, 1, 0).contiguous()  # (7, 7, C, F): the kernel's weight order
-    for name, t, dtype in (("x", x_nhwc, torch.bfloat16), ("w", w_hwio, torch.bfloat16),
+    w = w.contiguous()  # a channels_last model's weights are not (one small copy)
+    for name, t, dtype in (("x", x_nhwc, torch.bfloat16), ("w", w, torch.bfloat16),
                            ("scale", scale, torch.float32), ("bias", bias, torch.float32)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -95,7 +102,7 @@ def stem_conv_bn_relu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                              + (" in channels_last memory" if name == "x" else ""))
     out = torch.empty((b, h // 2, wd // 2, STEM_FILTERS), dtype=x.dtype, device=x.device)
     if out.numel():
-        _launch(_library().frn_stem_conv_bn_relu, x, x_nhwc.data_ptr(), w_hwio.data_ptr(),
+        _launch(_library().frn_stem_conv_bn_relu, x, x_nhwc.data_ptr(), w.data_ptr(),
                 scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, wd, c)
         stem_launches += 1
     return out.permute(0, 3, 1, 2)

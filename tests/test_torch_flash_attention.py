@@ -20,6 +20,7 @@ from frn_tpu.ops.flash_attention import _flash_backward, _flash_forward, _refere
 from frn_tpu_torch import build
 from frn_tpu_torch.ops import attention
 from frn_tpu_torch.ops import flash_attention as fa
+from frn_tpu_torch.ops import stem
 
 RNG = np.random.default_rng(19)
 
@@ -138,6 +139,28 @@ def test_plain_lse_matches_pallas_kernel(b, n, d):
     np.testing.assert_allclose(lse.numpy(), want_lse, atol=2e-4, rtol=1e-3)
 
 
+# B, N, d and the key block (block_q the same) of the bf16 denominator check
+BF16_DENOMINATOR_SHAPES = [(2, 256, 32, 128), (2, 300, 16, 128), (1, 512, 64, 128), (2, 200, 8, 64)]
+
+
+@pytest.mark.parametrize("b,n,d,block", BF16_DENOMINATOR_SHAPES)
+def test_plain_sums_the_bf16_weights_into_the_denominator(b, n, d, block):
+    # At bf16 the JAX kernel sums the bf16-rounded p through the ones lane of
+    # V (frn_tpu/ops/flash_attention.py, _flash_q_group); summing the f32 p
+    # instead makes 2.2-2.7% of the bf16 outputs differ at these inputs. What
+    # is left is exp and summation order
+    rng = np.random.default_rng(23)
+    q, k, v = (rng.normal(0, 0.5, (b, n, d)).astype(np.float32) for _ in range(3))
+    want_o, want_lse = (np.asarray(x, np.float32) for x in _flash_forward(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), block_q=block, block_k=block,
+        interpret=True, return_lse=True))
+    o, lse = fa.flash_attention_plain(*(torch.tensor(x).to(torch.bfloat16) for x in (q, k, v)),
+                                      block_k=block, return_lse=True)
+    differ = np.mean(o.float().numpy() != want_o)
+    assert differ < 5e-3, f"{differ:.2%} of the bf16 outputs differ"
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=3e-4, rtol=0)
+
+
 @pytest.mark.parametrize("b,n,d", BWD_SHAPES + FWD_EDGE_SHAPES)
 def test_plain_backward_matches_pallas_kernels(b, n, d):
     q, k, v, do = _inputs(b, n, d) + _inputs(b, n, d)[:1]
@@ -177,6 +200,7 @@ def test_plain_backward_is_finite_where_lse_is_below_minus_88():
     ("flash_attention_bwd", fa.bind_backward, "frn_flash_bwd_dkv_bf16"),
     ("flash_attention_int8", fa.bind_int8, "frn_flash_int8"),
     ("flash_attention_int8", fa.bind_int8, "frn_flash_int8_prepass"),
+    ("stem", stem.bind_stem, "frn_stem_conv_bn_relu"),
 ])
 def test_entry_points_take_the_arguments_ctypes_declares(source, bind, name):
     # ctypes passes what argtypes declares, so a C signature that gains or
@@ -187,7 +211,8 @@ def test_entry_points_take_the_arguments_ctypes_declares(source, bind, name):
     want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
     assert all("*" in p or p.split()[0] == "int" for p in params)
     names = ("frn_flash_fwd_bf16", "frn_flash_fwd_bf16exp_bf16", "frn_flash_bwd_dq_bf16",
-             "frn_flash_bwd_dkv_bf16", "frn_flash_int8", "frn_flash_int8_prepass")
+             "frn_flash_bwd_dkv_bf16", "frn_flash_int8", "frn_flash_int8_prepass",
+             "frn_stem_conv_bn_relu")
     lib = bind(types.SimpleNamespace(**{n: types.SimpleNamespace() for n in names}))
     assert getattr(lib, name).argtypes == want
     assert getattr(lib, name).restype is ctypes.c_int

@@ -12,12 +12,14 @@ at bf16 1e-2 (both sum in f32 and round once, so at most a bf16 ulp apart).
 
 import importlib
 import re
+import types
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 import torch
+import torch.nn.functional as F
 
 from frn_tpu.ops.flash_attention import (
     _flash_forward,
@@ -25,6 +27,7 @@ from frn_tpu.ops.flash_attention import (
     _reference_attention,
     quantized_attention_reference as j_quantized_reference,
 )
+from frn_tpu.ops.stem import pack_stem_weights as j_pack_stem_weights
 from frn_tpu.ops.stem import stem_conv_bn_relu as j_stem
 from frn_tpu_torch import build
 from frn_tpu_torch import config as tconfig
@@ -319,6 +322,76 @@ def test_stem_plain_bf16_matches_pallas_kernel():
     np.testing.assert_allclose(got, want, rtol=1e-2, atol=1e-2)
 
 
+def stem_weight_rows(c: int) -> int:
+    """Rows of the stem kernel's K order at C input channels: the 7 runs of 8C
+    slots, padded to whole 16-row steps of its products (176 at C 3, 288 at
+    C 5; ``weight_rows`` in csrc/stem.cu)."""
+    return -(-56 * c // 16) * 16
+
+
+def pack_stem_weights(w: torch.Tensor) -> torch.Tensor:
+    """(F, C, 7, 7) conv weights -> (KP, F) in the stem kernel's K order, as
+    each of its blocks packs them in shared memory (csrc/stem.cu).
+
+    Row kh * 8C + i holds tap o = i - 1 = kw * C + c of row tap kh: the JAX
+    kernel's slot order (``frn_tpu/ops/stem.py::pack_stem_weights``) with each
+    run of 8C slots moved one slot on, so that slot 0 and slots past 7C carry
+    zero weight (the kernel's A pairs then sit on aligned words); rows past
+    56C are zero. Contiguous, in w's dtype."""
+    f, c = w.shape[:2]
+    runs = w.permute(2, 3, 1, 0).reshape(7, 7 * c, f)  # [kh][kw * C + c][f]
+    runs = F.pad(runs, (0, 0, 1, c - 1))  # one zero slot before the taps, C - 1 after
+    return F.pad(runs.reshape(56 * c, f), (0, 0, 0, stem_weight_rows(c) - 56 * c)).contiguous()
+
+
+@pytest.mark.parametrize("c", stem.STEM_CHANNELS)
+def test_pack_stem_weights_is_the_tpu_slot_order_moved_one_slot(c):
+    # the JAX kernel's runs of 8C slots (tap kw * C + c at slot kw * C + c,
+    # zeros at 7C..8C-1), each moved one slot on: zero at slot 0, the taps at
+    # 1..7C; the K padding past 56C zero in both
+    _, w, _, _ = _oracle_inputs((1, 8, 8, c), 64, seed=c)
+    w = np.asarray(jnp.asarray(w, jnp.bfloat16).astype(jnp.float32))
+    want = np.asarray(j_pack_stem_weights(jnp.asarray(w, jnp.bfloat16)).astype(jnp.float32))
+    got = pack_stem_weights(torch.tensor(w).permute(3, 2, 0, 1).to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    got = got.float().numpy()
+    kp = stem_weight_rows(c)
+    assert got.shape == want.shape == (kp, 64) and kp % 16 == 0 and kp >= 56 * c
+    runs, want_runs = got[:56 * c].reshape(7, 8 * c, 64), want[:56 * c].reshape(7, 8 * c, 64)
+    np.testing.assert_array_equal(runs[:, 1:], want_runs[:, :-1])
+    assert not runs[:, 0].any() and not want_runs[:, -1].any()
+    assert not got[56 * c:].any() and not want[56 * c:].any()
+
+
+def _k_order_model(x, w, scale, bias):
+    """The kernel's product in torch: each output pixel's A row is, for each
+    row tap kh, the run of 8C elements of the padded input row (3 zero pixels
+    each side, shifted one element right) from element 2 ow C on; A times the
+    packed weights, then the affine and the ReLU."""
+    b, c, h, wd = x.shape
+    rows = F.pad(x.permute(0, 2, 3, 1), (0, 0, 3, 3, 3, 3)).reshape(b, h + 6, (wd + 6) * c)
+    rows = F.pad(rows, (1, 0))  # the one-element shift
+    oh, ow = h // 2, wd // 2
+    runs = [rows[:, kh:kh + 2 * oh:2].unfold(2, 8 * c, 2 * c)[:, :, :ow] for kh in range(7)]
+    a = torch.cat(runs, dim=3)  # (B, OH, OW, 56C)
+    wp = pack_stem_weights(w)
+    y = a @ wp[:56 * c] * scale + bias
+    assert not wp[56 * c:].any()
+    return torch.relu(y).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("shape", [(2, 10, 26, 3), (1, 14, 18, 5), (1, 6, 10, 3), (2, 8, 6, 5)])
+def test_stem_k_order_model_matches_plain(shape):
+    # odd W/2 (13, 9, 5, 3) included: the kernel's K order, gathered as it
+    # gathers it, is the plain conv's function at f32
+    x, w, scale, bias = (torch.tensor(a) for a in _oracle_inputs(shape, 64, seed=shape[1]))
+    x, w = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+    want = stem.stem_conv_bn_relu_plain(x, w, scale, bias)
+    got = _k_order_model(x, w, scale, bias)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
 def test_stem_checks_shapes():
     x = torch.zeros((1, 3, 32, 48))
     w, s = torch.zeros((64, 3, 7, 7)), torch.ones(64)
@@ -379,6 +452,19 @@ def test_kernel_routes_refuse_inputs_that_need_a_gradient(monkeypatch, route):
                 torch.ones(64), torch.zeros(64))}[route]
     with pytest.raises(RuntimeError, match="inference only"):
         call()
+
+
+def test_stem_kernel_route_takes_channels_last_weights(monkeypatch):
+    # the detector's conv1 weight is channels_last; the kernel reads torch's
+    # (F, C, 7, 7) layout, so the wrapper hands it a contiguous copy
+    launched = []
+    monkeypatch.setattr(stem, "_on_kernel_device", lambda x: True)
+    monkeypatch.setattr(stem, "_library", lambda: types.SimpleNamespace(frn_stem_conv_bn_relu=None))
+    monkeypatch.setattr(stem, "_launch", lambda fn, x, *args: launched.append(args))
+    x = torch.zeros((1, 3, 16, 16), dtype=torch.bfloat16).to(memory_format=torch.channels_last)
+    w = torch.randn((64, 3, 7, 7)).to(torch.bfloat16).to(memory_format=torch.channels_last)
+    out = stem.stem_conv_bn_relu(x, w, torch.ones(64), torch.zeros(64))
+    assert out.shape == (1, 64, 8, 8) and len(launched) == 1
 
 
 def test_kernel_route_precedence(monkeypatch):
