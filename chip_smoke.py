@@ -13,15 +13,18 @@ Phases:
      kernel of the port built from ``frn_tpu_torch/csrc`` (one nvcc each, in
      parallel), with each kernel instance's registers and spills (the
      path's wgmma instances of the forward, the backward, the int8 forward
-     and the stem must each be there, and may not spill);
+     and the stem, and the f32 forward at d 32 and 64, must each be there,
+     and may not spill);
   2. each kernel against its plain PyTorch version on the card, at the shapes
      of its path (the forward; the forward with lse and the dQ and dK/dV
      backward kernels, ragged N and head dims 8 and 16 included, and the
      kernels' block edges: N 40 at every head dim, 128, 129 and 4,800; the
-     forward's lse also in its mean gap, MEAN_LSE_ATOL), then
+     forward's lse also in its mean gap, MEAN_LSE_ATOL; the f32 forward at
+     the same shapes), then
      timed (CUDA events) at its path's batch beside its bound and a one-call
      PyTorch yardstick (``library_ms``, never used by the port), the timed
-     runs' outputs held against each other; with ``--other-source``, each
+     runs' outputs held against each other (the f32 forward at the eval
+     batch, SDPA at f32 beside it); with ``--other-source``, each
      other revision's forward entry points (B1, B1 with lse, B3) or backward
      entry points (B2a dQ, B2b dK/dV) built by the same flags and timed in
      turns with this revision's at the path's shapes and batches;
@@ -66,9 +69,25 @@ Phases:
      default path's, beside a witness of what the stem's one-ulp differences
      alone do to the all-plain model; a torch.profiler pass over one batch;
   7. one JSON line listing the kernels, then the last line
-     {"ok": true, "device": {...}}.
+     {"ok": true, "device": {...}};
+  8. the evaluation path, ``python -m frn_tpu_torch.cli.test`` (its
+     ``main``) on fixtures written by the port's ``make_csv_fixture`` with
+     seeded ``.pth`` weights, fusion ResNet-50 at full width: DSEC at bf16,
+     DSEC at the CLI's default f32 and DDD17 (``test_ddd17``, f32). Each:
+     launch counts zeroed just before and read just after (bf16: B1 4 per
+     batch; f32: the f32 forward 4 per DSEC and 2 per DDD17 batch, nothing
+     else), summary and APs finite in [0, 1], img/s end to end (the CLI's,
+     and the loop's again warm), device ms of forward + decode + NMS per
+     batch and the warm eval loop's idle share. At
+     DSEC f32 also: ``collect_detections``' rows against the inference
+     function's output on the same batch, the logits against the plain
+     attention, and the corruption sweep over the seven OpenCV-free
+     corruptions at severities 1 and 5. Then the folder protocol through
+     the CLI (--corruption_root over a tree the phase writes) and a small
+     f32 evaluation on the card against the CPU. Phase 4 then evaluates
+     in ``Trainer.fit`` (``eval_fn``) and checks the best-mAP checkpoint.
 
-Phases run in the order 1, 2, 5, 3, 6, 4, 7.
+Phases run in the order 1, 2, 5, 3, 6, 8, 4, 7.
 """
 
 import copy
@@ -91,11 +110,19 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 INT8_OP_PER_S = 1979e12
 EXP_PER_S = 3.9e12
+# FP32 on the CUDA cores (H100 SXM data sheet: 67 TFLOPS), the f32 forward's rate
+F32_FLOP_PER_S = 67e12
 
 # kernel vs plain on bf16 outputs: both round p to bf16 before PV, but their
 # exps and f32 sums differ in the last bits, so a p can land one bf16 ulp
 # apart, and the output itself is rounded to bf16 (relative step 2^-8)
 FLASH_ATOL, FLASH_RTOL = 2e-2, 2e-2
+# the f32 forward vs its plain version (f32 outputs): the same recurrence with
+# p unrounded, but ex2.approx against exp2 (2 ulps of p), the scores' FMA
+# order over d against the matmul's, and sums over up to 19,200 keys in
+# another order; the kernel's 32-key tile at d 64 against the plain 64 changes
+# only the rounding. On an H100 the largest difference was 1.2e-5, at N 19,200
+FLASH_F32_ATOL, FLASH_F32_RTOL = 2e-5, 1e-4
 # main path with the kernel vs with the plain attention, as max|diff| over
 # max|ref| of the bf16 logits and deltas: the attention outputs' one-ulp
 # differences pass through the W conv, AdaIN, the FPN and the heads' five
@@ -141,8 +168,13 @@ TRAIN_BATCH, TRAIN_SAMPLES, TRAIN_TIMED = 8, 48, 10
 TRAIN_GRAD_REL_TOL = 5e-2
 # timing shapes (N, d): DSEC stages 1 and 2, two directions each per forward
 FLASH_SHAPES = ((19200, 32), (4800, 64))
+# DDD17's one flash stage (stage 1, ragged), two directions per forward
+DDD17_FLASH_SHAPE = (5655, 32)
+# the evaluation CLI's default batch
+EVAL_BATCH = 8
 KERNEL_SOURCES = {
     "flash_fwd": ("frn_tpu_torch/csrc/flash_attention.cu", "frn_tpu/ops/flash_attention.py:39"),
+    "flash_fwd_f32": ("frn_tpu_torch/csrc/flash_attention_f32.cu", "frn_tpu/ops/flash_attention.py:39"),
     "flash_fwd_lse": ("frn_tpu_torch/csrc/flash_attention.cu", "frn_tpu/ops/flash_attention.py:39"),
     "flash_bwd_dq": ("frn_tpu_torch/csrc/flash_attention_bwd.cu", "frn_tpu/ops/flash_attention.py:275"),
     "flash_bwd_dkv": ("frn_tpu_torch/csrc/flash_attention_bwd.cu", "frn_tpu/ops/flash_attention.py:300"),
@@ -161,14 +193,16 @@ TRAIN_KERNELS = ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
 # the path's wgmma instances of each source, as (kernel, its first template
 # arguments): the forward at d 32 and 64, with and without exp_bf16; the dQ
 # and dK/dV kernels at d 32 and 64; the int8 forward at d 32 and 64 in modes
-# int8_qk (0) and int8 (1); the stem at C 3 and 5. Phase 1 fails unless each
-# is in the compiler's log once, unspilled
+# int8_qk (0) and int8 (1); the stem at C 3 and 5; and the f32 forward (CUDA
+# cores) at d 32 and 64. Phase 1 fails unless each is in the compiler's log
+# once, unspilled
 PATH_INSTANCES = {
     "flash_attention": [("flash_fwd_wgmma", d, e) for d in (32, 64) for e in (0, 1)],
     "flash_attention_bwd": [(kernel, d) for kernel in ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
                             for d in (32, 64)],
     "flash_attention_int8": [("flash_int8_wgmma", d, f) for d in (32, 64) for f in (0, 1)],
     "stem": [("stem_wgmma", c) for c in (3, 5)],
+    "flash_attention_f32": [("flash_fwd_f32", d) for d in (32, 64)],
 }
 OPTIN_KERNELS = ("flash_fwd_bf16exp", "flash_int8_qk", "flash_int8", "int8_qk_prepass",
                  "int8_prepass", "stem")
@@ -298,6 +332,13 @@ def kernel_bound(kind: str, b: int, n: int, d: int):
     return ((elems * b * n * d + rows * b * n) / HBM_BYTES_PER_S, max(mma, b * n * n / EXP_PER_S))
 
 
+def f32_bound(b: int, n: int, d: int):
+    """(bytes time, operations time) of one f32 forward launch: f32 Q, K, V
+    read once and O written once; 4 B N^2 d flops (the two products) at the
+    CUDA cores' f32 rate."""
+    return 16 * b * n * d / HBM_BYTES_PER_S, 4 * b * n * n * d / F32_FLOP_PER_S
+
+
 def prepass_bound(mode: str, b: int, n: int, d: int):
     """(bytes time, operations time) of one int8 pre-pass: bf16 q, k (and in
     mode 'int8' v) read once; int8 qi, ki (and V^T, padded to whole 64-key
@@ -381,14 +422,19 @@ class KernelTimes:
                 "bound_ms": bound_ms, "bound_by": bound_by, "per_shape": self.per_shape}
 
 
-def phase_environment():
+def card_name_and_power_limit() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi: {smi.stderr.strip()}")
-    print(smi.stdout.strip(), flush=True)
+    return smi.stdout.strip()
+
+
+def phase_environment():
+    print(card_name_and_power_limit(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}", flush=True)
     # every phase compares f32 work on the card with the CPU or a plain
@@ -446,7 +492,7 @@ def kernel_instances(log: str) -> dict:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv|int8)_(?:mma|wgmma)|stem_wgmma)"
+            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv|int8)_(?:mma|wgmma)|flash_fwd_f32|stem_wgmma)"
                           r"I((?:L[ib]\d+E)+)E", entry.group(1))
             current = None if m is None else (
                 m.group(1), *(int(x) for x in re.findall(r"L[ib](\d+)E", m.group(2))))
@@ -491,6 +537,51 @@ def phase_flash_kernel():
                              lambda: fa.flash_attention_plain(q, k, v), lib_ms)
         check_close("flash_fwd", "o", out, ref, FLASH_ATOL, FLASH_RTOL, q.shape, errs)
     return times.row(errs["flash_fwd"], "forward")
+
+
+def phase_flash_f32():
+    """The f32 forward (B1 at f32, the evaluation path's default) against its
+    plain version at every check shape (BWD_CHECK_SHAPES: the paths' shapes,
+    ragged N, d 8 and 16, the block edges), then timed at the eval batch
+    EVAL_BATCH per DSEC eval batch (two launches at each of FLASH_SHAPES)
+    beside its bound and SDPA at f32; DDD17's stage 1 (N 5,655, two launches)
+    timed and printed beside it."""
+    import torch.nn.functional as F
+
+    from frn_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+
+    def qkv(b, n, d):
+        return [torch.randn((b, n, d), generator=gen, device="cuda") for _ in range(3)]
+
+    errs = {}
+    for shape in BWD_CHECK_SHAPES:
+        q, k, v = qkv(*shape)
+        check_close("flash_fwd_f32", "o", fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v),
+                    FLASH_F32_ATOL, FLASH_F32_RTOL, shape, errs)
+
+    times = KernelTimes("flash_fwd_f32")
+    for n, d in FLASH_SHAPES:
+        q, k, v = qkv(EVAL_BATCH, n, d)
+        q4, k4, v4 = (x.unsqueeze(1) for x in (q, k, v))
+        lib_ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0), reps=10)
+        out, ref = times.add({"B": EVAL_BATCH, "N": n, "d": d}, f32_bound(EVAL_BATCH, n, d),
+                             lambda: fa.flash_attention(q, k, v),
+                             lambda: fa.flash_attention_plain(q, k, v), lib_ms)
+        check_close("flash_fwd_f32", "o", out, ref, FLASH_F32_ATOL, FLASH_F32_RTOL, q.shape, errs)
+        del out, ref
+    q, k, v = qkv(EVAL_BATCH, *DDD17_FLASH_SHAPE)
+    q4, k4, v4 = (x.unsqueeze(1) for x in (q, k, v))
+    ms, out = cuda_ms(lambda: fa.flash_attention(q, k, v), reps=10)
+    lib_ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0), reps=10)
+    check_close("flash_fwd_f32", "o", out, fa.flash_attention_plain(q, k, v), FLASH_F32_ATOL,
+                FLASH_F32_RTOL, q.shape, errs)
+    bound = max(f32_bound(EVAL_BATCH, *DDD17_FLASH_SHAPE)) * 1e3
+    print(f"flash_fwd_f32 per DDD17 eval batch (B {EVAL_BATCH}, N {DDD17_FLASH_SHAPE[0]}, d "
+          f"{DDD17_FLASH_SHAPE[1]}, 2 launches): kernel {2 * ms:.3f} ms, bound {2 * bound:.3f} ms, "
+          f"SDPA f32 {2 * lib_ms:.3f} ms", flush=True)
+    return times.row(errs["flash_fwd_f32"], "DSEC eval batch")
 
 
 def phase_flash_backward():
@@ -1335,6 +1426,387 @@ def phase_small_reference():
         fail("small f32 model detection counts differ between card and CPU")
 
 
+# ------------------------------------------------------------ evaluation
+
+# the evaluation path (phase 8): three batches of EVAL_BATCH per clean run;
+# the corruption runs take one batch each
+EVAL_IMAGES, EVAL_SWEEP_IMAGES = 24, 8
+EVAL_SEVERITIES = (1, 5)
+# the CLI's configurations: label, CLI entry (module), flags, launches per
+# batch of each kernel (every other kernel of the port: none)
+EVAL_CONFIGS = (
+    ("DSEC bf16", "test", "dsec", ["--compute_dtype", "bfloat16"], {"flash_fwd": 4}),
+    ("DSEC f32", "test", "dsec", [], {"flash_fwd_f32": 4}),
+    ("DDD17 f32 (test_ddd17)", "test_ddd17", "ddd17", [], {"flash_fwd_f32": 2}),
+)
+# f32 logits with the f32 kernel vs with its plain version, max|diff| over
+# max|ref|: the attention outputs differ by about 1e-5 relative (FLASH_F32_*),
+# and every later layer computes in f32
+EVAL_F32_REL_TOL = 1e-3
+# the small f32 evaluation on the card vs on the CPU (256x320, depth 18:
+# stage 1 has 5,120 tokens at head dim 8, so the card runs the f32 forward
+# there and the CPU the dense route): the same detections (scores within
+# 1e-4, boxes within 1e-2 px: f32 sums in another order) and per-class APs
+# within 1e-3 (a rank flip of two near-equal scores)
+SMALL_EVAL_HW = (256, 320)
+SMALL_EVAL_SCORE_ATOL, SMALL_EVAL_BOX_ATOL, SMALL_EVAL_AP_ATOL = 1e-4, 1e-2, 1e-3
+
+
+class _FirstImages:
+    """The first ``count`` images of a CSV dataset, with its evaluation surface."""
+
+    def __init__(self, dataset, count: int):
+        self.dataset, self.count = dataset, count
+
+    def __len__(self):
+        return self.count
+
+    def __getitem__(self, i):
+        return self.dataset[i]
+
+    def __getattr__(self, name):  # num_classes, label_to_name, load_annotations
+        return getattr(self.dataset, name)
+
+
+def write_eval_inputs(root: Path) -> dict:
+    """The evaluation phase's inputs under ``root``: a DSEC and a DDD17
+    fixture of EVAL_IMAGES images, a DSEC one of EVAL_SWEEP_IMAGES for the
+    corruption runs and the trainer, a small one (SMALL_EVAL_HW) for the
+    card-vs-CPU check (``make_csv_fixture``, PNGs by ``data/image_io.py``),
+    and ``.pth`` files of seeded weights with random head output convs (so
+    that NMS has work): the DSEC and DDD17 fusion ResNet-50s and a small
+    depth-18 model."""
+    from frn_tpu_torch import config as c
+    from frn_tpu_torch.data.synthetic import make_csv_fixture
+    from frn_tpu_torch.models.detector import init_detector
+
+    t0 = time.perf_counter()
+    small = dataclasses.replace(c.DSEC, height=SMALL_EVAL_HW[0], width=SMALL_EVAL_HW[1])
+    out = {"dsec": make_csv_fixture(str(root / "dsec"), c.DSEC, EVAL_IMAGES, seed=11),
+           "ddd17": make_csv_fixture(str(root / "ddd17"), c.DDD17, EVAL_IMAGES, seed=12),
+           "dsec_small": make_csv_fixture(str(root / "dsec_small"), c.DSEC, EVAL_SWEEP_IMAGES,
+                                          seed=13),
+           "small": make_csv_fixture(str(root / "small"), small, 6, seed=14)}
+    models = {"dsec": (c.DSEC, {}), "ddd17": (c.DDD17, {}),
+              "small": (small, {"depth": 18, "feature_size": 16})}
+    for name, (geo, kw) in models.items():
+        cfg = c.FrameworkConfig(geometry=geo, model=c.ModelConfig(
+            variant="fusion", num_classes=geo.num_classes, **{"depth": 50, **kw}))
+        model = init_detector(cfg, seed=15, device="cpu")
+        _random_head_outputs(model, seed=16)
+        out[f"{name}_pth"] = str(root / f"{name}.pth")
+        torch.save({"model_state_dict": model.state_dict(), "epoch": 0}, out[f"{name}_pth"])
+        del model
+    print(f"evaluation inputs: fixtures of {EVAL_IMAGES} DSEC, {EVAL_IMAGES} DDD17, "
+          f"{EVAL_SWEEP_IMAGES} DSEC and 6 small images, three .pth files, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def _cli_flags(inputs: dict, dataset: str, folder: str, *more) -> list:
+    fix = inputs[dataset]
+    return ["--csv_classes", fix["class_map_csv"], "--root_img", fix["img_dir"],
+            "--root_event", fix["event_dir"], "--csv_test", fix["annotations_csv"],
+            "--checkpoint", inputs[dataset.split("_")[0] + "_pth"], "--batch_size", str(EVAL_BATCH),
+            "--save_detect_folder", folder, *more]
+
+
+def run_eval_cli(label: str, module: str, argv: list):
+    """``frn_tpu_torch.cli.<module>.main(argv)`` on the card with the launch
+    counts zeroed just before and read just after; its printout is echoed.
+    Returns (printout, counts, seconds)."""
+    import contextlib
+    import importlib
+    import io
+
+    main = importlib.import_module(f"frn_tpu_torch.cli.{module}").main
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    text = buf.getvalue()
+    print(f"--- {label}: python -m frn_tpu_torch.cli.{module} ... ({seconds:.1f} s)\n"
+          f"{text.strip()}\n--- launches {json.dumps(counts)}", flush=True)
+    if rc != 0:
+        fail(f"evaluation CLI ({label}) returned {rc}")
+    return text, counts, seconds
+
+
+def check_eval_summary(label: str, text: str, folder: str):
+    """(fps, summary): the CLI's printed fps and mAP summary, and its
+    evaluation_aps.pkl, all finite and the APs in [0, 1]."""
+    import pickle
+    import re
+
+    fps = re.search(r"^fps ([0-9.]+)$", text, re.M)
+    summary = json.loads(text[text.index("{"):text.rindex("}") + 1])
+    with open(Path(folder) / "evaluation_aps.pkl", "rb") as f:
+        aps = [a for per_class in pickle.load(f).values() for a in per_class]
+    values = list(summary.values()) + aps
+    if fps is None or not float(fps.group(1)) > 0:
+        fail(f"evaluation ({label}): no fps in the printout")
+    if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in values):
+        fail(f"evaluation ({label}): summary or APs outside [0, 1]: {summary}")
+    return float(fps.group(1)), summary
+
+
+def eval_model(inputs: dict, dataset: str, *flags):
+    """(args, dataset, config, infer) of the CLI's flags, built by the
+    CLI's own helpers, on the card: the function the CLI evaluates with."""
+    from frn_tpu_torch.cli import common, test
+    from frn_tpu_torch.eval.detections import make_inference_fn
+    from frn_tpu_torch.models.detector import init_detector
+
+    args = test.get_parser().parse_args(
+        ["--dataset_name", dataset.split("_")[0]] + _cli_flags(inputs, dataset, "unused", *flags))
+    device = common.setup_device(args)
+    ds = common.build_csv_dataset(args, args.csv_test)
+    config = common.build_config(args, ds.num_classes(), args.batch_size)
+    model = init_detector(config, seed=0, device=device)
+    common.load_checkpoint_into_model(args, model)
+    return args, ds, config, make_inference_fn(model, config)
+
+
+def first_batch(dataset, config):
+    """The first EVAL_BATCH images, collated as ``collect_detections``
+    collates them, on the card."""
+    from frn_tpu_torch.data.collate import collate_fixed
+    from frn_tpu_torch.data.loader import to_device
+
+    batch = collate_fixed([dataset[i] for i in range(EVAL_BATCH)], config.geometry, 1, EVAL_BATCH)
+    batch = to_device({"rgb": batch["rgb"], "event": batch["event"]}, "cuda")
+    return batch["rgb"], batch["event"]
+
+
+def check_rows_match_inference(dataset, config, infer) -> None:
+    """``collect_detections``' per-image, per-class rows against the
+    inference function's output on the same collated batch, exactly."""
+    import numpy as np
+
+    from frn_tpu_torch.eval.detections import collect_detections
+
+    rgb, event = first_batch(dataset, config)
+    scores, labels, boxes = (x.cpu().numpy() for x in infer(rgb, event))
+    dets, _ = collect_detections(_FirstImages(dataset, EVAL_BATCH), infer, config,
+                                 batch_size=EVAL_BATCH)
+    compared = 0
+    for b in range(EVAL_BATCH):
+        keep = scores[b] > config.eval.score_threshold
+        rows = np.concatenate([boxes[b][keep], scores[b][keep][:, None]], 1).astype(np.float32)
+        for cls in range(dataset.num_classes()):
+            want = rows[labels[b][keep] == cls]
+            if not np.array_equal(dets[b][cls], want):
+                fail(f"collect_detections image {b} class {cls}: {dets[b][cls].shape} rows differ "
+                     f"from the inference function's {want.shape}")
+            compared += len(want)
+    print(f"collect_detections rows equal the inference function's output on the same batch: "
+          f"{compared} detections over {EVAL_BATCH} images", flush=True)
+    if compared == 0:
+        fail("collect_detections: no detections to compare")
+
+
+def check_f32_logits(model, config, rgb, event, eval_output) -> None:
+    """The f32 model's logits and deltas with the f32 kernel against the same
+    model with the plain attention, on the card."""
+    from frn_tpu_torch.ops import attention
+    from frn_tpu_torch.ops import flash_attention as fa
+
+    with torch.inference_mode():
+        got = model(rgb, event, eval_output=eval_output, train=False)
+        kernel_fn = attention.flash_attention
+        attention.flash_attention = fa.flash_attention_plain
+        try:
+            want = model(rgb, event, eval_output=eval_output, train=False)
+        finally:
+            attention.flash_attention = kernel_fn
+    for name, g, w in zip(("logits", "deltas"), got, want):
+        rel = ((g - w).abs().max() / w.abs().max()).item()
+        print(f"evaluation DSEC f32 {name}, f32 kernel vs plain attention (batch {EVAL_BATCH}): "
+              f"max|diff|/max|ref| = {rel:.3e} (at most {EVAL_F32_REL_TOL:.0e})", flush=True)
+        if not (g.dtype == torch.float32 and rel <= EVAL_F32_REL_TOL):
+            fail(f"evaluation DSEC f32 {name} disagree with the plain attention ({rel:.3e})")
+
+
+def check_small_eval_card_vs_cpu(inputs: dict, root: Path) -> None:
+    """The small f32 model evaluated by the CLI on the card (the f32 forward
+    twice, at stage 1) and on the CPU (the dense route): the same detections
+    and per-class APs, within SMALL_EVAL_*."""
+    import pickle
+
+    import numpy as np
+
+    small = ["--image_height", str(SMALL_EVAL_HW[0]), "--image_width", str(SMALL_EVAL_HW[1]),
+             "--depth", "18", "--feature_size", "16"]
+    got = {}
+    for device in ("cuda", "cpu"):
+        folder = str(root / f"small_{device}")
+        argv = _cli_flags(inputs, "small", folder, *small, "--device", device)
+        text, counts, _ = run_eval_cli(f"small f32 on {device}", "test", argv)
+        check_eval_summary(f"small f32 on {device}", text, folder)
+        want = {**dict.fromkeys(_COUNTERS, 0), "flash_fwd_f32": 2 if device == "cuda" else 0}
+        if counts != want:
+            fail(f"small f32 evaluation on {device} launched {counts}, expected {want}")
+        with open(Path(folder) / "detections.txt", "rb") as f:
+            dets = pickle.load(f)
+        with open(Path(folder) / "evaluation_aps.pkl", "rb") as f:
+            got[device] = dets, pickle.load(f)
+    (d_card, ap_card), (d_cpu, ap_cpu) = got["cuda"], got["cpu"]
+    n, score_err, box_err = 0, 0.0, 0.0
+    for img_card, img_cpu in zip(d_card, d_cpu):
+        for a, b in zip(img_card, img_cpu):
+            if a.shape != b.shape:
+                fail(f"small f32 evaluation: {a.shape} detections on the card, {b.shape} on the CPU")
+            if len(a):
+                n += len(a)
+                score_err = max(score_err, float(np.abs(a[:, 4] - b[:, 4]).max()))
+                box_err = max(box_err, float(np.abs(a[:, :4] - b[:, :4]).max()))
+    ap_err = max(abs(x - y) for k in ap_cpu for x, y in zip(ap_card[k], ap_cpu[k]))
+    print(f"small f32 evaluation, card vs CPU: {n} detections, max |score diff| {score_err:.3e}, "
+          f"max |box diff| {box_err:.3e} px, max |AP diff| {ap_err:.3e}", flush=True)
+    if not (n > 0 and score_err <= SMALL_EVAL_SCORE_ATOL and box_err <= SMALL_EVAL_BOX_ATOL
+            and ap_err <= SMALL_EVAL_AP_ATOL):
+        fail("small f32 evaluation disagrees between the card and the CPU")
+
+
+def write_corruption_tree(inputs: dict, root: Path, group: int) -> Path:
+    """A pre-generated corruption tree <root>/<type>/severity_<s>/ for the
+    corruption group ``group`` over the small DSEC fixture's images, each
+    corrupted by ``ops/corruption.py``; a type that needs OpenCV, where it
+    is absent, gets the clean images (said so)."""
+    import shutil
+
+    import numpy as np
+
+    from frn_tpu_torch.data import image_io
+    from frn_tpu_torch.ops.corruption import CORRUPTION_GROUPS, SEVERITIES, corrupt
+
+    t0 = time.perf_counter()
+    src = Path(inputs["dsec_small"]["img_dir"])
+    pngs = sorted(src.rglob("*.png"))
+    for corruption in CORRUPTION_GROUPS[group]:
+        for sev in SEVERITIES:
+            for png in pngs:
+                dst = root / corruption / f"severity_{sev}" / png.relative_to(src)
+                dst.parent.mkdir(parents=True, exist_ok=True)
+                img = image_io.imread(str(png)).astype(np.float32) / 255.0
+                try:
+                    img = corrupt(img, corruption, sev)
+                except RuntimeError as e:  # OpenCV absent
+                    if sev == 1 and png == pngs[0]:
+                        print(f"corruption tree: {corruption} holds clean images ({e})", flush=True)
+                    shutil.copyfile(png, dst)
+                    continue
+                image_io.imwrite(str(dst), (np.clip(img, 0, 1) * 255).round().astype(np.uint8),
+                                 level=1)
+    print(f"corruption tree of group {group} ({len(pngs)} images x {len(SEVERITIES)} severities) "
+          f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+    return root
+
+
+def phase_evaluation(kernel_rows, inputs: dict, root: Path) -> None:
+    """The evaluation path through ``python -m frn_tpu_torch.cli.test`` on
+    the card, full width (fusion ResNet-50, feature size 256): DSEC at bf16
+    and at the CLI's default f32, and DDD17 (``test_ddd17``, f32), each with
+    its launches counted per batch, its summary and APs checked and its
+    img/s, device ms per batch and idle share printed; then the corruption
+    sweep over the seven OpenCV-free corruptions at EVAL_SEVERITIES
+    (``corruption_sweep``), the folder protocol through the CLI
+    (--corruption_root), and the small f32 evaluation on the card against
+    the CPU."""
+    import pickle
+
+    from frn_tpu_torch.cli.test import write_corruption_artifacts
+    from frn_tpu_torch.data.csv_dataset import CSVDetectionDataset
+    from frn_tpu_torch.eval.detections import collect_detections
+    from frn_tpu_torch.eval.evaluator import corruption_sweep
+    from frn_tpu_torch.ops.corruption import CORRUPTION_GROUPS, CV2_FREE_CORRUPTIONS, SEVERITIES
+
+    print(f"evaluation on {card_name_and_power_limit()}", flush=True)
+    batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    f32_launches = 0
+    for label, module, dataset, flags, per_batch in EVAL_CONFIGS:
+        folder = str(root / f"eval_{label.split()[0]}_{label.split()[1]}")
+        text, counts, seconds = run_eval_cli(label, module, _cli_flags(inputs, dataset, folder, *flags))
+        want = {**dict.fromkeys(_COUNTERS, 0), **{k: n * batches for k, n in per_batch.items()}}
+        if counts != want:
+            fail(f"evaluation ({label}) launched {counts}, expected {want}")
+        f32_launches += counts["flash_fwd_f32"]
+        fps, summary = check_eval_summary(label, text, folder)
+
+        # the same function the CLI evaluated with: the eval loop again, warm
+        # (the CLI's fps includes its first batch), and its first batch alone
+        _, ds, config, infer = eval_model(inputs, dataset, *flags)
+        _, warm_s = collect_detections(ds, infer, config, batch_size=EVAL_BATCH)
+        rgb, event = first_batch(ds, config)
+        dev_ms, _ = cuda_ms(lambda: infer(rgb, event), reps=5, warmup=1)
+        loop_ms = 1e3 * warm_s / batches
+        print(f"evaluation ({label}): {fps:.2f} img/s end to end by the CLI ({EVAL_IMAGES} images, "
+              f"batch {EVAL_BATCH}: loading, transfer, forward, decode, NMS, host copy; first batch "
+              f"included), {EVAL_IMAGES / warm_s:.2f} img/s over the loop again warm ({loop_ms:.2f} "
+              f"ms per batch); forward + decode + NMS {dev_ms:.2f} ms per batch (CUDA events), "
+              f"{EVAL_BATCH * 1e3 / dev_ms:.1f} img/s; mAP {summary['mAP']:.4f}", flush=True)
+        profile_pass(f"evaluation profile ({label}): one batch of {EVAL_BATCH}, idle share of the "
+                     f"warm eval loop's ms per batch", lambda: infer(rgb, event), loop_ms, n_ops=8,
+                     n_kernels=8)
+        if label == "DSEC f32":
+            check_rows_match_inference(ds, config, infer)
+            check_f32_logits(infer.model, config, rgb, event, infer.eval_output)
+            small = inputs["dsec_small"]
+            sweep_ds = CSVDetectionDataset(config.geometry, small["annotations_csv"],
+                                           small["class_map_csv"], small["event_dir"],
+                                           small["img_dir"])
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            results = corruption_sweep(sweep_ds, infer, config, corruptions=CV2_FREE_CORRUPTIONS,
+                                       severities=EVAL_SEVERITIES, batch_size=EVAL_BATCH,
+                                       save_root=str(root / "sweep"))
+            counts = _counts()
+            runs = len(CV2_FREE_CORRUPTIONS) * len(EVAL_SEVERITIES)
+            print(f"corruption sweep (DSEC f32, {EVAL_SWEEP_IMAGES} images): "
+                  f"{len(CV2_FREE_CORRUPTIONS)} OpenCV-free corruptions x severities "
+                  f"{EVAL_SEVERITIES} in {time.perf_counter() - t0:.1f} s; launches "
+                  f"{json.dumps(counts)}", flush=True)
+            for corruption, per_sev in results.items():
+                print(f"  {corruption}: " + ", ".join(
+                    f"s{sev} mAP {sum(v) / len(v):.4f}" for sev, v in per_sev.items()), flush=True)
+            values = [a for per_sev in results.values() for v in per_sev.values() for a in v]
+            if (sorted(results) != sorted(CV2_FREE_CORRUPTIONS)
+                    or any(sorted(v) != list(EVAL_SEVERITIES) for v in results.values())
+                    or not all(math.isfinite(a) and 0 <= a <= 1 for a in values)
+                    or counts["flash_fwd_f32"] != 4 * runs):
+                fail(f"corruption sweep: results {results}, launches {counts}")
+            write_corruption_artifacts(results, [ds.label_to_name(i) for i in range(3)],
+                                       str(root / "sweep"))
+        del infer, rgb, event
+        torch.cuda.empty_cache()
+    kernel_rows["flash_fwd_f32"]["launches"] = f32_launches
+
+    # the folder protocol through the CLI, at bf16 over the small fixture
+    tree = write_corruption_tree(inputs, root / "corruptions", group=0)
+    folder = str(root / "eval_folder")
+    text, counts, _ = run_eval_cli(
+        "folder protocol, DSEC bf16", "test",
+        _cli_flags(inputs, "dsec_small", folder, "--compute_dtype", "bfloat16", "--eval_corruption",
+                   "--corruption_group", "0", "--corruption_root", str(tree)))
+    with open(Path(folder) / "corruption_aps.pkl", "rb") as f:
+        results = pickle.load(f)
+    runs = len(CORRUPTION_GROUPS[0]) * len(SEVERITIES)
+    values = [a for per_sev in results.values() for v in per_sev.values() for a in v]
+    if (sorted(results) != sorted(CORRUPTION_GROUPS[0])
+            or not all((Path(folder) / f"{c}_ap.txt").is_file() for c in results)
+            or not all(math.isfinite(a) and 0 <= a <= 1 for a in values)
+            or counts != {**dict.fromkeys(_COUNTERS, 0), "flash_fwd": 4 * runs}):
+        fail(f"folder protocol: results {results}, launches {counts}")
+    print(f"folder protocol: {runs} evaluations, artifacts {sorted(p.name for p in Path(folder).iterdir() if p.suffix in ('.txt', '.pkl'))}", flush=True)
+    check_small_eval_card_vs_cpu(inputs, root)
+
+
 def _batch_grads(state, config, batch):
     """Loss and parameter gradients of one batch, RGB kept (no dropout), with
     no change to the train state."""
@@ -1347,6 +1819,7 @@ def _batch_grads(state, config, batch):
 
 # each kernel's launch counter: (module, attribute)
 _COUNTERS = {"flash_fwd": ("flash_attention", "flash_fwd_launches"),
+             "flash_fwd_f32": ("flash_attention", "flash_fwd_f32_launches"),
              "flash_fwd_lse": ("flash_attention", "flash_fwd_lse_launches"),
              "flash_bwd_dq": ("flash_attention", "flash_bwd_dq_launches"),
              "flash_bwd_dkv": ("flash_attention", "flash_bwd_dkv_launches"),
@@ -1374,20 +1847,30 @@ def _counts() -> dict:
     return {kind: getattr(mods[module], attr) for kind, (module, attr) in _COUNTERS.items()}
 
 
-def phase_training(kernel_rows) -> None:
+def phase_training(kernel_rows, inputs: dict, root: Path) -> None:
     """The training path through ``frn_tpu_torch.entry.train_entry``: DSEC
     480x640 fusion R50 bf16 at batch TRAIN_BATCH, Adam, accum_steps 2.
     ``Trainer.fit`` over 48 seeded samples (6 micro-steps, 3 optimizer steps)
-    with launch counts zeroed just before and read just after; then timed
-    micro-steps, the batch's gradients against the plain attention, a
-    checkpoint round trip, a profile pass, and a small f32 train step on the
-    card against the CPU."""
+    with its periodic evaluation after the epoch (``cli.common.make_eval_fn``
+    over the small DSEC fixture of ``inputs``) and a checkpoint directory
+    under ``root``, launch counts zeroed just before and read just after;
+    the best-mAP checkpoint must be written. Then timed micro-steps, the
+    batch's gradients against the plain attention, a checkpoint round trip,
+    a profile pass, and a small f32 train step on the card against the CPU."""
+    from frn_tpu_torch.cli.common import make_eval_fn
+    from frn_tpu_torch.data.csv_dataset import CSVDetectionDataset
     from frn_tpu_torch.entry import train_entry
     from frn_tpu_torch.ops import flash_attention as fa
+    from frn_tpu_torch.train.checkpoint import CheckpointManager
 
     trainer, batch = train_entry(device="cuda", batch=TRAIN_BATCH, num_samples=TRAIN_SAMPLES)
     state, cfg = trainer.state, trainer.config
     steps = TRAIN_SAMPLES // TRAIN_BATCH
+    fix = inputs["dsec_small"]
+    eval_ds = CSVDetectionDataset(cfg.geometry, fix["annotations_csv"], fix["class_map_csv"],
+                                  fix["event_dir"], fix["img_dir"])
+    trainer.eval_fn, trainer.eval_every = make_eval_fn(cfg, eval_ds, EVAL_BATCH), 1
+    trainer.ckpt = CheckpointManager(str(root / "train_checkpoints"))
 
     # fit, watching every micro-step: its metrics and how far the params moved
     record = []
@@ -1409,12 +1892,23 @@ def phase_training(kernel_rows) -> None:
     fit_s = time.perf_counter() - t0
     counts = _counts()
     trainer.step_fn = step_fn
-    print(f"training: Trainer.fit(epochs=1), {len(record)} micro-steps of batch {TRAIN_BATCH} in "
-          f"{fit_s:.2f} s; flash launches {json.dumps(counts)}", flush=True)
+    print(f"training: Trainer.fit(epochs=1), {len(record)} micro-steps of batch {TRAIN_BATCH} and "
+          f"an evaluation of {len(eval_ds)} images in {fit_s:.2f} s; flash launches "
+          f"{json.dumps(counts)}", flush=True)
+    eval_batches = -(-len(eval_ds) // EVAL_BATCH)
     want = {**dict.fromkeys(_COUNTERS, 0), "flash_fwd_lse": 4 * steps,
-            "flash_bwd_dq": 4 * steps, "flash_bwd_dkv": 4 * steps}
+            "flash_bwd_dq": 4 * steps, "flash_bwd_dkv": 4 * steps, "flash_fwd": 4 * eval_batches}
     if len(record) != steps or counts != want:
         fail(f"fit ran {len(record)} micro-steps with launches {counts}, expected {steps} and {want}")
+    best = trainer.ckpt.path(1)
+    saved = torch.load(best, map_location="cpu", weights_only=True)
+    print(f"training: periodic evaluation mAP {trainer.best_map:.4f}; best checkpoint "
+          f"{Path(best).name} with best_map {saved.get('best_map')}", flush=True)
+    if not (0.0 <= trainer.best_map <= 1.0 and saved.get("best_map") == trainer.best_map
+            and saved["epoch"] == 1):
+        fail(f"the trainer's periodic evaluation wrote no best checkpoint ({trainer.best_map})")
+    trainer.ckpt, trainer.eval_fn = None, None
+    del saved
     for i, (metrics, moved) in enumerate(record):
         loss, moved = metrics["loss"].item(), moved.item()
         print(f"  micro-step {i + 1}: loss {loss:.5f} (cls {metrics['cls_loss'].item():.5f} reg "
@@ -1556,7 +2050,8 @@ def main(argv=None) -> None:
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
     phase_environment()
     others = build_others(args.other_source) if args.other_source else {}
-    rows = {"flash_fwd": phase_flash_kernel(), **phase_flash_backward()}
+    rows = {"flash_fwd": phase_flash_kernel(), "flash_fwd_f32": phase_flash_f32(),
+            **phase_flash_backward()}
     by_name = {name: {src: lib for src, lib in others.items() if Path(src).name == name}
                for name in ("flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_int8.cu",
                             "stem.cu")}
@@ -1577,7 +2072,11 @@ def main(argv=None) -> None:
     del fn, rgb, event
     phase_optin_path(rows, main_ms, main_out)
     del main_out
-    phase_training(rows)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        inputs = write_eval_inputs(root)
+        phase_evaluation(rows, inputs, root)
+        phase_training(rows, inputs, root)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

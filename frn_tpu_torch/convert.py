@@ -15,11 +15,14 @@ Module paths map to the reference's torch names: ``rgb_backbone/layer1_0/...``
 ``event_backbone/layer2_1`` -> ``layer2_event.1``, ``downsample_conv`` /
 ``downsample_bn`` -> ``downsample.0`` / ``downsample.1``, ``fus_0`` ->
 ``fus.0``; flax's inner ``Conv_0`` level is dropped.
+
+``load_reference_checkpoint`` reads the reference trainer's ``.pth`` files
+(or the port's own checkpoints), whose keys are already the port's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,3 +90,28 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                 arr = arr.transpose(3, 2, 0, 1)
             sd[torch_key(path, collection)] = torch.from_numpy(np.array(arr, order="C"))
     return sd
+
+
+def load_reference_checkpoint(path: str, model: Optional[torch.nn.Module] = None
+                              ) -> Dict[str, torch.Tensor]:
+    """A reference checkpoint file -> {name: tensor} in the port's names.
+
+    Counterpart of ``frn_tpu/convert/torch_import.py::load_torch_checkpoint``:
+    takes a raw state dict or the reference trainer's ``{'model_state_dict',
+    'epoch', ...}`` (train_dsec.py:198-200; the port's ``CheckpointManager``
+    files have the same key) and strips DataParallel's ``module.`` prefix. The
+    reference's BatchNorm ``num_batches_tracked`` counters are dropped: the
+    port's batch norm is frozen and keeps no counter. With ``model``, the
+    result is loaded into it with ``strict=True``.
+    """
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("model_state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        if not k.endswith("num_batches_tracked"):
+            out[k] = v
+    if model is not None:
+        model.load_state_dict(out, strict=True)
+    return out

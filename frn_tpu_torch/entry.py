@@ -57,7 +57,7 @@ class InferenceFn:
 
     @torch.inference_mode()
     def __call__(self, rgb: torch.Tensor, event: torch.Tensor):
-        cls, reg = self.model(rgb, event, eval_output=self.eval_output)
+        cls, reg = self.model(rgb, event, eval_output=self.eval_output, train=False)
         return decode_detections(cls, reg, self.config, anchors=self.anchors)
 
 

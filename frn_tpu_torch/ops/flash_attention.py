@@ -9,6 +9,8 @@ All tensors are (B, N, d) with Q = phi, K = theta, V = g, and there is no
 * ``csrc/flash_attention.cu``: O = softmax(Q K^T) V and, on request, the
   per-row logsumexp lse (B, N) f32, natural log; with the bf16-exp flag the
   softmax weights are p = bf16(exp(bf16(s - m))), m the running row max;
+* ``csrc/flash_attention_f32.cu``: O = softmax(Q K^T) V on f32 inputs, p kept
+  in f32 (inference only: no lse, no backward at f32 yet);
 * ``csrc/flash_attention_bwd.cu``: with P = exp(Q K^T - lse) and
   D = rowsum(dO * O) in f32, the dQ kernel computes dS = P * (dO V^T - D) and
   dQ = dS K, the dK/dV kernel dK = dS^T Q and dV = P^T dO;
@@ -18,11 +20,11 @@ All tensors are (B, N, d) with Q = phi, K = theta, V = g, and there is no
   bf16 (mode 'int8_qk') or, on p_q = round(127 p) and int8 V, in int8 (mode
   'int8').
 
-The kernels are Hopper CUDA C++ for bf16 and d in HEAD_DIMS, built at first use
-and bound with ctypes (``frn_tpu_torch/build.py``). Each wrapper launches its
-kernel for a CUDA tensor and, for a CPU tensor, runs its plain version, which
-follows the kernel's tile loop in PyTorch; on a CUDA tensor it launches the
-kernel or raises, and never falls back. ``FlashAttentionFn`` is the
+The kernels are Hopper CUDA C++ for bf16 (the forward for f32 too) and d in
+HEAD_DIMS, built at first use and bound with ctypes (``frn_tpu_torch/build.py``).
+Each wrapper launches its kernel for a CUDA tensor and, for a CPU tensor, runs
+its plain version, which follows the kernel's tile loop in PyTorch; on a CUDA
+tensor it launches the kernel or raises, and never falls back. ``FlashAttentionFn`` is the
 differentiable route (forward with lse, then both backward kernels); the
 bf16-exp and int8 forwards define no gradient. The module-level counters count
 each kernel's launches.
@@ -43,6 +45,7 @@ KERNEL_TILE = 64  # keys per tile of the forward kernels (B1, B3, B4)
 _LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)  # the kernels' kLog2e
 flash_fwd_launches = 0  # forward without lse (inference)
 flash_fwd_lse_launches = 0  # forward with lse (the forward of training)
+flash_fwd_f32_launches = 0  # forward on f32 inputs (inference)
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
 flash_fwd_bf16exp_launches = 0
@@ -54,6 +57,7 @@ INT8_PARTIALS = 32  # the pre-pass's partial maxima per batch slice (kPartials i
 _lib = None  # csrc/flash_attention.cu
 _bwd_lib = None  # csrc/flash_attention_bwd.cu
 _int8_lib = None  # csrc/flash_attention_int8.cu
+_f32_lib = None  # csrc/flash_attention_f32.cu
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -81,6 +85,20 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         _lib = bind_forward(build.load("flash_attention"))
     return _lib
+
+
+def bind_f32(lib):
+    """The same for ``csrc/flash_attention_f32.cu``."""
+    lib.frn_flash_fwd_f32.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+    lib.frn_flash_fwd_f32.restype = _I
+    return lib
+
+
+def _f32_library() -> ctypes.CDLL:
+    global _f32_lib
+    if _f32_lib is None:
+        _f32_lib = bind_f32(build.load("flash_attention_f32"))
+    return _f32_lib
 
 
 def _bwd_library() -> ctypes.CDLL:
@@ -369,19 +387,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_ls
     f32 logsumexp. The kernel on CUDA, the plain version on CPU.
 
     The shape rules (one (B, N, d) shape, d in HEAD_DIMS) hold on both; the
-    kernel further takes only contiguous, 16-byte aligned bf16 on one device.
-    Its output carries no gradient, so on CUDA an input that requires grad
-    (with grad mode on) raises: ``FlashAttentionFn.apply`` is the
-    differentiable route.
+    kernel further takes only contiguous, 16-byte aligned bf16 on one device,
+    or f32 without ``return_lse`` (the f32 forward: inference only). Its
+    output carries no gradient, so on CUDA an input that requires grad (with
+    grad mode on) raises: ``FlashAttentionFn.apply`` is the differentiable
+    route (bf16 only).
     """
-    global flash_fwd_launches, flash_fwd_lse_launches
+    global flash_fwd_launches, flash_fwd_lse_launches, flash_fwd_f32_launches
     _check_shapes(q, k, v)
     if not _on_kernel_device(q):
         return flash_attention_plain(q, k, v, return_lse=return_lse)
     _refuse_grad("flash_attention's kernel output carries no gradient; use "
                  "FlashAttentionFn.apply(q, k, v) where a gradient is needed", q, k, v)
-    _check_kernel_args(q, ("q", q, _BF16), ("k", k, _BF16), ("v", v, _BF16))
     b, n, d = q.shape
+    if q.dtype == _F32 and not return_lse:
+        _check_kernel_args(q, ("q", q, _F32), ("k", k, _F32), ("v", v, _F32))
+        o = torch.empty_like(q)
+        if o.numel():
+            _launch(_f32_library().frn_flash_fwd_f32, q, q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), o.data_ptr(), b, n, d)
+            flash_fwd_f32_launches += 1
+        return o
+    _check_kernel_args(q, ("q", q, _BF16), ("k", k, _BF16), ("v", v, _BF16))
     o = torch.empty_like(q)
     lse = torch.empty((b, n), dtype=_F32, device=q.device) if return_lse else None
     if o.numel():

@@ -1,10 +1,12 @@
 """Epoch-level trainer on one device (counterpart of ``frn_tpu/train/trainer.py``).
 
 The reference scripts' control flow: a running-mean loss window, the
-per-epoch plateau schedule on the mean epoch loss and periodic checkpoints,
-on top of the train step. One device; the mesh, the periodic evaluation
-with its best-mAP checkpoint, the metrics logger and the step timer of the
-JAX trainer are not ported yet (``metrics_path`` raises).
+per-epoch plateau schedule on the mean epoch loss, periodic checkpoints, and
+an optional periodic evaluation (``eval_fn(model, state) -> mAP`` every
+``eval_every`` epochs) that saves the epoch's checkpoint, with ``best_map``
+in its metadata, whenever the mAP beats the best so far; on top of the train
+step. One device; the mesh, the metrics logger and the step timer of the JAX
+trainer are not ported yet (``metrics_path`` raises).
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import collections
 import math
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -29,6 +31,8 @@ class Trainer:
         config: FrameworkConfig,
         dataset,
         checkpoint_dir: Optional[str] = None,
+        eval_fn: Optional[Callable] = None,  # (model, state) -> mAP float
+        eval_every: int = 5,
         log_every: int = 50,
         seed: Optional[int] = None,
         metrics_path: Optional[str] = None,
@@ -38,6 +42,8 @@ class Trainer:
             raise NotImplementedError(f"Trainer(metrics_path=...): {NOT_PORTED}")
         self.config = config
         self.dataset = dataset
+        self.eval_fn = eval_fn
+        self.eval_every = eval_every
         self.log_every = log_every
 
         seed = config.train.seed if seed is None else seed
@@ -50,6 +56,7 @@ class Trainer:
         )
         self.loss_window = collections.deque(maxlen=100)
         self.epoch = 0
+        self.best_map = -1.0
         self.generator = torch.Generator().manual_seed(seed + 1)  # modality dropout
         self.ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
         self.history: list = []
@@ -60,6 +67,7 @@ class Trainer:
             return False
         meta = self.ckpt.restore(self.state)
         self.epoch = int(meta.get("epoch", 0))
+        self.best_map = float(meta.get("best_map", -1.0))
         self.history = list(meta.get("loss_history", []))
         if "scheduler" in meta:
             self.scheduler.load_state_dict(meta["scheduler"])
@@ -135,6 +143,13 @@ class Trainer:
                        if stats["skipped"] else "")
             print(f"epoch {self.epoch}/{epochs}: loss {stats['mean_loss']:.5f} lr {lr:.2e} "
                   f"({stats['epoch_time_s']:.1f}s){skipped}", flush=True)
+            if self.eval_fn is not None and self.epoch % self.eval_every == 0:
+                current_map = float(self.eval_fn(self.state.model, self.state))
+                print(f"epoch {self.epoch}: mAP {current_map:.4f}", flush=True)
+                if current_map > self.best_map:
+                    self.best_map = current_map
+                    if self.ckpt:
+                        self._save()
             if self.ckpt and self.epoch % tc.checkpoint_every == 0:
                 self._save()
         if self.ckpt:
@@ -145,6 +160,7 @@ class Trainer:
         meta = {
             "loss_history": self.history,
             "scheduler": self.scheduler.state_dict(),
+            "best_map": self.best_map,
             "variant": self.config.model.variant,
             "dataset": self.config.geometry.name,
             "generator": self.generator.get_state(),

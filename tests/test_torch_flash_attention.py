@@ -92,7 +92,7 @@ def test_library_path_tracks_the_source():
     assert path.name.startswith("flash_attention-") and path.suffix == ".so"
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
     assert build.SOURCES == ("flash_attention", "flash_attention_bwd", "flash_attention_int8",
-                             "stem")
+                             "stem", "flash_attention_f32")
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").is_file()
 
@@ -201,6 +201,7 @@ def test_plain_backward_is_finite_where_lse_is_below_minus_88():
     ("flash_attention_int8", fa.bind_int8, "frn_flash_int8"),
     ("flash_attention_int8", fa.bind_int8, "frn_flash_int8_prepass"),
     ("stem", stem.bind_stem, "frn_stem_conv_bn_relu"),
+    ("flash_attention_f32", fa.bind_f32, "frn_flash_fwd_f32"),
 ])
 def test_entry_points_take_the_arguments_ctypes_declares(source, bind, name):
     # ctypes passes what argtypes declares, so a C signature that gains or
@@ -212,7 +213,7 @@ def test_entry_points_take_the_arguments_ctypes_declares(source, bind, name):
     assert all("*" in p or p.split()[0] == "int" for p in params)
     names = ("frn_flash_fwd_bf16", "frn_flash_fwd_bf16exp_bf16", "frn_flash_bwd_dq_bf16",
              "frn_flash_bwd_dkv_bf16", "frn_flash_int8", "frn_flash_int8_prepass",
-             "frn_stem_conv_bn_relu")
+             "frn_stem_conv_bn_relu", "frn_flash_fwd_f32")
     lib = bind(types.SimpleNamespace(**{n: types.SimpleNamespace() for n in names}))
     assert getattr(lib, name).argtypes == want
     assert getattr(lib, name).restype is ctypes.c_int
@@ -276,3 +277,60 @@ def test_backward_checks_row_statistics_shape():
     with pytest.raises(ValueError, match="shape"):
         fa.flash_bwd_dkv(q, q, q, torch.zeros((1, 64, 32)), torch.zeros((1, 64)),
                          torch.zeros((1, 64)))
+
+
+# ------------------------------------------------------------ f32 forward (B1 at f32)
+
+
+@pytest.mark.parametrize("b,n,d", [(1, 300, 64), (2, 131, 8), (1, 517, 32)])
+def test_plain_f32_keeps_p_in_f32(b, n, d):
+    # at f32 the plain version's p is never rounded: it equals the exact
+    # softmax with an f32 accumulator (as the JAX kernel's with f32 V, whose
+    # ones lane sums the same unrounded p), at the kernel's tile of 64 keys
+    # and at 32 (the f32 kernel's tile at d 64) alike
+    q, k, v = (torch.tensor(x) for x in _inputs(b, n, d))
+    want = torch.softmax(torch.bmm(q.double(), k.double().transpose(1, 2)), -1) @ v.double()
+    for block in (64, 32):
+        got = fa.flash_attention_plain(q, k, v, block_k=block)
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got.double(), want, atol=2e-5, rtol=1e-4)
+    want_kernel = np.asarray(_flash_forward(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                                            jnp.asarray(v.numpy()), block_q=128, block_k=128,
+                                            interpret=True))
+    np.testing.assert_allclose(fa.flash_attention_plain(q, k, v).numpy(), want_kernel, atol=2e-5,
+                               rtol=1e-4)
+
+
+def test_f32_inputs_route_to_the_f32_kernel(monkeypatch):
+    # on the card an f32 forward without lse launches the f32 kernel (counted);
+    # with lse, or with an input that requires grad, it raises as before
+    calls = []
+    monkeypatch.setattr(fa, "_on_kernel_device", lambda q: True)
+    monkeypatch.setattr(fa, "_f32_library", lambda: types.SimpleNamespace(frn_flash_fwd_f32="f32"))
+    monkeypatch.setattr(fa, "_library", lambda: types.SimpleNamespace(frn_flash_fwd_bf16="bf16"))
+    monkeypatch.setattr(fa, "_launch", lambda fn, q, *args: calls.append((fn, args[-3:])))
+    q = torch.zeros((2, 64, 32))
+    before = fa.flash_fwd_f32_launches, fa.flash_fwd_launches
+    out = fa.flash_attention(q, q, q)
+    assert out.shape == q.shape and out.dtype == torch.float32
+    assert calls == [("f32", (2, 64, 32))]
+    assert (fa.flash_fwd_f32_launches, fa.flash_fwd_launches) == (before[0] + 1, before[1])
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_attention(q, q, q, return_lse=True)  # B1-lse at f32: not ported
+    with pytest.raises(TypeError, match="float32"):
+        fa.flash_attention(q, q, q.to(torch.bfloat16))
+    with pytest.raises(RuntimeError, match="FlashAttentionFn"):
+        fa.flash_attention(q.clone().requires_grad_(), q, q)
+    qb = q.to(torch.bfloat16)
+    fa.flash_attention(qb, qb, qb)
+    assert calls[-1] == ("bf16", (2, 64, 32)) and fa.flash_fwd_f32_launches == before[0] + 1
+
+
+def test_f32_library_is_built_lazily(monkeypatch):
+    monkeypatch.setattr(fa, "_f32_lib", None)
+    loaded = []
+    monkeypatch.setattr(build, "load", lambda name: loaded.append(name) or types.SimpleNamespace(
+        frn_flash_fwd_f32=types.SimpleNamespace()))
+    lib = fa._f32_library()
+    assert loaded == ["flash_attention_f32"] and lib.frn_flash_fwd_f32.restype is ctypes.c_int
+    assert fa._f32_library() is lib and loaded == ["flash_attention_f32"]

@@ -42,7 +42,14 @@ def test_importing_the_port_loads_no_jax():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["forbidden_loaded"] == []
     for name in ("frn_tpu_torch.entry", "frn_tpu_torch.ops.flash_attention",
-                 "frn_tpu_torch.core.nms", "frn_tpu_torch.models.detector", "frn_tpu_torch.convert"):
+                 "frn_tpu_torch.core.nms", "frn_tpu_torch.models.detector", "frn_tpu_torch.convert",
+                 "frn_tpu_torch.data.image_io", "frn_tpu_torch.data.transforms",
+                 "frn_tpu_torch.data.csv_dataset", "frn_tpu_torch.data.synthetic",
+                 "frn_tpu_torch.ops.voxelize", "frn_tpu_torch.ops.corruption",
+                 "frn_tpu_torch.eval.ap", "frn_tpu_torch.eval.coco_protocol",
+                 "frn_tpu_torch.eval.detections", "frn_tpu_torch.eval.evaluator",
+                 "frn_tpu_torch.cli.common", "frn_tpu_torch.cli.test",
+                 "frn_tpu_torch.cli.test_dsec", "frn_tpu_torch.cli.test_ddd17"):
         assert name in result["imported"]
 
 
