@@ -13,18 +13,23 @@ Phases:
      kernel of the port built from ``frn_tpu_torch/csrc`` (one nvcc each, in
      parallel), with each kernel instance's registers and spills (the
      path's wgmma instances of the forward, the backward, the int8 forward
-     and the stem, and the f32 forward at d 32 and 64, must each be there,
-     and may not spill);
+     and the stem, and the f32 forward, dQ and dK/dV kernels at every head
+     dim, must each be there, and may not spill);
   2. each kernel against its plain PyTorch version on the card, at the shapes
      of its path (the forward; the forward with lse and the dQ and dK/dV
      backward kernels, ragged N and head dims 8 and 16 included, and the
      kernels' block edges: N 40 at every head dim, 128, 129 and 4,800; the
      forward's lse also in its mean gap, MEAN_LSE_ATOL; the f32 forward at
-     the same shapes), then
+     the same shapes; the f32 training kernels, B1-lse, B2a and B2b at f32,
+     at the f32 train path's shapes, d 8 and 16, the block edges, and with
+     lse < -88 at ragged N), then
      timed (CUDA events) at its path's batch beside its bound and a one-call
      PyTorch yardstick (``library_ms``, never used by the port), the timed
      runs' outputs held against each other (the f32 forward at the eval
-     batch, SDPA at f32 beside it); with ``--other-source``, each
+     batch, SDPA at f32 beside it; the f32 training kernels per DSEC
+     micro-step at the train CLI's batch 2, SDPA at f32 and its autograd
+     backward beside them, each launch's block count, and DDD17 at batch 4);
+     with ``--other-source``, each
      other revision's forward entry points (B1, B1 with lse, B3) or backward
      entry points (B2a dQ, B2b dK/dV) built by the same flags and timed in
      turns with this revision's at the path's shapes and batches;
@@ -85,9 +90,26 @@ Phases:
      corruptions at severities 1 and 5. Then the folder protocol through
      the CLI (--corruption_root over a tree the phase writes) and a small
      f32 evaluation on the card against the CPU. Phase 4 then evaluates
-     in ``Trainer.fit`` (``eval_fn``) and checks the best-mAP checkpoint.
+     in ``Trainer.fit`` (``eval_fn``) and checks the best-mAP checkpoint;
+  9. the f32 training path, ``python -m frn_tpu_torch.cli.train`` (its
+     ``main``) at the CLI's default f32, fusion ResNet-50 at full width from
+     the seeded ``.pth`` files of phase 8: DSEC at batch 2, one epoch over 24
+     fixture images with the periodic evaluation (--csv_test, --eval_every
+     1), then ``train_ddd17`` at batch 4. Each: launch counts zeroed just
+     before and read just after (B1-lse, B2a and B2b at f32 4 times per DSEC
+     and 2 per DDD17 micro-step; B1 at f32 4 per eval batch; nothing
+     else), finite losses, the (best-mAP) checkpoint written. Then, on the
+     trainer the CLI builds, one micro-step's gradients at the checkpoint's
+     weights against the plain attention, per tensor and over all
+     parameters (F32_GRAD_REL_TOL, F32_GRAD_NORM_TOL), beside a witness of
+     what one ulp of the attention's outputs does to them; then DSEC f32
+     micro-steps at batch 2 timed (host clock and CUDA events; img/s, peak
+     memory) and a profiler pass for the device-busy time and idle share.
 
-Phases run in the order 1, 2, 5, 3, 6, 8, 4, 7.
+Phases run in the order 1, 2, 5, 3, 6, 8, 4, 9, 7. Phase 9 alone:
+``python3 -c "import chip_smoke as c, tempfile, pathlib; c.phase_environment();
+r = {k: {} for k in c.TRAIN_F32_KERNELS}; d = pathlib.Path(tempfile.mkdtemp());
+c.phase_train_f32(r, c.write_eval_inputs(d), d)"``.
 """
 
 import copy
@@ -123,6 +145,15 @@ FLASH_ATOL, FLASH_RTOL = 2e-2, 2e-2
 # another order; the kernel's 32-key tile at d 64 against the plain 64 changes
 # only the rounding. On an H100 the largest difference was 1.2e-5, at N 19,200
 FLASH_F32_ATOL, FLASH_F32_RTOL = 2e-5, 1e-4
+# B1-lse at f32 vs its plain version: lse = m + log(l) in both, m from scores
+# whose FMA order over d differs from the matmul's by a few ulps of |s| (up to
+# about 30 at these inputs), l summed in another order
+LSE_F32_ATOL = 1e-4
+# B2a and B2b at f32 vs their plain versions (f32 outputs), atol a share of
+# each output's max |value|: P = ex2(fma(s, log2 e, -lse log2 e)) against
+# exp(s - lse), the scores' few-ulp differences (above) carried into P, and
+# sums over up to 19,200 keys or queries in another order
+BWD_F32_ATOL, BWD_F32_RTOL = 1e-4, 1e-3
 # main path with the kernel vs with the plain attention, as max|diff| over
 # max|ref| of the bf16 logits and deltas: the attention outputs' one-ulp
 # differences pass through the W conv, AdaIN, the FPN and the heads' five
@@ -158,6 +189,22 @@ FWD_EDGE_SHAPES = ((2, 40, 8), (2, 40, 16), (2, 40, 32), (2, 40, 64), (2, 4800, 
 # their plain versions at both
 BWD_CHECK_SHAPES = PATH_CHECK_SHAPES + tuple(
     s for s in FWD_EDGE_SHAPES if s not in PATH_CHECK_SHAPES)
+# the f32 training kernels (B1-lse, B2a, B2b at f32): the f32 train path's
+# shapes (DSEC stages 1 and 2 at batch 2, DDD17 at batch 4 and N 5,655,
+# ragged), one shape at each of d 8 and 16, and the block edges (N 40 at
+# every head dim: 64-row blocks at d 64, 128 below; ragged N past whole tiles)
+F32_TRAIN_CHECK_SHAPES = ((2, 19200, 32), (2, 4800, 64), (4, 5655, 32), (2, 4800, 16),
+                          (2, 5655, 8), (2, 40, 8), (2, 40, 16), (2, 40, 32), (2, 40, 64),
+                          (2, 131, 32), (2, 517, 64), (2, 129, 16))
+# and, with the scores shifted far below zero (lse < -88, where a key past N
+# that were not masked would give P = exp(-lse) = inf), at ragged N. There
+# column 0 of q and k is 11 and -11 (the rest N(0, 0.5^2)): column 0 of dQ
+# (dK) sums terms of size 11 |dS| that cancel to about 0 in exact arithmetic
+# (a row of dS sums to 0), so either version's value there is rounding noise
+# of those terms, and the gradients are held at F32_TRAP_ATOL of their max
+# |value| (the largest gap on an H100 was 1.2e-4 of it, dQ at N 517, d 64)
+F32_LSE_TRAP_SHAPES = ((2, 131, 16), (4, 5655, 32), (2, 517, 64))
+F32_TRAP_ATOL = 1e-3
 # the training step is launch-bound on the host, so its time varies with the
 # host's load: ten timed micro-steps, and the median beside the mean
 TRAIN_BATCH, TRAIN_SAMPLES, TRAIN_TIMED = 8, 48, 10
@@ -172,10 +219,18 @@ FLASH_SHAPES = ((19200, 32), (4800, 64))
 DDD17_FLASH_SHAPE = (5655, 32)
 # the evaluation CLI's default batch
 EVAL_BATCH = 8
+# the train CLI's batches (cli/train.py, cli/train_ddd17.py)
+F32_TRAIN_BATCH, DDD17_TRAIN_BATCH = 2, 4
 KERNEL_SOURCES = {
     "flash_fwd": ("frn_tpu_torch/csrc/flash_attention.cu", "frn_tpu/ops/flash_attention.py:39"),
     "flash_fwd_f32": ("frn_tpu_torch/csrc/flash_attention_f32.cu", "frn_tpu/ops/flash_attention.py:39"),
     "flash_fwd_lse": ("frn_tpu_torch/csrc/flash_attention.cu", "frn_tpu/ops/flash_attention.py:39"),
+    "flash_fwd_lse_f32": ("frn_tpu_torch/csrc/flash_attention_f32.cu",
+                          "frn_tpu/ops/flash_attention.py:39"),
+    "flash_bwd_dq_f32": ("frn_tpu_torch/csrc/flash_attention_bwd_f32.cu",
+                         "frn_tpu/ops/flash_attention.py:275"),
+    "flash_bwd_dkv_f32": ("frn_tpu_torch/csrc/flash_attention_bwd_f32.cu",
+                          "frn_tpu/ops/flash_attention.py:300"),
     "flash_bwd_dq": ("frn_tpu_torch/csrc/flash_attention_bwd.cu", "frn_tpu/ops/flash_attention.py:275"),
     "flash_bwd_dkv": ("frn_tpu_torch/csrc/flash_attention_bwd.cu", "frn_tpu/ops/flash_attention.py:300"),
     "flash_fwd_bf16exp": ("frn_tpu_torch/csrc/flash_attention.cu", "frn_tpu/ops/flash_attention.py:101"),
@@ -190,19 +245,23 @@ KERNEL_SOURCES = {
     "stem": ("frn_tpu_torch/csrc/stem.cu", "frn_tpu/ops/stem.py:71"),
 }
 TRAIN_KERNELS = ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
+TRAIN_F32_KERNELS = ("flash_fwd_lse_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
 # the path's wgmma instances of each source, as (kernel, its first template
 # arguments): the forward at d 32 and 64, with and without exp_bf16; the dQ
 # and dK/dV kernels at d 32 and 64; the int8 forward at d 32 and 64 in modes
-# int8_qk (0) and int8 (1); the stem at C 3 and 5; and the f32 forward (CUDA
-# cores) at d 32 and 64. Phase 1 fails unless each is in the compiler's log
-# once, unspilled
+# int8_qk (0) and int8 (1); the stem at C 3 and 5; and the f32 kernels (CUDA
+# cores), the forward and the dQ and dK/dV kernels, at every head dim (the
+# f32 train CLI takes d 8 and 16 at depths 18 and 34). Phase 1 fails unless
+# each is in the compiler's log once, unspilled
 PATH_INSTANCES = {
     "flash_attention": [("flash_fwd_wgmma", d, e) for d in (32, 64) for e in (0, 1)],
     "flash_attention_bwd": [(kernel, d) for kernel in ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
                             for d in (32, 64)],
     "flash_attention_int8": [("flash_int8_wgmma", d, f) for d in (32, 64) for f in (0, 1)],
     "stem": [("stem_wgmma", c) for c in (3, 5)],
-    "flash_attention_f32": [("flash_fwd_f32", d) for d in (32, 64)],
+    "flash_attention_f32": [("flash_fwd_f32", d) for d in (8, 16, 32, 64)],
+    "flash_attention_bwd_f32": [(kernel, d) for kernel in ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")
+                                for d in (8, 16, 32, 64)],
 }
 OPTIN_KERNELS = ("flash_fwd_bf16exp", "flash_int8_qk", "flash_int8", "int8_qk_prepass",
                  "int8_prepass", "stem")
@@ -332,11 +391,21 @@ def kernel_bound(kind: str, b: int, n: int, d: int):
     return ((elems * b * n * d + rows * b * n) / HBM_BYTES_PER_S, max(mma, b * n * n / EXP_PER_S))
 
 
-def f32_bound(b: int, n: int, d: int):
-    """(bytes time, operations time) of one f32 forward launch: f32 Q, K, V
-    read once and O written once; 4 B N^2 d flops (the two products) at the
-    CUDA cores' f32 rate."""
-    return 16 * b * n * d / HBM_BYTES_PER_S, 4 * b * n * n * d / F32_FLOP_PER_S
+# the work of one f32 launch: bytes per element of a (B, N, d) tensor and
+# per (B, N) row (each input read once, each output written once: f32 Q, K,
+# V, dO, O, dQ, dK, dV; f32 lse and D), and f32 flops per B*N^2*d (the
+# forward's two products; the dQ kernel's three; the dK/dV kernel's four)
+F32_WORK = {"flash_fwd_f32": (16, 0, 4), "flash_fwd_lse_f32": (16, 4, 4),
+            "flash_bwd_dq_f32": (20, 8, 6), "flash_bwd_dkv_f32": (24, 8, 8)}
+
+
+def f32_bound(b: int, n: int, d: int, kind: str = "flash_fwd_f32"):
+    """(bytes time, operations time) of one f32 launch of ``kind``: its
+    bytes (F32_WORK) over the memory rate, its flops at the CUDA cores' f32
+    rate."""
+    elems, rows, flops = F32_WORK[kind]
+    return ((elems * b * n * d + rows * b * n) / HBM_BYTES_PER_S,
+            flops * b * n * n * d / F32_FLOP_PER_S)
 
 
 def prepass_bound(mode: str, b: int, n: int, d: int):
@@ -492,7 +561,8 @@ def kernel_instances(log: str) -> dict:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv|int8)_(?:mma|wgmma)|flash_fwd_f32|stem_wgmma)"
+            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv|int8)_(?:mma|wgmma)|flash_(?:fwd|bwd_dq|bwd_dkv)_f32"
+                          r"|stem_wgmma)"
                           r"I((?:L[ib]\d+E)+)E", entry.group(1))
             current = None if m is None else (
                 m.group(1), *(int(x) for x in re.findall(r"L[ib](\d+)E", m.group(2))))
@@ -649,6 +719,135 @@ def phase_flash_backward():
     total = sum(r["bound_ms"] for r in out.values())
     print(f"flash bound per training micro-step (forward with lse + both backward kernels, "
           f"4 launches each): {total:.3f} ms", flush=True)
+    return out
+
+
+def _bwd_blocks(b: int, n: int, d: int) -> int:
+    """Blocks of one f32 backward launch (csrc/flash_attention_bwd_f32.cu: 128
+    threads, a row per thread, two threads a row at d 64)."""
+    rows = 64 if d == 64 else 128
+    return b * -(-n // rows)
+
+
+def _shift_scores(q, k):
+    """q, k scaled by 0.5 with s = q k^T moved far below zero (column 0: 11
+    and -11, so s = -121 + O(1)): lse < -88, where exp(-lse) overflows."""
+    q, k = q * 0.5, k * 0.5
+    q[..., 0], k[..., 0] = 11.0, -11.0
+    return q, k
+
+
+def phase_flash_train_f32():
+    """The f32 training kernels (B1-lse, B2a, B2b at f32) against their plain
+    versions at every F32_TRAIN_CHECK_SHAPES shape and, with lse < -88, at
+    F32_LSE_TRAP_SHAPES; then each timed (CUDA events) per DSEC micro-step at
+    the train CLI's batch 2 (two launches at each of FLASH_SHAPES) beside its
+    bound, its plain version and SDPA at f32 (its forward for B1-lse, its
+    autograd backward for B2), with each launch's block count; DDD17's stage
+    1 (B 4, N 5,655) timed and printed beside it."""
+    import torch.nn.functional as F
+
+    from frn_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+
+    def randn(b, n, d):
+        return torch.randn((b, n, d), generator=gen, device="cuda")
+
+    def check_all(label, shape, q, k, v, do, errs, bwd_atol=BWD_F32_ATOL):
+        o, lse = fa.flash_attention(q, k, v, return_lse=True)
+        o_ref, lse_ref = fa.flash_attention_plain(q, k, v, return_lse=True)
+        check_close("flash_fwd_lse_f32", f"o{label}", o, o_ref, FLASH_F32_ATOL, FLASH_F32_RTOL, shape,
+                    errs)
+        check_close("flash_fwd_lse_f32", f"lse{label}", lse, lse_ref, LSE_F32_ATOL, 0.0, shape, errs)
+        # both backward versions get the same lse and D, from the plain forward
+        delta = fa.attention_delta(o_ref, do)
+        for kind, name, got, want in (
+                ("flash_bwd_dq_f32", "dq", fa.flash_bwd_dq(q, k, v, do, lse_ref, delta),
+                 fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta)),
+                *zip(("flash_bwd_dkv_f32",) * 2, ("dk", "dv"),
+                     fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta),
+                     fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta))):
+            check_close(kind, f"{name}{label}", got, want,
+                        bwd_atol * want.abs().max().item(), BWD_F32_RTOL, shape, errs)
+        return lse_ref
+
+    errs = {}
+    for shape in F32_TRAIN_CHECK_SHAPES:
+        check_all("", shape, *(randn(*shape) for _ in range(4)), errs)
+    for shape in F32_LSE_TRAP_SHAPES:
+        q, k = _shift_scores(randn(*shape), randn(*shape))
+        lse = check_all(" (lse < -88)", shape, q, k, randn(*shape), randn(*shape), errs,
+                        F32_TRAP_ATOL)
+        if not lse.max().item() < -88:
+            fail(f"the shifted scores left lse at {lse.max().item():.1f} at {_shape_text(shape)}")
+
+    # per DSEC micro-step at the train CLI's batch
+    b = F32_TRAIN_BATCH
+    times = {kind: KernelTimes(kind) for kind in TRAIN_F32_KERNELS}
+    for n, d in FLASH_SHAPES:
+        q, k, v, do = (randn(b, n, d) for _ in range(4))
+        o, lse = fa.flash_attention(q, k, v, return_lse=True)
+        delta = fa.attention_delta(o, do)
+        q4, k4, v4, do4 = (x.unsqueeze(1).detach().requires_grad_() for x in (q, k, v, do))
+        with torch.enable_grad():
+            lib_out = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+        lib_fwd_ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0),
+                                reps=10)
+        lib_bwd_ms, _ = cuda_ms(lambda: torch.autograd.grad(lib_out, (q4, k4, v4), do4,
+                                                            retain_graph=True), reps=10)
+        del lib_out
+        fwd_shape = {"B": b, "N": n, "d": d, "blocks": b * -(-n // 128)}
+        bwd_shape = {"B": b, "N": n, "d": d, "blocks": _bwd_blocks(b, n, d)}
+        (o_k, lse_k), (o_p, lse_p) = times["flash_fwd_lse_f32"].add(
+            fwd_shape, f32_bound(b, n, d, "flash_fwd_lse_f32"),
+            lambda: fa.flash_attention(q, k, v, return_lse=True),
+            lambda: fa.flash_attention_plain(q, k, v, return_lse=True), lib_fwd_ms)
+        check_close("flash_fwd_lse_f32", "o", o_k, o_p, FLASH_F32_ATOL, FLASH_F32_RTOL, q.shape, errs)
+        check_close("flash_fwd_lse_f32", "lse", lse_k, lse_p, LSE_F32_ATOL, 0.0, q.shape, errs)
+        del o_k, o_p, lse_k, lse_p
+        dq, dq_ref = times["flash_bwd_dq_f32"].add(
+            bwd_shape, f32_bound(b, n, d, "flash_bwd_dq_f32"),
+            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta),
+            lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta), lib_bwd_ms)
+        dkv, dkv_ref = times["flash_bwd_dkv_f32"].add(
+            bwd_shape, f32_bound(b, n, d, "flash_bwd_dkv_f32"),
+            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta),
+            lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta), lib_bwd_ms)
+        for kind, name, got, want in (("flash_bwd_dq_f32", "dq", dq, dq_ref),
+                                      ("flash_bwd_dkv_f32", "dk", dkv[0], dkv_ref[0]),
+                                      ("flash_bwd_dkv_f32", "dv", dkv[1], dkv_ref[1])):
+            check_close(kind, name, got, want, BWD_F32_ATOL * want.abs().max().item(),
+                        BWD_F32_RTOL, q.shape, errs)
+        del dq, dq_ref, dkv, dkv_ref
+
+    # DDD17's one flash stage at the train_ddd17 CLI's batch, per launch
+    b, (n, d) = DDD17_TRAIN_BATCH, DDD17_FLASH_SHAPE
+    q, k, v, do = (randn(b, n, d) for _ in range(4))
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    delta = fa.attention_delta(o, do)
+    q4, k4, v4, do4 = (x.unsqueeze(1).detach().requires_grad_() for x in (q, k, v, do))
+    with torch.enable_grad():
+        lib_out = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+    lib = {"flash_fwd_lse_f32": cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, scale=1.0), reps=10)[0]}
+    lib["flash_bwd_dq_f32"] = lib["flash_bwd_dkv_f32"] = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (q4, k4, v4), do4, retain_graph=True), reps=10)[0]
+    calls = {"flash_fwd_lse_f32": lambda: fa.flash_attention(q, k, v, return_lse=True),
+             "flash_bwd_dq_f32": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta),
+             "flash_bwd_dkv_f32": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta)}
+    for kind, call in calls.items():
+        ms, _ = cuda_ms(call, reps=10)
+        blocks = b * -(-n // 128) if kind == "flash_fwd_lse_f32" else _bwd_blocks(b, n, d)
+        print(f"{kind} per launch at DDD17 (B {b}, N {n}, d {d}, {blocks} blocks): kernel "
+              f"{ms:.3f} ms, bound {max(f32_bound(b, n, d, kind)) * 1e3:.3f} ms, SDPA f32 "
+              f"{'forward' if kind == 'flash_fwd_lse_f32' else 'backward'} {lib[kind]:.3f} ms",
+              flush=True)
+    del lib_out
+    out = {kind: t.row(errs[kind], "DSEC f32 micro-step") for kind, t in times.items()}
+    total = sum(r["bound_ms"] for r in out.values())
+    print(f"f32 flash bound per DSEC f32 training micro-step (B {F32_TRAIN_BATCH}; the forward with "
+          f"lse and both backward kernels, 4 launches each): {total:.3f} ms", flush=True)
     return out
 
 
@@ -1511,10 +1710,10 @@ def _cli_flags(inputs: dict, dataset: str, folder: str, *more) -> list:
             "--save_detect_folder", folder, *more]
 
 
-def run_eval_cli(label: str, module: str, argv: list):
+def run_cli(label: str, module: str, argv: list):
     """``frn_tpu_torch.cli.<module>.main(argv)`` on the card with the launch
     counts zeroed just before and read just after; its printout is echoed.
-    Returns (printout, counts, seconds)."""
+    Returns (what main returned, printout, counts, seconds)."""
     import contextlib
     import importlib
     import io
@@ -1525,13 +1724,20 @@ def run_eval_cli(label: str, module: str, argv: list):
     _reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        rc = main(argv)
+        result = main(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = _counts()
     text = buf.getvalue()
     print(f"--- {label}: python -m frn_tpu_torch.cli.{module} ... ({seconds:.1f} s)\n"
           f"{text.strip()}\n--- launches {json.dumps(counts)}", flush=True)
+    return result, text, counts, seconds
+
+
+def run_eval_cli(label: str, module: str, argv: list):
+    """``run_cli`` of an evaluation CLI, which must return 0; returns
+    (printout, counts, seconds)."""
+    rc, text, counts, seconds = run_cli(label, module, argv)
     if rc != 0:
         fail(f"evaluation CLI ({label}) returned {rc}")
     return text, counts, seconds
@@ -1823,6 +2029,9 @@ _COUNTERS = {"flash_fwd": ("flash_attention", "flash_fwd_launches"),
              "flash_fwd_lse": ("flash_attention", "flash_fwd_lse_launches"),
              "flash_bwd_dq": ("flash_attention", "flash_bwd_dq_launches"),
              "flash_bwd_dkv": ("flash_attention", "flash_bwd_dkv_launches"),
+             "flash_fwd_lse_f32": ("flash_attention", "flash_fwd_lse_f32_launches"),
+             "flash_bwd_dq_f32": ("flash_attention", "flash_bwd_dq_f32_launches"),
+             "flash_bwd_dkv_f32": ("flash_attention", "flash_bwd_dkv_f32_launches"),
              "flash_fwd_bf16exp": ("flash_attention", "flash_fwd_bf16exp_launches"),
              "flash_int8_qk": ("flash_attention", "flash_int8_qk_launches"),
              "flash_int8": ("flash_attention", "flash_int8_launches"),
@@ -2036,6 +2245,198 @@ def phase_small_train_reference() -> None:
         fail("small f32 train step disagrees between card and CPU")
 
 
+# the f32 training path (phase 9): each train CLI run, its fixture, the
+# flags beyond the common ones and launches per micro-step of each f32
+# training kernel; DSEC's run also evaluates (B1 at f32, 4 per eval batch)
+F32_TRAIN_RUNS = (("DSEC f32", "train", "dsec", F32_TRAIN_BATCH, 4),
+                  ("DDD17 f32 (train_ddd17)", "train_ddd17", "ddd17", DDD17_TRAIN_BATCH, 2))
+F32_TRAIN_TIMED = 5
+# the f32 micro-step's gradients at the checkpoint's weights with the
+# kernels vs with the plain attention, per tensor, as max|diff| over the
+# tensor's max|ref|, and over all parameters, as the global norm of the
+# difference over that of the reference. The attention outputs differ by a
+# few ulps (FLASH_F32_*, BWD_F32_*) and every other layer computes in f32,
+# but at these seeded weights (losses near 4e4) a tensor's gradient can be
+# a sum that cancels to a small share of its terms: a witness, the plain
+# attention with each output moved by one ulp up or down, moved the worst
+# tensor's gradient by 2.34e-2 of its largest element and all of them by
+# 2.6e-3 in norm, where the kernels moved them by 8.7e-3 to 9.3e-3 and by
+# 2.78e-4, and the kernels run twice by 1e-4 to 4.7e-4 and 8e-7 (four runs,
+# NVIDIA H100 80GB HBM3, 700.00 W). A per-tensor gate of 1e-4 is under the
+# witness's effect, so the per-tensor gate is 3e-2 (the witness's worst,
+# rounded up) and the global gate 2e-3 (under the witness's: the kernels
+# may move the gradients less than one ulp of the attention does). Phase 9
+# prints the witness beside them. The theta biases of the cross-attention
+# are the exception: a per-query constant added to every score leaves the
+# softmax unchanged, so their gradients are zero in exact arithmetic and
+# what either run computes is rounding noise; they are held at
+# F32_GRAD_REL_TOL of the model's largest gradient instead
+F32_GRAD_REL_TOL, F32_GRAD_NORM_TOL = 3e-2, 2e-3
+
+
+def _train_cli_flags(inputs: dict, dataset: str, root: Path, batch: int, *more) -> list:
+    fix = inputs[dataset]
+    return ["--csv_train", fix["annotations_csv"], "--csv_classes", fix["class_map_csv"],
+            "--root_img", fix["img_dir"], "--root_event", fix["event_dir"],
+            "--compute_dtype", "float32", "--batch_size", str(batch), "--epochs", "1",
+            "--continue_training", "--checkpoint", inputs[f"{dataset}_pth"],
+            "--checkpoint_dir", str(root / f"train_{dataset}"), *more]
+
+
+def phase_train_f32(kernel_rows, inputs: dict, root: Path) -> None:
+    """The f32 training path through ``python -m frn_tpu_torch.cli.train`` (its
+    ``main``) on the card, full width (fusion ResNet-50, feature size 256,
+    --compute_dtype float32), from the seeded ``.pth`` files of
+    ``write_eval_inputs``: DSEC at batch 2 over EVAL_IMAGES images, one epoch,
+    with the periodic evaluation (--csv_test over the small DSEC fixture,
+    --eval_every 1); then ``train_ddd17`` (batch 4) over the DDD17 fixture.
+    Each run with the launch counts zeroed just before and read just after,
+    its losses finite (no micro-step skipped) and its checkpoint written (at
+    DSEC the best-mAP one). Then, on the trainer the CLI builds, one
+    micro-step's gradients at the checkpoint's weights against the plain
+    attention, timed DSEC f32 micro-steps and a profiler pass."""
+    from frn_tpu_torch.cli import common, train
+    from frn_tpu_torch.data.collate import collate_fixed
+    from frn_tpu_torch.data.loader import to_device
+    from frn_tpu_torch.ops import flash_attention as fa
+    from frn_tpu_torch.train.checkpoint import CheckpointManager
+    from frn_tpu_torch.train.trainer import Trainer
+
+    print(f"f32 training on {card_name_and_power_limit()}", flush=True)
+    small = inputs["dsec_small"]
+    launches = dict.fromkeys(TRAIN_F32_KERNELS, 0)
+    for label, module, dataset, batch, per_step in F32_TRAIN_RUNS:
+        more = (["--csv_test", small["annotations_csv"], "--eval_every", "1"]
+                if dataset == "dsec" else [])
+        history, text, counts, seconds = run_cli(
+            f"train CLI, {label}, batch {batch}", module,
+            _train_cli_flags(inputs, dataset, root, batch, *more))
+        steps = EVAL_IMAGES // batch
+        eval_batches = -(-EVAL_SWEEP_IMAGES // EVAL_BATCH) if more else 0
+        want = {**dict.fromkeys(_COUNTERS, 0), **dict.fromkeys(TRAIN_F32_KERNELS, per_step * steps),
+                "flash_fwd_f32": 4 * eval_batches}
+        if counts != want:
+            fail(f"train CLI ({label}) launched {counts}, expected {want}")
+        if not (len(history) == 1 and math.isfinite(history[0])) or "skipped" in text:
+            fail(f"train CLI ({label}): loss history {history}, a micro-step skipped or not finite")
+        saved = torch.load(CheckpointManager(str(root / f"train_{dataset}")).path(1),
+                           map_location="cpu", weights_only=True)
+        if saved["epoch"] != 1 or (more and not (0.0 <= saved["best_map"] <= 1.0
+                                                and "epoch 1: mAP" in text)):
+            fail(f"train CLI ({label}) wrote no (best-mAP) checkpoint of epoch 1")
+        print(f"train CLI ({label}): {steps} micro-steps of batch {batch}"
+              f"{f' and an evaluation of {EVAL_SWEEP_IMAGES} images' if more else ''} in "
+              f"{seconds:.1f} s (model build and loading included); mean loss {history[0]:.5f}; "
+              f"checkpoint_1.pt with best_map {saved['best_map']}", flush=True)
+        for key in TRAIN_F32_KERNELS:
+            launches[key] += counts[key]
+        del saved
+    for key in TRAIN_F32_KERNELS:
+        kernel_rows[key]["launches"] = launches[key]
+
+    # the trainer the CLI builds, on the fixture's first batch
+    args = train.get_parser().parse_args(_train_cli_flags(inputs, "dsec", root, F32_TRAIN_BATCH))
+    device = common.setup_device(args)
+    ds = common.build_csv_dataset(args, args.csv_train)
+    cfg = common.build_config(args, ds.num_classes(), args.batch_size, args.epochs)
+    trainer = Trainer(cfg, ds, device=device)
+    common.load_checkpoint_into_state(args, trainer.state)
+    state, b = trainer.state, F32_TRAIN_BATCH
+    batch = to_device(collate_fixed([ds[i] for i in range(b)], cfg.geometry,
+                                    cfg.train.max_annots_per_image, b), device)
+    # one micro-step's gradients at the checkpoint's weights (before any
+    # step, so that every run compares at the same state): the kernels, the
+    # kernels again (the run to run spread of the other layers), the plain
+    # attention, and a witness of what f32 rounding of the attention alone
+    # does: the plain attention with each of its outputs moved by one ulp,
+    # up or down (seeded)
+    gen = torch.Generator(device=device).manual_seed(21)
+
+    def plain_one_ulp(q, k, v, return_lse=False):
+        o, lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+        up = torch.randint(0, 2, o.shape, generator=gen, device=o.device).bool()
+        o = torch.nextafter(o, torch.where(up, math.inf, -math.inf))
+        return (o, lse) if return_lse else o
+
+    grads = {"kernels": _batch_grads(state, cfg, batch)[1],
+             "kernels again": _batch_grads(state, cfg, batch)[1]}
+    kernel_fns = fa.flash_attention, fa.flash_attention_backward
+    try:
+        for label, fwd in (("plain", fa.flash_attention_plain), ("plain, one ulp", plain_one_ulp)):
+            fa.flash_attention, fa.flash_attention_backward = fwd, fa.flash_attention_backward_plain
+            grads[label] = _batch_grads(state, cfg, batch)[1]
+    finally:
+        fa.flash_attention, fa.flash_attention_backward = kernel_fns
+    worst = {}
+    for label, ref in (("kernels", "plain"), ("kernels again", "kernels"),
+                       ("plain, one ulp", "plain")):
+        worst[label] = _worst_grad_gap(state.names, grads[label], grads[ref])
+        (gap, name), bias_gap, norm_gap = worst[label]
+        print(f"f32 training gradients (batch {b}, one micro-step), {label} vs {ref}: worst tensor "
+              f"max|diff|/max|ref| {gap:.3e} ({name}); theta biases max|diff| over the largest "
+              f"gradient {bias_gap:.3e}; |diff|/|ref| over all params {norm_gap:.3e}", flush=True)
+    (gap, name), bias_gap, norm_gap = worst["kernels"]
+    print(f"f32 training gradients, kernels vs plain attention: gates {F32_GRAD_REL_TOL:.0e} per "
+          f"tensor, {F32_GRAD_NORM_TOL:.0e} over all params", flush=True)
+    if not (gap <= F32_GRAD_REL_TOL and bias_gap <= F32_GRAD_REL_TOL
+            and norm_gap <= F32_GRAD_NORM_TOL):
+        fail(f"f32 training gradients disagree with the plain attention ({gap:.3e} at {name}, "
+             f"theta biases {bias_gap:.3e}, over all params {norm_gap:.3e})")
+    del grads
+
+    # timed micro-steps
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    host, dev = [], []
+    for _ in range(F32_TRAIN_TIMED):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        trainer.step_fn(state, batch, trainer.generator)
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(start.elapsed_time(end))
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    ms, median = statistics.mean(host), statistics.median(host)
+    print(f"f32 training path: DSEC 480x640 fusion R50 f32 batch {b}: {ms:.2f} ms per micro-step "
+          f"(host clock), median {median:.2f} (runs {', '.join(f'{t:.2f}' for t in host)}); CUDA "
+          f"events {statistics.mean(dev):.2f} ms, median {statistics.median(dev):.2f}; "
+          f"{b * 1e3 / ms:.2f} img/s (median {b * 1e3 / median:.2f}), peak memory "
+          f"{peak / 2**30:.2f} GiB; flash launches {json.dumps(counts)}", flush=True)
+    if counts != {**dict.fromkeys(_COUNTERS, 0), **dict.fromkeys(TRAIN_F32_KERNELS,
+                                                                  4 * F32_TRAIN_TIMED)}:
+        fail(f"timed f32 micro-steps launched {counts}")
+    cycle = cfg.train.accum_steps
+
+    def one_cycle():
+        for _ in range(cycle):
+            trainer.step_fn(state, batch, trainer.generator)
+
+    profile_pass(f"f32 training profile: one accumulation cycle, {cycle} micro-steps of batch {b}",
+                 one_cycle, cycle * median, n_ops=12, n_kernels=12)
+
+
+def _worst_grad_gap(names, got, want):
+    """((the largest per-tensor max|got - want| / max|want|, its tensor), the
+    theta biases' largest max|got - want| over the largest |want| of the model
+    (their gradients are zero in exact arithmetic), the global norm of the
+    difference over that of ``want``)."""
+    largest = max(w.abs().max().item() for w in want)
+    worst, bias = (0.0, ""), 0.0
+    for name, g, w in zip(names, got, want):
+        scale, diff = w.abs().max().item(), (g - w).abs().max().item()
+        if name.endswith("theta.bias"):
+            bias = max(bias, diff / largest)
+        else:
+            worst = max(worst, (diff / scale if scale else (math.inf if diff else 0.0), name))
+    norm = (torch.stack([(g - w).norm() for g, w in zip(got, want)]).norm()
+            / torch.stack([w.norm() for w in want]).norm()).item()
+    return worst, bias, norm
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -2051,7 +2452,7 @@ def main(argv=None) -> None:
     phase_environment()
     others = build_others(args.other_source) if args.other_source else {}
     rows = {"flash_fwd": phase_flash_kernel(), "flash_fwd_f32": phase_flash_f32(),
-            **phase_flash_backward()}
+            **phase_flash_backward(), **phase_flash_train_f32()}
     by_name = {name: {src: lib for src, lib in others.items() if Path(src).name == name}
                for name in ("flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_int8.cu",
                             "stem.cu")}
@@ -2077,6 +2478,7 @@ def main(argv=None) -> None:
         inputs = write_eval_inputs(root)
         phase_evaluation(rows, inputs, root)
         phase_training(rows, inputs, root)
+        phase_train_f32(rows, inputs, root)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,7 @@ from typing import Dict, Iterable, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("flash_attention", "flash_attention_bwd", "flash_attention_int8", "stem",
-           "flash_attention_f32")
+           "flash_attention_f32", "flash_attention_bwd_f32")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

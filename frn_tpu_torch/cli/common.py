@@ -149,6 +149,22 @@ def load_checkpoint_into_model(args, model) -> None:
     load_reference_checkpoint(path, model)
 
 
+def load_checkpoint_into_state(args, state) -> dict:
+    """Loads ``args.checkpoint`` into a train state (``train/loop.py``), as
+    ``frn_tpu``'s ``load_checkpoint_into_state`` does: a reference
+    ``.pt``/``.pth`` file sets the model's weights (``strict=True``); a
+    directory of the port's ``CheckpointManager`` (where ``frn_tpu`` takes an
+    orbax directory) restores its latest epoch whole: weights, optimizer,
+    gradient sum and counters. Returns that checkpoint's payload ({} for a
+    file)."""
+    if os.path.isdir(args.checkpoint):
+        from frn_tpu_torch.train.checkpoint import CheckpointManager
+
+        return CheckpointManager(args.checkpoint).restore(state)
+    load_checkpoint_into_model(args, state.model)
+    return {}
+
+
 def make_eval_fn(config, test_dataset, batch_size: int = 8):
     """Periodic-eval callback for the Trainer: (model, state) -> mAP@[.5:.95]."""
     from frn_tpu_torch.eval.detections import make_inference_fn

@@ -1,12 +1,14 @@
 // Flash-attention forward at f32 for the REFusion non-local cross-attention,
 // Hopper (sm_90a): the f32 instance of the Pallas TPU kernel
 // frn_tpu/ops/flash_attention.py::_flash_kernel (launched by _flash_forward on
-// f32 inputs, as an f32 detector's evaluation does). Per batch b,
+// f32 inputs, as an f32 detector's evaluation and training do). Per batch b,
 //
 //     O[b] = softmax(Q[b] K[b]^T) V[b]        (no 1/sqrt(d) scale)
 //
 // with Q = phi, K = theta, V = g, all (B, N, d) f32 row-major, d in
-// {8, 16, 32, 64}; inference only (no logsumexp output). Scores, the running
+// {8, 16, 32, 64}, and on request (training: _flash_forward(return_lse=True))
+// the per-row logsumexp lse = m + log(l), natural log, (B, N) f32; inference
+// passes a null lse and stores none. Scores, the running
 // row max m, the denominator l and the output accumulator are f32, and p stays
 // f32: the PV product takes the unrounded p and l sums it, as the TPU kernel
 // does when V is f32 (its ones lane of V sums the same p the PV product
@@ -26,7 +28,8 @@
 // shared memory, the next tile in flight while a tile is computed; every
 // thread of a warp reads the same key's float4 at once (a broadcast). Keys
 // past N are zero-filled in the ring and their scores masked to -inf on the
-// last, ragged tile only; rows past N compute and store nothing.
+// last, ragged tile only; rows past N compute and store nothing (no O, no
+// lse).
 //
 // What bounds it on an H100: 4d flops per (query, key) pair at the CUDA
 // cores' f32 rate (67 TFLOP/s on the H100 SXM data sheet); every float4 read
@@ -51,24 +54,6 @@ __host__ __device__ constexpr int keys_per_tile() {
 template <int D>
 constexpr int f32_ring_bytes() {
   return 2 * 2 * keys_per_tile<D>() * D * 4;  // two slots of a K and a V tile
-}
-
-// starts the copy of keys [key0, key0 + keys_per_tile) of K and V (each (n, D)
-// f32, one batch) into the slot's tiles; keys past n are zero-filled
-template <int D>
-__device__ __forceinline__ void load_tile_f32(const float* __restrict__ k, const float* __restrict__ v,
-                                              int key0, int n, float* kt, float* vt) {
-  constexpr int kChunks = keys_per_tile<D>() * D / 4;  // 16-byte chunks per tile, a multiple of kRowsF32
-#pragma unroll
-  for (int it = 0; it < kChunks / kRowsF32; ++it) {
-    const int i = it * kRowsF32 + threadIdx.x;
-    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    const bool valid = key0 + r < n;
-    const size_t off = valid ? static_cast<size_t>(key0 + r) * D + c : 0;
-    cp_async_16(kt + r * D + c, k + off, valid);
-    cp_async_16(vt + r * D + c, v + off, valid);
-  }
-  cp_async_commit();
 }
 
 // one tile of the online softmax for this thread's row
@@ -127,7 +112,8 @@ __device__ __forceinline__ void tile_step(const float (&q)[D], const float* __re
 template <int D>
 __global__ void __launch_bounds__(kRowsF32)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int n) {
+                  const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                  int n) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
   float* ring = reinterpret_cast<float*>(smem_raw);
   const size_t base = static_cast<size_t>(blockIdx.y) * n * D;
@@ -155,11 +141,13 @@ __global__ void __launch_bounds__(kRowsF32)
   constexpr int kTileF32 = keys_per_tile<D>();
   const int tiles = (n + kTileF32 - 1) / kTileF32;
   const bool ragged = n % kTileF32 != 0;
-  load_tile_f32<D>(k, v, 0, n, ring, ring + kTileF32 * D);
+  load_rows_f32<D, kTileF32, kRowsF32>(k, v, 0, n, ring, ring + kTileF32 * D);
+  cp_async_commit();
   for (int t = 0; t < tiles; ++t) {
     if (t + 1 < tiles) {
       float* next = ring + ((t + 1) % 2) * 2 * kTileF32 * D;
-      load_tile_f32<D>(k, v, (t + 1) * kTileF32, n, next, next + kTileF32 * D);
+      load_rows_f32<D, kTileF32, kRowsF32>(k, v, (t + 1) * kTileF32, n, next, next + kTileF32 * D);
+      cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -177,17 +165,18 @@ __global__ void __launch_bounds__(kRowsF32)
     for (int c = 0; c < D; c += 4)
       *reinterpret_cast<float4*>(o + static_cast<size_t>(row) * D + c) =
           make_float4(acc[c] / l, acc[c + 1] / l, acc[c + 2] / l, acc[c + 3] / l);
+    if (lse != nullptr) lse[static_cast<size_t>(blockIdx.y) * n + row] = m + logf(l);
   }
 }
 
 template <int D>
-int launch_f32(const float* q, const float* k, const float* v, float* o, int batch, int n,
-               cudaStream_t stream) {
+int launch_f32(const float* q, const float* k, const float* v, float* o, float* lse, int batch,
+               int n, cudaStream_t stream) {
   static int set_for_device = -1;
   const int rc = allow_smem(flash_fwd_f32<D>, f32_ring_bytes<D>(), set_for_device);
   if (rc != 0) return rc;
   const dim3 grid((n + kRowsF32 - 1) / kRowsF32, batch);
-  flash_fwd_f32<D><<<grid, kRowsF32, f32_ring_bytes<D>(), stream>>>(q, k, v, o, n);
+  flash_fwd_f32<D><<<grid, kRowsF32, f32_ring_bytes<D>(), stream>>>(q, k, v, o, lse, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -195,20 +184,22 @@ int launch_f32(const float* q, const float* k, const float* v, float* o, int bat
 
 // Plain C entry point, bound with ctypes. Launches on `stream` and returns the
 // CUDA error code of the launch (0 on success). q, k, v, o: contiguous
-// (B, N, d) f32, 16-byte aligned (the Python wrapper checks this).
-extern "C" int frn_flash_fwd_f32(const void* q, const void* k, const void* v, void* o, int batch,
-                                 int n, int d, void* stream) {
+// (B, N, d) f32, 16-byte aligned (the Python wrapper checks this); lse: null,
+// or contiguous (B, N) f32.
+extern "C" int frn_flash_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse,
+                                 int batch, int n, int d, void* stream) {
   if (batch <= 0 || n <= 0 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);
   auto* of = static_cast<float*>(o);
+  auto* lf = static_cast<float*>(lse);
   auto* s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 8: return launch_f32<8>(qf, kf, vf, of, batch, n, s);
-    case 16: return launch_f32<16>(qf, kf, vf, of, batch, n, s);
-    case 32: return launch_f32<32>(qf, kf, vf, of, batch, n, s);
-    case 64: return launch_f32<64>(qf, kf, vf, of, batch, n, s);
+    case 8: return launch_f32<8>(qf, kf, vf, of, lf, batch, n, s);
+    case 16: return launch_f32<16>(qf, kf, vf, of, lf, batch, n, s);
+    case 32: return launch_f32<32>(qf, kf, vf, of, lf, batch, n, s);
+    case 64: return launch_f32<64>(qf, kf, vf, of, lf, batch, n, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -67,6 +67,28 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Starts the copy of rows [r0, r0 + R) of two (n, D) f32 matrices a and b (one
+// batch, row-major) into the row-major shared tiles at and bt ([R][D] f32
+// each) by 16-byte cp.async from the block's kThreads threads (the caller
+// commits the group); rows past n are zero-filled. R * D / 4 is a multiple of
+// kThreads. The f32 kernels' K/V (and Q/dO) tiles.
+template <int D, int R, int kThreads>
+__device__ __forceinline__ void load_rows_f32(const float* __restrict__ a,
+                                              const float* __restrict__ b, int r0, int n,
+                                              float* at, float* bt) {
+  constexpr int kChunks = R * D / 4;
+  static_assert(kChunks % kThreads == 0, "whole chunks per thread");
+#pragma unroll
+  for (int it = 0; it < kChunks / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    const bool valid = r0 + r < n;
+    const size_t off = valid ? static_cast<size_t>(r0 + r) * D + c : 0;
+    cp_async_16(at + r * D + c, a + off, valid);
+    cp_async_16(bt + r * D + c, b + off, valid);
+  }
+}
+
 
 // Starts the copy of keys [key0, key0 + kTile) of K and V (each (n, D) bf16,
 // one batch) into the swizzled tiles k_tile and v_tile, kThreads threads

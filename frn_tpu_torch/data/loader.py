@@ -13,7 +13,7 @@ import collections
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -32,6 +32,8 @@ class BatchLoader:
         flagged via 'sample_mask' unless ``drop_last``.
       shuffle: reshuffle indices each epoch, from ``seed``.
       num_threads: sample-loading worker threads (0 = synchronous).
+      transform: per-sample host augmentation (sample dict -> sample dict),
+        applied as each sample is loaded, in the worker threads.
     """
 
     def __init__(
@@ -44,6 +46,7 @@ class BatchLoader:
         max_annots: int = 64,
         drop_last: bool = False,
         seed: int = 0,
+        transform: Optional[Callable] = None,
     ):
         self.dataset = dataset
         self.geometry = geometry
@@ -52,6 +55,7 @@ class BatchLoader:
         self.num_threads = num_threads
         self.max_annots = max_annots
         self.drop_last = drop_last
+        self.transform = transform
         self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
@@ -67,7 +71,10 @@ class BatchLoader:
         return idx
 
     def _load(self, i: int) -> Dict[str, np.ndarray]:
-        return self.dataset[int(i)]
+        s = self.dataset[int(i)]
+        if self.transform is not None:
+            s = self.transform(s)
+        return s
 
     def _collate(self, samples) -> Dict[str, np.ndarray]:
         return collate_fixed(samples, self.geometry, self.max_annots, self.batch_size)

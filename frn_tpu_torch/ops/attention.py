@@ -8,10 +8,11 @@ the two backward kernels) when grad mode is on and an input requires grad,
 else the forward kernel alone. On that route the inference-only options pick
 another kernel, with the JAX package's precedence: ``quant`` ('int8_qk' or
 'int8') the int8 kernel, else ``exp_bf16`` the bf16-exp forward; both raise
-for an input that requires grad. The kernels take bf16 with a head dim in
-``HEAD_DIMS``, and the forward alone f32 too (inference: an f32 input that
-requires grad raises, as do the inference-only options at f32); any other
-CUDA input on that route raises. The rest, and every CPU tensor, take the
+for an input that requires grad. The kernels take bf16 or f32 with a head
+dim in ``HEAD_DIMS``: at f32 an input that requires grad takes
+``FlashAttentionFn`` too (the f32 forward with lse, then the f32 backward
+kernels), while the inference-only options at f32 raise; any other CUDA
+input on that route raises. The rest, and every CPU tensor, take the
 exact dense route under autograd whatever the options: f32 scores, softmax, p
 cast to g's dtype, PV with f32 accumulation, over query blocks of ``chunk``
 rows to bound memory.

@@ -10,18 +10,20 @@ All tensors are (B, N, d) with Q = phi, K = theta, V = g, and there is no
   per-row logsumexp lse (B, N) f32, natural log; with the bf16-exp flag the
   softmax weights are p = bf16(exp(bf16(s - m))), m the running row max;
 * ``csrc/flash_attention_f32.cu``: O = softmax(Q K^T) V on f32 inputs, p kept
-  in f32 (inference only: no lse, no backward at f32 yet);
-* ``csrc/flash_attention_bwd.cu``: with P = exp(Q K^T - lse) and
-  D = rowsum(dO * O) in f32, the dQ kernel computes dS = P * (dO V^T - D) and
-  dQ = dS K, the dK/dV kernel dK = dS^T Q and dV = P^T dO;
+  in f32, and on request the f32 lse (inference and training);
+* ``csrc/flash_attention_bwd.cu`` (bf16) and ``csrc/flash_attention_bwd_f32.cu``
+  (f32): with P = exp(Q K^T - lse) and D = rowsum(dO * O) in f32, the dQ
+  kernel computes dS = P * (dO V^T - D) and dQ = dS K, the dK/dV kernel
+  dK = dS^T Q and dV = P^T dO;
 * ``csrc/flash_attention_int8.cu``: per-slice dynamic int8 quantization (a
   pre-pass kernel before the launch, ``int8_prepass``; its plain version is
   ``int8_kernel_inputs``), S = int32(Qi Ki^T) * sq * sk / 127^2, and PV in
   bf16 (mode 'int8_qk') or, on p_q = round(127 p) and int8 V, in int8 (mode
   'int8').
 
-The kernels are Hopper CUDA C++ for bf16 (the forward for f32 too) and d in
-HEAD_DIMS, built at first use and bound with ctypes (``frn_tpu_torch/build.py``).
+The kernels are Hopper CUDA C++ for bf16 (the forward with and without lse
+and both backward kernels for f32 too) and d in HEAD_DIMS, built at first use
+and bound with ctypes (``frn_tpu_torch/build.py``).
 Each wrapper launches its kernel for a CUDA tensor and, for a CPU tensor, runs
 its plain version, which follows the kernel's tile loop in PyTorch; on a CUDA
 tensor it launches the kernel or raises, and never falls back. ``FlashAttentionFn`` is the
@@ -46,8 +48,11 @@ _LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)  # the kernels' k
 flash_fwd_launches = 0  # forward without lse (inference)
 flash_fwd_lse_launches = 0  # forward with lse (the forward of training)
 flash_fwd_f32_launches = 0  # forward on f32 inputs (inference)
+flash_fwd_lse_f32_launches = 0  # forward with lse on f32 inputs (training at f32)
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
+flash_bwd_dq_f32_launches = 0
+flash_bwd_dkv_f32_launches = 0
 flash_fwd_bf16exp_launches = 0
 flash_int8_qk_launches = 0
 flash_int8_launches = 0
@@ -58,6 +63,7 @@ _lib = None  # csrc/flash_attention.cu
 _bwd_lib = None  # csrc/flash_attention_bwd.cu
 _int8_lib = None  # csrc/flash_attention_int8.cu
 _f32_lib = None  # csrc/flash_attention_f32.cu
+_bwd_f32_lib = None  # csrc/flash_attention_bwd_f32.cu
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,11 +78,13 @@ def bind_forward(lib):
     return lib
 
 
-def bind_backward(lib):
-    """The same for ``csrc/flash_attention_bwd.cu``."""
-    lib.frn_flash_bwd_dq_bf16.argtypes = [_P] * 7 + [_I] * 3 + [_P]
-    lib.frn_flash_bwd_dkv_bf16.argtypes = [_P] * 8 + [_I] * 3 + [_P]
-    lib.frn_flash_bwd_dq_bf16.restype = lib.frn_flash_bwd_dkv_bf16.restype = _I
+def bind_backward(lib, dtype: str = "bf16"):
+    """The same for ``csrc/flash_attention_bwd.cu`` (``dtype`` 'bf16') or
+    ``csrc/flash_attention_bwd_f32.cu`` ('f32'): one signature for both."""
+    dq, dkv = getattr(lib, f"frn_flash_bwd_dq_{dtype}"), getattr(lib, f"frn_flash_bwd_dkv_{dtype}")
+    dq.argtypes = [_P] * 7 + [_I] * 3 + [_P]
+    dkv.argtypes = [_P] * 8 + [_I] * 3 + [_P]
+    dq.restype = dkv.restype = _I
     return lib
 
 
@@ -89,7 +97,7 @@ def _library() -> ctypes.CDLL:
 
 def bind_f32(lib):
     """The same for ``csrc/flash_attention_f32.cu``."""
-    lib.frn_flash_fwd_f32.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+    lib.frn_flash_fwd_f32.argtypes = [_P] * 5 + [_I] * 3 + [_P]
     lib.frn_flash_fwd_f32.restype = _I
     return lib
 
@@ -106,6 +114,13 @@ def _bwd_library() -> ctypes.CDLL:
     if _bwd_lib is None:
         _bwd_lib = bind_backward(build.load("flash_attention_bwd"))
     return _bwd_lib
+
+
+def _bwd_f32_library() -> ctypes.CDLL:
+    global _bwd_f32_lib
+    if _bwd_f32_lib is None:
+        _bwd_f32_lib = bind_backward(build.load("flash_attention_bwd_f32"), "f32")
+    return _bwd_f32_lib
 
 
 def bind_int8(lib):
@@ -387,34 +402,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_ls
     f32 logsumexp. The kernel on CUDA, the plain version on CPU.
 
     The shape rules (one (B, N, d) shape, d in HEAD_DIMS) hold on both; the
-    kernel further takes only contiguous, 16-byte aligned bf16 on one device,
-    or f32 without ``return_lse`` (the f32 forward: inference only). Its
-    output carries no gradient, so on CUDA an input that requires grad (with
-    grad mode on) raises: ``FlashAttentionFn.apply`` is the differentiable
-    route (bf16 only).
+    kernel further takes only contiguous, 16-byte aligned inputs on one
+    device, all bf16 (``csrc/flash_attention.cu``) or all f32
+    (``csrc/flash_attention_f32.cu``). Its output carries no gradient, so on
+    CUDA an input that requires grad (with grad mode on) raises:
+    ``FlashAttentionFn.apply`` is the differentiable route.
     """
     global flash_fwd_launches, flash_fwd_lse_launches, flash_fwd_f32_launches
+    global flash_fwd_lse_f32_launches
     _check_shapes(q, k, v)
     if not _on_kernel_device(q):
         return flash_attention_plain(q, k, v, return_lse=return_lse)
     _refuse_grad("flash_attention's kernel output carries no gradient; use "
                  "FlashAttentionFn.apply(q, k, v) where a gradient is needed", q, k, v)
     b, n, d = q.shape
-    if q.dtype == _F32 and not return_lse:
-        _check_kernel_args(q, ("q", q, _F32), ("k", k, _F32), ("v", v, _F32))
-        o = torch.empty_like(q)
-        if o.numel():
-            _launch(_f32_library().frn_flash_fwd_f32, q, q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), o.data_ptr(), b, n, d)
-            flash_fwd_f32_launches += 1
-        return o
-    _check_kernel_args(q, ("q", q, _BF16), ("k", k, _BF16), ("v", v, _BF16))
+    f32 = q.dtype == _F32
+    dtype = _F32 if f32 else _BF16
+    _check_kernel_args(q, ("q", q, dtype), ("k", k, dtype), ("v", v, dtype))
     o = torch.empty_like(q)
     lse = torch.empty((b, n), dtype=_F32, device=q.device) if return_lse else None
     if o.numel():
-        _launch(_library().frn_flash_fwd_bf16, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                o.data_ptr(), None if lse is None else lse.data_ptr(), b, n, d)
-        if return_lse:
+        fn = _f32_library().frn_flash_fwd_f32 if f32 else _library().frn_flash_fwd_bf16
+        _launch(fn, q, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                None if lse is None else lse.data_ptr(), b, n, d)
+        if f32 and return_lse:
+            flash_fwd_lse_f32_launches += 1
+        elif f32:
+            flash_fwd_f32_launches += 1
+        elif return_lse:
             flash_fwd_lse_launches += 1
         else:
             flash_fwd_launches += 1
@@ -530,42 +545,59 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
-def _check_bwd(q, k, v, do, lse, delta) -> bool:
+def _check_bwd(q, k, v, do, lse, delta):
+    """None for CPU tensors (the plain versions run); on CUDA the kernels'
+    input dtype, bf16 or f32 (q's), after every argument is checked against
+    it: q, k, v and do all of it, lse and delta f32. Any mix raises."""
     _check_shapes(q, k, v, do)
     _check_rows(q, lse=lse, delta=delta)
     if not _on_kernel_device(q):
-        return False
-    _check_kernel_args(q, ("q", q, _BF16), ("k", k, _BF16), ("v", v, _BF16), ("do", do, _BF16),
+        return None
+    dtype = _F32 if q.dtype == _F32 else _BF16
+    _check_kernel_args(q, ("q", q, dtype), ("k", k, dtype), ("v", v, dtype), ("do", do, dtype),
                        ("lse", lse, _F32), ("delta", delta, _F32))
-    return True
+    return dtype
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
-    """dQ (B, N, d): the dQ kernel on CUDA, ``flash_bwd_dq_plain`` on CPU."""
-    global flash_bwd_dq_launches
-    if not _check_bwd(q, k, v, do, lse, delta):
+    """dQ (B, N, d): the dQ kernel on CUDA (bf16 or f32 inputs),
+    ``flash_bwd_dq_plain`` on CPU."""
+    global flash_bwd_dq_launches, flash_bwd_dq_f32_launches
+    dtype = _check_bwd(q, k, v, do, lse, delta)
+    if dtype is None:
         return flash_bwd_dq_plain(q, k, v, do, lse, delta)
     b, n, d = q.shape
     dq = torch.empty_like(q)
     if dq.numel():
-        _launch(_bwd_library().frn_flash_bwd_dq_bf16, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, n, d)
-        flash_bwd_dq_launches += 1
+        fn = (_bwd_f32_library().frn_flash_bwd_dq_f32 if dtype == _F32
+              else _bwd_library().frn_flash_bwd_dq_bf16)
+        _launch(fn, q, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), b, n, d)
+        if dtype == _F32:
+            flash_bwd_dq_f32_launches += 1
+        else:
+            flash_bwd_dq_launches += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dK, dV), each (B, N, d): the dK/dV kernel on CUDA, the plain version on CPU."""
-    global flash_bwd_dkv_launches
-    if not _check_bwd(q, k, v, do, lse, delta):
+    """(dK, dV), each (B, N, d): the dK/dV kernel on CUDA (bf16 or f32
+    inputs), the plain version on CPU."""
+    global flash_bwd_dkv_launches, flash_bwd_dkv_f32_launches
+    dtype = _check_bwd(q, k, v, do, lse, delta)
+    if dtype is None:
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta)
     b, n, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel():
-        _launch(_bwd_library().frn_flash_bwd_dkv_bf16, q, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), b, n, d)
-        flash_bwd_dkv_launches += 1
+        fn = (_bwd_f32_library().frn_flash_bwd_dkv_f32 if dtype == _F32
+              else _bwd_library().frn_flash_bwd_dkv_bf16)
+        _launch(fn, q, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, d)
+        if dtype == _F32:
+            flash_bwd_dkv_f32_launches += 1
+        else:
+            flash_bwd_dkv_launches += 1
     return dk, dv
 
 
@@ -580,8 +612,9 @@ def flash_attention_backward(q, k, v, o, lse, do):
 
 class FlashAttentionFn(torch.autograd.Function):
     """softmax(q k^T) v with its gradient: the forward kernel with lse, then the
-    dQ and dK/dV kernels (the plain versions on CPU). Counterpart of the JAX
-    package's ``custom_vjp`` ``_fwd``/``_bwd``."""
+    dQ and dK/dV kernels, at bf16 or at f32 as the inputs are (the plain
+    versions on CPU). Counterpart of the JAX package's ``custom_vjp``
+    ``_fwd``/``_bwd``."""
 
     @staticmethod
     def forward(ctx, q, k, v):

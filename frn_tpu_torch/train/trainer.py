@@ -37,11 +37,13 @@ class Trainer:
         seed: Optional[int] = None,
         metrics_path: Optional[str] = None,
         device=None,
+        transform: Optional[Callable] = None,  # per-sample host augmentation
     ):
         if metrics_path is not None:
             raise NotImplementedError(f"Trainer(metrics_path=...): {NOT_PORTED}")
         self.config = config
         self.dataset = dataset
+        self.transform = transform
         self.eval_fn = eval_fn
         self.eval_every = eval_every
         self.log_every = log_every
@@ -81,7 +83,7 @@ class Trainer:
         return BatchLoader(
             self.dataset, self.config.geometry, batch_size=tc.batch_size,
             shuffle=True, num_threads=8, max_annots=tc.max_annots_per_image,
-            drop_last=True, seed=tc.seed + self.epoch,
+            drop_last=True, seed=tc.seed + self.epoch, transform=self.transform,
         )
 
     def train_epoch(self) -> Dict[str, float]:

@@ -6,6 +6,7 @@ tests: forward atol 2e-5 rtol 1e-4; logsumexp and backward atol 2e-4 rtol 1e-3.
 """
 
 import ctypes
+import functools
 import importlib
 import re
 import types
@@ -84,6 +85,7 @@ def test_import_builds_nothing(monkeypatch):
     o, lse = module.flash_attention(q, q, q, return_lse=True)
     module.flash_attention_backward(q, q, q, o, lse, q)
     assert module._lib is None and module._bwd_lib is None
+    assert module._f32_lib is None and module._bwd_f32_lib is None
 
 
 def test_library_path_tracks_the_source():
@@ -92,7 +94,8 @@ def test_library_path_tracks_the_source():
     assert path.name.startswith("flash_attention-") and path.suffix == ".so"
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
     assert build.SOURCES == ("flash_attention", "flash_attention_bwd", "flash_attention_int8",
-                             "stem", "flash_attention_f32")
+                             "stem", "flash_attention_f32", "flash_attention_bwd_f32")
+    assert build.library_path("flash_attention_bwd_f32").name.startswith("flash_attention_bwd_f32-")
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").is_file()
 
@@ -202,6 +205,10 @@ def test_plain_backward_is_finite_where_lse_is_below_minus_88():
     ("flash_attention_int8", fa.bind_int8, "frn_flash_int8_prepass"),
     ("stem", stem.bind_stem, "frn_stem_conv_bn_relu"),
     ("flash_attention_f32", fa.bind_f32, "frn_flash_fwd_f32"),
+    ("flash_attention_bwd_f32", functools.partial(fa.bind_backward, dtype="f32"),
+     "frn_flash_bwd_dq_f32"),
+    ("flash_attention_bwd_f32", functools.partial(fa.bind_backward, dtype="f32"),
+     "frn_flash_bwd_dkv_f32"),
 ])
 def test_entry_points_take_the_arguments_ctypes_declares(source, bind, name):
     # ctypes passes what argtypes declares, so a C signature that gains or
@@ -213,7 +220,8 @@ def test_entry_points_take_the_arguments_ctypes_declares(source, bind, name):
     assert all("*" in p or p.split()[0] == "int" for p in params)
     names = ("frn_flash_fwd_bf16", "frn_flash_fwd_bf16exp_bf16", "frn_flash_bwd_dq_bf16",
              "frn_flash_bwd_dkv_bf16", "frn_flash_int8", "frn_flash_int8_prepass",
-             "frn_stem_conv_bn_relu", "frn_flash_fwd_f32")
+             "frn_stem_conv_bn_relu", "frn_flash_fwd_f32", "frn_flash_bwd_dq_f32",
+             "frn_flash_bwd_dkv_f32")
     lib = bind(types.SimpleNamespace(**{n: types.SimpleNamespace() for n in names}))
     assert getattr(lib, name).argtypes == want
     assert getattr(lib, name).restype is ctypes.c_int
@@ -301,29 +309,106 @@ def test_plain_f32_keeps_p_in_f32(b, n, d):
                                rtol=1e-4)
 
 
-def test_f32_inputs_route_to_the_f32_kernel(monkeypatch):
-    # on the card an f32 forward without lse launches the f32 kernel (counted);
-    # with lse, or with an input that requires grad, it raises as before
+def _mock_kernels(monkeypatch):
+    """Every wrapper takes its kernel route, with each library's entry points
+    named by a string and each launch recorded as (entry, pointer args that
+    are null, trailing int args) instead of run."""
     calls = []
     monkeypatch.setattr(fa, "_on_kernel_device", lambda q: True)
     monkeypatch.setattr(fa, "_f32_library", lambda: types.SimpleNamespace(frn_flash_fwd_f32="f32"))
     monkeypatch.setattr(fa, "_library", lambda: types.SimpleNamespace(frn_flash_fwd_bf16="bf16"))
-    monkeypatch.setattr(fa, "_launch", lambda fn, q, *args: calls.append((fn, args[-3:])))
+    monkeypatch.setattr(fa, "_bwd_library", lambda: types.SimpleNamespace(
+        frn_flash_bwd_dq_bf16="dq_bf16", frn_flash_bwd_dkv_bf16="dkv_bf16"))
+    monkeypatch.setattr(fa, "_bwd_f32_library", lambda: types.SimpleNamespace(
+        frn_flash_bwd_dq_f32="dq_f32", frn_flash_bwd_dkv_f32="dkv_f32"))
+    monkeypatch.setattr(fa, "_launch", lambda fn, q, *args: calls.append(
+        (fn, tuple(i for i, a in enumerate(args[:-3]) if a is None), args[-3:])))
+    return calls
+
+
+F32_COUNTERS = ("flash_fwd_f32_launches", "flash_fwd_lse_f32_launches", "flash_fwd_launches",
+                "flash_fwd_lse_launches", "flash_bwd_dq_f32_launches", "flash_bwd_dkv_f32_launches",
+                "flash_bwd_dq_launches", "flash_bwd_dkv_launches")
+
+
+def _counter_moves(before):
+    return {name: getattr(fa, name) - n for name, n in before.items() if getattr(fa, name) != n}
+
+
+def test_f32_inputs_route_to_the_f32_kernel(monkeypatch):
+    # on the card an f32 forward launches the f32 kernel: without lse (a null
+    # lse pointer, the inference counter) and with it (a non-null lse, the
+    # training counter); an input that requires grad raises as before
+    calls = _mock_kernels(monkeypatch)
     q = torch.zeros((2, 64, 32))
-    before = fa.flash_fwd_f32_launches, fa.flash_fwd_launches
+    before = {name: getattr(fa, name) for name in F32_COUNTERS}
     out = fa.flash_attention(q, q, q)
     assert out.shape == q.shape and out.dtype == torch.float32
-    assert calls == [("f32", (2, 64, 32))]
-    assert (fa.flash_fwd_f32_launches, fa.flash_fwd_launches) == (before[0] + 1, before[1])
-    with pytest.raises(TypeError, match="bfloat16"):
-        fa.flash_attention(q, q, q, return_lse=True)  # B1-lse at f32: not ported
+    assert calls == [("f32", (4,), (2, 64, 32))]  # q, k, v, o, then a null lse
+    assert _counter_moves(before) == {"flash_fwd_f32_launches": 1}
+    o, lse = fa.flash_attention(q, q, q, return_lse=True)
+    assert o.dtype == torch.float32 and lse.shape == (2, 64) and lse.dtype == torch.float32
+    assert calls[-1] == ("f32", (), (2, 64, 32))
+    assert _counter_moves(before) == {"flash_fwd_f32_launches": 1, "flash_fwd_lse_f32_launches": 1}
     with pytest.raises(TypeError, match="float32"):
         fa.flash_attention(q, q, q.to(torch.bfloat16))
     with pytest.raises(RuntimeError, match="FlashAttentionFn"):
         fa.flash_attention(q.clone().requires_grad_(), q, q)
     qb = q.to(torch.bfloat16)
     fa.flash_attention(qb, qb, qb)
-    assert calls[-1] == ("bf16", (2, 64, 32)) and fa.flash_fwd_f32_launches == before[0] + 1
+    assert calls[-1] == ("bf16", (4,), (2, 64, 32))
+    assert _counter_moves(before) == {"flash_fwd_f32_launches": 1, "flash_fwd_lse_f32_launches": 1,
+                                      "flash_fwd_launches": 1}
+
+
+@pytest.mark.parametrize("dtype,dq,dkv", [(torch.float32, "dq_f32", "dkv_f32"),
+                                          (torch.bfloat16, "dq_bf16", "dkv_bf16")])
+def test_backward_arguments_route_by_dtype(monkeypatch, dtype, dq, dkv):
+    # all-f32 backward arguments reach the f32 entries, all-bf16 ones the bf16
+    # entries, each counted on its own counter; lse and delta are f32 in both
+    calls = _mock_kernels(monkeypatch)
+    q = torch.zeros((2, 131, 16), dtype=dtype)
+    rows = torch.zeros((2, 131))
+    before = {name: getattr(fa, name) for name in F32_COUNTERS}
+    got_dq = fa.flash_bwd_dq(q, q, q, q, rows, rows)
+    got_dk, got_dv = fa.flash_bwd_dkv(q, q, q, q, rows, rows)
+    assert all(x.shape == q.shape and x.dtype == dtype for x in (got_dq, got_dk, got_dv))
+    assert calls == [(dq, (), (2, 131, 16)), (dkv, (), (2, 131, 16))]
+    suffix = "_f32" if dtype == torch.float32 else ""
+    assert _counter_moves(before) == {f"flash_bwd_dq{suffix}_launches": 1,
+                                      f"flash_bwd_dkv{suffix}_launches": 1}
+
+
+@pytest.mark.parametrize("odd", ["k", "v", "do", "lse", "delta"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_mixed_dtypes_raise(monkeypatch, odd, dtype):
+    # one argument off the kernels' types (q's dtype for the matrices, f32
+    # for the row statistics) raises before any launch
+    calls = _mock_kernels(monkeypatch)
+    other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+    args = {name: torch.zeros((1, 64, 8), dtype=dtype) for name in ("q", "k", "v", "do")}
+    args.update(lse=torch.zeros((1, 64)), delta=torch.zeros((1, 64)))
+    args[odd] = args[odd].to(other if odd in ("k", "v", "do") else torch.float16)
+    for fn in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        with pytest.raises(TypeError, match=odd):
+            fn(*args.values())
+    assert calls == []
+
+
+def test_nonlocal_attention_trains_at_f32_on_the_kernel_route(monkeypatch):
+    # on the card an f32 input that requires grad takes FlashAttentionFn: the
+    # f32 forward with lse, then both f32 backward kernels (the libraries are
+    # mocked, so the values are not checked here: chip_smoke.py holds them)
+    calls = _mock_kernels(monkeypatch)
+    monkeypatch.setattr(attention, "_kernel_route", lambda g: True)
+    g, theta, phi = (torch.zeros((2, 64, 32), requires_grad=True) for _ in range(3))
+    out = attention.nonlocal_attention(g, theta, phi)
+    assert out.requires_grad and [c[0] for c in calls] == ["f32"] and calls[0][1] == ()
+    out.sum().backward()
+    assert [c[0] for c in calls] == ["f32", "dq_f32", "dkv_f32"]
+    assert all(x.grad is not None and x.grad.dtype == torch.float32 for x in (g, theta, phi))
+    with pytest.raises(RuntimeError, match="inference only"):
+        attention.nonlocal_attention(g, theta, phi, exp_bf16=True)
 
 
 def test_f32_library_is_built_lazily(monkeypatch):
@@ -334,3 +419,14 @@ def test_f32_library_is_built_lazily(monkeypatch):
     lib = fa._f32_library()
     assert loaded == ["flash_attention_f32"] and lib.frn_flash_fwd_f32.restype is ctypes.c_int
     assert fa._f32_library() is lib and loaded == ["flash_attention_f32"]
+
+
+def test_f32_backward_library_is_built_lazily(monkeypatch):
+    monkeypatch.setattr(fa, "_bwd_f32_lib", None)
+    loaded = []
+    monkeypatch.setattr(build, "load", lambda name: loaded.append(name) or types.SimpleNamespace(
+        frn_flash_bwd_dq_f32=types.SimpleNamespace(), frn_flash_bwd_dkv_f32=types.SimpleNamespace()))
+    lib = fa._bwd_f32_library()
+    assert loaded == ["flash_attention_bwd_f32"]
+    assert lib.frn_flash_bwd_dq_f32.restype is lib.frn_flash_bwd_dkv_f32.restype is ctypes.c_int
+    assert fa._bwd_f32_library() is lib and loaded == ["flash_attention_bwd_f32"]

@@ -49,7 +49,10 @@ def test_importing_the_port_loads_no_jax():
                  "frn_tpu_torch.eval.ap", "frn_tpu_torch.eval.coco_protocol",
                  "frn_tpu_torch.eval.detections", "frn_tpu_torch.eval.evaluator",
                  "frn_tpu_torch.cli.common", "frn_tpu_torch.cli.test",
-                 "frn_tpu_torch.cli.test_dsec", "frn_tpu_torch.cli.test_ddd17"):
+                 "frn_tpu_torch.cli.test_dsec", "frn_tpu_torch.cli.test_ddd17",
+                 "frn_tpu_torch.cli.train", "frn_tpu_torch.cli.train_dsec",
+                 "frn_tpu_torch.cli.train_ddd17", "frn_tpu_torch.train.trainer",
+                 "frn_tpu_torch.data.loader"):
         assert name in result["imported"]
 
 
