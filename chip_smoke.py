@@ -5,7 +5,8 @@
     python3 chip_smoke.py --other-source OLD/csrc/flash_attention.cu \
                           --other-source OLD/csrc/flash_attention_bwd.cu \
                           --other-source OLD/csrc/flash_attention_int8.cu \
-                          --other-source OLD/csrc/stem.cu
+                          --other-source OLD/csrc/stem.cu \
+                          --other-source OLD/csrc/flash_attention_f32.cu
                                    # the same, and another revision's kernels timed beside
 
 Phases:
@@ -13,8 +14,9 @@ Phases:
      kernel of the port built from ``frn_tpu_torch/csrc`` (one nvcc each, in
      parallel), with each kernel instance's registers and spills (the
      path's wgmma instances of the forward, the backward, the int8 forward
-     and the stem, and the f32 forward, dQ and dK/dV kernels at every head
-     dim, must each be there, and may not spill);
+     and the stem, the f32 forward's register-blocked instances at d 32 and
+     64 and its first design at d 8 and 16, and the f32 dQ and dK/dV
+     kernels at every head dim, must each be there, and may not spill);
   2. each kernel against its plain PyTorch version on the card, at the shapes
      of its path (the forward; the forward with lse and the dQ and dK/dV
      backward kernels, ragged N and head dims 8 and 16 included, and the
@@ -31,8 +33,10 @@ Phases:
      backward beside them, each launch's block count, and DDD17 at batch 4);
      with ``--other-source``, each
      other revision's forward entry points (B1, B1 with lse, B3) or backward
-     entry points (B2a dQ, B2b dK/dV) built by the same flags and timed in
-     turns with this revision's at the path's shapes and batches;
+     entry points (B2a dQ, B2b dK/dV) or f32 forward (B1 and B1-lse at f32,
+     at every launch of the eval and f32 train paths, with each launch's
+     block count) built by the same flags and timed in turns with this
+     revision's at the path's shapes and batches;
   3. the inference path, through ``frn_tpu_torch.entry.entry()``: DSEC
      480x640 fusion inference, two ResNet-50 backbones, bf16, batch 16,
      forward + pooled decode + NMS. Launch counts are zeroed just before the
@@ -250,16 +254,18 @@ TRAIN_F32_KERNELS = ("flash_fwd_lse_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32
 # arguments): the forward at d 32 and 64, with and without exp_bf16; the dQ
 # and dK/dV kernels at d 32 and 64; the int8 forward at d 32 and 64 in modes
 # int8_qk (0) and int8 (1); the stem at C 3 and 5; and the f32 kernels (CUDA
-# cores), the forward and the dQ and dK/dV kernels, at every head dim (the
-# f32 train CLI takes d 8 and 16 at depths 18 and 34). Phase 1 fails unless
-# each is in the compiler's log once, unspilled
+# cores): the forward's register-blocked kernel at d 32 and 64, its first
+# design at d 8 and 16 (the f32 train CLI takes them at depths 18 and 34),
+# and the dQ and dK/dV kernels at every head dim. Phase 1 fails unless each
+# is in the compiler's log once, unspilled
 PATH_INSTANCES = {
     "flash_attention": [("flash_fwd_wgmma", d, e) for d in (32, 64) for e in (0, 1)],
     "flash_attention_bwd": [(kernel, d) for kernel in ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
                             for d in (32, 64)],
     "flash_attention_int8": [("flash_int8_wgmma", d, f) for d in (32, 64) for f in (0, 1)],
     "stem": [("stem_wgmma", c) for c in (3, 5)],
-    "flash_attention_f32": [("flash_fwd_f32", d) for d in (8, 16, 32, 64)],
+    "flash_attention_f32": [("flash_fwd_f32", 8), ("flash_fwd_f32", 16),
+                            ("flash_fwd_f32_tiled", 32), ("flash_fwd_f32_tiled", 64)],
     "flash_attention_bwd_f32": [(kernel, d) for kernel in ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")
                                 for d in (8, 16, 32, 64)],
 }
@@ -561,8 +567,8 @@ def kernel_instances(log: str) -> dict:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv|int8)_(?:mma|wgmma)|flash_(?:fwd|bwd_dq|bwd_dkv)_f32"
-                          r"|stem_wgmma)"
+            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv|int8)_(?:mma|wgmma)|flash_fwd_f32_tiled"
+                          r"|flash_(?:fwd|bwd_dq|bwd_dkv)_f32|stem_wgmma)"
                           r"I((?:L[ib]\d+E)+)E", entry.group(1))
             current = None if m is None else (
                 m.group(1), *(int(x) for x in re.findall(r"L[ib](\d+)E", m.group(2))))
@@ -636,7 +642,9 @@ def phase_flash_f32():
         q, k, v = qkv(EVAL_BATCH, n, d)
         q4, k4, v4 = (x.unsqueeze(1) for x in (q, k, v))
         lib_ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0), reps=10)
-        out, ref = times.add({"B": EVAL_BATCH, "N": n, "d": d}, f32_bound(EVAL_BATCH, n, d),
+        out, ref = times.add({"B": EVAL_BATCH, "N": n, "d": d,
+                              "blocks": fa.f32_launch_plan(EVAL_BATCH, n, d)["blocks"]},
+                             f32_bound(EVAL_BATCH, n, d),
                              lambda: fa.flash_attention(q, k, v),
                              lambda: fa.flash_attention_plain(q, k, v), lib_ms)
         check_close("flash_fwd_f32", "o", out, ref, FLASH_F32_ATOL, FLASH_F32_RTOL, q.shape, errs)
@@ -648,8 +656,10 @@ def phase_flash_f32():
     check_close("flash_fwd_f32", "o", out, fa.flash_attention_plain(q, k, v), FLASH_F32_ATOL,
                 FLASH_F32_RTOL, q.shape, errs)
     bound = max(f32_bound(EVAL_BATCH, *DDD17_FLASH_SHAPE)) * 1e3
+    blocks = fa.f32_launch_plan(EVAL_BATCH, *DDD17_FLASH_SHAPE)["blocks"]
     print(f"flash_fwd_f32 per DDD17 eval batch (B {EVAL_BATCH}, N {DDD17_FLASH_SHAPE[0]}, d "
-          f"{DDD17_FLASH_SHAPE[1]}, 2 launches): kernel {2 * ms:.3f} ms, bound {2 * bound:.3f} ms, "
+          f"{DDD17_FLASH_SHAPE[1]}, 2 launches of {blocks} blocks): kernel {2 * ms:.3f} ms, "
+          f"bound {2 * bound:.3f} ms, "
           f"SDPA f32 {2 * lib_ms:.3f} ms", flush=True)
     return times.row(errs["flash_fwd_f32"], "DSEC eval batch")
 
@@ -797,7 +807,7 @@ def phase_flash_train_f32():
         lib_bwd_ms, _ = cuda_ms(lambda: torch.autograd.grad(lib_out, (q4, k4, v4), do4,
                                                             retain_graph=True), reps=10)
         del lib_out
-        fwd_shape = {"B": b, "N": n, "d": d, "blocks": b * -(-n // 128)}
+        fwd_shape = {"B": b, "N": n, "d": d, "blocks": fa.f32_launch_plan(b, n, d)["blocks"]}
         bwd_shape = {"B": b, "N": n, "d": d, "blocks": _bwd_blocks(b, n, d)}
         (o_k, lse_k), (o_p, lse_p) = times["flash_fwd_lse_f32"].add(
             fwd_shape, f32_bound(b, n, d, "flash_fwd_lse_f32"),
@@ -838,7 +848,8 @@ def phase_flash_train_f32():
              "flash_bwd_dkv_f32": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta)}
     for kind, call in calls.items():
         ms, _ = cuda_ms(call, reps=10)
-        blocks = b * -(-n // 128) if kind == "flash_fwd_lse_f32" else _bwd_blocks(b, n, d)
+        blocks = (fa.f32_launch_plan(b, n, d)["blocks"] if kind == "flash_fwd_lse_f32"
+                  else _bwd_blocks(b, n, d))
         print(f"{kind} per launch at DDD17 (B {b}, N {n}, d {d}, {blocks} blocks): kernel "
               f"{ms:.3f} ms, bound {max(f32_bound(b, n, d, kind)) * 1e3:.3f} ms, SDPA f32 "
               f"{'forward' if kind == 'flash_fwd_lse_f32' else 'backward'} {lib[kind]:.3f} ms",
@@ -853,7 +864,8 @@ def phase_flash_train_f32():
 
 def build_others(sources):
     """Builds other revisions' ``flash_attention.cu``,
-    ``flash_attention_bwd.cu``, ``flash_attention_int8.cu`` or ``stem.cu``
+    ``flash_attention_bwd.cu``, ``flash_attention_int8.cu``, ``stem.cu`` or
+    ``flash_attention_f32.cu``
     (told apart by file name, each with the headers beside it) by the port's
     nvcc flags into
     the build directory, in parallel; returns {source: the loaded library,
@@ -865,11 +877,12 @@ def build_others(sources):
     from frn_tpu_torch.ops import stem
 
     binders = {"flash_attention.cu": fa.bind_forward, "flash_attention_bwd.cu": fa.bind_backward,
-               "flash_attention_int8.cu": fa.bind_int8, "stem.cu": stem.bind_stem}
+               "flash_attention_int8.cu": fa.bind_int8, "stem.cu": stem.bind_stem,
+               "flash_attention_f32.cu": fa.bind_f32}
     for src in sources:
         if Path(src).name not in binders:
             fail(f"--other-source takes a flash_attention.cu, flash_attention_bwd.cu, "
-                 f"flash_attention_int8.cu or stem.cu, not {src}")
+                 f"flash_attention_int8.cu, stem.cu or flash_attention_f32.cu, not {src}")
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
@@ -896,7 +909,8 @@ def build_others(sources):
 
 def other_forward(lib, q, k, v, exp_bf16: bool = False, return_lse: bool = False):
     """The forward of a ``build_others`` library, called as its wrapper
-    calls it: o, or (o, lse). Uncounted: it serves the A/B, never a path."""
+    calls it (the f32 forward's for f32 q): o, or (o, lse). Uncounted: it
+    serves the A/B, never a path."""
     from frn_tpu_torch.ops import flash_attention as fa
 
     b, n, d = q.shape
@@ -906,7 +920,8 @@ def other_forward(lib, q, k, v, exp_bf16: bool = False, return_lse: bool = False
         fa._launch(lib.frn_flash_fwd_bf16exp_bf16, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    o.data_ptr(), b, n, d)
     else:
-        fa._launch(lib.frn_flash_fwd_bf16, q, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        fn = lib.frn_flash_fwd_f32 if q.dtype == torch.float32 else lib.frn_flash_fwd_bf16
+        fa._launch(fn, q, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                    None if lse is None else lse.data_ptr(), b, n, d)
     return (o, lse) if return_lse else o
 
@@ -986,7 +1001,7 @@ def time_in_turns(kind: str, shape: dict, runs: dict, check, per_step: dict,
 
 def print_per_step(per_step: dict) -> None:
     for (kind, name), (ms, launches) in per_step.items():
-        per = "micro-step" if kind in TRAIN_KERNELS else "batch"
+        per = "micro-step" if kind.split()[0] in TRAIN_KERNELS + TRAIN_F32_KERNELS else "batch"
         print(f"revisions: {kind} {'this revision' if name == 'this' else name}: {ms:.3f} ms per "
               f"{per} ({launches} launches)", flush=True)
 
@@ -1069,6 +1084,42 @@ def phase_other_backwards(others: dict) -> None:
 
             time_in_turns(kind, {"B": TRAIN_BATCH, "N": n, "d": d}, runs, check, per_step)
         del o, lse, delta, dq_ref, dkv_ref
+    print_per_step(per_step)
+
+
+def phase_other_f32_forward(others: dict) -> None:
+    """This revision's f32 forward (B1 and B1-lse at f32) timed in turns with
+    other revisions' (``build_others``) at every launch of its paths: without
+    lse at the eval batch (DSEC stages 1 and 2, DDD17's stage 1), with lse at
+    the train CLIs' batches (DSEC at F32_TRAIN_BATCH, DDD17 at
+    DDD17_TRAIN_BATCH). Each timed output, o and lse, of every revision is
+    held against the plain version at the f32 tolerances; each row carries
+    this revision's block count (``f32_launch_plan``)."""
+    from frn_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    launches = [("flash_fwd_f32", EVAL_BATCH, n, d, False) for n, d in FLASH_SHAPES]
+    launches.append(("flash_fwd_f32 DDD17", EVAL_BATCH, *DDD17_FLASH_SHAPE, False))
+    launches += [("flash_fwd_lse_f32", F32_TRAIN_BATCH, n, d, True) for n, d in FLASH_SHAPES]
+    launches.append(("flash_fwd_lse_f32 DDD17", DDD17_TRAIN_BATCH, *DDD17_FLASH_SHAPE, True))
+    errs, per_step = {}, {}
+    for kind, b, n, d, with_lse in launches:
+        q, k, v = (torch.randn((b, n, d), generator=gen, device="cuda") for _ in range(3))
+        want = fa.flash_attention_plain(q, k, v, return_lse=with_lse)
+        runs = {src: (lambda lib=lib: other_forward(lib, q, k, v, return_lse=with_lse))
+                for src, lib in others.items()}
+        runs["this"] = lambda: fa.flash_attention(q, k, v, return_lse=with_lse)
+
+        def check(label, out):
+            if not with_lse:
+                check_close(label, "o", out, want, FLASH_F32_ATOL, FLASH_F32_RTOL, q.shape, errs)
+                return
+            check_close(label, "o", out[0], want[0], FLASH_F32_ATOL, FLASH_F32_RTOL, q.shape, errs)
+            check_close(label, "lse", out[1], want[1], LSE_F32_ATOL, 0.0, q.shape, errs)
+
+        shape = {"B": b, "N": n, "d": d, "blocks": fa.f32_launch_plan(b, n, d)["blocks"]}
+        time_in_turns(kind, shape, runs, check, per_step)
+        del q, k, v, want
     print_per_step(per_step)
 
 
@@ -2443,8 +2494,9 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="On-card smoke test of frn_tpu_torch.")
     parser.add_argument("--other-source", metavar="CU_SOURCE", action="append", default=[],
                         help="another revision's csrc/flash_attention.cu, "
-                             "csrc/flash_attention_bwd.cu, csrc/flash_attention_int8.cu or "
-                             "csrc/stem.cu (its headers beside it), built and its entry points "
+                             "csrc/flash_attention_bwd.cu, csrc/flash_attention_int8.cu, "
+                             "csrc/stem.cu or csrc/flash_attention_f32.cu (its headers beside "
+                             "it), built and its entry points "
                              "timed in turns with this revision's; repeatable")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2455,11 +2507,13 @@ def main(argv=None) -> None:
             **phase_flash_backward(), **phase_flash_train_f32()}
     by_name = {name: {src: lib for src, lib in others.items() if Path(src).name == name}
                for name in ("flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_int8.cu",
-                            "stem.cu")}
+                            "stem.cu", "flash_attention_f32.cu")}
     if by_name["flash_attention.cu"]:
         phase_other_forwards(by_name["flash_attention.cu"])
     if by_name["flash_attention_bwd.cu"]:
         phase_other_backwards(by_name["flash_attention_bwd.cu"])
+    if by_name["flash_attention_f32.cu"]:
+        phase_other_f32_forward(by_name["flash_attention_f32.cu"])
     rows.update(phase_optin_kernels())
     if by_name["flash_attention_int8.cu"]:
         phase_other_int8(by_name["flash_attention_int8.cu"])

@@ -12,28 +12,51 @@
 // row max m, the denominator l and the output accumulator are f32, and p stays
 // f32: the PV product takes the unrounded p and l sums it, as the TPU kernel
 // does when V is f32 (its ones lane of V sums the same p the PV product
-// takes). Over each tile of keys (64, or 32 at d 64): m' = max(m, max_j s_j),
+// takes). Over each tile of keys: m' = max(m, max_j s_j),
 // alpha = 2^((m - m') log2 e), p_j = 2^(fma(s_j, log2 e, -m' log2 e)) (the
 // bf16 forward's formulation: one FFMA and one ex2 per score),
-// l = l alpha + sum_j p_j (the tile's sum from zero, in key order),
-// acc = acc alpha + sum_j p_j V_j; at the end O = acc / l (an IEEE division).
+// l = l alpha + sum_j p_j, acc = acc alpha + sum_j p_j V_j (keys in order);
+// at the end O = acc / l (an IEEE division). The products are f32 FMAs on the
+// CUDA cores, never the tensor cores (TF32 or 3xTF32 would compute another
+// function); the order of the sums changes only the rounding.
 //
-// Design: the products run as f32 FMAs on the CUDA cores, never on the
-// tensor cores (TF32 or 3xTF32 would compute another function). A block owns
-// 128 query rows of one batch, one per thread: the thread keeps its q row, its
-// accumulator and the scores of the current tile in registers (at d 64 a tile
-// of 64 keys spilled past the 255 registers a thread has, so the tile there is
-// 32 keys; at f32 the tile changes only the rounding).
-// K and V tiles are staged by 16-byte cp.async into a two-slot ring in
-// shared memory, the next tile in flight while a tile is computed; every
-// thread of a warp reads the same key's float4 at once (a broadcast). Keys
-// past N are zero-filled in the ring and their scores masked to -inf on the
-// last, ragged tile only; rows past N compute and store nothing (no O, no
-// lse).
+// What bounds it on an H100: 4d flops per (query, key) pair, 4 B N^2 d in
+// all, at the CUDA cores' f32 rate (67 TFLOP/s on the H100 SXM data sheet);
+// its bytes (Q, K, V, O once) are far below that.
 //
-// What bounds it on an H100: 4d flops per (query, key) pair at the CUDA
-// cores' f32 rate (67 TFLOP/s on the H100 SXM data sheet); every float4 read
-// of K or V from shared memory feeds 4 FMAs of each thread.
+// d 32 and 64: flash_fwd_f32_tiled, a register-blocked tile in the manner of
+// an SGEMM on CUDA cores. A block of 128 threads owns 64 query rows of one
+// batch and walks K and V in tiles of BN keys (64 at d 32, 32 at d 64),
+// staged by 16-byte cp.async into a two-slot ring, the next tile in flight
+// while a tile is computed; Q's rows are staged once. Thread (row group rg,
+// key group kg), kg = lane % 8 and four row groups to a warp, owns rows
+// rg + 16 i (i < 4) and keys kg + 8 j (j < BN / 8) of the tile's scores: for
+// each 4 columns of d it reads the float4s of its 4 q rows and its BN / 8 k
+// rows and does 4 * BN / 8 * 4 FMAs, so each value read from shared memory
+// feeds 4 or 8 FMAs. Strided keys put the 8 lanes of a row group on
+// neighbouring K rows, and every staged row is padded by 16 bytes, so a
+// warp's reads spread over the banks. The row group's 8 lanes take the tile's
+// row max by __shfl_xor_sync; each keeps a partial l over its own keys,
+// rescaled by the same alpha and summed across the 8 once at the end (l is
+// linear). p goes to shared memory (padded rows), and the same thread owns
+// rows rg + 16 i and the float4 columns 4 (kg + 8 u) of the accumulator for
+// O += P V: each float4 of p feeds 4 d/8 FMAs. The limits of the first
+// design, one row per thread: every value read from shared memory fed 1 FMA;
+// 254 registers left 8 warps an SM; its 128-row blocks left stage 2's grid
+// (76 blocks at batch 2) under the 132 SMs. Here a thread holds 168 (d 32) or
+// 164 (d 64) registers and 3 blocks of 61 or 60 KB share an SM (12 warps:
+// larger thread tiles at 12 warps beat 4 x 4 tiles at 16 warps on the H100),
+// and 64-row blocks give every launch of the paths more blocks than the
+// card has SMs.
+//
+// d 8 and 16 (the depth-18/34 f32 train CLI) keep the first design,
+// flash_fwd_f32: a block owns 128 query rows, one per thread, and keeps the
+// row's q, its accumulator and a tile's scores in registers; every thread of a
+// warp reads the same key's float4 at once (a broadcast).
+//
+// Both: keys past N are zero-filled in the ring and their scores masked to
+// -inf on the last, ragged tile only; rows past N compute and store nothing
+// (no O, no lse).
 
 #include <math.h>
 
@@ -43,17 +66,15 @@ namespace {
 
 using namespace flash;
 
-constexpr int kRowsF32 = 128;  // query rows (threads) per block
+constexpr int kTileF32 = 64;  // keys per tile of the first design
 
-// keys per tile: what the registers allow beside a q row and an accumulator
-template <int D>
-__host__ __device__ constexpr int keys_per_tile() {
-  return D == 64 ? 32 : 64;
-}
+// ------------------------------------------------------------ d 8 and 16
+
+constexpr int kRowsF32 = 128;  // query rows (threads) per block
 
 template <int D>
 constexpr int f32_ring_bytes() {
-  return 2 * 2 * keys_per_tile<D>() * D * 4;  // two slots of a K and a V tile
+  return 2 * 2 * kTileF32 * D * 4;  // two slots of a K and a V tile
 }
 
 // one tile of the online softmax for this thread's row
@@ -61,7 +82,6 @@ template <int D, bool kMask>
 __device__ __forceinline__ void tile_step(const float (&q)[D], const float* __restrict__ kt,
                                           const float* __restrict__ vt, int key0, int n, float& m,
                                           float& l, float (&acc)[D]) {
-  constexpr int kTileF32 = keys_per_tile<D>();
   float s[kTileF32];
 #pragma unroll
   for (int j = 0; j < kTileF32; ++j) s[j] = 0.f;
@@ -138,7 +158,6 @@ __global__ void __launch_bounds__(kRowsF32)
   for (int c = 0; c < D; ++c) acc[c] = 0.f;
   float m = -INFINITY, l = 0.f;
 
-  constexpr int kTileF32 = keys_per_tile<D>();
   const int tiles = (n + kTileF32 - 1) / kTileF32;
   const bool ragged = n % kTileF32 != 0;
   load_rows_f32<D, kTileF32, kRowsF32>(k, v, 0, n, ring, ring + kTileF32 * D);
@@ -180,6 +199,261 @@ int launch_f32(const float* q, const float* k, const float* v, float* o, float* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ d 32 and 64
+
+constexpr int kTiledRows = 64;     // BM: query rows a block owns
+constexpr int kTiledThreads = 128;
+constexpr int kKeyGroups = 8;      // G: the lanes that share a row group
+constexpr int kTiledBlocksPerSM = 3;
+
+// keys per tile (BN): at d 32 a thread takes 8 keys of a 64-key tile; at d 64,
+// whose accumulator is twice as wide, 4 keys of a 32-key tile
+template <int D>
+__host__ __device__ constexpr int tiled_keys() {
+  return D == 32 ? 64 : 32;
+}
+
+template <int D>
+struct Tiled {
+  static constexpr int kBN = tiled_keys<D>();
+  static constexpr int kR = kTiledThreads / kKeyGroups;  // row groups
+  static constexpr int kTM = kTiledRows / kR;            // rows per thread
+  static constexpr int kTN = kBN / kKeyGroups;           // keys per thread
+  static constexpr int kCW = D / kKeyGroups;             // accumulator columns per thread
+  static constexpr int kQS = D + 4;                      // padded row strides, in floats
+  static constexpr int kPS = kBN + 4;
+  static constexpr int kQ = kTiledRows * kQS;            // floats of each staged tile
+  static constexpr int kK = kBN * kQS;
+  static constexpr int kV = kBN * D;
+  static constexpr int kP = kTiledRows * kPS;
+  static constexpr int kBytes = 4 * (kQ + 2 * kK + 2 * kV + kP);
+  static_assert(kTM * kR == kTiledRows && kTN * kKeyGroups == kBN && kCW % 4 == 0,
+                "whole tiles, float4 columns");
+  static_assert(kTiledBlocksPerSM * (kBytes + 1024) <= 228 * 1024, "3 blocks an SM");
+};
+
+// Starts the copy of rows [r0, r0 + R) of an (n, D) f32 matrix (one batch)
+// into the shared tile dst of row stride S floats, by 16-byte cp.async from
+// the block's threads (the caller commits); rows past n are zero-filled.
+template <int D, int R, int S>
+__device__ __forceinline__ void stage_rows(const float* __restrict__ src, int r0, int n,
+                                           float* dst) {
+  constexpr int kChunks = R * D / 4;
+  static_assert(kChunks % kTiledThreads == 0, "whole chunks per thread");
+#pragma unroll
+  for (int it = 0; it < kChunks / kTiledThreads; ++it) {
+    const int i = it * kTiledThreads + threadIdx.x;
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    const bool valid = r0 + r < n;
+    cp_async_16(dst + r * S + c, src + (valid ? static_cast<size_t>(r0 + r) * D + c : 0), valid);
+  }
+}
+
+// s += q . k over 4 columns, in column order
+__device__ __forceinline__ void dot4(float& s, const float4& q, const float4& k) {
+  s = fmaf(q.x, k.x, s);
+  s = fmaf(q.y, k.y, s);
+  s = fmaf(q.z, k.z, s);
+  s = fmaf(q.w, k.w, s);
+}
+
+// S = Q K^T for this thread's rows and keys of the tile, the online softmax
+// step of its rows (m, the partial l, acc rescaled by alpha), and p into ps
+template <int D, bool kMask>
+__device__ __forceinline__ void scores_to_p(const float* __restrict__ qs,
+                                            const float* __restrict__ kt, float* __restrict__ ps,
+                                            int key0, int n, int rg, int kg,
+                                            float (&m)[Tiled<D>::kTM], float (&l)[Tiled<D>::kTM],
+                                            float (&acc)[Tiled<D>::kTM][Tiled<D>::kCW]) {
+  using T = Tiled<D>;
+  constexpr int TM = T::kTM, TN = T::kTN, G = kKeyGroups, R = T::kR;
+  float s[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
+  }
+  // for each 4 columns of d: the float4s of the smaller side held, the
+  // other side's read one at a time (fewer registers live)
+#pragma unroll
+  for (int c = 0; c < D; c += 4) {
+    if constexpr (TN <= TM) {
+      float4 kf[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        kf[j] = *reinterpret_cast<const float4*>(kt + (kg + G * j) * T::kQS + c);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float4 qf = *reinterpret_cast<const float4*>(qs + (rg + R * i) * T::kQS + c);
+#pragma unroll
+        for (int j = 0; j < TN; ++j) dot4(s[i][j], qf, kf[j]);
+      }
+    } else {
+      float4 qf[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        qf[i] = *reinterpret_cast<const float4*>(qs + (rg + R * i) * T::kQS + c);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float4 kf = *reinterpret_cast<const float4*>(kt + (kg + G * j) * T::kQS + c);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) dot4(s[i][j], qf[i], kf);
+      }
+    }
+  }
+  if constexpr (kMask) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      if (key0 + kg + G * j >= n) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) s[i][j] = -INFINITY;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    float mx = m[i];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) mx = fmaxf(mx, s[i][j]);
+#pragma unroll
+    for (int off = 1; off < G; off *= 2)  // the row group's G lanes
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    // finite: the tile's first key is valid
+    const float alpha = ex2((m[i] - mx) * kLog2e);  // 0 on the first tile (m = -inf)
+    const float mb = mx * kLog2e;
+    m[i] = mx;
+    float ts = 0.f;
+    float* prow = ps + (rg + R * i) * T::kPS + kg;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const float p = ex2(fmaf(s[i][j], kLog2e, -mb));  // 0 for a masked key
+      ts += p;
+      prow[G * j] = p;
+    }
+    l[i] = l[i] * alpha + ts;
+#pragma unroll
+    for (int c = 0; c < T::kCW; ++c) acc[i][c] *= alpha;
+  }
+}
+
+// acc += P V over the tile's keys in order, for this thread's rows and its
+// columns 4 (kg + G u) .. + 3
+template <int D>
+__device__ __forceinline__ void accumulate_pv(const float* __restrict__ ps,
+                                              const float* __restrict__ vt, int rg, int kg,
+                                              float (&acc)[Tiled<D>::kTM][Tiled<D>::kCW]) {
+  using T = Tiled<D>;
+  constexpr int TM = T::kTM, CW = T::kCW, G = kKeyGroups, R = T::kR;
+  // per 4 keys: their V columns held, each row's float4 of p read in turn
+#pragma unroll
+  for (int kk = 0; kk < T::kBN; kk += 4) {
+    float4 vv[4][CW / 4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int cu = 0; cu < CW / 4; ++cu)
+        vv[u][cu] = *reinterpret_cast<const float4*>(vt + (kk + u) * D + 4 * (kg + G * cu));
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float4 pf = *reinterpret_cast<const float4*>(ps + (rg + R * i) * T::kPS + kk);
+#pragma unroll
+      for (int cu = 0; cu < CW / 4; ++cu) {  // keys in order
+        float* a = acc[i] + 4 * cu;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float p = u == 0 ? pf.x : u == 1 ? pf.y : u == 2 ? pf.z : pf.w;
+          a[0] = fmaf(p, vv[u][cu].x, a[0]);
+          a[1] = fmaf(p, vv[u][cu].y, a[1]);
+          a[2] = fmaf(p, vv[u][cu].z, a[2]);
+          a[3] = fmaf(p, vv[u][cu].w, a[3]);
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSM)
+    flash_fwd_f32_tiled(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int n) {
+  using T = Tiled<D>;
+  constexpr int TM = T::kTM, CW = T::kCW, G = kKeyGroups, R = T::kR, BN = T::kBN;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* ks = qs + T::kQ;      // two slots
+  float* vs = ks + 2 * T::kK;  // two slots
+  float* ps = vs + 2 * T::kV;
+  const size_t base = static_cast<size_t>(blockIdx.y) * n * D;
+  q += base;
+  k += base;
+  v += base;
+  o += base;
+  const int row0 = blockIdx.x * kTiledRows;
+  const int kg = threadIdx.x % G;  // keys kg + G j; columns 4 (kg + G u) ..
+  const int rg = threadIdx.x / G;  // rows row0 + rg + R i
+
+  stage_rows<D, kTiledRows, T::kQS>(q, row0, n, qs);
+  stage_rows<D, BN, T::kQS>(k, 0, n, ks);
+  stage_rows<D, BN, D>(v, 0, n, vs);
+  cp_async_commit();
+
+  float m[TM], l[TM], acc[TM][CW];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CW; ++c) acc[i][c] = 0.f;
+  }
+  const int tiles = (n + BN - 1) / BN;
+  const bool ragged = n % BN != 0;
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is in; every thread is done with tile t - 1 and its slot
+    if (t + 1 < tiles) {
+      const int slot = (t + 1) % 2;
+      stage_rows<D, BN, T::kQS>(k, (t + 1) * BN, n, ks + slot * T::kK);
+      stage_rows<D, BN, D>(v, (t + 1) * BN, n, vs + slot * T::kV);
+      cp_async_commit();
+    }
+    const float* kt = ks + (t % 2) * T::kK;
+    if (ragged && t == tiles - 1)
+      scores_to_p<D, true>(qs, kt, ps, t * BN, n, rg, kg, m, l, acc);
+    else
+      scores_to_p<D, false>(qs, kt, ps, t * BN, n, rg, kg, m, l, acc);
+    __syncthreads();  // p is in
+    accumulate_pv<D>(ps, vs + (t % 2) * T::kV, rg, kg, acc);
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int off = 1; off < G; off *= 2) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int row = row0 + rg + R * i;
+    if (row >= n) continue;
+#pragma unroll
+    for (int cu = 0; cu < CW / 4; ++cu) {
+      const float* a = acc[i] + 4 * cu;
+      *reinterpret_cast<float4*>(o + static_cast<size_t>(row) * D + 4 * (kg + G * cu)) =
+          make_float4(a[0] / l[i], a[1] / l[i], a[2] / l[i], a[3] / l[i]);
+    }
+    if (lse != nullptr && kg == 0)
+      lse[static_cast<size_t>(blockIdx.y) * n + row] = m[i] + logf(l[i]);
+  }
+}
+
+template <int D>
+int launch_tiled(const float* q, const float* k, const float* v, float* o, float* lse, int batch,
+                 int n, cudaStream_t stream) {
+  static int set_for_device = -1;
+  const int rc = allow_smem(flash_fwd_f32_tiled<D>, Tiled<D>::kBytes, set_for_device);
+  if (rc != 0) return rc;
+  const dim3 grid((n + kTiledRows - 1) / kTiledRows, batch);
+  flash_fwd_f32_tiled<D><<<grid, kTiledThreads, Tiled<D>::kBytes, stream>>>(q, k, v, o, lse, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes. Launches on `stream` and returns the
@@ -198,8 +472,8 @@ extern "C" int frn_flash_fwd_f32(const void* q, const void* k, const void* v, vo
   switch (d) {
     case 8: return launch_f32<8>(qf, kf, vf, of, lf, batch, n, s);
     case 16: return launch_f32<16>(qf, kf, vf, of, lf, batch, n, s);
-    case 32: return launch_f32<32>(qf, kf, vf, of, lf, batch, n, s);
-    case 64: return launch_f32<64>(qf, kf, vf, of, lf, batch, n, s);
+    case 32: return launch_tiled<32>(qf, kf, vf, of, lf, batch, n, s);
+    case 64: return launch_tiled<64>(qf, kf, vf, of, lf, batch, n, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

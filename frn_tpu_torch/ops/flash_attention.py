@@ -45,6 +45,10 @@ HEAD_DIMS = (8, 16, 32, 64)
 INT8_MODES = ("int8_qk", "int8")
 KERNEL_TILE = 64  # keys per tile of the forward kernels (B1, B3, B4)
 _LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)  # the kernels' kLog2e
+# the f32 forward's register-blocked kernel at d 32 and 64 (csrc/flash_attention_f32.cu:
+# kTiledRows, tiled_keys): query rows a block owns, keys per tile by head dim
+F32_TILED_ROWS = 64
+F32_TILED_KEYS = {32: 64, 64: 32}
 flash_fwd_launches = 0  # forward without lse (inference)
 flash_fwd_lse_launches = 0  # forward with lse (the forward of training)
 flash_fwd_f32_launches = 0  # forward on f32 inputs (inference)
@@ -100,6 +104,19 @@ def bind_f32(lib):
     lib.frn_flash_fwd_f32.argtypes = [_P] * 5 + [_I] * 3 + [_P]
     lib.frn_flash_fwd_f32.restype = _I
     return lib
+
+
+def f32_launch_plan(b: int, n: int, d: int) -> dict:
+    """The f32 forward's launch at (B, N, d), as ``frn_flash_fwd_f32`` makes
+    it: {'kernel', 'bm' (query rows a block owns), 'key_tile', 'blocks'}. d 32
+    and 64 take the register-blocked kernel (``flash_fwd_f32_tiled``, 64-row
+    blocks); d 8 and 16 the first design (``flash_fwd_f32``, a row per
+    thread, 128-row blocks, 64-key tiles)."""
+    if d in F32_TILED_KEYS:
+        kernel, bm, key_tile = "flash_fwd_f32_tiled", F32_TILED_ROWS, F32_TILED_KEYS[d]
+    else:
+        kernel, bm, key_tile = "flash_fwd_f32", 128, KERNEL_TILE
+    return {"kernel": kernel, "bm": bm, "key_tile": key_tile, "blocks": b * -(-n // bm)}
 
 
 def _f32_library() -> ctypes.CDLL:
