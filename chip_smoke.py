@@ -6,7 +6,8 @@
                           --other-source OLD/csrc/flash_attention_bwd.cu \
                           --other-source OLD/csrc/flash_attention_int8.cu \
                           --other-source OLD/csrc/stem.cu \
-                          --other-source OLD/csrc/flash_attention_f32.cu
+                          --other-source OLD/csrc/flash_attention_f32.cu \
+                          --other-source OLD/csrc/flash_attention_bwd_f32.cu
                                    # the same, and another revision's kernels timed beside
 
 Phases:
@@ -14,9 +15,10 @@ Phases:
      kernel of the port built from ``frn_tpu_torch/csrc`` (one nvcc each, in
      parallel), with each kernel instance's registers and spills (the
      path's wgmma instances of the forward, the backward, the int8 forward
-     and the stem, the f32 forward's register-blocked instances at d 32 and
-     64 and its first design at d 8 and 16, and the f32 dQ and dK/dV
-     kernels at every head dim, must each be there, and may not spill);
+     and the stem, the f32 forward's and the f32 dK/dV kernel's
+     register-blocked instances at d 32 and 64 and their first designs at d
+     8 and 16, and the f32 dQ kernel at every head dim, must each be there,
+     and may not spill);
   2. each kernel against its plain PyTorch version on the card, at the shapes
      of its path (the forward; the forward with lse and the dQ and dK/dV
      backward kernels, ragged N and head dims 8 and 16 included, and the
@@ -35,8 +37,10 @@ Phases:
      other revision's forward entry points (B1, B1 with lse, B3) or backward
      entry points (B2a dQ, B2b dK/dV) or f32 forward (B1 and B1-lse at f32,
      at every launch of the eval and f32 train paths, with each launch's
-     block count) built by the same flags and timed in turns with this
-     revision's at the path's shapes and batches;
+     block count) or f32 backward (B2a and B2b at f32, at every launch of
+     the f32 train path, with each launch's block count) built by the same
+     flags and timed in turns with this revision's at the path's shapes and
+     batches;
   3. the inference path, through ``frn_tpu_torch.entry.entry()``: DSEC
      480x640 fusion inference, two ResNet-50 backbones, bf16, batch 16,
      forward + pooled decode + NMS. Launch counts are zeroed just before the
@@ -254,10 +258,10 @@ TRAIN_F32_KERNELS = ("flash_fwd_lse_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32
 # arguments): the forward at d 32 and 64, with and without exp_bf16; the dQ
 # and dK/dV kernels at d 32 and 64; the int8 forward at d 32 and 64 in modes
 # int8_qk (0) and int8 (1); the stem at C 3 and 5; and the f32 kernels (CUDA
-# cores): the forward's register-blocked kernel at d 32 and 64, its first
-# design at d 8 and 16 (the f32 train CLI takes them at depths 18 and 34),
-# and the dQ and dK/dV kernels at every head dim. Phase 1 fails unless each
-# is in the compiler's log once, unspilled
+# cores): the forward's and the dK/dV kernel's register-blocked kernels at d
+# 32 and 64, their first designs at d 8 and 16 (the f32 train CLI takes them
+# at depths 18 and 34), and the dQ kernel at every head dim. Phase 1 fails
+# unless each is in the compiler's log once, unspilled
 PATH_INSTANCES = {
     "flash_attention": [("flash_fwd_wgmma", d, e) for d in (32, 64) for e in (0, 1)],
     "flash_attention_bwd": [(kernel, d) for kernel in ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
@@ -266,8 +270,9 @@ PATH_INSTANCES = {
     "stem": [("stem_wgmma", c) for c in (3, 5)],
     "flash_attention_f32": [("flash_fwd_f32", 8), ("flash_fwd_f32", 16),
                             ("flash_fwd_f32_tiled", 32), ("flash_fwd_f32_tiled", 64)],
-    "flash_attention_bwd_f32": [(kernel, d) for kernel in ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")
-                                for d in (8, 16, 32, 64)],
+    "flash_attention_bwd_f32": [("flash_bwd_dq_f32", d) for d in (8, 16, 32, 64)]
+                               + [("flash_bwd_dkv_f32", 8), ("flash_bwd_dkv_f32", 16),
+                                  ("flash_bwd_dkv_f32_tiled", 32), ("flash_bwd_dkv_f32_tiled", 64)],
 }
 OPTIN_KERNELS = ("flash_fwd_bf16exp", "flash_int8_qk", "flash_int8", "int8_qk_prepass",
                  "int8_prepass", "stem")
@@ -567,7 +572,7 @@ def kernel_instances(log: str) -> dict:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv|int8)_(?:mma|wgmma)|flash_fwd_f32_tiled"
+            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv|int8)_(?:mma|wgmma)|flash_(?:fwd|bwd_dkv)_f32_tiled"
                           r"|flash_(?:fwd|bwd_dq|bwd_dkv)_f32|stem_wgmma)"
                           r"I((?:L[ib]\d+E)+)E", entry.group(1))
             current = None if m is None else (
@@ -732,13 +737,6 @@ def phase_flash_backward():
     return out
 
 
-def _bwd_blocks(b: int, n: int, d: int) -> int:
-    """Blocks of one f32 backward launch (csrc/flash_attention_bwd_f32.cu: 128
-    threads, a row per thread, two threads a row at d 64)."""
-    rows = 64 if d == 64 else 128
-    return b * -(-n // rows)
-
-
 def _shift_scores(q, k):
     """q, k scaled by 0.5 with s = q k^T moved far below zero (column 0: 11
     and -11, so s = -121 + O(1)): lse < -88, where exp(-lse) overflows."""
@@ -754,7 +752,8 @@ def phase_flash_train_f32():
     the train CLI's batch 2 (two launches at each of FLASH_SHAPES) beside its
     bound, its plain version and SDPA at f32 (its forward for B1-lse, its
     autograd backward for B2), with each launch's block count; DDD17's stage
-    1 (B 4, N 5,655) timed and printed beside it."""
+    1 (B 4, N 5,655) timed and printed beside it (blocks: ``f32_launch_plan``,
+    ``f32_bwd_launch_plan``)."""
     import torch.nn.functional as F
 
     from frn_tpu_torch.ops import flash_attention as fa
@@ -808,7 +807,9 @@ def phase_flash_train_f32():
                                                             retain_graph=True), reps=10)
         del lib_out
         fwd_shape = {"B": b, "N": n, "d": d, "blocks": fa.f32_launch_plan(b, n, d)["blocks"]}
-        bwd_shape = {"B": b, "N": n, "d": d, "blocks": _bwd_blocks(b, n, d)}
+        dq_shape, dkv_shape = ({"B": b, "N": n, "d": d,
+                                "blocks": fa.f32_bwd_launch_plan(b, n, d, kind)["blocks"]}
+                               for kind in ("dq", "dkv"))
         (o_k, lse_k), (o_p, lse_p) = times["flash_fwd_lse_f32"].add(
             fwd_shape, f32_bound(b, n, d, "flash_fwd_lse_f32"),
             lambda: fa.flash_attention(q, k, v, return_lse=True),
@@ -817,11 +818,11 @@ def phase_flash_train_f32():
         check_close("flash_fwd_lse_f32", "lse", lse_k, lse_p, LSE_F32_ATOL, 0.0, q.shape, errs)
         del o_k, o_p, lse_k, lse_p
         dq, dq_ref = times["flash_bwd_dq_f32"].add(
-            bwd_shape, f32_bound(b, n, d, "flash_bwd_dq_f32"),
+            dq_shape, f32_bound(b, n, d, "flash_bwd_dq_f32"),
             lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta),
             lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta), lib_bwd_ms)
         dkv, dkv_ref = times["flash_bwd_dkv_f32"].add(
-            bwd_shape, f32_bound(b, n, d, "flash_bwd_dkv_f32"),
+            dkv_shape, f32_bound(b, n, d, "flash_bwd_dkv_f32"),
             lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta),
             lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta), lib_bwd_ms)
         for kind, name, got, want in (("flash_bwd_dq_f32", "dq", dq, dq_ref),
@@ -849,7 +850,7 @@ def phase_flash_train_f32():
     for kind, call in calls.items():
         ms, _ = cuda_ms(call, reps=10)
         blocks = (fa.f32_launch_plan(b, n, d)["blocks"] if kind == "flash_fwd_lse_f32"
-                  else _bwd_blocks(b, n, d))
+                  else fa.f32_bwd_launch_plan(b, n, d, kind.split("_")[2])["blocks"])
         print(f"{kind} per launch at DDD17 (B {b}, N {n}, d {d}, {blocks} blocks): kernel "
               f"{ms:.3f} ms, bound {max(f32_bound(b, n, d, kind)) * 1e3:.3f} ms, SDPA f32 "
               f"{'forward' if kind == 'flash_fwd_lse_f32' else 'backward'} {lib[kind]:.3f} ms",
@@ -864,8 +865,8 @@ def phase_flash_train_f32():
 
 def build_others(sources):
     """Builds other revisions' ``flash_attention.cu``,
-    ``flash_attention_bwd.cu``, ``flash_attention_int8.cu``, ``stem.cu`` or
-    ``flash_attention_f32.cu``
+    ``flash_attention_bwd.cu``, ``flash_attention_int8.cu``, ``stem.cu``,
+    ``flash_attention_f32.cu`` or ``flash_attention_bwd_f32.cu``
     (told apart by file name, each with the headers beside it) by the port's
     nvcc flags into
     the build directory, in parallel; returns {source: the loaded library,
@@ -878,11 +879,13 @@ def build_others(sources):
 
     binders = {"flash_attention.cu": fa.bind_forward, "flash_attention_bwd.cu": fa.bind_backward,
                "flash_attention_int8.cu": fa.bind_int8, "stem.cu": stem.bind_stem,
-               "flash_attention_f32.cu": fa.bind_f32}
+               "flash_attention_f32.cu": fa.bind_f32,
+               "flash_attention_bwd_f32.cu": lambda lib: fa.bind_backward(lib, "f32")}
     for src in sources:
         if Path(src).name not in binders:
             fail(f"--other-source takes a flash_attention.cu, flash_attention_bwd.cu, "
-                 f"flash_attention_int8.cu, stem.cu or flash_attention_f32.cu, not {src}")
+                 f"flash_attention_int8.cu, stem.cu, flash_attention_f32.cu or "
+                 f"flash_attention_bwd_f32.cu, not {src}")
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
@@ -927,19 +930,21 @@ def other_forward(lib, q, k, v, exp_bf16: bool = False, return_lse: bool = False
 
 
 def other_backward(lib, kind: str, q, k, v, do, lse, delta):
-    """dQ (kind 'flash_bwd_dq') or (dK, dV) of a ``build_others`` backward
-    library, called as this revision's wrappers call it. Uncounted, as
-    ``other_forward``."""
+    """dQ (kind 'flash_bwd_dq' or 'flash_bwd_dq_f32') or (dK, dV) of a
+    ``build_others`` backward library, called as this revision's wrappers call
+    it (its f32 entry points for f32 q). Uncounted, as ``other_forward``."""
     from frn_tpu_torch.ops import flash_attention as fa
 
     b, n, d = q.shape
+    dtype = "f32" if q.dtype == torch.float32 else "bf16"
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
-    if kind == "flash_bwd_dq":
+    if kind.startswith("flash_bwd_dq"):
         dq = torch.empty_like(q)
-        fa._launch(lib.frn_flash_bwd_dq_bf16, q, *ins, dq.data_ptr(), b, n, d)
+        fa._launch(getattr(lib, f"frn_flash_bwd_dq_{dtype}"), q, *ins, dq.data_ptr(), b, n, d)
         return dq
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fa._launch(lib.frn_flash_bwd_dkv_bf16, q, *ins, dk.data_ptr(), dv.data_ptr(), b, n, d)
+    fa._launch(getattr(lib, f"frn_flash_bwd_dkv_{dtype}"), q, *ins, dk.data_ptr(), dv.data_ptr(),
+               b, n, d)
     return dk, dv
 
 
@@ -1054,37 +1059,53 @@ def phase_other_forwards(others: dict) -> None:
     print_per_step(per_step)
 
 
-def phase_other_backwards(others: dict) -> None:
-    """This revision's dQ and dK/dV entry points (B2a, B2b) timed in turns
-    with other revisions' (``build_others``) at the training path's shapes and
-    batch (FLASH_SHAPES, TRAIN_BATCH), on the same inputs, lse and D. Each
-    timed output is held against the plain versions, as in phase 2."""
+def _other_backwards_in_turns(others: dict, launches, dtype, atol: float, rtol: float,
+                              seed: int) -> None:
+    """This revision's dQ and dK/dV entry points timed in turns with other
+    revisions' (``build_others``) at ``launches`` [(label suffix, B, N, d)],
+    on the same inputs, lse and D; each timed output of every revision held
+    against the plain versions (atol a share of each output's max |value|).
+    f32 rows carry this revision's block count (``f32_bwd_launch_plan``)."""
     from frn_tpu_torch.ops import flash_attention as fa
 
-    gen = torch.Generator(device="cuda").manual_seed(7)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f32 = dtype == torch.float32
     errs, per_step = {}, {}
-    for n, d in FLASH_SHAPES:
-        q, k, v, do = (torch.randn((TRAIN_BATCH, n, d), generator=gen, device="cuda")
-                       .to(torch.bfloat16) for _ in range(4))
+    for suffix, b, n, d in launches:
+        q, k, v, do = (torch.randn((b, n, d), generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
         o, lse = fa.flash_attention_plain(q, k, v, return_lse=True)
         delta = fa.attention_delta(o, do)
         args = (q, k, v, do, lse, delta)
         dq_ref, dkv_ref = fa.flash_bwd_dq_plain(*args), fa.flash_bwd_dkv_plain(*args)
-        for kind, this in (("flash_bwd_dq", fa.flash_bwd_dq), ("flash_bwd_dkv", fa.flash_bwd_dkv)):
+        for part, this in (("dq", fa.flash_bwd_dq), ("dkv", fa.flash_bwd_dkv)):
+            kind = f"flash_bwd_{part}" + ("_f32" if f32 else "")
             runs = {src: (lambda lib=lib, kind=kind: other_backward(lib, kind, *args))
                     for src, lib in others.items()}
             runs["this"] = lambda this=this: this(*args)
 
-            def check(label, out, kind=kind):
-                pairs = ((("dq", out, dq_ref),) if kind == "flash_bwd_dq" else
+            def check(label, out, part=part):
+                pairs = ((("dq", out, dq_ref),) if part == "dq" else
                          (("dk", out[0], dkv_ref[0]), ("dv", out[1], dkv_ref[1])))
-                for part, got, want in pairs:
-                    check_close(label, part, got, want, BWD_ATOL * want.float().abs().max().item(),
-                                BWD_RTOL, q.shape, errs)
+                for name, got, want in pairs:
+                    check_close(label, name, got, want, atol * want.float().abs().max().item(),
+                                rtol, q.shape, errs)
 
-            time_in_turns(kind, {"B": TRAIN_BATCH, "N": n, "d": d}, runs, check, per_step)
-        del o, lse, delta, dq_ref, dkv_ref
+            shape = {"B": b, "N": n, "d": d}
+            if f32:
+                shape["blocks"] = fa.f32_bwd_launch_plan(b, n, d, part)["blocks"]
+            time_in_turns(kind + suffix, shape, runs, check, per_step)
+        del q, k, v, do, o, lse, delta, dq_ref, dkv_ref
     print_per_step(per_step)
+
+
+def phase_other_backwards(others: dict) -> None:
+    """This revision's dQ and dK/dV entry points (B2a, B2b) timed in turns
+    with other revisions' at the training path's shapes and batch
+    (FLASH_SHAPES, TRAIN_BATCH), held against the plain versions as in
+    phase 2."""
+    _other_backwards_in_turns(others, [("", TRAIN_BATCH, n, d) for n, d in FLASH_SHAPES],
+                              torch.bfloat16, BWD_ATOL, BWD_RTOL, seed=7)
 
 
 def phase_other_f32_forward(others: dict) -> None:
@@ -1121,6 +1142,19 @@ def phase_other_f32_forward(others: dict) -> None:
         time_in_turns(kind, shape, runs, check, per_step)
         del q, k, v, want
     print_per_step(per_step)
+
+
+def phase_other_f32_backward(others: dict) -> None:
+    """This revision's f32 backward kernels (B2a and B2b at f32) timed in turns
+    with other revisions' at every launch of the f32 train path: DSEC stages
+    1 and 2 at F32_TRAIN_BATCH, DDD17's stage 1 at DDD17_TRAIN_BATCH, held
+    against the plain versions at the f32 tolerances, each row with this
+    revision's block count. B2a's rows are the control where only the dK/dV
+    kernel changed."""
+    launches = [("", F32_TRAIN_BATCH, n, d) for n, d in FLASH_SHAPES]
+    launches.append((" DDD17", DDD17_TRAIN_BATCH, *DDD17_FLASH_SHAPE))
+    _other_backwards_in_turns(others, launches, torch.float32, BWD_F32_ATOL, BWD_F32_RTOL,
+                              seed=12)
 
 
 def phase_other_int8(others: dict) -> None:
@@ -2495,7 +2529,8 @@ def main(argv=None) -> None:
     parser.add_argument("--other-source", metavar="CU_SOURCE", action="append", default=[],
                         help="another revision's csrc/flash_attention.cu, "
                              "csrc/flash_attention_bwd.cu, csrc/flash_attention_int8.cu, "
-                             "csrc/stem.cu or csrc/flash_attention_f32.cu (its headers beside "
+                             "csrc/stem.cu, csrc/flash_attention_f32.cu or "
+                             "csrc/flash_attention_bwd_f32.cu (its headers beside "
                              "it), built and its entry points "
                              "timed in turns with this revision's; repeatable")
     args = parser.parse_args(argv)
@@ -2507,13 +2542,15 @@ def main(argv=None) -> None:
             **phase_flash_backward(), **phase_flash_train_f32()}
     by_name = {name: {src: lib for src, lib in others.items() if Path(src).name == name}
                for name in ("flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_int8.cu",
-                            "stem.cu", "flash_attention_f32.cu")}
+                            "stem.cu", "flash_attention_f32.cu", "flash_attention_bwd_f32.cu")}
     if by_name["flash_attention.cu"]:
         phase_other_forwards(by_name["flash_attention.cu"])
     if by_name["flash_attention_bwd.cu"]:
         phase_other_backwards(by_name["flash_attention_bwd.cu"])
     if by_name["flash_attention_f32.cu"]:
         phase_other_f32_forward(by_name["flash_attention_f32.cu"])
+    if by_name["flash_attention_bwd_f32.cu"]:
+        phase_other_f32_backward(by_name["flash_attention_bwd_f32.cu"])
     rows.update(phase_optin_kernels())
     if by_name["flash_attention_int8.cu"]:
         phase_other_int8(by_name["flash_attention_int8.cu"])

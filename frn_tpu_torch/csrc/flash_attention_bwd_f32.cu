@@ -18,35 +18,74 @@
 // formulation: the exponent is one difference, never exp(s) exp(-lse), which
 // overflows where lse < -88.
 //
-// Design: a block of 128 threads owns a run of rows of one batch, query rows
-// (dQ) or key rows (dK/dV). A row's own vectors stay in registers for the
-// whole launch: q, dO and the dQ accumulator (3d floats), or k, v and the dK
-// and dV accumulators (4d floats, 256 at d 64: over the 255 registers a
-// thread has). So at d 64 two neighbouring threads share a row, each holding
-// every other float4 of it, and add their partial dot products with one
-// shuffle; at d 8-32 a thread holds a whole row. The other side (K and V
-// tiles for dQ; Q and dO tiles, with their lse and D, for dK/dV) is staged by
-// cp.async into a two-slot ring in shared memory, 64 rows a tile, the next
-// tile in flight while one is computed; every thread of a warp reads the same
-// tile row (a broadcast; the two threads of a pair read neighbouring 16
-// bytes). Each step takes a group of tile rows at once, whose values the
-// compiler keeps in registers from their first pass over them to their last
-// (K's in the dQ kernel, Q's in the dK/dV kernel): 4 rows in the dQ kernel
-// (8 independent FMA chains a thread); in the dK/dV kernel 4 rows where a
-// thread holds 16 columns or fewer, and 2 where it holds 32 (4 row vectors
-// and 2 Q rows of 32 floats each stay under the 255 registers a thread
-// has; 4 Q rows spilled), each score summed in two halves (4 chains).
+// dK/dV at d 32 and 64: flash_bwd_dkv_f32_tiled, a register-blocked tile in
+// the manner of an SGEMM on CUDA cores, the f32 forward's design
+// (flash_attention_f32.cu) with key rows in the place of query rows. A block
+// of 128 threads owns BK key rows of one batch (tiled_key_rows: 64 at d 32,
+// 48 at d 64), whose K and V rows are staged once into shared memory; it
+// walks Q and dO, with their lse and D, in tiles of BQ query rows
+// (tiled_queries: 64 at d 32, 32 at d 64) through a two-slot ring filled by
+// 16-byte cp.async, the next tile in flight while one is computed. Thread
+// (row group rg, query group qg), qg = lane % 8 and four row groups to a
+// warp, owns key rows rg + 16 i (i < BK / 16) and query columns qg + 8 j
+// (j < BQ / 8) of two tiles, S^T = K Q^T and dP^T = V dO^T: for each 4
+// columns of d it reads the float4s of its k (v) rows and its q (dO) rows
+// and does 4 FMAs on each pair. P^T goes to shared memory; the same thread,
+// owning key rows rg + 16 i and the float4 columns 4 (qg + 8 u) of both
+// accumulators, adds dV += P^T dO, then computes dS^T = P^T * (dP^T - D)
+// (its own P^T read back, so that P and dP^T are never live at once: that
+// spilled), puts dS^T in the same buffer (a second one would cost a block an
+// SM at d 32) and adds dK += dS^T Q. The dK and dV accumulators stay in
+// registers for the whole launch. A row of P^T or dS^T is written and read
+// only by the 8 lanes of its row group, so warp barriers order them; the
+// block meets once a tile, for the ring. Strided query columns put the 8
+// lanes of a row group on neighbouring staged rows, and every staged row is
+// padded by 16 bytes (P^T's by 32, so that a warp's scalar stores of P^T
+// spread over the banks too: 16 bytes was 3% slower at d 32). 3 blocks an SM
+// (12 warps; __launch_bounds__ caps the registers, a static assert the
+// shared memory). The limits of the first design that this removes: a key
+// row per thread held 4d floats (two threads a row at d 64, 243-251
+// registers, 8 warps an SM), every thread of a warp read the same Q/dO row,
+// and its 64-row blocks left stage 2's grid (B 2, N 4,800) at 150 blocks
+// over the 132 SMs: 48-row blocks give it 200.
+//
+// What holds it near half its bound on an H100 is not settled. Not the
+// shared memory's bandwidth (lane pairs that split the queries of the dK and dV
+// products cut its reads by 14% and the time by 2% at d 32); not the block
+// barriers (warp barriers in their place changed nothing at d 32, -3% at d
+// 64); not too few registers for larger thread tiles (an 8 x 8 tile at 2
+// blocks an SM was 40% slower at d 32). The design keeps the tile shapes
+// and unroll factors that were fastest in turns.
+//
+// dQ (all head dims) and dK/dV at d 8 and 16 (the depth-18/34 f32 train CLI)
+// keep the first design: a block of 128 threads owns a run of rows of one
+// batch, query rows (dQ) or key rows (dK/dV). A row's own vectors stay in
+// registers for the whole launch: q, dO and the dQ accumulator (3d floats),
+// or k, v and the dK and dV accumulators (4d floats). At d 64 two
+// neighbouring threads share a dQ row, each holding every other float4 of
+// it, and add their partial dot products with one shuffle; otherwise a
+// thread holds a whole row. The other side (K and V tiles for dQ; Q and dO
+// tiles, with their lse and D, for dK/dV) is staged by cp.async into a
+// two-slot ring in shared memory, 64 rows a tile, the next tile in flight
+// while one is computed; every thread of a warp reads the same tile row (a
+// broadcast; the two threads of a pair read neighbouring 16 bytes). Each step
+// takes a group of 4 tile rows at once, whose values the compiler keeps in
+// registers from their first pass over them to their last (K's in the dQ
+// kernel, Q's in the dK/dV kernel): 8 independent FMA chains a thread in the
+// dQ kernel; in the dK/dV kernel each score is summed in two halves.
 //
 // The ragged tail: tile rows past N are zero-filled in the ring. In the dQ
 // kernel a key past N would give s = 0 and P = exp(-lse), inf where lse < -88,
 // so its dS is set to 0 on the last, ragged tile (a select: no inf reaches
-// the accumulator); in the dK/dV kernel a query row past N has no lse or D of
+// the accumulator); in the dK/dV kernels a query row past N has no lse or D of
 // its own (both zero-filled, never read from past N), and its P is set to 0
-// there, so it adds nothing to dK or dV. Rows past N store nothing.
+// there by a select (never a multiply: exp(s) of a zero-filled lse may be
+// inf, and inf * 0 is NaN), so it adds nothing to dK or dV. Rows past N
+// store nothing.
 //
 // What bounds it on an H100: 6d (dQ) and 8d (dK/dV) flops per (query, key)
 // pair at the CUDA cores' f32 rate (67 TFLOP/s on the H100 SXM data sheet);
-// every float4 read from shared memory feeds 4 FMAs of a thread.
+// their bytes (each input read once, each output written once) are far below.
 
 #include <math.h>
 
@@ -58,7 +97,7 @@ using namespace flash;
 
 constexpr int kThreadsBwd = 128;  // threads per block
 constexpr int kTileBwd = 64;      // keys (dQ) or queries (dK/dV) per shared tile
-constexpr int kGroup = 4;         // tile rows a thread of the dQ kernel takes at once
+constexpr int kGroup = 4;         // tile rows a thread takes at once
 static_assert(kThreadsBwd == 2 * kTileBwd, "one thread copies each lse and each D of a tile");
 
 // threads that share a row: two at d 64 (each holding half its columns)
@@ -75,12 +114,6 @@ __host__ __device__ constexpr int cols() {
 template <int D>
 __host__ __device__ constexpr int rows_per_block() {
   return kThreadsBwd / split<D>();
-}
-
-// tile rows a thread of the dK/dV kernel takes at once (see the head comment)
-template <int D>
-__host__ __device__ constexpr int dkv_group() {
-  return cols<D>() >= 32 ? 2 : 4;
 }
 
 // column of the thread's i-th float4 of a row: the threads of a pair take
@@ -228,7 +261,7 @@ __global__ void __launch_bounds__(kThreadsBwd)
   if (live) store_row<D>(dq + base, row, h, acc);
 }
 
-// ------------------------------------------------------------ dK and dV (B2b)
+// ------------------------------------------------------------ dK and dV (B2b) at d 8 and 16
 
 // starts the copy of rows [r0, r0 + kTileBwd) of one batch's lse and D into
 // lt and dt (one 4-byte cp.async a thread); rows past n are zero-filled
@@ -253,7 +286,7 @@ __device__ __forceinline__ void dkv_tile(const float (&kr)[cols<D>()], const flo
                                          int valid, int h, float (&dk)[cols<D>()],
                                          float (&dv)[cols<D>()]) {
   constexpr int C = cols<D>();
-  constexpr int G = dkv_group<D>();
+  constexpr int G = kGroup;
 #pragma unroll 1
   for (int i0 = 0; i0 < kTileBwd; i0 += G) {
     float s[G][2], dp[G], p[G];
@@ -352,6 +385,290 @@ __global__ void __launch_bounds__(kThreadsBwd)
   }
 }
 
+// ------------------------------------------------------------ dK and dV (B2b) at d 32 and 64
+
+constexpr int kTiledThreads = 128;
+constexpr int kQueryGroups = 8;  // G: the lanes that share a row group
+
+// key rows a block owns (BK): at d 64, 48 (3 a thread) gives stage 2's
+// launch (B 2, N 4,800) 200 blocks over the 132 SMs, where 64 gave 150
+template <int D>
+__host__ __device__ constexpr int tiled_key_rows() {
+  return D == 32 ? 64 : 48;
+}
+
+// query rows per tile (BQ): at d 32 a thread takes 8 queries of a 64-query
+// tile; at d 64, whose accumulators are twice as wide, 4 of a 32-query tile
+template <int D>
+__host__ __device__ constexpr int tiled_queries() {
+  return D == 32 ? 64 : 32;
+}
+
+constexpr int kTiledBlocksPerSM = 3;
+
+// unroll factors of the loops over d (products) and over the tile's queries
+// (accumulators): whole loops were 5% slower at d 32 and 10% at d 64
+constexpr int kTiledDUnroll = 4;
+
+template <int D>
+__host__ __device__ constexpr int tiled_query_unroll() {
+  return D == 32 ? 8 : 2;
+}
+
+template <int D>
+struct DkvTiled {
+  static constexpr int kBK = tiled_key_rows<D>();
+  static constexpr int kBQ = tiled_queries<D>();
+  static constexpr int kR = kTiledThreads / kQueryGroups;  // row groups
+  static constexpr int kTM = kBK / kR;                     // key rows per thread
+  static constexpr int kTN = kBQ / kQueryGroups;           // query columns per thread
+  static constexpr int kCW = D / kQueryGroups;             // accumulator columns per thread
+  static constexpr int kS = D + 4;                         // padded row strides, in floats
+  static constexpr int kPS = kBQ + 8;                      // P^T's: 32 bytes, so its stores spread too
+  static constexpr int kKV = kBK * kS;                     // floats of the staged K (and V)
+  static constexpr int kT = kBQ * kS;                      // of a Q (and a dO) tile
+  static constexpr int kSlot = 2 * kT + 2 * kBQ;           // a Q and a dO tile, their lse and D
+  static constexpr int kP = kBK * kPS;                     // P^T, then dS^T
+  static constexpr int kBytes = 4 * (2 * kKV + 2 * kSlot + kP);
+  static_assert(kTM * kR == kBK && kTN * kQueryGroups == kBQ && kCW % 4 == 0,
+                "whole tiles, float4 columns");
+  static_assert(2 * kBQ <= kTiledThreads, "one thread copies each lse and each D of a tile");
+  static_assert(kTiledBlocksPerSM * (kBytes + 1024) <= 228 * 1024,
+                "the blocks an SM fit in shared memory");
+};
+
+// Starts the copy of query tile t (Q and dO rows, their lse and D) into its
+// slot of the ring (the caller commits); rows past n are zero-filled.
+template <int D>
+__device__ __forceinline__ void stage_query_tile(const float* __restrict__ q,
+                                                 const float* __restrict__ dout,
+                                                 const float* __restrict__ lse,
+                                                 const float* __restrict__ delta, int t, int n,
+                                                 float* slot) {
+  using T = DkvTiled<D>;
+  const int r0 = t * T::kBQ;
+  stage_rows_f32<D, T::kBQ, T::kS, kTiledThreads>(q, r0, n, slot);
+  stage_rows_f32<D, T::kBQ, T::kS, kTiledThreads>(dout, r0, n, slot + T::kT);
+  if (threadIdx.x < 2 * T::kBQ) {
+    const int i = threadIdx.x % T::kBQ;
+    const bool valid = r0 + i < n;
+    const bool is_lse = threadIdx.x < T::kBQ;
+    cp_async_4(slot + 2 * T::kT + threadIdx.x, (is_lse ? lse : delta) + (valid ? r0 + i : 0),
+               valid);
+  }
+}
+
+// out = A B^T for this thread's key rows rg + R i of A (the staged K or V) and
+// query rows qg + G j of B (the tile's Q or dO), both of row stride kS
+template <int D>
+__device__ __forceinline__ void tile_products(const float* __restrict__ a,
+                                              const float* __restrict__ b, int rg, int qg,
+                                              float (&out)[DkvTiled<D>::kTM][DkvTiled<D>::kTN]) {
+  using T = DkvTiled<D>;
+  constexpr int TM = T::kTM, TN = T::kTN, G = kQueryGroups, R = T::kR;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) out[i][j] = 0.f;
+  }
+  // for each 4 columns of d: the float4s of the smaller side held, the
+  // other side's read one at a time (fewer registers live)
+#pragma unroll (kTiledDUnroll)
+  for (int c = 0; c < D; c += 4) {
+    if constexpr (TM <= TN) {
+      float4 af[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        af[i] = *reinterpret_cast<const float4*>(a + (rg + R * i) * T::kS + c);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float4 bf = *reinterpret_cast<const float4*>(b + (qg + G * j) * T::kS + c);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) fma4(out[i][j], af[i], bf);
+      }
+    } else {
+      float4 bf[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        bf[j] = *reinterpret_cast<const float4*>(b + (qg + G * j) * T::kS + c);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float4 af = *reinterpret_cast<const float4*>(a + (rg + R * i) * T::kS + c);
+#pragma unroll
+        for (int j = 0; j < TN; ++j) fma4(out[i][j], af, bf[j]);
+      }
+    }
+  }
+}
+
+// P^T of this thread's part of the tile, into the shared [BK][kPS] buffer ps:
+// S^T = K Q^T and P^T = 2^(fma(s, log2 e, -lse log2 e)); P of a query at or
+// past n is 0 (on the last, ragged tile; one instance for every tile keeps
+// the loop's code small)
+template <int D>
+__device__ __forceinline__ void tile_p(const float* __restrict__ ks,
+                                       const float* __restrict__ slot, int query0, int n, int rg,
+                                       int qg, float* __restrict__ ps) {
+  using T = DkvTiled<D>;
+  constexpr int TM = T::kTM, TN = T::kTN, G = kQueryGroups, R = T::kR;
+  const float* lt = slot + 2 * T::kT;
+  float s[TM][TN];
+  tile_products<D>(ks, slot, rg, qg, s);
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const int col = qg + G * j;
+    const float nlb = -(lt[col] * kLog2e);
+    const bool dead = query0 + col >= n;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float e = ex2(fmaf(s[i][j], kLog2e, nlb));
+      ps[(rg + R * i) * T::kPS + col] = dead ? 0.f : e;  // a select: e may be inf past n
+    }
+  }
+}
+
+// dS^T = P^T * (dP^T - D) of this thread's part of the tile (into ds), with
+// dP^T = V dO^T and its own P^T read back from ps: P and dP^T are never
+// live in registers at once
+template <int D>
+__device__ __forceinline__ void tile_ds(const float* __restrict__ vs,
+                                        const float* __restrict__ slot,
+                                        const float* __restrict__ ps, int rg, int qg,
+                                        float (&ds)[DkvTiled<D>::kTM][DkvTiled<D>::kTN]) {
+  using T = DkvTiled<D>;
+  constexpr int TM = T::kTM, TN = T::kTN, G = kQueryGroups, R = T::kR;
+  const float* dt = slot + 2 * T::kT + T::kBQ;
+  tile_products<D>(vs, slot + T::kT, rg, qg, ds);
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const int col = qg + G * j;
+    const float dl = dt[col];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) ds[i][j] = ps[(rg + R * i) * T::kPS + col] * (ds[i][j] - dl);
+  }
+}
+
+// this thread's part of dS^T into ps
+template <int D>
+__device__ __forceinline__ void store_pt(float* __restrict__ ps, int rg, int qg,
+                                         const float (&x)[DkvTiled<D>::kTM][DkvTiled<D>::kTN]) {
+  using T = DkvTiled<D>;
+#pragma unroll
+  for (int i = 0; i < T::kTM; ++i) {
+    float* row = ps + (rg + T::kR * i) * T::kPS + qg;
+#pragma unroll
+    for (int j = 0; j < T::kTN; ++j) row[kQueryGroups * j] = x[i][j];
+  }
+}
+
+// acc += X B over the tile's queries in order (X: P^T or dS^T in ps; B: the
+// tile's dO or Q), for this thread's key rows and its columns 4 (qg + G u) .. + 3
+template <int D>
+__device__ __forceinline__ void accumulate(const float* __restrict__ ps,
+                                           const float* __restrict__ b, int rg, int qg,
+                                           float (&acc)[DkvTiled<D>::kTM][DkvTiled<D>::kCW]) {
+  using T = DkvTiled<D>;
+  constexpr int TM = T::kTM, CW = T::kCW, G = kQueryGroups, R = T::kR;
+  // per 4 queries: their B columns held, each key row's float4 of X read in turn
+#pragma unroll (tiled_query_unroll<D>())
+  for (int kk = 0; kk < T::kBQ; kk += 4) {
+    float4 bb[4][CW / 4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int cu = 0; cu < CW / 4; ++cu)
+        bb[u][cu] = *reinterpret_cast<const float4*>(b + (kk + u) * T::kS + 4 * (qg + G * cu));
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float4 xf = *reinterpret_cast<const float4*>(ps + (rg + R * i) * T::kPS + kk);
+#pragma unroll
+      for (int cu = 0; cu < CW / 4; ++cu) {  // queries in order
+        float* a = acc[i] + 4 * cu;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float x = u == 0 ? xf.x : u == 1 ? xf.y : u == 2 ? xf.z : xf.w;
+          a[0] = fmaf(x, bb[u][cu].x, a[0]);
+          a[1] = fmaf(x, bb[u][cu].y, a[1]);
+          a[2] = fmaf(x, bb[u][cu].z, a[2]);
+          a[3] = fmaf(x, bb[u][cu].w, a[3]);
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSM)
+    flash_bwd_dkv_f32_tiled(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv, int n) {
+  using T = DkvTiled<D>;
+  constexpr int TM = T::kTM, TN = T::kTN, CW = T::kCW, G = kQueryGroups, R = T::kR;
+  constexpr int BQ = T::kBQ;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);
+  float* vs = ks + T::kKV;
+  float* ring = vs + T::kKV;  // two slots
+  float* ps = ring + 2 * T::kSlot;
+  const size_t base = static_cast<size_t>(blockIdx.y) * n * D;
+  const size_t rbase = static_cast<size_t>(blockIdx.y) * n;
+  q += base;
+  dout += base;
+  lse += rbase;
+  delta += rbase;
+  const int key0 = blockIdx.x * T::kBK;
+  const int qg = threadIdx.x % G;  // query columns qg + G j; accumulator columns 4 (qg + G u) ..
+  const int rg = threadIdx.x / G;  // key rows key0 + rg + R i
+
+  stage_rows_f32<D, T::kBK, T::kS, kTiledThreads>(k + base, key0, n, ks);
+  stage_rows_f32<D, T::kBK, T::kS, kTiledThreads>(v + base, key0, n, vs);
+  stage_query_tile<D>(q, dout, lse, delta, 0, n, ring);
+  cp_async_commit();
+
+  float dka[TM][CW], dva[TM][CW];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int c = 0; c < CW; ++c) dka[i][c] = dva[i][c] = 0.f;
+  }
+  const int tiles = (n + BQ - 1) / BQ;
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is in; every thread is done with tile t - 1 and its slot
+    if (t + 1 < tiles) {
+      stage_query_tile<D>(q, dout, lse, delta, t + 1, n, ring + ((t + 1) % 2) * T::kSlot);
+      cp_async_commit();
+    }
+    const float* slot = ring + (t % 2) * T::kSlot;
+    // the rows rg + R i of P^T and dS^T are written and read by the 8 lanes
+    // of one row group, in one warp: a warp barrier orders them
+    tile_p<D>(ks, slot, t * BQ, n, rg, qg, ps);
+    __syncwarp();  // P^T is in
+    accumulate<D>(ps, slot + T::kT, rg, qg, dva);
+    float ds[TM][TN];
+    tile_ds<D>(vs, slot, ps, rg, qg, ds);
+    __syncwarp();  // the warp is done with P^T
+    store_pt<D>(ps, rg, qg, ds);
+    __syncwarp();  // dS^T is in
+    accumulate<D>(ps, slot, rg, qg, dka);
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = key0 + rg + R * i;
+    if (row >= n) continue;
+#pragma unroll
+    for (int cu = 0; cu < CW / 4; ++cu) {
+      const size_t off = base + static_cast<size_t>(row) * D + 4 * (qg + G * cu);
+      const float* a = dka[i] + 4 * cu;
+      const float* b = dva[i] + 4 * cu;
+      *reinterpret_cast<float4*>(dk + off) = make_float4(a[0], a[1], a[2], a[3]);
+      *reinterpret_cast<float4*>(dv + off) = make_float4(b[0], b[1], b[2], b[3]);
+    }
+  }
+}
+
 // ------------------------------------------------------------ launches
 
 template <int D>
@@ -375,6 +692,20 @@ int launch_dkv(const float* q, const float* k, const float* v, const float* dout
   if (rc != 0) return rc;
   const dim3 grid((n + rows_per_block<D>() - 1) / rows_per_block<D>(), batch);
   flash_bwd_dkv_f32<D><<<grid, kThreadsBwd, bytes, stream>>>(q, k, v, dout, lse, delta, dk, dv, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv_tiled(const float* q, const float* k, const float* v, const float* dout,
+                     const float* lse, const float* delta, float* dk, float* dv, int batch, int n,
+                     cudaStream_t stream) {
+  using T = DkvTiled<D>;
+  static int set_for_device = -1;
+  const int rc = allow_smem(flash_bwd_dkv_f32_tiled<D>, T::kBytes, set_for_device);
+  if (rc != 0) return rc;
+  const dim3 grid((n + T::kBK - 1) / T::kBK, batch);
+  flash_bwd_dkv_f32_tiled<D><<<grid, kTiledThreads, T::kBytes, stream>>>(q, k, v, dout, lse, delta,
+                                                                         dk, dv, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -421,8 +752,8 @@ extern "C" int frn_flash_bwd_dkv_f32(const void* q, const void* k, const void* v
   switch (d) {
     case 8: return launch_dkv<8>(qf, kf, vf, of, lf, df, dkf, dvf, batch, n, s);
     case 16: return launch_dkv<16>(qf, kf, vf, of, lf, df, dkf, dvf, batch, n, s);
-    case 32: return launch_dkv<32>(qf, kf, vf, of, lf, df, dkf, dvf, batch, n, s);
-    case 64: return launch_dkv<64>(qf, kf, vf, of, lf, df, dkf, dvf, batch, n, s);
+    case 32: return launch_dkv_tiled<32>(qf, kf, vf, of, lf, df, dkf, dvf, batch, n, s);
+    case 64: return launch_dkv_tiled<64>(qf, kf, vf, of, lf, df, dkf, dvf, batch, n, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -232,31 +232,6 @@ struct Tiled {
   static_assert(kTiledBlocksPerSM * (kBytes + 1024) <= 228 * 1024, "3 blocks an SM");
 };
 
-// Starts the copy of rows [r0, r0 + R) of an (n, D) f32 matrix (one batch)
-// into the shared tile dst of row stride S floats, by 16-byte cp.async from
-// the block's threads (the caller commits); rows past n are zero-filled.
-template <int D, int R, int S>
-__device__ __forceinline__ void stage_rows(const float* __restrict__ src, int r0, int n,
-                                           float* dst) {
-  constexpr int kChunks = R * D / 4;
-  static_assert(kChunks % kTiledThreads == 0, "whole chunks per thread");
-#pragma unroll
-  for (int it = 0; it < kChunks / kTiledThreads; ++it) {
-    const int i = it * kTiledThreads + threadIdx.x;
-    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    const bool valid = r0 + r < n;
-    cp_async_16(dst + r * S + c, src + (valid ? static_cast<size_t>(r0 + r) * D + c : 0), valid);
-  }
-}
-
-// s += q . k over 4 columns, in column order
-__device__ __forceinline__ void dot4(float& s, const float4& q, const float4& k) {
-  s = fmaf(q.x, k.x, s);
-  s = fmaf(q.y, k.y, s);
-  s = fmaf(q.z, k.z, s);
-  s = fmaf(q.w, k.w, s);
-}
-
 // S = Q K^T for this thread's rows and keys of the tile, the online softmax
 // step of its rows (m, the partial l, acc rescaled by alpha), and p into ps
 template <int D, bool kMask>
@@ -286,7 +261,7 @@ __device__ __forceinline__ void scores_to_p(const float* __restrict__ qs,
       for (int i = 0; i < TM; ++i) {
         const float4 qf = *reinterpret_cast<const float4*>(qs + (rg + R * i) * T::kQS + c);
 #pragma unroll
-        for (int j = 0; j < TN; ++j) dot4(s[i][j], qf, kf[j]);
+        for (int j = 0; j < TN; ++j) fma4(s[i][j], qf, kf[j]);
       }
     } else {
       float4 qf[TM];
@@ -297,7 +272,7 @@ __device__ __forceinline__ void scores_to_p(const float* __restrict__ qs,
       for (int j = 0; j < TN; ++j) {
         const float4 kf = *reinterpret_cast<const float4*>(kt + (kg + G * j) * T::kQS + c);
 #pragma unroll
-        for (int i = 0; i < TM; ++i) dot4(s[i][j], qf[i], kf);
+        for (int i = 0; i < TM; ++i) fma4(s[i][j], qf[i], kf);
       }
     }
   }
@@ -394,9 +369,9 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSM)
   const int kg = threadIdx.x % G;  // keys kg + G j; columns 4 (kg + G u) ..
   const int rg = threadIdx.x / G;  // rows row0 + rg + R i
 
-  stage_rows<D, kTiledRows, T::kQS>(q, row0, n, qs);
-  stage_rows<D, BN, T::kQS>(k, 0, n, ks);
-  stage_rows<D, BN, D>(v, 0, n, vs);
+  stage_rows_f32<D, kTiledRows, T::kQS, kTiledThreads>(q, row0, n, qs);
+  stage_rows_f32<D, BN, T::kQS, kTiledThreads>(k, 0, n, ks);
+  stage_rows_f32<D, BN, D, kTiledThreads>(v, 0, n, vs);
   cp_async_commit();
 
   float m[TM], l[TM], acc[TM][CW];
@@ -414,8 +389,8 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSM)
     __syncthreads();  // tile t is in; every thread is done with tile t - 1 and its slot
     if (t + 1 < tiles) {
       const int slot = (t + 1) % 2;
-      stage_rows<D, BN, T::kQS>(k, (t + 1) * BN, n, ks + slot * T::kK);
-      stage_rows<D, BN, D>(v, (t + 1) * BN, n, vs + slot * T::kV);
+      stage_rows_f32<D, BN, T::kQS, kTiledThreads>(k, (t + 1) * BN, n, ks + slot * T::kK);
+      stage_rows_f32<D, BN, D, kTiledThreads>(v, (t + 1) * BN, n, vs + slot * T::kV);
       cp_async_commit();
     }
     const float* kt = ks + (t % 2) * T::kK;

@@ -89,6 +89,32 @@ __device__ __forceinline__ void load_rows_f32(const float* __restrict__ a,
   }
 }
 
+// Starts the copy of rows [r0, r0 + R) of an (n, D) f32 matrix (one batch)
+// into the shared tile dst of row stride S floats (padded rows), by 16-byte
+// cp.async from kThreads threads (the caller commits); rows past n are
+// zero-filled. The register-blocked f32 kernels' tiles.
+template <int D, int R, int S, int kThreads>
+__device__ __forceinline__ void stage_rows_f32(const float* __restrict__ src, int r0, int n,
+                                               float* dst) {
+  constexpr int kChunks = R * D / 4;
+  static_assert(kChunks % kThreads == 0, "whole chunks per thread");
+#pragma unroll
+  for (int it = 0; it < kChunks / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    const bool valid = r0 + r < n;
+    cp_async_16(dst + r * S + c, src + (valid ? static_cast<size_t>(r0 + r) * D + c : 0), valid);
+  }
+}
+
+// s += a . b over 4 columns, in column order
+__device__ __forceinline__ void fma4(float& s, const float4& a, const float4& b) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  s = fmaf(a.w, b.w, s);
+}
+
 
 // Starts the copy of keys [key0, key0 + kTile) of K and V (each (n, D) bf16,
 // one batch) into the swizzled tiles k_tile and v_tile, kThreads threads
