@@ -15,10 +15,9 @@ Phases:
      kernel of the port built from ``frn_tpu_torch/csrc`` (one nvcc each, in
      parallel), with each kernel instance's registers and spills (the
      path's wgmma instances of the forward, the backward, the int8 forward
-     and the stem, the f32 forward's and the f32 dK/dV kernel's
+     and the stem, and the f32 forward's, dQ and dK/dV kernels'
      register-blocked instances at d 32 and 64 and their first designs at d
-     8 and 16, and the f32 dQ kernel at every head dim, must each be there,
-     and may not spill);
+     8 and 16, must each be there, and may not spill);
   2. each kernel against its plain PyTorch version on the card, at the shapes
      of its path (the forward; the forward with lse and the dQ and dK/dV
      backward kernels, ragged N and head dims 8 and 16 included, and the
@@ -258,10 +257,10 @@ TRAIN_F32_KERNELS = ("flash_fwd_lse_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32
 # arguments): the forward at d 32 and 64, with and without exp_bf16; the dQ
 # and dK/dV kernels at d 32 and 64; the int8 forward at d 32 and 64 in modes
 # int8_qk (0) and int8 (1); the stem at C 3 and 5; and the f32 kernels (CUDA
-# cores): the forward's and the dK/dV kernel's register-blocked kernels at d
-# 32 and 64, their first designs at d 8 and 16 (the f32 train CLI takes them
-# at depths 18 and 34), and the dQ kernel at every head dim. Phase 1 fails
-# unless each is in the compiler's log once, unspilled
+# cores): the forward's, the dQ and the dK/dV kernels' register-blocked
+# kernels at d 32 and 64 and their first designs at d 8 and 16 (the f32 train
+# CLI takes them at depths 18 and 34). Phase 1 fails unless each is in the
+# compiler's log once, unspilled
 PATH_INSTANCES = {
     "flash_attention": [("flash_fwd_wgmma", d, e) for d in (32, 64) for e in (0, 1)],
     "flash_attention_bwd": [(kernel, d) for kernel in ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
@@ -270,9 +269,8 @@ PATH_INSTANCES = {
     "stem": [("stem_wgmma", c) for c in (3, 5)],
     "flash_attention_f32": [("flash_fwd_f32", 8), ("flash_fwd_f32", 16),
                             ("flash_fwd_f32_tiled", 32), ("flash_fwd_f32_tiled", 64)],
-    "flash_attention_bwd_f32": [("flash_bwd_dq_f32", d) for d in (8, 16, 32, 64)]
-                               + [("flash_bwd_dkv_f32", 8), ("flash_bwd_dkv_f32", 16),
-                                  ("flash_bwd_dkv_f32_tiled", 32), ("flash_bwd_dkv_f32_tiled", 64)],
+    "flash_attention_bwd_f32": [(f"flash_bwd_{part}_f32{tiled}", d) for part in ("dq", "dkv")
+                                for d, tiled in ((8, ""), (16, ""), (32, "_tiled"), (64, "_tiled"))],
 }
 OPTIN_KERNELS = ("flash_fwd_bf16exp", "flash_int8_qk", "flash_int8", "int8_qk_prepass",
                  "int8_prepass", "stem")
@@ -572,8 +570,8 @@ def kernel_instances(log: str) -> dict:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv|int8)_(?:mma|wgmma)|flash_(?:fwd|bwd_dkv)_f32_tiled"
-                          r"|flash_(?:fwd|bwd_dq|bwd_dkv)_f32|stem_wgmma)"
+            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv|int8)_(?:mma|wgmma)"
+                          r"|flash_(?:fwd|bwd_dq|bwd_dkv)_f32(?:_tiled)?|stem_wgmma)"
                           r"I((?:L[ib]\d+E)+)E", entry.group(1))
             current = None if m is None else (
                 m.group(1), *(int(x) for x in re.findall(r"L[ib](\d+)E", m.group(2))))
@@ -1149,7 +1147,7 @@ def phase_other_f32_backward(others: dict) -> None:
     with other revisions' at every launch of the f32 train path: DSEC stages
     1 and 2 at F32_TRAIN_BATCH, DDD17's stage 1 at DDD17_TRAIN_BATCH, held
     against the plain versions at the f32 tolerances, each row with this
-    revision's block count. B2a's rows are the control where only the dK/dV
+    revision's block count. B2b's rows are the control where only the dQ
     kernel changed."""
     launches = [("", F32_TRAIN_BATCH, n, d) for n, d in FLASH_SHAPES]
     launches.append((" DDD17", DDD17_TRAIN_BATCH, *DDD17_FLASH_SHAPE))

@@ -18,70 +18,72 @@
 // formulation: the exponent is one difference, never exp(s) exp(-lse), which
 // overflows where lse < -88.
 //
-// dK/dV at d 32 and 64: flash_bwd_dkv_f32_tiled, a register-blocked tile in
-// the manner of an SGEMM on CUDA cores, the f32 forward's design
-// (flash_attention_f32.cu) with key rows in the place of query rows. A block
-// of 128 threads owns BK key rows of one batch (tiled_key_rows: 64 at d 32,
-// 48 at d 64), whose K and V rows are staged once into shared memory; it
-// walks Q and dO, with their lse and D, in tiles of BQ query rows
-// (tiled_queries: 64 at d 32, 32 at d 64) through a two-slot ring filled by
-// 16-byte cp.async, the next tile in flight while one is computed. Thread
-// (row group rg, query group qg), qg = lane % 8 and four row groups to a
-// warp, owns key rows rg + 16 i (i < BK / 16) and query columns qg + 8 j
-// (j < BQ / 8) of two tiles, S^T = K Q^T and dP^T = V dO^T: for each 4
-// columns of d it reads the float4s of its k (v) rows and its q (dO) rows
-// and does 4 FMAs on each pair. P^T goes to shared memory; the same thread,
-// owning key rows rg + 16 i and the float4 columns 4 (qg + 8 u) of both
-// accumulators, adds dV += P^T dO, then computes dS^T = P^T * (dP^T - D)
-// (its own P^T read back, so that P and dP^T are never live at once: that
-// spilled), puts dS^T in the same buffer (a second one would cost a block an
-// SM at d 32) and adds dK += dS^T Q. The dK and dV accumulators stay in
-// registers for the whole launch. A row of P^T or dS^T is written and read
-// only by the 8 lanes of its row group, so warp barriers order them; the
-// block meets once a tile, for the ring. Strided query columns put the 8
-// lanes of a row group on neighbouring staged rows, and every staged row is
-// padded by 16 bytes (P^T's by 32, so that a warp's scalar stores of P^T
-// spread over the banks too: 16 bytes was 3% slower at d 32). 3 blocks an SM
-// (12 warps; __launch_bounds__ caps the registers, a static assert the
-// shared memory). The limits of the first design that this removes: a key
-// row per thread held 4d floats (two threads a row at d 64, 243-251
-// registers, 8 warps an SM), every thread of a warp read the same Q/dO row,
-// and its 64-row blocks left stage 2's grid (B 2, N 4,800) at 150 blocks
-// over the 132 SMs: 48-row blocks give it 200.
+// d 32 and 64: two register-blocked tiles in the manner of an SGEMM on CUDA
+// cores, the f32 forward's design (flash_attention_f32.cu). A block of 128
+// threads owns a run of rows of one batch, staged once into shared memory,
+// and walks the other side in tiles through a two-slot ring filled by 16-byte
+// cp.async, the next tile in flight while one is computed. Thread (row group
+// rg, lane group g), g = lane % 8 and four row groups to a warp, owns the
+// block's rows rg + 16 i and the tile's rows g + 8 j of two products, A B^T
+// of a staged row and a tile row each: for each 4 columns of d it reads the
+// float4s of its rows on both sides and does 4 FMAs on each pair, so a
+// float read from shared memory feeds 4 or 8 FMAs. The products'
+// result goes to a shared buffer with the block's rows as its rows; the same
+// thread, owning those rows and the float4 columns 4 (g + 8 u) of an
+// accumulator, adds X B over the tile's rows in order (accumulate). The
+// accumulators stay in registers for the whole launch. A row of the buffer
+// is written and read only by the 8 lanes of its row group, so warp barriers
+// order it; the block meets once a tile, for the ring. Strided tile rows put
+// the 8 lanes of a row group on neighbouring staged rows, and every staged
+// row is padded by 16 bytes (the buffer's by 32, so that a warp's scalar
+// stores spread over the banks too). 3 blocks an SM (12 warps;
+// __launch_bounds__ caps the registers, a static assert the shared memory).
 //
-// What holds it near half its bound on an H100 is not settled. Not the
-// shared memory's bandwidth (lane pairs that split the queries of the dK and dV
-// products cut its reads by 14% and the time by 2% at d 32); not the block
-// barriers (warp barriers in their place changed nothing at d 32, -3% at d
-// 64); not too few registers for larger thread tiles (an 8 x 8 tile at 2
-// blocks an SM was 40% slower at d 32). The design keeps the tile shapes
-// and unroll factors that were fastest in turns.
+// - dQ, flash_bwd_dq_f32_tiled: a block owns BQ query rows (dq_tiled_rows:
+//   64 at d 32, 48 at d 64), their Q and dO staged, each thread the -lse
+//   log2 e and D of its rows in registers; K and V come through the ring in
+//   tiles of BK keys (dq_tiled_keys: 64 at d 32, 32 at d 64). A thread holds
+//   4 rows x 8 keys of S = Q K^T and dP = dO V^T at d 32 (3 x 4 at d 64),
+//   both in one pass over d, puts dS = P * (dP - D) into the buffer and adds
+//   dQ += dS K.
+// - dK/dV, flash_bwd_dkv_f32_tiled: a block owns BK key rows (tiled_key_rows:
+//   64 at d 32, 48 at d 64), their K and V staged; Q and dO, with their lse
+//   and D, come through the ring in tiles of BQ queries (tiled_queries: 64 at
+//   d 32, 32 at d 64). A thread holds 4 key rows x 8 queries of S^T = K Q^T
+//   at d 32 (3 x 4 at d 64): P^T goes to the buffer and dV += P^T dO; then
+//   dS^T = P^T * (dP^T - D), its own P^T read back (so that P and dP^T are
+//   never live at once: that spilled), into the same buffer (a second one
+//   would cost a block an SM at d 32), and dK += dS^T Q.
 //
-// dQ (all head dims) and dK/dV at d 8 and 16 (the depth-18/34 f32 train CLI)
-// keep the first design: a block of 128 threads owns a run of rows of one
-// batch, query rows (dQ) or key rows (dK/dV). A row's own vectors stay in
-// registers for the whole launch: q, dO and the dQ accumulator (3d floats),
-// or k, v and the dK and dV accumulators (4d floats). At d 64 two
-// neighbouring threads share a dQ row, each holding every other float4 of
-// it, and add their partial dot products with one shuffle; otherwise a
-// thread holds a whole row. The other side (K and V tiles for dQ; Q and dO
-// tiles, with their lse and D, for dK/dV) is staged by cp.async into a
-// two-slot ring in shared memory, 64 rows a tile, the next tile in flight
-// while one is computed; every thread of a warp reads the same tile row (a
-// broadcast; the two threads of a pair read neighbouring 16 bytes). Each step
-// takes a group of 4 tile rows at once, whose values the compiler keeps in
-// registers from their first pass over them to their last (K's in the dQ
-// kernel, Q's in the dK/dV kernel): 8 independent FMA chains a thread in the
-// dQ kernel; in the dK/dV kernel each score is summed in two halves.
+// 48-row blocks at d 64 give stage 2's launches (B 2, N 4,800) 200 blocks
+// over the 132 SMs, where 64 gave 150. The limits of the first designs that
+// this removes: a row per thread held 3d (dQ) or 4d (dK/dV) floats (two
+// threads a row at d 64, 216-251 registers, 8 warps an SM), and every thread
+// of a warp read the same tile row, so each float read fed one FMA. What
+// holds the tiles near half their bound on an H100 is not settled: not the
+// shared memory's bandwidth (lane pairs that split the queries of the dK and
+// dV products cut its reads by 14% and the time by 2% at d 32), not the
+// block barriers (warp barriers in their place changed nothing at d 32, -3%
+// at d 64), not too few registers for larger thread tiles (an 8 x 8 dK/dV
+// tile at 2 blocks an SM was 40% slower at d 32). The designs keep the tile
+// shapes and unroll factors that were fastest in turns.
+//
+// d 8 and 16 (the depth-18/34 f32 train CLI) keep the first designs,
+// flash_bwd_dq_f32 and flash_bwd_dkv_f32: a thread owns one row of one
+// batch, query row (dQ) or key row (dK/dV), whose own vectors stay in
+// registers for the whole launch: q, dO and the dQ accumulator, or k, v and
+// the dK and dV accumulators. The other side is staged by cp.async into a
+// two-slot ring, 64 rows a tile, and every thread of a warp reads the same
+// tile row (a broadcast). Each step takes a group of 4 tile rows at once.
 //
 // The ragged tail: tile rows past N are zero-filled in the ring. In the dQ
-// kernel a key past N would give s = 0 and P = exp(-lse), inf where lse < -88,
-// so its dS is set to 0 on the last, ragged tile (a select: no inf reaches
-// the accumulator); in the dK/dV kernels a query row past N has no lse or D of
-// its own (both zero-filled, never read from past N), and its P is set to 0
-// there by a select (never a multiply: exp(s) of a zero-filled lse may be
-// inf, and inf * 0 is NaN), so it adds nothing to dK or dV. Rows past N
-// store nothing.
+// kernels a key past N would give s = 0 and P = exp(-lse), inf where
+// lse < -88, so its dS is set to 0 by a select, never a multiply (no inf
+// reaches the accumulator, and inf * 0 is NaN), and a query row past N reads
+// no lse or D (zeros); in the dK/dV kernels a query row past N has no lse or
+// D of its own (both zero-filled, never read from past N), and its P is set
+// to 0 there by a select, so it adds nothing to dK or dV. Rows past N store
+// nothing.
 //
 // What bounds it on an H100: 6d (dQ) and 8d (dK/dV) flops per (query, key)
 // pair at the CUDA cores' f32 rate (67 TFLOP/s on the H100 SXM data sheet);
@@ -95,69 +97,40 @@ namespace {
 
 using namespace flash;
 
-constexpr int kThreadsBwd = 128;  // threads per block
+// ------------------------------------------------------------ d 8 and 16: the first designs
+
+constexpr int kThreadsBwd = 128;  // threads (rows) per block
 constexpr int kTileBwd = 64;      // keys (dQ) or queries (dK/dV) per shared tile
 constexpr int kGroup = 4;         // tile rows a thread takes at once
 static_assert(kThreadsBwd == 2 * kTileBwd, "one thread copies each lse and each D of a tile");
 
-// threads that share a row: two at d 64 (each holding half its columns)
+// row `row` of a (n, D) f32 matrix; zeros past n
 template <int D>
-__host__ __device__ constexpr int split() {
-  return D == 64 ? 2 : 1;
-}
-
-template <int D>
-__host__ __device__ constexpr int cols() {
-  return D / split<D>();  // a row's columns held by one thread
-}
-
-template <int D>
-__host__ __device__ constexpr int rows_per_block() {
-  return kThreadsBwd / split<D>();
-}
-
-// column of the thread's i-th float4 of a row: the threads of a pair take
-// every other float4, so that they read neighbouring 16 bytes of a tile row
-template <int D>
-__device__ __forceinline__ int col(int i, int h) {
-  return 4 * (split<D>() * i + h);
-}
-
-// the row's sum of the threads' partial sums (the same value in both threads)
-template <int D>
-__device__ __forceinline__ float row_sum(float x) {
-  if constexpr (split<D>() == 2) x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x;
-}
-
-// the thread's columns of row `row` of a (n, D) f32 matrix; zeros past n
-template <int D>
-__device__ __forceinline__ void load_row(const float* __restrict__ a, int row, bool live, int h,
-                                         float (&r)[cols<D>()]) {
+__device__ __forceinline__ void load_row(const float* __restrict__ a, int row, bool live,
+                                         float (&r)[D]) {
 #pragma unroll
-  for (int i = 0; i < cols<D>() / 4; ++i) {
-    const float4 x = live ? *reinterpret_cast<const float4*>(a + static_cast<size_t>(row) * D + col<D>(i, h))
+  for (int c = 0; c < D; c += 4) {
+    const float4 x = live ? *reinterpret_cast<const float4*>(a + static_cast<size_t>(row) * D + c)
                           : make_float4(0.f, 0.f, 0.f, 0.f);
-    r[4 * i] = x.x;
-    r[4 * i + 1] = x.y;
-    r[4 * i + 2] = x.z;
-    r[4 * i + 3] = x.w;
+    r[c] = x.x;
+    r[c + 1] = x.y;
+    r[c + 2] = x.z;
+    r[c + 3] = x.w;
   }
 }
 
 template <int D>
-__device__ __forceinline__ void store_row(float* __restrict__ a, int row, int h,
-                                          const float (&r)[cols<D>()]) {
+__device__ __forceinline__ void store_row(float* __restrict__ a, int row, const float (&r)[D]) {
 #pragma unroll
-  for (int i = 0; i < cols<D>() / 4; ++i)
-    *reinterpret_cast<float4*>(a + static_cast<size_t>(row) * D + col<D>(i, h)) =
-        make_float4(r[4 * i], r[4 * i + 1], r[4 * i + 2], r[4 * i + 3]);
+  for (int c = 0; c < D; c += 4)
+    *reinterpret_cast<float4*>(a + static_cast<size_t>(row) * D + c) =
+        make_float4(r[c], r[c + 1], r[c + 2], r[c + 3]);
 }
 
-// the thread's float4 i of row t of a shared [kTileBwd][D] tile
+// the float4 at column c of row t of a shared [kTileBwd][D] tile
 template <int D>
-__device__ __forceinline__ float4 tile_chunk(const float* __restrict__ tile, int t, int i, int h) {
-  return *reinterpret_cast<const float4*>(tile + t * D + col<D>(i, h));
+__device__ __forceinline__ float4 tile_chunk(const float* __restrict__ tile, int t, int c) {
+  return *reinterpret_cast<const float4*>(tile + t * D + c);
 }
 
 __device__ __forceinline__ float dot4(const float* a, float4 b, float acc) {
@@ -174,39 +147,35 @@ __device__ __forceinline__ void axpy4(float a, float4 x, float* y) {
   y[3] = fmaf(a, x.w, y[3]);
 }
 
-// ------------------------------------------------------------ dQ (B2a)
-
 // one tile of keys for the thread's query row: dQ += sum_j dS_j K_j; keys at
 // or past `valid` (kMask: the last, ragged tile) add nothing
 template <int D, bool kMask>
-__device__ __forceinline__ void dq_tile(const float (&qr)[cols<D>()], const float (&dor)[cols<D>()],
+__device__ __forceinline__ void dq_tile(const float (&qr)[D], const float (&dor)[D],
                                         const float* __restrict__ kt, const float* __restrict__ vt,
-                                        float nlb, float dl, int valid, int h,
-                                        float (&acc)[cols<D>()]) {
-  constexpr int C = cols<D>();
+                                        float nlb, float dl, int valid, float (&acc)[D]) {
 #pragma unroll 1
   for (int j0 = 0; j0 < kTileBwd; j0 += kGroup) {
     float s[kGroup], dp[kGroup];
 #pragma unroll
     for (int g = 0; g < kGroup; ++g) s[g] = dp[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < C / 4; ++i) {
+    for (int c = 0; c < D; c += 4) {
 #pragma unroll
       for (int g = 0; g < kGroup; ++g) {
-        s[g] = dot4(qr + 4 * i, tile_chunk<D>(kt, j0 + g, i, h), s[g]);
-        dp[g] = dot4(dor + 4 * i, tile_chunk<D>(vt, j0 + g, i, h), dp[g]);
+        s[g] = dot4(qr + c, tile_chunk<D>(kt, j0 + g, c), s[g]);
+        dp[g] = dot4(dor + c, tile_chunk<D>(vt, j0 + g, c), dp[g]);
       }
     }
 #pragma unroll
     for (int g = 0; g < kGroup; ++g) {
-      const float p = ex2(fmaf(row_sum<D>(s[g]), kLog2e, nlb));
-      const float ds = p * (row_sum<D>(dp[g]) - dl);
+      const float p = ex2(fmaf(s[g], kLog2e, nlb));
+      const float ds = p * (dp[g] - dl);
       s[g] = kMask && j0 + g >= valid ? 0.f : ds;
     }
 #pragma unroll
-    for (int i = 0; i < C / 4; ++i) {
+    for (int c = 0; c < D; c += 4) {
 #pragma unroll
-      for (int g = 0; g < kGroup; ++g) axpy4(s[g], tile_chunk<D>(kt, j0 + g, i, h), acc + 4 * i);
+      for (int g = 0; g < kGroup; ++g) axpy4(s[g], tile_chunk<D>(kt, j0 + g, c), acc + c);
     }
   }
 }
@@ -217,22 +186,20 @@ __global__ void __launch_bounds__(kThreadsBwd)
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      float* __restrict__ dq, int n) {
-  constexpr int C = cols<D>();
   extern __shared__ __align__(16) uint8_t smem_raw[];
   float* ring = reinterpret_cast<float*>(smem_raw);
   const size_t base = static_cast<size_t>(blockIdx.y) * n * D;
   const size_t rbase = static_cast<size_t>(blockIdx.y) * n;
   k += base;
   v += base;
-  const int row = blockIdx.x * rows_per_block<D>() + threadIdx.x / split<D>();
-  const int h = threadIdx.x % split<D>();
+  const int row = blockIdx.x * kThreadsBwd + threadIdx.x;
   const bool live = row < n;
 
-  float qr[C], dor[C], acc[C];
-  load_row<D>(q + base, row, live, h, qr);
-  load_row<D>(dout + base, row, live, h, dor);
+  float qr[D], dor[D], acc[D];
+  load_row<D>(q + base, row, live, qr);
+  load_row<D>(dout + base, row, live, dor);
 #pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.f;
+  for (int c = 0; c < D; ++c) acc[c] = 0.f;
   const float nlb = live ? -(lse[rbase + row] * kLog2e) : 0.f;
   const float dl = live ? delta[rbase + row] : 0.f;
 
@@ -253,15 +220,13 @@ __global__ void __launch_bounds__(kThreadsBwd)
     const float* kt = ring + (t % 2) * kSlot;
     const int valid = n - t * kTileBwd;
     if (valid < kTileBwd)
-      dq_tile<D, true>(qr, dor, kt, kt + kTileBwd * D, nlb, dl, valid, h, acc);
+      dq_tile<D, true>(qr, dor, kt, kt + kTileBwd * D, nlb, dl, valid, acc);
     else
-      dq_tile<D, false>(qr, dor, kt, kt + kTileBwd * D, nlb, dl, valid, h, acc);
+      dq_tile<D, false>(qr, dor, kt, kt + kTileBwd * D, nlb, dl, valid, acc);
     __syncthreads();  // the slot is refilled by the next iteration's copy
   }
-  if (live) store_row<D>(dq + base, row, h, acc);
+  if (live) store_row<D>(dq + base, row, acc);
 }
-
-// ------------------------------------------------------------ dK and dV (B2b) at d 8 and 16
 
 // starts the copy of rows [r0, r0 + kTileBwd) of one batch's lse and D into
 // lt and dt (one 4-byte cp.async a thread); rows past n are zero-filled
@@ -280,12 +245,10 @@ __device__ __forceinline__ void load_stats(const float* __restrict__ lse,
 // one tile of queries for the thread's key row: dV += sum_i P_i dO_i and
 // dK += sum_i dS_i Q_i; query rows at or past `valid` (kMask) add nothing
 template <int D, bool kMask>
-__device__ __forceinline__ void dkv_tile(const float (&kr)[cols<D>()], const float (&vr)[cols<D>()],
+__device__ __forceinline__ void dkv_tile(const float (&kr)[D], const float (&vr)[D],
                                          const float* __restrict__ qt, const float* __restrict__ dot,
                                          const float* __restrict__ lt, const float* __restrict__ dt,
-                                         int valid, int h, float (&dk)[cols<D>()],
-                                         float (&dv)[cols<D>()]) {
-  constexpr int C = cols<D>();
+                                         int valid, float (&dk)[D], float (&dv)[D]) {
   constexpr int G = kGroup;
 #pragma unroll 1
   for (int i0 = 0; i0 < kTileBwd; i0 += G) {
@@ -293,31 +256,31 @@ __device__ __forceinline__ void dkv_tile(const float (&kr)[cols<D>()], const flo
 #pragma unroll
     for (int g = 0; g < G; ++g) s[g][0] = s[g][1] = dp[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < C / 4; ++i) {
+    for (int c = 0; c < D; c += 4) {
 #pragma unroll
       for (int g = 0; g < G; ++g)
-        s[g][i % 2] = dot4(kr + 4 * i, tile_chunk<D>(qt, i0 + g, i, h), s[g][i % 2]);
+        s[g][c / 4 % 2] = dot4(kr + c, tile_chunk<D>(qt, i0 + g, c), s[g][c / 4 % 2]);
     }
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      p[g] = ex2(fmaf(row_sum<D>(s[g][0] + s[g][1]), kLog2e, -(lt[i0 + g] * kLog2e)));
+      p[g] = ex2(fmaf(s[g][0] + s[g][1], kLog2e, -(lt[i0 + g] * kLog2e)));
       if (kMask && i0 + g >= valid) p[g] = 0.f;
     }
 #pragma unroll
-    for (int i = 0; i < C / 4; ++i) {
+    for (int c = 0; c < D; c += 4) {
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const float4 o = tile_chunk<D>(dot, i0 + g, i, h);
-        axpy4(p[g], o, dv + 4 * i);
-        dp[g] = dot4(vr + 4 * i, o, dp[g]);
+        const float4 o = tile_chunk<D>(dot, i0 + g, c);
+        axpy4(p[g], o, dv + c);
+        dp[g] = dot4(vr + c, o, dp[g]);
       }
     }
 #pragma unroll
-    for (int g = 0; g < G; ++g) p[g] *= row_sum<D>(dp[g]) - dt[i0 + g];  // dS
+    for (int g = 0; g < G; ++g) p[g] *= dp[g] - dt[i0 + g];  // dS
 #pragma unroll
-    for (int i = 0; i < C / 4; ++i) {
+    for (int c = 0; c < D; c += 4) {
 #pragma unroll
-      for (int g = 0; g < G; ++g) axpy4(p[g], tile_chunk<D>(qt, i0 + g, i, h), dk + 4 * i);
+      for (int g = 0; g < G; ++g) axpy4(p[g], tile_chunk<D>(qt, i0 + g, c), dk + c);
     }
   }
 }
@@ -333,7 +296,6 @@ __global__ void __launch_bounds__(kThreadsBwd)
                       const float* __restrict__ v, const float* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       float* __restrict__ dk, float* __restrict__ dv, int n) {
-  constexpr int C = cols<D>();
   extern __shared__ __align__(16) uint8_t smem_raw[];
   float* ring = reinterpret_cast<float*>(smem_raw);
   const size_t base = static_cast<size_t>(blockIdx.y) * n * D;
@@ -342,15 +304,14 @@ __global__ void __launch_bounds__(kThreadsBwd)
   dout += base;
   lse += rbase;
   delta += rbase;
-  const int row = blockIdx.x * rows_per_block<D>() + threadIdx.x / split<D>();
-  const int h = threadIdx.x % split<D>();
+  const int row = blockIdx.x * kThreadsBwd + threadIdx.x;
   const bool live = row < n;
 
-  float kr[C], vr[C], dka[C], dva[C];
-  load_row<D>(k + base, row, live, h, kr);
-  load_row<D>(v + base, row, live, h, vr);
+  float kr[D], vr[D], dka[D], dva[D];
+  load_row<D>(k + base, row, live, kr);
+  load_row<D>(v + base, row, live, vr);
 #pragma unroll
-  for (int c = 0; c < C; ++c) dka[c] = dva[c] = 0.f;
+  for (int c = 0; c < D; ++c) dka[c] = dva[c] = 0.f;
 
   constexpr int kSlot = dkv_slot_floats<D>();
   const int tiles = (n + kTileBwd - 1) / kTileBwd;
@@ -374,20 +335,29 @@ __global__ void __launch_bounds__(kThreadsBwd)
     const float* lt = qt + 2 * kTileBwd * D;
     const int valid = n - t * kTileBwd;
     if (valid < kTileBwd)
-      dkv_tile<D, true>(kr, vr, qt, qt + kTileBwd * D, lt, lt + kTileBwd, valid, h, dka, dva);
+      dkv_tile<D, true>(kr, vr, qt, qt + kTileBwd * D, lt, lt + kTileBwd, valid, dka, dva);
     else
-      dkv_tile<D, false>(kr, vr, qt, qt + kTileBwd * D, lt, lt + kTileBwd, valid, h, dka, dva);
+      dkv_tile<D, false>(kr, vr, qt, qt + kTileBwd * D, lt, lt + kTileBwd, valid, dka, dva);
     __syncthreads();  // the slot is refilled by the next iteration's copy
   }
   if (live) {
-    store_row<D>(dk + base, row, h, dka);
-    store_row<D>(dv + base, row, h, dva);
+    store_row<D>(dk + base, row, dka);
+    store_row<D>(dv + base, row, dva);
   }
 }
 
-// ------------------------------------------------------------ dK and dV (B2b) at d 32 and 64
+// ------------------------------------------------------------ d 32 and 64: the tiles
 
 constexpr int kTiledThreads = 128;
+
+// Each tile's shapes, as T in the shared helpers below: kD, the lane groups
+// kG and the row groups kR, a thread's rows of the block kTM, the rows of a
+// ring tile and a thread's of them (kTile, kTN), a thread's accumulator
+// columns kCW, the padded strides of the staged rows kS and of the buffer
+// kPS, and the unroll factor of the loop over a tile's rows kTileUnroll.
+
+// ---- dK and dV (B2b)
+
 constexpr int kQueryGroups = 8;  // G: the lanes that share a row group
 
 // key rows a block owns (BK): at d 64, 48 (3 a thread) gives stage 2's
@@ -417,25 +387,256 @@ __host__ __device__ constexpr int tiled_query_unroll() {
 
 template <int D>
 struct DkvTiled {
+  static constexpr int kD = D;
+  static constexpr int kG = kQueryGroups;
   static constexpr int kBK = tiled_key_rows<D>();
   static constexpr int kBQ = tiled_queries<D>();
-  static constexpr int kR = kTiledThreads / kQueryGroups;  // row groups
+  static constexpr int kTile = kBQ;
+  static constexpr int kR = kTiledThreads / kG;            // row groups
   static constexpr int kTM = kBK / kR;                     // key rows per thread
-  static constexpr int kTN = kBQ / kQueryGroups;           // query columns per thread
-  static constexpr int kCW = D / kQueryGroups;             // accumulator columns per thread
+  static constexpr int kTN = kBQ / kG;                     // query columns per thread
+  static constexpr int kCW = D / kG;                       // accumulator columns per thread
   static constexpr int kS = D + 4;                         // padded row strides, in floats
   static constexpr int kPS = kBQ + 8;                      // P^T's: 32 bytes, so its stores spread too
+  static constexpr int kTileUnroll = tiled_query_unroll<D>();
   static constexpr int kKV = kBK * kS;                     // floats of the staged K (and V)
   static constexpr int kT = kBQ * kS;                      // of a Q (and a dO) tile
   static constexpr int kSlot = 2 * kT + 2 * kBQ;           // a Q and a dO tile, their lse and D
   static constexpr int kP = kBK * kPS;                     // P^T, then dS^T
   static constexpr int kBytes = 4 * (2 * kKV + 2 * kSlot + kP);
-  static_assert(kTM * kR == kBK && kTN * kQueryGroups == kBQ && kCW % 4 == 0,
+  static_assert(kTM * kR == kBK && kTN * kG == kBQ && kCW % 4 == 0,
                 "whole tiles, float4 columns");
   static_assert(2 * kBQ <= kTiledThreads, "one thread copies each lse and each D of a tile");
   static_assert(kTiledBlocksPerSM * (kBytes + 1024) <= 228 * 1024,
                 "the blocks an SM fit in shared memory");
 };
+
+// ---- dQ (B2a)
+
+constexpr int kKeyGroups = 8;  // G: the lanes that share a row group
+
+// query rows a block owns (BQ): at d 64, 48 (3 a thread) gives stage 2's
+// launch (B 2, N 4,800) 200 blocks over the 132 SMs, where 64 gave 150
+template <int D>
+__host__ __device__ constexpr int dq_tiled_rows() {
+  return D == 32 ? 64 : 48;
+}
+
+// keys per tile (BK): at d 32 a thread takes 8 keys of a 64-key tile; at d
+// 64, whose accumulator is twice as wide, 4 of a 32-key tile
+template <int D>
+__host__ __device__ constexpr int dq_tiled_keys() {
+  return D == 32 ? 64 : 32;
+}
+
+constexpr int kDqBlocksPerSM = 3;
+
+// unroll factors of the loops over d (products) and over the tile's keys
+// (the accumulator)
+constexpr int kDqDUnroll = 4;
+
+template <int D>
+__host__ __device__ constexpr int dq_key_unroll() {
+  return D == 32 ? 8 : 2;
+}
+
+template <int D>
+struct DqTiled {
+  static constexpr int kD = D;
+  static constexpr int kG = kKeyGroups;
+  static constexpr int kBQ = dq_tiled_rows<D>();
+  static constexpr int kBK = dq_tiled_keys<D>();
+  static constexpr int kTile = kBK;
+  static constexpr int kR = kTiledThreads / kG;  // row groups
+  static constexpr int kTM = kBQ / kR;           // query rows per thread
+  static constexpr int kTN = kBK / kG;           // key columns per thread
+  static constexpr int kCW = D / kG;             // accumulator columns per thread
+  static constexpr int kS = D + 4;               // padded row strides, in floats
+  static constexpr int kPS = kBK + 8;            // dS's: 32 bytes, so its stores spread too
+  static constexpr int kTileUnroll = dq_key_unroll<D>();
+  static constexpr int kQ = kBQ * kS;            // floats of the staged Q (and dO)
+  static constexpr int kT = kBK * kS;            // of a K (and a V) tile
+  static constexpr int kSlot = 2 * kT;           // a K and a V tile
+  static constexpr int kP = kBQ * kPS;           // dS
+  static constexpr int kBytes = 4 * (2 * kQ + 2 * kSlot + kP);
+  static_assert(kTM * kR == kBQ && kTN * kG == kBK && kCW % 4 == 0,
+                "whole tiles, float4 columns");
+  static_assert(kDqBlocksPerSM * (kBytes + 1024) <= 228 * 1024,
+                "the blocks an SM fit in shared memory");
+};
+
+// ---- shared by both tiles
+
+// acc += X B over the tile's rows in order (X in the shared buffer ps, rows
+// of stride kPS; B the tile's rows, of stride kS), for this thread's rows and its
+// columns 4 (g + G u) .. + 3
+template <class T>
+__device__ __forceinline__ void accumulate(const float* __restrict__ ps,
+                                           const float* __restrict__ b, int rg, int g,
+                                           float (&acc)[T::kTM][T::kCW]) {
+  constexpr int TM = T::kTM, CW = T::kCW, G = T::kG, R = T::kR;
+  // per 4 tile rows: their B columns held, each row's float4 of X read in turn
+#pragma unroll (T::kTileUnroll)
+  for (int kk = 0; kk < T::kTile; kk += 4) {
+    float4 bb[4][CW / 4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int cu = 0; cu < CW / 4; ++cu)
+        bb[u][cu] = *reinterpret_cast<const float4*>(b + (kk + u) * T::kS + 4 * (g + G * cu));
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float4 xf = *reinterpret_cast<const float4*>(ps + (rg + R * i) * T::kPS + kk);
+#pragma unroll
+      for (int cu = 0; cu < CW / 4; ++cu) {  // tile rows in order
+        float* a = acc[i] + 4 * cu;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float x = u == 0 ? xf.x : u == 1 ? xf.y : u == 2 ? xf.z : xf.w;
+          a[0] = fmaf(x, bb[u][cu].x, a[0]);
+          a[1] = fmaf(x, bb[u][cu].y, a[1]);
+          a[2] = fmaf(x, bb[u][cu].z, a[2]);
+          a[3] = fmaf(x, bb[u][cu].w, a[3]);
+        }
+      }
+    }
+  }
+}
+
+// this thread's part of the accumulator into rows row0 + rg + R i of a
+// (n, D) output; rows past n store nothing
+template <class T>
+__device__ __forceinline__ void store_acc(float* __restrict__ out, int row0, int n, int rg, int g,
+                                          const float (&acc)[T::kTM][T::kCW]) {
+#pragma unroll
+  for (int i = 0; i < T::kTM; ++i) {
+    const int row = row0 + rg + T::kR * i;
+    if (row >= n) continue;
+#pragma unroll
+    for (int cu = 0; cu < T::kCW / 4; ++cu) {
+      const float* a = acc[i] + 4 * cu;
+      *reinterpret_cast<float4*>(out + static_cast<size_t>(row) * T::kD + 4 * (g + T::kG * cu)) =
+          make_float4(a[0], a[1], a[2], a[3]);
+    }
+  }
+}
+
+// ---- the dQ tile
+
+// dS = P * (dP - D) of this thread's part of the tile into the shared
+// [BQ][kPS] buffer ds: S = Q K^T and dP = dO V^T in one pass over d (for
+// each 4 columns, the float4s of its q and dO rows held, each key's k and v
+// float4 read in turn: 3-4% faster at stage 2 than two passes), P =
+// 2^(fma(s, log2 e, -lse log2 e)); dS of a key at or past n is 0 (on the
+// last, ragged tile; a select, as P may be inf there; one instance for
+// every tile keeps the loop's code small)
+template <int D>
+__device__ __forceinline__ void tile_dq_ds(const float* __restrict__ qs,
+                                           const float* __restrict__ dos,
+                                           const float* __restrict__ slot, int key0, int n,
+                                           int rg, int kg, const float (&nlb)[DqTiled<D>::kTM],
+                                           const float (&dl)[DqTiled<D>::kTM],
+                                           float* __restrict__ ds) {
+  using T = DqTiled<D>;
+  constexpr int TM = T::kTM, TN = T::kTN, G = T::kG, R = T::kR;
+  float s[TM][TN], dp[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) s[i][j] = dp[i][j] = 0.f;
+  }
+#pragma unroll (kDqDUnroll)
+  for (int c = 0; c < D; c += 4) {
+    float4 qf[TM], of[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      qf[i] = *reinterpret_cast<const float4*>(qs + (rg + R * i) * T::kS + c);
+      of[i] = *reinterpret_cast<const float4*>(dos + (rg + R * i) * T::kS + c);
+    }
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const float* kv = slot + (kg + G * j) * T::kS + c;
+      const float4 kf = *reinterpret_cast<const float4*>(kv);
+      const float4 vf = *reinterpret_cast<const float4*>(kv + T::kT);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        fma4(s[i][j], qf[i], kf);
+        fma4(dp[i][j], of[i], vf);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const int col = kg + G * j;
+    const bool dead = key0 + col >= n;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float x = ex2(fmaf(s[i][j], kLog2e, nlb[i])) * (dp[i][j] - dl[i]);
+      ds[(rg + R * i) * T::kPS + col] = dead ? 0.f : x;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTiledThreads, kDqBlocksPerSM)
+    flash_bwd_dq_f32_tiled(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           float* __restrict__ dq, int n) {
+  using T = DqTiled<D>;
+  constexpr int TM = T::kTM, CW = T::kCW, G = T::kG, R = T::kR, BK = T::kBK;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* dos = qs + T::kQ;
+  float* ring = dos + T::kQ;  // two slots
+  float* ds = ring + 2 * T::kSlot;
+  const size_t base = static_cast<size_t>(blockIdx.y) * n * D;
+  const size_t rbase = static_cast<size_t>(blockIdx.y) * n;
+  k += base;
+  v += base;
+  const int row0 = blockIdx.x * T::kBQ;
+  const int kg = threadIdx.x % G;  // key columns kg + G j; accumulator columns 4 (kg + G u) ..
+  const int rg = threadIdx.x / G;  // query rows row0 + rg + R i
+
+  stage_rows_f32<D, T::kBQ, T::kS, kTiledThreads>(q + base, row0, n, qs);
+  stage_rows_f32<D, T::kBQ, T::kS, kTiledThreads>(dout + base, row0, n, dos);
+  stage_rows_f32<D, BK, T::kS, kTiledThreads>(k, 0, n, ring);
+  stage_rows_f32<D, BK, T::kS, kTiledThreads>(v, 0, n, ring + T::kT);
+  cp_async_commit();
+
+  float nlb[TM], dl[TM], acc[TM][CW];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = row0 + rg + R * i;
+    const bool live = row < n;  // a row past n reads no lse or D
+    nlb[i] = live ? -(lse[rbase + row] * kLog2e) : 0.f;
+    dl[i] = live ? delta[rbase + row] : 0.f;
+#pragma unroll
+    for (int c = 0; c < CW; ++c) acc[i][c] = 0.f;
+  }
+  const int tiles = (n + BK - 1) / BK;
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is in; every thread is done with tile t - 1 and its slot
+    if (t + 1 < tiles) {
+      float* next = ring + ((t + 1) % 2) * T::kSlot;
+      stage_rows_f32<D, BK, T::kS, kTiledThreads>(k, (t + 1) * BK, n, next);
+      stage_rows_f32<D, BK, T::kS, kTiledThreads>(v, (t + 1) * BK, n, next + T::kT);
+      cp_async_commit();
+    }
+    const float* slot = ring + (t % 2) * T::kSlot;
+    // the rows rg + R i of dS are written and read by the 8 lanes of one row
+    // group, in one warp: a warp barrier orders them (the next tile's writes
+    // come after the block barrier above)
+    tile_dq_ds<D>(qs, dos, slot, t * BK, n, rg, kg, nlb, dl, ds);
+    __syncwarp();  // dS is in
+    accumulate<T>(ds, slot, rg, kg, acc);
+  }
+  store_acc<T>(dq + base, row0, n, rg, kg, acc);
+}
+
+// ---- the dK/dV tile
 
 // Starts the copy of query tile t (Q and dO rows, their lse and D) into its
 // slot of the ring (the caller commits); rows past n are zero-filled.
@@ -561,43 +762,6 @@ __device__ __forceinline__ void store_pt(float* __restrict__ ps, int rg, int qg,
   }
 }
 
-// acc += X B over the tile's queries in order (X: P^T or dS^T in ps; B: the
-// tile's dO or Q), for this thread's key rows and its columns 4 (qg + G u) .. + 3
-template <int D>
-__device__ __forceinline__ void accumulate(const float* __restrict__ ps,
-                                           const float* __restrict__ b, int rg, int qg,
-                                           float (&acc)[DkvTiled<D>::kTM][DkvTiled<D>::kCW]) {
-  using T = DkvTiled<D>;
-  constexpr int TM = T::kTM, CW = T::kCW, G = kQueryGroups, R = T::kR;
-  // per 4 queries: their B columns held, each key row's float4 of X read in turn
-#pragma unroll (tiled_query_unroll<D>())
-  for (int kk = 0; kk < T::kBQ; kk += 4) {
-    float4 bb[4][CW / 4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-#pragma unroll
-      for (int cu = 0; cu < CW / 4; ++cu)
-        bb[u][cu] = *reinterpret_cast<const float4*>(b + (kk + u) * T::kS + 4 * (qg + G * cu));
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const float4 xf = *reinterpret_cast<const float4*>(ps + (rg + R * i) * T::kPS + kk);
-#pragma unroll
-      for (int cu = 0; cu < CW / 4; ++cu) {  // queries in order
-        float* a = acc[i] + 4 * cu;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float x = u == 0 ? xf.x : u == 1 ? xf.y : u == 2 ? xf.z : xf.w;
-          a[0] = fmaf(x, bb[u][cu].x, a[0]);
-          a[1] = fmaf(x, bb[u][cu].y, a[1]);
-          a[2] = fmaf(x, bb[u][cu].z, a[2]);
-          a[3] = fmaf(x, bb[u][cu].w, a[3]);
-        }
-      }
-    }
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSM)
     flash_bwd_dkv_f32_tiled(const float* __restrict__ q, const float* __restrict__ k,
@@ -605,7 +769,7 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSM)
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             float* __restrict__ dk, float* __restrict__ dv, int n) {
   using T = DkvTiled<D>;
-  constexpr int TM = T::kTM, TN = T::kTN, CW = T::kCW, G = kQueryGroups, R = T::kR;
+  constexpr int TM = T::kTM, TN = T::kTN, CW = T::kCW, G = kQueryGroups;
   constexpr int BQ = T::kBQ;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   float* ks = reinterpret_cast<float*>(smem_raw);
@@ -646,27 +810,16 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSM)
     // of one row group, in one warp: a warp barrier orders them
     tile_p<D>(ks, slot, t * BQ, n, rg, qg, ps);
     __syncwarp();  // P^T is in
-    accumulate<D>(ps, slot + T::kT, rg, qg, dva);
+    accumulate<T>(ps, slot + T::kT, rg, qg, dva);
     float ds[TM][TN];
     tile_ds<D>(vs, slot, ps, rg, qg, ds);
     __syncwarp();  // the warp is done with P^T
     store_pt<D>(ps, rg, qg, ds);
     __syncwarp();  // dS^T is in
-    accumulate<D>(ps, slot, rg, qg, dka);
+    accumulate<T>(ps, slot, rg, qg, dka);
   }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = key0 + rg + R * i;
-    if (row >= n) continue;
-#pragma unroll
-    for (int cu = 0; cu < CW / 4; ++cu) {
-      const size_t off = base + static_cast<size_t>(row) * D + 4 * (qg + G * cu);
-      const float* a = dka[i] + 4 * cu;
-      const float* b = dva[i] + 4 * cu;
-      *reinterpret_cast<float4*>(dk + off) = make_float4(a[0], a[1], a[2], a[3]);
-      *reinterpret_cast<float4*>(dv + off) = make_float4(b[0], b[1], b[2], b[3]);
-    }
-  }
+  store_acc<T>(dk + base, key0, n, rg, qg, dka);
+  store_acc<T>(dv + base, key0, n, rg, qg, dva);
 }
 
 // ------------------------------------------------------------ launches
@@ -678,8 +831,22 @@ int launch_dq(const float* q, const float* k, const float* v, const float* dout,
   constexpr int bytes = 2 * 2 * kTileBwd * D * 4;
   const int rc = allow_smem(flash_bwd_dq_f32<D>, bytes, set_for_device);
   if (rc != 0) return rc;
-  const dim3 grid((n + rows_per_block<D>() - 1) / rows_per_block<D>(), batch);
+  const dim3 grid((n + kThreadsBwd - 1) / kThreadsBwd, batch);
   flash_bwd_dq_f32<D><<<grid, kThreadsBwd, bytes, stream>>>(q, k, v, dout, lse, delta, dq, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq_tiled(const float* q, const float* k, const float* v, const float* dout,
+                    const float* lse, const float* delta, float* dq, int batch, int n,
+                    cudaStream_t stream) {
+  using T = DqTiled<D>;
+  static int set_for_device = -1;
+  const int rc = allow_smem(flash_bwd_dq_f32_tiled<D>, T::kBytes, set_for_device);
+  if (rc != 0) return rc;
+  const dim3 grid((n + T::kBQ - 1) / T::kBQ, batch);
+  flash_bwd_dq_f32_tiled<D><<<grid, kTiledThreads, T::kBytes, stream>>>(q, k, v, dout, lse, delta,
+                                                                        dq, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -690,7 +857,7 @@ int launch_dkv(const float* q, const float* k, const float* v, const float* dout
   constexpr int bytes = 2 * dkv_slot_floats<D>() * 4;
   const int rc = allow_smem(flash_bwd_dkv_f32<D>, bytes, set_for_device);
   if (rc != 0) return rc;
-  const dim3 grid((n + rows_per_block<D>() - 1) / rows_per_block<D>(), batch);
+  const dim3 grid((n + kThreadsBwd - 1) / kThreadsBwd, batch);
   flash_bwd_dkv_f32<D><<<grid, kThreadsBwd, bytes, stream>>>(q, k, v, dout, lse, delta, dk, dv, n);
   return static_cast<int>(cudaGetLastError());
 }
@@ -730,8 +897,8 @@ extern "C" int frn_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
   switch (d) {
     case 8: return launch_dq<8>(qf, kf, vf, of, lf, df, out, batch, n, s);
     case 16: return launch_dq<16>(qf, kf, vf, of, lf, df, out, batch, n, s);
-    case 32: return launch_dq<32>(qf, kf, vf, of, lf, df, out, batch, n, s);
-    case 64: return launch_dq<64>(qf, kf, vf, of, lf, df, out, batch, n, s);
+    case 32: return launch_dq_tiled<32>(qf, kf, vf, of, lf, df, out, batch, n, s);
+    case 64: return launch_dq_tiled<64>(qf, kf, vf, of, lf, df, out, batch, n, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

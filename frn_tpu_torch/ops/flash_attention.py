@@ -54,6 +54,10 @@ F32_TILED_KEYS = {32: 64, 64: 32}
 # block owns and query rows per tile, by head dim
 F32_BWD_TILED_KEY_ROWS = {32: 64, 64: 48}
 F32_BWD_TILED_QUERIES = {32: 64, 64: 32}
+# the f32 dQ kernel's register-blocked design at d 32 and 64 (the same source:
+# dq_tiled_rows, dq_tiled_keys): query rows a block owns and keys per tile
+F32_BWD_DQ_TILED_ROWS = {32: 64, 64: 48}
+F32_BWD_DQ_TILED_KEYS = {32: 64, 64: 32}
 flash_fwd_launches = 0  # forward without lse (inference)
 flash_fwd_lse_launches = 0  # forward with lse (the forward of training)
 flash_fwd_f32_launches = 0  # forward on f32 inputs (inference)
@@ -128,18 +132,21 @@ def f32_bwd_launch_plan(b: int, n: int, d: int, kind: str) -> dict:
     """One f32 backward launch at (B, N, d), as ``frn_flash_bwd_dq_f32``
     (``kind`` 'dq') or ``frn_flash_bwd_dkv_f32`` ('dkv') makes it:
     {'kernel', 'rows' (rows a block owns: query rows for dQ, key rows for
-    dK/dV), 'tile' (the other side's rows per shared tile), 'blocks'}. dK/dV
-    at d 32 and 64 takes the register-blocked kernel
-    (``flash_bwd_dkv_f32_tiled``); dQ at every head dim and dK/dV at d 8 and
-    16 the first design (a row per thread, two threads a row at d 64: 128- or
-    64-row blocks, 64-row tiles)."""
+    dK/dV), 'tile' (the other side's rows per shared tile), 'blocks'}. Both
+    take their register-blocked kernels at d 32 and 64
+    (``flash_bwd_dq_f32_tiled``, ``flash_bwd_dkv_f32_tiled``) and their first
+    designs at d 8 and 16 (a row per thread: 128-row blocks, 64-row
+    tiles)."""
     if kind not in ("dq", "dkv"):
         raise ValueError(f"kind must be 'dq' or 'dkv', got {kind!r}")
     if kind == "dkv" and d in F32_BWD_TILED_QUERIES:
         kernel, rows, tile = ("flash_bwd_dkv_f32_tiled", F32_BWD_TILED_KEY_ROWS[d],
                               F32_BWD_TILED_QUERIES[d])
+    elif kind == "dq" and d in F32_BWD_DQ_TILED_KEYS:
+        kernel, rows, tile = ("flash_bwd_dq_f32_tiled", F32_BWD_DQ_TILED_ROWS[d],
+                              F32_BWD_DQ_TILED_KEYS[d])
     else:
-        kernel, rows, tile = f"flash_bwd_{kind}_f32", 64 if d == 64 else 128, KERNEL_TILE
+        kernel, rows, tile = f"flash_bwd_{kind}_f32", 128, KERNEL_TILE
     return {"kernel": kernel, "rows": rows, "tile": tile, "blocks": b * -(-n // rows)}
 
 

@@ -1,12 +1,14 @@
-"""The f32 dK/dV kernel (B2b at f32): its launch plan against the CUDA
-source's constants, its dispatch and phase 1's instances, its routing on the
-kernel path, the A/B tooling of ``chip_smoke.py``, and a model of its
-thread-to-tile map against the JAX package's Pallas backward at f32.
+"""The f32 backward kernels' register-blocked tiles (B2a and B2b at f32, d
+32 and 64): their launch plans against the CUDA source's constants, the
+dispatch and phase 1's instances, the routing on the kernel path, the A/B
+tooling of ``chip_smoke.py``, and models of both thread-to-tile maps against
+the JAX package's Pallas backward at f32.
 
-The kernel itself (``csrc/flash_attention_bwd_f32.cu``) runs only on the
-card; ``chip_smoke.py`` holds it against ``flash_bwd_dkv_plain`` there. Bounds
-of the JAX comparison are the f32 backward tolerances of ``chip_smoke.py``:
-atol 1e-4 of each output's max |value|, rtol 1e-3.
+The kernels themselves (``csrc/flash_attention_bwd_f32.cu``) run only on the
+card; ``chip_smoke.py`` holds them against ``flash_bwd_dq_plain`` and
+``flash_bwd_dkv_plain`` there. Bounds of the JAX comparison are the f32
+backward tolerances of ``chip_smoke.py``: atol 1e-4 of each output's max
+|value|, rtol 1e-3.
 """
 
 import ctypes
@@ -36,6 +38,12 @@ PATH_BLOCKS = {
     (2, 4800, 64): 200,  # DSEC stage 2
     (4, 5655, 32): 356,  # DDD17 stage 1
 }
+# and of the f32 dQ kernel (64 query rows each at d 32, 48 at d 64)
+DQ_PATH_BLOCKS = {
+    (2, 19200, 32): 600,
+    (2, 4800, 64): 200,
+    (4, 5655, 32): 356,
+}
 
 
 def _constant(name: str) -> int:
@@ -61,17 +69,29 @@ def _tiles(d: int) -> dict:
             "tn": bq // groups, "cw": d // groups, "blocks_per_sm": _constant("kTiledBlocksPerSM")}
 
 
-def _thread_map(d: int):
-    """Per thread of a block: (its key rows of the block, its query columns of
-    a tile, its accumulator columns of d), as the kernel assigns them: row
-    group rg = t / G owns key rows rg + R i, query group qg = t % G query
-    columns qg + G j and the float4 columns 4 (qg + G u) .. + 3."""
-    s = _tiles(d)
+def _dq_tiles(d: int) -> dict:
+    """The tiled dQ kernel's shapes at head dim d, from the source's constants:
+    BQ query rows a block owns, BK keys a tile."""
+    threads, groups = _constant("kTiledThreads"), _constant("kKeyGroups")
+    bq, bk = _rule("dq_tiled_rows")[d], _rule("dq_tiled_keys")[d]
+    r = threads // groups
+    return {"threads": threads, "groups": groups, "bq": bq, "bk": bk, "r": r, "tm": bq // r,
+            "tn": bk // groups, "cw": d // groups, "blocks_per_sm": _constant("kDqBlocksPerSM")}
+
+
+def _thread_map(d: int, tiles=_tiles):
+    """Per thread of a block: (its rows of the block, its rows of a tile, its
+    accumulator columns of d), as the kernel assigns them: row group
+    rg = t / G owns the block's rows rg + R i, lane group g = t % G the
+    tile's rows g + G j and the float4 columns 4 (g + G u) .. + 3. The dK/dV
+    kernel (``_tiles``) owns key rows and walks query tiles; the dQ kernel
+    (``_dq_tiles``) owns query rows and walks key tiles."""
+    s = tiles(d)
     g, r = s["groups"], s["r"]
     for t in range(s["threads"]):
-        rg, qg = t // g, t % g
-        yield ([rg + r * i for i in range(s["tm"])], [qg + g * j for j in range(s["tn"])],
-               [4 * (qg + g * u) + e for u in range(s["cw"] // 4) for e in range(4)])
+        rg, lg = t // g, t % g
+        yield ([rg + r * i for i in range(s["tm"])], [lg + g * j for j in range(s["tn"])],
+               [4 * (lg + g * u) + e for u in range(s["cw"] // 4) for e in range(4)])
 
 
 # ------------------------------------------------------------ launch plan
@@ -88,12 +108,32 @@ def test_launch_plan_at_the_path_shapes(shape):
     assert plan["blocks"] >= H100_SMS
 
 
-@pytest.mark.parametrize("d", [8, 16, 32, 64])
+@pytest.mark.parametrize("d", [8, 16])
 def test_launch_plan_keeps_the_first_design_of_dq_at_every_head_dim(d):
-    # B2a is not redesigned: 128 threads, a query row each (two at d 64)
-    rows = 64 if d == 64 else 128
+    # B2a keeps its first design at d 8 and 16 (the d 32 and 64 cases are
+    # test_launch_plan_takes_the_tiled_dq_kernel_at_d_32_and_64): 128
+    # threads, a query row each
     assert fa.f32_bwd_launch_plan(2, 4800, d, "dq") == {
-        "kernel": "flash_bwd_dq_f32", "rows": rows, "tile": 64, "blocks": 2 * -(-4800 // rows)}
+        "kernel": "flash_bwd_dq_f32", "rows": 128, "tile": 64, "blocks": 2 * -(-4800 // 128)}
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_launch_plan_takes_the_tiled_dq_kernel_at_d_32_and_64(d):
+    rows = {32: 64, 64: 48}[d]
+    assert fa.f32_bwd_launch_plan(2, 4800, d, "dq") == {
+        "kernel": "flash_bwd_dq_f32_tiled", "rows": rows, "tile": {32: 64, 64: 32}[d],
+        "blocks": 2 * -(-4800 // rows)}
+
+
+@pytest.mark.parametrize("shape", sorted(DQ_PATH_BLOCKS))
+def test_dq_launch_plan_at_the_path_shapes(shape):
+    # each launch of the f32 train path takes the tiled dQ kernel, and gives
+    # at least as many blocks as the H100 has SMs
+    plan = fa.f32_bwd_launch_plan(*shape, "dq")
+    d = shape[2]
+    assert plan == {"kernel": "flash_bwd_dq_f32_tiled", "rows": fa.F32_BWD_DQ_TILED_ROWS[d],
+                    "tile": fa.F32_BWD_DQ_TILED_KEYS[d], "blocks": DQ_PATH_BLOCKS[shape]}
+    assert plan["blocks"] >= H100_SMS
 
 
 @pytest.mark.parametrize("d", [8, 16])
@@ -107,6 +147,13 @@ def test_launch_plan_keeps_the_first_design_of_dkv_at_d_8_and_16(d):
 def test_launch_plan_rounds_ragged_rows_up_to_a_block(n, d):
     rows = fa.F32_BWD_TILED_KEY_ROWS[d]
     assert fa.f32_bwd_launch_plan(3, n, d, "dkv")["blocks"] == 3 * -(-n // rows)
+
+
+@pytest.mark.parametrize("n", [1, 48, 49, 5655])
+@pytest.mark.parametrize("d", [32, 64])
+def test_dq_launch_plan_rounds_ragged_rows_up_to_a_block(n, d):
+    rows = fa.F32_BWD_DQ_TILED_ROWS[d]
+    assert fa.f32_bwd_launch_plan(3, n, d, "dq")["blocks"] == 3 * -(-n // rows)
 
 
 def test_launch_plan_refuses_an_unknown_kind():
@@ -138,6 +185,30 @@ def test_tiles_fit_the_blocks_an_sm_in_shared_memory(d):
     assert 2 * s["bq"] <= s["threads"]  # a thread copies each lse and each D
 
 
+def test_dq_launch_plan_constants_match_the_source():
+    # query rows a block owns and keys per tile, by head dim, as the CUDA
+    # source has them
+    assert {d: _dq_tiles(d)["bq"] for d in (32, 64)} == fa.F32_BWD_DQ_TILED_ROWS
+    assert {d: _dq_tiles(d)["bk"] for d in (32, 64)} == fa.F32_BWD_DQ_TILED_KEYS
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_dq_tiles_fit_the_blocks_an_sm_in_shared_memory(d):
+    # the source's DqTiled layout: Q and dO staged once with 16-byte padded
+    # rows, two ring slots of a K and a V tile padded the same way, and dS's
+    # buffer with 32-byte padded rows (73.7 KB at d 32, 68.6 KB at d 64); the
+    # blocks an SM fit in the H100's 228 KB with 1 KB reserved a block, and
+    # the 64 K registers of an SM leave each of their threads at least 168
+    s = _dq_tiles(d)
+    floats = 2 * s["bq"] * (d + 4) + 2 * 2 * s["bk"] * (d + 4) + s["bq"] * (s["bk"] + 8)
+    assert 4 * floats == {32: 73728, 64: 68608}[d]
+    assert s["blocks_per_sm"] * (4 * floats + 1024) <= 228 * 1024
+    assert 65536 // (s["blocks_per_sm"] * s["threads"]) >= 168
+    # whole tiles a thread, and whole 16-byte chunks for the stager's threads
+    assert s["tm"] * s["r"] == s["bq"] and s["tn"] * s["groups"] == s["bk"] and s["cw"] % 4 == 0
+    assert (s["bq"] * d // 4) % s["threads"] == 0 and (s["bk"] * d // 4) % s["threads"] == 0
+
+
 # ------------------------------------------------------------ dispatch and phase 1
 
 
@@ -148,22 +219,19 @@ def _entry(name: str) -> str:
 
 
 def test_source_dispatch_matches_the_plan_and_phase_1_instances():
-    # the dK/dV entry point launches the first design at d 8 and 16 and the
-    # tiled kernel at d 32 and 64; the dQ entry point its one design at
-    # every head dim: the instances phase 1 of chip_smoke.py requires
-    dkv = _entry("frn_flash_bwd_dkv_f32")
-    first = {int(d) for d in re.findall(r"case (\d+): return launch_dkv<\1>", dkv)}
-    tiled = {int(d) for d in re.findall(r"case (\d+): return launch_dkv_tiled<\1>", dkv)}
-    dq = {int(d) for d in re.findall(r"case (\d+): return launch_dq<\1>",
-                                     _entry("frn_flash_bwd_dq_f32"))}
-    assert first == {8, 16} and tiled == set(fa.F32_BWD_TILED_QUERIES) == {32, 64}
-    assert dq == {8, 16, 32, 64}
-    for d in first | tiled:
-        want = "flash_bwd_dkv_f32_tiled" if d in tiled else "flash_bwd_dkv_f32"
-        assert fa.f32_bwd_launch_plan(1, 1, d, "dkv")["kernel"] == want
-    want = [("flash_bwd_dq_f32", d) for d in sorted(dq)]
-    want += [("flash_bwd_dkv_f32", d) for d in sorted(first)]
-    want += [("flash_bwd_dkv_f32_tiled", d) for d in sorted(tiled)]
+    # both entry points launch the first design at d 8 and 16 and the tiled
+    # kernel at d 32 and 64: the instances phase 1 of chip_smoke.py requires
+    want = []
+    for part, tiled_dims in (("dq", fa.F32_BWD_DQ_TILED_KEYS), ("dkv", fa.F32_BWD_TILED_QUERIES)):
+        entry = _entry(f"frn_flash_bwd_{part}_f32")
+        first = {int(d) for d in re.findall(rf"case (\d+): return launch_{part}<\1>", entry)}
+        tiled = {int(d) for d in re.findall(rf"case (\d+): return launch_{part}_tiled<\1>",
+                                            entry)}
+        assert first == {8, 16} and tiled == set(tiled_dims) == {32, 64}
+        for d in first | tiled:
+            kernel = f"flash_bwd_{part}_f32" + ("_tiled" if d in tiled else "")
+            assert fa.f32_bwd_launch_plan(1, 1, d, part)["kernel"] == kernel
+            want.append((kernel, d))
     assert sorted(chip_smoke.PATH_INSTANCES["flash_attention_bwd_f32"]) == sorted(want)
 
 
@@ -174,8 +242,15 @@ def test_the_tiled_kernel_bounds_its_launch_by_its_blocks_an_sm():
                      r"flash_bwd_dkv_f32_tiled", SOURCE)
 
 
+def test_the_tiled_dq_kernel_bounds_its_launch_by_its_blocks_an_sm():
+    assert re.search(r"__launch_bounds__\(kTiledThreads, kDqBlocksPerSM\)\s*"
+                     r"flash_bwd_dq_f32_tiled", SOURCE)
+
+
 def _ptxas_log(instances: dict) -> str:
     mangled = {"flash_bwd_dq_f32": "_ZN12_GLOBAL__N_116flash_bwd_dq_f32ILi{}EEEvPKfS2_S2_S2_S2_S2_Pfi",
+               "flash_bwd_dq_f32_tiled":
+                   "_ZN12_GLOBAL__N_122flash_bwd_dq_f32_tiledILi{}EEEvPKfS2_S2_S2_S2_S2_Pfi",
                "flash_bwd_dkv_f32": "_ZN12_GLOBAL__N_117flash_bwd_dkv_f32ILi{}EEEvPKfS2_S2_S2_S2_S2_PfS3_i",
                "flash_bwd_dkv_f32_tiled":
                    "_ZN12_GLOBAL__N_123flash_bwd_dkv_f32_tiledILi{}EEEvPKfS2_S2_S2_S2_S2_PfS3_i"}
@@ -188,7 +263,8 @@ def _ptxas_log(instances: dict) -> str:
 
 
 @pytest.mark.parametrize("kernel,d", [("flash_bwd_dkv_f32_tiled", 32), ("flash_bwd_dkv_f32_tiled", 64),
-                                      ("flash_bwd_dkv_f32", 16), ("flash_bwd_dq_f32", 64)])
+                                      ("flash_bwd_dkv_f32", 16), ("flash_bwd_dq_f32", 64),
+                                      ("flash_bwd_dq_f32_tiled", 32), ("flash_bwd_dq_f32_tiled", 64)])
 def test_phase_1_reads_the_instances_from_the_compiler_log(kernel, d):
     log = _ptxas_log({(kernel, d): (168, 0)})
     assert chip_smoke.kernel_instances(log) == {(kernel, d): (168, 0, 0)}
@@ -197,7 +273,9 @@ def test_phase_1_reads_the_instances_from_the_compiler_log(kernel, d):
 def test_phase_1_takes_the_path_instances_and_refuses_a_spill_or_a_gap(capsys):
     every = {key: (160, 0) for key in chip_smoke.PATH_INSTANCES["flash_attention_bwd_f32"]}
     chip_smoke.check_path_instances("flash_attention_bwd_f32", _ptxas_log(every))
-    assert "flash_bwd_dkv_f32_tiled<64>: 160 registers" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "flash_bwd_dkv_f32_tiled<64>: 160 registers" in out
+    assert "flash_bwd_dq_f32_tiled<32>: 160 registers" in out
     spilled = {**every, ("flash_bwd_dkv_f32_tiled", 32): (255, 8)}
     with pytest.raises(SystemExit):
         chip_smoke.check_path_instances("flash_attention_bwd_f32", _ptxas_log(spilled))
@@ -365,6 +443,33 @@ def test_each_row_of_pt_is_written_and_read_in_one_warp(d):
     assert all(len({t // 32 for t in lanes}) == 1 and len(lanes) == _tiles(d)["groups"]
                for lanes in writers.values())
 
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_dq_thread_map_covers_each_cell_of_a_tile_and_the_accumulator_once(d):
+    # each cell of S and dP (one map for both products) and of dQ is owned by
+    # one thread
+    s = _dq_tiles(d)
+    scores = np.zeros((s["bq"], s["bk"]), dtype=int)
+    acc = np.zeros((s["bq"], d), dtype=int)
+    for rows, cols, acc_cols in _thread_map(d, _dq_tiles):
+        scores[np.ix_(rows, cols)] += 1
+        acc[np.ix_(rows, acc_cols)] += 1
+    assert (scores == 1).all() and (acc == 1).all()
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_each_row_of_ds_is_written_and_read_in_one_warp(d):
+    # the dQ kernel orders dS by a warp barrier alone: the lanes that write a
+    # row of the shared buffer and those that read it are the same 8 lanes
+    writers, readers = {}, {}
+    for t, (rows, cols, acc_cols) in enumerate(_thread_map(d, _dq_tiles)):
+        for r in rows:
+            writers.setdefault(r, set()).add(t)
+            readers.setdefault(r, set()).add(t)
+    assert writers == readers
+    assert all(len({t // 32 for t in lanes}) == 1 and len(lanes) == _dq_tiles(d)["groups"]
+               for lanes in writers.values())
+
 def _model_dkv(q, k, v, do, lse, delta):
     """dK and dV by the tiled kernel's decomposition, in f32 numpy: blocks of
     BK key rows, tiles of BQ query rows zero-filled past n, each thread's
@@ -416,12 +521,74 @@ def _model_dkv(q, k, v, do, lse, delta):
     return dk, dv, stores
 
 
-def _jax_dkv(q, k, v, do):
-    o, lse = _flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=128,
-                            block_k=128, interpret=True, return_lse=True)
-    _, dk, dv = _flash_backward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), o, lse,
-                                jnp.asarray(do), block_q=128, block_k=128, interpret=True)
-    return np.asarray(o), np.asarray(lse), np.asarray(dk), np.asarray(dv)
+def _model_dq(q, k, v, do, lse, delta):
+    """dQ by the tiled dQ kernel's decomposition, in f32 numpy: blocks of BQ
+    query rows (lse and D zeros past n, never read there), tiles of BK keys
+    zero-filled past n, each thread's part of S and dP from its rows and key
+    columns, dS = P (dP - D) with P = 2^(s log2 e - lse log2 e), set to 0 for
+    a key past n by a select, through the shared buffer into dQ by the
+    thread's columns; query rows past n stored nowhere (NaN left in the
+    output shows a value stored nowhere). Returns (dQ, the count of stores
+    of each output value)."""
+    b, n, d = q.shape
+    s = _dq_tiles(d)
+    bq, bk = s["bq"], s["bk"]
+    log2e = np.float32(1.4426950408889634)
+    dq = np.full_like(q, np.nan)
+    stores = np.zeros((b, n, d), dtype=int)
+    thread_map = list(_thread_map(d, _dq_tiles))
+
+    def rows_of(x, r0, count):
+        out = np.zeros((count,) + x.shape[1:], dtype=np.float32)
+        got = x[r0:r0 + count]
+        out[:len(got)] = got
+        return out
+
+    for bi in range(b):
+        for row0 in range(0, n, bq):
+            qs, dos = rows_of(q[bi], row0, bq), rows_of(do[bi], row0, bq)
+            nlb = -rows_of(lse[bi], row0, bq) * log2e
+            dl = rows_of(delta[bi], row0, bq)
+            acc = np.zeros((bq, d), np.float32)
+            for key0 in range(0, n, bk):
+                kt, vt = rows_of(k[bi], key0, bk), rows_of(v[bi], key0, bk)
+                ds = np.full((bq, bk), np.nan, np.float32)
+                for rows, cols, _ in thread_map:
+                    st = qs[rows] @ kt[cols].T
+                    dpt = dos[rows] @ vt[cols].T
+                    with np.errstate(over="ignore", invalid="ignore"):
+                        x = np.exp2(st * log2e + nlb[rows, None]) * (dpt - dl[rows, None])
+                    ds[np.ix_(rows, cols)] = np.where(key0 + np.asarray(cols) >= n,
+                                                      np.float32(0), x)
+                for rows, _, acc_cols in thread_map:
+                    acc[np.ix_(rows, acc_cols)] += ds[rows] @ kt[:, acc_cols]
+            for rows, _, acc_cols in thread_map:
+                for r in rows:
+                    if row0 + r < n:
+                        dq[bi, row0 + r, acc_cols] = acc[r, acc_cols]
+                        stores[bi, row0 + r, acc_cols] += 1
+    return dq, stores
+
+
+def _jax_backward(q, k, v, do, block: int = 128):
+    """(O, lse, dQ, dK, dV) of the JAX package's Pallas kernels at f32, in
+    interpret mode, with blocks of ``block`` rows (N padded to a whole
+    block)."""
+    o, lse = _flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=block,
+                            block_k=block, interpret=True, return_lse=True)
+    dq, dk, dv = _flash_backward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), o, lse,
+                                 jnp.asarray(do), block_q=block, block_k=block, interpret=True)
+    return tuple(np.asarray(x) for x in (o, lse, dq, dk, dv))
+
+
+def _inputs(b, n, d, shift):
+    """Seeded q, k, v, dO; with ``shift``, scores near -121, so that every
+    lse is below -88."""
+    q, k, v, do = (RNG.normal(0, 0.5 if shift else 1.0, (b, n, d)).astype(np.float32)
+                   for _ in range(4))
+    if shift:
+        q[..., 0], k[..., 0] = 11.0, -11.0  # s = -121 + O(1)
+    return q, k, v, do
 
 
 @pytest.mark.parametrize("b,n,d,shift", [
@@ -435,11 +602,8 @@ def test_thread_map_model_matches_the_pallas_backward_at_f32(b, n, d, shift):
     # the tiled kernel's decomposition, ragged tail and select included,
     # against the JAX package's Pallas backward at f32 (interpret mode), and
     # the port's plain version against the same
-    q, k, v, do = (RNG.normal(0, 0.5 if shift else 1.0, (b, n, d)).astype(np.float32)
-                   for _ in range(4))
-    if shift:
-        q[..., 0], k[..., 0] = 11.0, -11.0  # s = -121 + O(1)
-    o, lse, want_dk, want_dv = _jax_dkv(q, k, v, do)
+    q, k, v, do = _inputs(b, n, d, shift)
+    o, lse, _, want_dk, want_dv = _jax_backward(q, k, v, do)
     lse = lse.reshape(b, n)
     if shift:
         assert lse.max() < -88
@@ -453,6 +617,44 @@ def test_thread_map_model_matches_the_pallas_backward_at_f32(b, n, d, shift):
         assert np.isfinite(got).all()
         np.testing.assert_allclose(got, want, atol=atol * np.abs(want).max(),
                                    rtol=chip_smoke.BWD_F32_RTOL)
+
+
+@pytest.mark.parametrize("b,n,d,shift", [
+    (2, 131, 32, False),  # a ragged third block and a ragged third 64-key tile
+    (1, 97, 64, False),  # a ragged third 48-row block and a ragged fourth 32-key tile
+    (1, 40, 64, False),  # one partial block and tile
+    (2, 131, 32, True),  # lse < -88: a zero-filled key past N gives P = inf
+    (1, 97, 64, True),
+])
+def test_dq_thread_map_model_matches_the_pallas_backward_at_f32(b, n, d, shift):
+    # the tiled dQ kernel's decomposition, ragged tail and select included,
+    # against the JAX package's Pallas backward at f32 (interpret mode), and
+    # the port's plain version against the same. Where lse < -88 the Pallas
+    # dQ runs in one block of N rows: padded to a whole block it is NaN there
+    # (test_pallas_dq_is_nan_where_lse_is_below_minus_88_at_a_padded_n)
+    q, k, v, do = _inputs(b, n, d, shift)
+    o, lse, want, _, _ = _jax_backward(q, k, v, do, block=n if shift else 128)
+    lse = lse.reshape(b, n)
+    if shift:
+        assert lse.max() < -88
+    delta = (do * o).sum(axis=2, dtype=np.float32)
+    dq, stores = _model_dq(q, k, v, do, lse, delta)
+    assert (stores == 1).all()
+    plain = fa.flash_bwd_dq_plain(*(torch.tensor(x) for x in (q, k, v, do, lse, delta)))
+    atol = chip_smoke.F32_TRAP_ATOL if shift else chip_smoke.BWD_F32_ATOL
+    for got in (dq, plain.numpy()):
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, atol=atol * np.abs(want).max(),
+                                   rtol=chip_smoke.BWD_F32_RTOL)
+
+
+def test_pallas_dq_is_nan_where_lse_is_below_minus_88_at_a_padded_n():
+    # a divergence of the JAX package, not of the port: its dQ kernel's
+    # padded key rows give P = exp(-lse) = inf, and inf times their zero K
+    # row is NaN; the port's tiles select dS = 0 there
+    q, k, v, do = _inputs(1, 131, 32, True)
+    _, lse, dq, _, _ = _jax_backward(q, k, v, do)
+    assert lse.max() < -88 and np.isnan(dq).all()
 
 
 def test_model_needs_the_select_where_lse_is_below_minus_88():
