@@ -111,12 +111,39 @@ Phases:
      parameters (F32_GRAD_REL_TOL, F32_GRAD_NORM_TOL), beside a witness of
      what one ulp of the attention's outputs does to them; then DSEC f32
      micro-steps at batch 2 timed (host clock and CUDA events; img/s, peak
-     memory) and a profiler pass for the device-busy time and idle share.
+     memory) and a profiler pass for the device-busy time and idle share;
+ 10. the raw DSEC-Det path at the DSEC-Det CLIs' defaults (480x640, fusion
+     ResNet-50, feature size 256, f32) on a fixture of 3 sequences of 6
+     frames written by the port's ``make_dsec_det_fixture``, through the
+     CLIs' own helpers (``train_dsec_det_fast``: its dataset and recipe,
+     then ``Trainer.fit``; ``test_dsec_det``: its dataset, config and
+     inference function, then ``evaluate_dataset``). The card's machine has
+     no h5py, so each sequence reads its events from memory
+     (``_ArrayEvents``, the h5 reader's window semantics) instead of the h5
+     file; the h5 reader and the two CLIs' ``main`` are held on the CPU by
+     the tests. The three wires on every sample (the events wire's device
+     voxel equal to the host count grid, the squashed grids within
+     WIRE_TANH_RTOL of the f32 wire's, h2d bytes and the voxelization's
+     device ms per batch); one epoch at batch 4 on each wire (launch counts
+     zeroed just before and read just after: B1-lse, B2a and B2b at f32 4
+     times a micro-step, nothing else; finite losses, skipped micro-steps
+     counted, the checkpoint written; img/s, the loader's host ms per batch,
+     warm epochs' idle share); the events batch's loss and gradients
+     against the f32 batch's at the events trainer's initial weights
+     (WIRE_LOSS_RTOL, the phase-9 gate, a one-ulp witness; printed again
+     after its epochs); the events run's checkpoint evaluated on the f32 and compact
+     wires at batch 8 (B1 at f32 4 times a batch, nothing else; the summary
+     in [0, 1], fps, idle share) and the two wires' logits on one batch
+     within EVAL_F32_REL_TOL.
 
-Phases run in the order 1, 2, 5, 3, 6, 8, 4, 9, 7. Phase 9 alone:
+Phases run in the order 1, 2, 5, 3, 6, 8, 4, 9, 10, 7. Phase 9 alone:
 ``python3 -c "import chip_smoke as c, tempfile, pathlib; c.phase_environment();
 r = {k: {} for k in c.TRAIN_F32_KERNELS}; d = pathlib.Path(tempfile.mkdtemp());
-c.phase_train_f32(r, c.write_eval_inputs(d), d)"``.
+c.phase_train_f32(r, c.write_eval_inputs(d), d)"``. Phase 10 alone (about a
+minute of a call after the build): ``python3 -c "import chip_smoke as c,
+tempfile, pathlib; c.phase_environment(); r = {k: {'launches': 0} for k in
+c.TRAIN_F32_KERNELS + ('flash_fwd_f32',)};
+c.phase_dsec_det(r, pathlib.Path(tempfile.mkdtemp()))"``.
 """
 
 import copy
@@ -1638,7 +1665,8 @@ def phase_breakdown(fn, rgb, event, reps: int = 3) -> dict:
     return out
 
 
-def profile_pass(label: str, run_once, wall_ms: float, n_ops: int, n_kernels: int) -> None:
+def profile_pass(label: str, run_once, wall_ms: float, n_ops: int, n_kernels: int,
+                 n_host_ops: int = 0) -> None:
     """torch.profiler over one call of ``run_once`` (after one profiled
     warm-up call): the device-busy time summed over kernels, the idle share of
     the unprofiled wall time ``wall_ms`` of one call, and the costliest
@@ -1674,6 +1702,12 @@ def profile_pass(label: str, run_once, wall_ms: float, n_ops: int, n_kernels: in
     print("  kernels:", flush=True)
     for ms, count, key in kernels[:n_kernels]:
         print(f"  {ms:9.3f} ms  {count:5d}x  {key[:100]}", flush=True)
+    if n_host_ops:
+        host = sorted(((ev.self_cpu_time_total / 1e3, ev.count, ev.key) for ev in traced
+                       if ev.device_type != DeviceType.CUDA), reverse=True)
+        print("  host operators by self CPU time:", flush=True)
+        for ms, count, key in host[:n_host_ops]:
+            print(f"  {ms:9.3f} ms  {count:5d}x  {key[:100]}", flush=True)
 
 
 def phase_small_reference():
@@ -2520,6 +2554,433 @@ def _worst_grad_gap(names, got, want):
     return worst, bias, norm
 
 
+# ------------------------------------------------------------ raw DSEC-Det
+
+# the raw DSEC-Det path (phase 10): a fixture of 3 sequences of 6 frames
+# (15 samples) at 480x640; the train CLI's batch (3 micro-steps an epoch,
+# drop_last) and the eval CLI's (2 batches, the second ragged)
+DSEC_DET_SEQUENCES, DSEC_DET_FRAMES = 3, 6
+DSEC_DET_TRAIN_BATCH = 4
+DSEC_DET_WIRES = ("f32", "compact", "events")
+# the compact and events wires' squash runs on the card (CUDA's tanhf), the
+# f32 wire's in numpy on the host: 4 f32 ulps apart at most, as the CPU tests
+# hold torch's tanh against numpy's and XLA's
+WIRE_TANH_RTOL = 5e-7
+# the events and f32 batches' losses (the same inputs up to those ulps)
+WIRE_LOSS_RTOL = 1e-4
+# warm epochs timed after each wire's first (3 micro-steps each)
+DSEC_DET_WARM_EPOCHS = 2
+
+
+class _ArrayEvents:
+    """An in-memory event source with ``H5EventReader.window``'s semantics
+    (the ms_to_idx table that ``write_event_h5`` writes, looked up as the
+    reader looks it up): the card's machine has no h5py, so phase 10 keeps
+    the fixture's event arrays in memory and hands each sequence one of
+    these in place of its h5 reader. Everything else of the dataset runs."""
+
+    def __init__(self, x, y, t_abs_us, p, t_offset=None):
+        import numpy as np
+
+        order = np.argsort(t_abs_us, kind="stable")
+        self.x, self.y, self.p = x[order], y[order], p[order]
+        t_abs_us = t_abs_us[order]
+        self.t_offset = int(t_abs_us[0]) if t_offset is None else int(t_offset)
+        self.t_rel = t_abs_us.astype(np.int64) - self.t_offset
+        num_ms = int(self.t_rel[-1] / 1e3) + 2
+        self.ms_to_idx = np.searchsorted(self.t_rel, np.arange(num_ms, dtype=np.int64) * 1000)
+
+    def _ms_index(self, t_abs_us: int) -> int:
+        ms = int((t_abs_us - self.t_offset) / 1e3)
+        return int(self.ms_to_idx[max(0, min(ms, len(self.ms_to_idx) - 1))])
+
+    def window(self, t0_us: int, t1_us: int) -> dict:
+        i0, i1 = sorted((max(self._ms_index(t0_us), 0), max(self._ms_index(t1_us), 0)))
+        return {"x": self.x[i0:i1], "y": self.y[i0:i1], "t": self.t_rel[i0:i1] + self.t_offset,
+                "p": self.p[i0:i1]}
+
+
+def write_dsec_det_inputs(root: Path):
+    """The raw DSEC-Det fixture under ``root`` (the port's
+    ``make_dsec_det_fixture``: PNGs, timestamps, tracks), its event arrays
+    kept in memory instead of an h5 file: (fixture root, {sequence: source})."""
+    from unittest import mock
+
+    from frn_tpu_torch.config import DSEC_DET
+    from frn_tpu_torch.data import synthetic
+
+    streams = {}
+
+    def keep(path, x, y, t_abs_us, p, t_offset=None):
+        streams[Path(path).parents[2].name] = _ArrayEvents(x, y, t_abs_us, p, t_offset)
+
+    t0 = time.perf_counter()
+    with mock.patch.object(synthetic, "write_event_h5", keep):
+        fixture = synthetic.make_dsec_det_fixture(
+            str(root / "dsec_det"), num_sequences=DSEC_DET_SEQUENCES,
+            frames_per_sequence=DSEC_DET_FRAMES, seed=17, geometry=DSEC_DET)
+    print(f"raw DSEC-Det fixture: {DSEC_DET_SEQUENCES} sequences of {DSEC_DET_FRAMES} frames at "
+          f"{DSEC_DET.height}x{DSEC_DET.width} in {time.perf_counter() - t0:.1f} s", flush=True)
+    return fixture, streams
+
+
+def _with_streams(dataset, streams):
+    for seq in dataset.sequences:
+        seq._events = streams[seq.name]
+    return dataset
+
+
+def _wire_batches(datasets, batch: int):
+    """Each wire's samples in order, collated into batches of ``batch`` (the
+    last one padded, as a loader without drop_last pads it)."""
+    from frn_tpu_torch.data.collate import collate_fixed
+
+    return {wire: [collate_fixed([ds[i] for i in range(j, min(j + batch, len(ds)))],
+                                 ds.geometry, 64, batch) for j in range(0, len(ds), batch)]
+            for wire, ds in datasets.items()}
+
+
+def _collate_first(dataset, batch: int):
+    """The first ``batch`` samples of ``dataset``, collated."""
+    from frn_tpu_torch.data.collate import collate_fixed
+
+    return collate_fixed([dataset[i] for i in range(batch)], dataset.geometry, 64, batch)
+
+
+def _ulps(got, want) -> float:
+    """The largest |got - want| in f32 ulps of |want| (a zero counts as
+    the smallest normal's ulp)."""
+    import numpy as np
+
+    scale = np.spacing(np.maximum(np.abs(want), np.finfo(np.float32).tiny).astype(np.float32))
+    return float((np.abs(got.astype(np.float64) - want) / scale).max())
+
+
+def check_wires(datasets, streams) -> dict:
+    """The three wires on every sample: the events wire's device voxel
+    (``voxelize_events_batched`` on the card) against the host voxelizer's
+    count grid of the same window, exactly; the compact wire's int8 counts
+    against it, exactly; both wires' squashed grids on the card (the train
+    step's ``make_batch_inputs``) against the f32 wire's host-squashed sample
+    within WIRE_TANH_RTOL, and their RGB exactly. Prints each wire's h2d
+    bytes per batch and the voxelization's device ms per batch. Returns
+    {wire: bytes per batch}."""
+    import numpy as np
+
+    from frn_tpu_torch.config import FrameworkConfig, TrainConfig
+    from frn_tpu_torch.data.loader import to_device
+    from frn_tpu_torch.ops.voxelize import voxelize_events_batched, voxelize_events_np
+    from frn_tpu_torch.train.loop import make_batch_inputs
+
+    f32 = datasets["f32"]
+    geo = f32.geometry
+    b = DSEC_DET_TRAIN_BATCH
+    batches = _wire_batches(datasets, b)
+    # the host voxelizer's count grid of each sample's window, from the source
+    counts = []
+    for si, i0, _ in f32._index:
+        ts0 = int(f32.sequences[si].timestamps[i0])
+        ev = streams[f32.sequences[si].name].window(ts0 - f32.time_window_us, ts0)
+        counts.append(np.transpose(voxelize_events_np(
+            ev["x"].astype(np.int64), ev["y"].astype(np.int64), ev["t"], ev["p"],
+            geo.event_channels, geo.height, geo.width), (1, 2, 0)))
+    pad = -len(counts) % b  # the last batch's pad rows hold no events
+    counts = np.concatenate([np.stack(counts), np.zeros((pad,) + counts[0].shape, np.float32)])
+    n_events = [int(datasets["events"][i]["event_n"]) for i in range(len(f32))]
+    if max(n_events) >= datasets["events"].event_capacity:
+        fail(f"raw DSEC-Det: a window fills the events wire's capacity ({max(n_events)})")
+    for i in range(len(f32)):
+        compact = datasets["compact"][i]["event"]
+        if not np.array_equal(compact, np.clip(np.rint(counts[i]), -127, 127).astype(np.int8)):
+            fail(f"raw DSEC-Det: the compact wire's counts of sample {i} differ from the host's")
+    nbytes, gaps, vox_ms = {}, {"compact": 0.0, "events": 0.0}, 0.0
+    for k, f32_batch in enumerate(batches["f32"]):
+        for wire in DSEC_DET_WIRES:
+            batch = batches[wire][k]
+            nbytes[wire] = sum(a.nbytes for a in batch.values())
+            if wire == "f32":
+                continue
+            dev = to_device(batch, "cuda")
+            if wire == "events":
+                def vox():
+                    return voxelize_events_batched(
+                        dev["event_x"], dev["event_y"], dev["event_t"], dev["event_p"],
+                        dev["event_n"], geo.event_channels, geo.height, geo.width)
+                ms, grid = cuda_ms(vox, reps=20)
+                vox_ms += ms / len(batches["f32"])
+                if not np.array_equal(grid.cpu().numpy(), counts[k * b:(k + 1) * b]):
+                    fail(f"raw DSEC-Det: the device voxel of batch {k} differs from the host's")
+            config = FrameworkConfig(geometry=geo, train=TrainConfig(input_wire=wire))
+            rgb, event = (x.cpu().numpy() for x in make_batch_inputs(config)(dev))
+            if not np.array_equal(rgb, f32_batch["rgb"]):
+                fail(f"raw DSEC-Det: the {wire} wire's RGB of batch {k} differs from the f32 wire's")
+            if not np.allclose(event, f32_batch["event"], rtol=WIRE_TANH_RTOL, atol=0):
+                fail(f"raw DSEC-Det: the {wire} wire's squashed voxel of batch {k} is "
+                     f"{_ulps(event, f32_batch['event']):.1f} ulps off the f32 wire's")
+            gaps[wire] = max(gaps[wire], _ulps(event, f32_batch["event"]))
+    print(f"raw DSEC-Det wires, {len(f32)} samples ({min(n_events)} to {max(n_events)} events a "
+          f"window): the events wire's device voxel equals the host count grid exactly, the "
+          f"compact wire's int8 counts too; squashed on the card vs the f32 wire's host squash: "
+          f"compact {gaps['compact']:.1f} ulps, events {gaps['events']:.1f} ulps (at most "
+          f"{WIRE_TANH_RTOL:.0e} relative); RGB exact", flush=True)
+    print(f"raw DSEC-Det wires, h2d bytes per batch of {b}: "
+          + ", ".join(f"{w} {nbytes[w]}" for w in DSEC_DET_WIRES)
+          + f"; device voxelization {vox_ms:.4f} ms per batch of {b} (CUDA events) on "
+          f"{card_name_and_power_limit()}", flush=True)
+    return nbytes
+
+
+def _loader_ms(dataset, batch: int) -> float:
+    """Host ms per batch of the train loader's work (load, voxelize on the
+    f32 and compact wires, collate), on one thread."""
+    from frn_tpu_torch.data.loader import BatchLoader
+
+    loader = BatchLoader(dataset, dataset.geometry, batch_size=batch, num_threads=0,
+                         drop_last=True)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _wire_grads(state, config, batch):
+    """Loss and gradients of one micro-step on ``batch`` of the config's wire
+    (its inputs made on the card as the train step makes them)."""
+    from frn_tpu_torch.data.loader import to_device
+    from frn_tpu_torch.train.loop import make_batch_inputs
+
+    b = to_device(batch, "cuda")
+    rgb, event = make_batch_inputs(config)(b)
+    return _batch_grads(state, config, {"rgb": rgb, "event": event, "annot": b["annot"]})
+
+
+def check_wire_grads(trainer, datasets, when: str, gate: bool) -> None:
+    """One micro-step's loss and gradients of ``trainer`` (the events wire's)
+    on the first batch through the events batch and through the f32 batch of
+    the same samples, beside the f32 batch again (the run to run spread) and
+    a witness: the f32 batch with its voxel moved one ulp up or down
+    (seeded). With ``gate``, the losses within WIRE_LOSS_RTOL and the
+    gradients within the phase-9 gate (F32_GRAD_REL_TOL, F32_GRAD_NORM_TOL)."""
+    state, config = trainer.state, trainer.config
+    f32_config = dataclasses.replace(config, train=dataclasses.replace(config.train,
+                                                                       input_wire="f32"))
+    f32_batch = _collate_first(datasets["f32"], DSEC_DET_TRAIN_BATCH)
+    loss_ev, g_ev = _wire_grads(state, config, _collate_first(datasets["events"],
+                                                            DSEC_DET_TRAIN_BATCH))
+    loss_f32, g_f32 = _wire_grads(state, f32_config, f32_batch)
+    _, g_again = _wire_grads(state, f32_config, f32_batch)
+    gen = torch.Generator().manual_seed(23)
+    ulp = dict(f32_batch)
+    ev = torch.from_numpy(ulp["event"])
+    up = torch.randint(0, 2, ev.shape, generator=gen).bool()
+    ulp["event"] = torch.nextafter(ev, torch.where(up, math.inf, -math.inf)).numpy()
+    _, g_ulp = _wire_grads(state, f32_config, ulp)
+    print(f"raw DSEC-Det micro-step {when} (batch {DSEC_DET_TRAIN_BATCH}), events wire vs f32 "
+          f"wire: loss {loss_ev.item():.6f} vs {loss_f32.item():.6f}", flush=True)
+    worst = {}
+    for label, got in (("events", g_ev), ("f32 again", g_again), ("f32, one ulp", g_ulp)):
+        worst[label] = _worst_grad_gap(state.names, got, g_f32)
+        (gap, name), bias_gap, norm_gap = worst[label]
+        print(f"raw DSEC-Det gradients {when}, {label} vs f32: worst tensor max|diff|/max|ref| "
+              f"{gap:.3e} ({name}); theta biases {bias_gap:.3e}; over all params {norm_gap:.3e}",
+              flush=True)
+    if not gate:
+        return
+    (gap, name), bias_gap, norm_gap = worst["events"]
+    print(f"raw DSEC-Det gradients {when}, events vs f32: gates {F32_GRAD_REL_TOL:.0e} per "
+          f"tensor, {F32_GRAD_NORM_TOL:.0e} over all params; losses within {WIRE_LOSS_RTOL:.0e}",
+          flush=True)
+    if not abs(loss_ev.item() - loss_f32.item()) <= WIRE_LOSS_RTOL * abs(loss_f32.item()):
+        fail(f"raw DSEC-Det: the events and f32 batches' losses disagree {when}")
+    if not (gap <= F32_GRAD_REL_TOL and bias_gap <= F32_GRAD_REL_TOL
+            and norm_gap <= F32_GRAD_NORM_TOL):
+        fail(f"raw DSEC-Det: the events batch's gradients disagree with the f32 batch's {when} "
+             f"({gap:.3e} at {name}, theta biases {bias_gap:.3e}, over all params {norm_gap:.3e})")
+
+
+def phase_dsec_det(kernel_rows, root: Path) -> None:
+    """The raw DSEC-Det path on the card at full width (DSEC-Det 480x640,
+    fusion ResNet-50, feature size 256, f32: the CLIs' defaults), through the
+    two CLIs' own helpers (``train_dsec_det_fast``: ``train_dataset``,
+    ``build_config``, then ``Trainer.fit`` as its ``main`` runs it;
+    ``test_dsec_det``: ``eval_dataset``, ``build_config``,
+    ``build_inference_fn``, then ``evaluate_dataset``), each dataset's
+    sequences reading their events from memory (``_ArrayEvents``: no h5py
+    there). The wires checked on every sample (``check_wires``); one epoch
+    on each wire at batch 4, launch counts zeroed just before and read just
+    after (B1-lse, B2a and B2b at f32 4 times a micro-step, nothing else),
+    losses finite, skipped micro-steps counted, the checkpoint written, img/s
+    and the loader's host ms per batch, warm epochs' idle share; the events
+    batch's loss and gradients against the f32 batch's on the same samples
+    at the events trainer's initial weights (``check_wire_grads``: the
+    phase-9 gate, beside a one-ulp witness; printed again after the epochs,
+    where the losses are far above the skip threshold); then the
+    evaluation of the events run's checkpoint on the f32 and compact wires
+    at batch 8 (B1 at f32 4 times a batch, nothing else; the summary in
+    [0, 1]; fps and idle share) and the two wires' logits on one batch."""
+    import contextlib
+    import io
+    import re
+
+    from frn_tpu_torch.cli import common
+    from frn_tpu_torch.cli import test_dsec_det as eval_cli
+    from frn_tpu_torch.cli import train_dsec_det_fast as train_cli
+    from frn_tpu_torch.data.loader import to_device
+    from frn_tpu_torch.eval.detections import collect_detections
+    from frn_tpu_torch.eval.evaluator import evaluate_dataset
+    from frn_tpu_torch.train.checkpoint import CheckpointManager
+    from frn_tpu_torch.train.trainer import Trainer
+
+    print(f"raw DSEC-Det path on {card_name_and_power_limit()}", flush=True)
+    started = time.perf_counter()
+
+    def mark(what):
+        print(f"[phase 10 at {time.perf_counter() - started:.1f} s] {what}", flush=True)
+
+    fixture, streams = write_dsec_det_inputs(root)
+
+    def train_args(wire):
+        return train_cli.get_parser().parse_args(
+            ["--dataset_root", fixture, "--wire", wire, "--epochs", "1", "--checkpoint_dir",
+             str(root / f"dsec_det_{wire}")])
+
+    datasets = {w: _with_streams(train_cli.train_dataset(train_args(w)), streams)
+                for w in DSEC_DET_WIRES}
+    if len(datasets["f32"]) != DSEC_DET_SEQUENCES * (DSEC_DET_FRAMES - 1):
+        fail(f"raw DSEC-Det: {len(datasets['f32'])} samples")
+    nbytes = check_wires(datasets, streams)
+    mark("wires checked")
+
+    b = DSEC_DET_TRAIN_BATCH
+    steps = len(datasets["f32"]) // b
+    want = {**dict.fromkeys(_COUNTERS, 0), **dict.fromkeys(TRAIN_F32_KERNELS, 4 * steps)}
+    trainer = None
+    for wire in DSEC_DET_WIRES:
+        del trainer
+        torch.cuda.empty_cache()
+        args = train_args(wire)
+        device = common.setup_device(args)
+        ds = datasets[wire]
+        config = train_cli.build_config(args, ds)
+        trainer = Trainer(config, ds, checkpoint_dir=args.checkpoint_dir,
+                          eval_every=args.eval_every, device=device)
+        mark(f"{wire}: trainer built")
+        if wire == "events":
+            check_wire_grads(trainer, datasets, "at the initial weights", gate=True)
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            history = trainer.fit(args.epochs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _counts()
+        text = buf.getvalue()
+        skipped = re.search(r"skipped (\d+)/", text)
+        skipped = int(skipped.group(1)) if skipped else 0
+        print(f"--- train_dsec_det_fast --wire {wire} (Trainer.fit, {seconds:.1f} s)\n"
+              f"{text.strip()}\n--- launches {json.dumps(counts)}", flush=True)
+        if counts != want:
+            fail(f"raw DSEC-Det training ({wire}) launched {counts}, expected {want}")
+        if not (len(history) == 1 and math.isfinite(history[0])):
+            fail(f"raw DSEC-Det training ({wire}): loss history {history}")
+        if not Path(CheckpointManager(args.checkpoint_dir).path(1)).is_file():
+            fail(f"raw DSEC-Det training ({wire}) wrote no checkpoint of epoch 1")
+        for key in TRAIN_F32_KERNELS:
+            kernel_rows[key]["launches"] += counts[key]
+        mark(f"{wire}: one epoch trained")
+        # the loop again warm (DSEC_DET_WARM_EPOCHS more epochs: the median
+        # epoch's ms per micro-step), the step alone on a batch already on
+        # the card, the loader's host work alone, and a profiled warm epoch
+        epoch_ms = []
+        with contextlib.redirect_stdout(io.StringIO()):
+            for _ in range(DSEC_DET_WARM_EPOCHS):
+                warm = trainer.train_epoch()
+                epoch_ms.append(warm["epoch_time_s"] * 1e3)
+        step_ms = statistics.median(epoch_ms) / steps
+        dev = to_device(_collate_first(ds, b), device)
+        alone = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            trainer.step_fn(trainer.state, dev, trainer.generator)
+            torch.cuda.synchronize()
+            alone.append((time.perf_counter() - t1) * 1e3)
+        host_ms = _loader_ms(ds, b)
+        print(f"raw DSEC-Det training ({wire}): {steps} micro-steps of batch {b}, mean loss "
+              f"{history[0]:.5f}, skipped micro-steps {skipped}/{steps} (loss > 50 or not "
+              f"finite); {steps * b / seconds:.2f} img/s over the first epoch (model build "
+              f"excluded); warm, {DSEC_DET_WARM_EPOCHS} epochs: {b * 1e3 / step_ms:.2f} img/s, "
+              f"{step_ms:.2f} ms per micro-step (median epoch; epochs "
+              f"{', '.join(f'{t:.1f}' for t in epoch_ms)} ms); the step alone on a batch on the "
+              f"card {statistics.median(alone):.2f} ms (host clock, median of 3); loader "
+              f"{host_ms:.2f} ms of host work per batch on one thread; h2d {nbytes[wire]} bytes "
+              f"per batch", flush=True)
+
+        mark(f"{wire}: timed")
+        profile_pass(f"raw DSEC-Det training profile ({wire}): one micro-step of batch {b}, idle "
+                     f"share of the warm epochs' ms per micro-step",
+                     lambda: trainer.step_fn(trainer.state, dev, trainer.generator), step_ms,
+                     n_ops=4, n_kernels=4, n_host_ops=6)
+        del dev
+        mark(f"{wire}: profiled")
+
+    # the same micro-step on the events trainer after its epochs, printed
+    # only: the losses there are far above the skip threshold
+    check_wire_grads(trainer, datasets, "after the epochs", gate=False)
+    del trainer
+    torch.cuda.empty_cache()
+    mark("gradients compared")
+
+    # evaluation of the events run's checkpoint on both eval wires
+    logits, f32_launches = {}, 0
+    for wire in ("f32", "compact"):
+        args = eval_cli.get_parser().parse_args(
+            ["--dataset_root", fixture, "--checkpoint", str(root / "dsec_det_events"),
+             "--wire", wire])
+        device = common.setup_device(args)
+        ds = _with_streams(eval_cli.eval_dataset(args), streams)
+        config = eval_cli.build_config(args, ds)
+        infer = eval_cli.build_inference_fn(args, ds, config, device)
+        torch.cuda.synchronize()
+        _reset_counts()
+        res = evaluate_dataset(ds, infer, config, batch_size=args.batch_size)
+        torch.cuda.synchronize()
+        counts = _counts()
+        n_batches = -(-len(ds) // args.batch_size)
+        if counts != {**dict.fromkeys(_COUNTERS, 0), "flash_fwd_f32": 4 * n_batches}:
+            fail(f"raw DSEC-Det evaluation ({wire}) launched {counts}")
+        f32_launches += counts["flash_fwd_f32"]
+        values = list(res.summary.values()) + [a for v in res.per_class_aps.values() for a in v]
+        if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in values):
+            fail(f"raw DSEC-Det evaluation ({wire}): summary {res.summary}")
+        _, warm_s = collect_detections(ds, infer, config, batch_size=args.batch_size)
+        loop_ms = warm_s * 1e3 / n_batches
+        rgb, event = first_batch(ds, config)
+        print(f"raw DSEC-Det evaluation (test_dsec_det --wire {wire}): {len(ds)} images in "
+              f"{n_batches} batches of {args.batch_size}: fps {res.fps:.2f} (the CLI's), "
+              f"{len(ds) / warm_s:.2f} img/s warm ({loop_ms:.2f} ms per batch); mAP "
+              f"{res.summary['mAP']:.4f}; launches {json.dumps(counts)}", flush=True)
+        profile_pass(f"raw DSEC-Det evaluation profile ({wire}): one batch of {args.batch_size}, "
+                     f"idle share of the warm loop's ms per batch", lambda: infer(rgb, event),
+                     loop_ms, n_ops=6, n_kernels=6)
+        with torch.inference_mode():
+            if wire == "compact":
+                from frn_tpu_torch.ops.voxelize import normalize_event_voxel_batched
+
+                rgb, event = rgb.float() / 255.0, normalize_event_voxel_batched(event.float())
+            logits[wire] = infer.model(rgb, event, eval_output=infer.eval_output, train=False)[0]
+        del infer, rgb, event
+        torch.cuda.empty_cache()
+        mark(f"evaluated on the {wire} wire")
+    rel = ((logits["compact"] - logits["f32"]).abs().max() / logits["f32"].abs().max()).item()
+    print(f"raw DSEC-Det evaluation logits, compact vs f32 wire (batch of {EVAL_BATCH}): "
+          f"max|diff|/max|ref| {rel:.3e} (at most {EVAL_F32_REL_TOL:.0e})", flush=True)
+    if not rel <= EVAL_F32_REL_TOL:
+        fail(f"raw DSEC-Det evaluation: the wires' logits disagree ({rel:.3e})")
+    kernel_rows["flash_fwd_f32"]["launches"] += f32_launches
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -2534,6 +2995,7 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
+    started = time.perf_counter()
     phase_environment()
     others = build_others(args.other_source) if args.other_source else {}
     rows = {"flash_fwd": phase_flash_kernel(), "flash_fwd_f32": phase_flash_f32(),
@@ -2568,6 +3030,8 @@ def main(argv=None) -> None:
         phase_evaluation(rows, inputs, root)
         phase_training(rows, inputs, root)
         phase_train_f32(rows, inputs, root)
+        phase_dsec_det(rows, root)
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,15 +2,12 @@
 
 A copy of the dataclasses of ``frn_tpu/config.py`` (the port imports nothing of
 the JAX package). Field names, defaults and geometry constants are the same, so
-one set of settings describes a model in both packages. Three differences:
+one set of settings describes a model in both packages. Two differences:
 
 * ``ModelConfig.fused_heads`` keeps its field, and setting it raises
   ``NotImplementedError``; ``attention_quant`` outside {None, 'int8_qk',
   'int8'} raises ``ValueError`` here (the JAX package finds it only when a
   kernel asserts);
-* ``TrainConfig.input_wire`` takes only ``'f32'``: the ``'compact'`` and
-  ``'events'`` wires (normalization and voxelization on the device) raise
-  ``NotImplementedError``;
 * ``EvalConfig.approx_topk`` defaults to ``False``: torch has no
   ``approx_max_k``, so the port implements only the exact candidate pool.
   ``exact_pool`` is kept for config parity; both of its values select the same
@@ -182,13 +179,14 @@ class TrainConfig:
     loss_skip_threshold: Optional[float] = None
     warmup_steps: int = 0
     seed: int = 0
+    # host -> device batch format: 'f32' (host-normalized floats), 'compact'
+    # (uint8 RGB + int8 count voxels, normalized on the device) or 'events'
+    # (raw padded x/y/t/p streams, voxelized and normalized on the device)
     input_wire: str = "f32"
     input_rgb_standardize: bool = False
 
     def __post_init__(self):
-        if self.input_wire in ("compact", "events"):
-            raise NotImplementedError(f"TrainConfig.input_wire={self.input_wire!r}: {NOT_PORTED}")
-        if self.input_wire != "f32":
+        if self.input_wire not in ("f32", "compact", "events"):
             raise ValueError(f"unknown TrainConfig.input_wire {self.input_wire!r}")
 
 

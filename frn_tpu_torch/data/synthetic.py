@@ -8,6 +8,10 @@ so a run and its tests see the same data.
 miniature benchmark (voxel .npz files, RGB pngs, CSV labels) in the DSEC or
 DDD17 path schema, PNGs written by ``data/image_io.py``. From one seed it
 gives the same pixels, voxels and CSV rows as the JAX package's.
+
+``make_dsec_det_fixture``: the same for the raw DSEC-Det layout (sequence
+directories with PNGs, timestamps, tracks and an event h5 file, which needs
+``h5py``): from one seed the same files as the JAX package's.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import numpy as np
 
 from frn_tpu_torch.config import DSEC, DatasetGeometry
 from frn_tpu_torch.data import image_io
+from frn_tpu_torch.data.events import write_event_h5
 from frn_tpu_torch.ops.voxelize import voxelize_events_np
 
 
@@ -146,3 +151,78 @@ def make_csv_fixture(
         root=root, annotations_csv=ann_csv, class_map_csv=map_csv,
         event_dir=event_dir, img_dir=img_dir,
     )
+
+
+def make_dsec_det_fixture(
+    root: str,
+    num_sequences: int = 2,
+    frames_per_sequence: int = 6,
+    seed: int = 0,
+    geometry: DatasetGeometry = DSEC,
+) -> str:
+    """Create a raw DSEC-Det-layout fixture at ``root``, one sequence
+    ``synthetic_NN`` after another:
+      <root>/<seq>/images/left/rectified/NNNNNN.png
+      <root>/<seq>/images/timestamps.txt
+      <root>/<seq>/events/left/events_2x.h5
+      <root>/<seq>/object_detections/left/tracks.npy  (structured array)
+    Two tracked objects (a car and a pedestrian) drift right by 4 px a
+    frame, 100 ms apart; each frame's 100 ms before it hold 3,000 events on
+    the boxes' edges.
+    """
+    rng = np.random.default_rng(seed)
+    geo = geometry
+    dtype = np.dtype(
+        [
+            ("t", "<i8"), ("x", "<f4"), ("y", "<f4"), ("w", "<f4"), ("h", "<f4"),
+            ("class_id", "<u1"), ("class_confidence", "<f4"), ("track_id", "<i4"),
+        ]
+    )
+    for s in range(num_sequences):
+        seq = f"synthetic_{s:02d}"
+        seq_dir = os.path.join(root, seq)
+        img_dir = os.path.join(seq_dir, "images/left/rectified")
+        os.makedirs(img_dir, exist_ok=True)
+        os.makedirs(os.path.join(seq_dir, "events/left"), exist_ok=True)
+        os.makedirs(os.path.join(seq_dir, "object_detections/left"), exist_ok=True)
+
+        t0 = 10_000_000
+        dt = 100_000  # 100 ms between frames
+        timestamps = [t0 + i * dt for i in range(frames_per_sequence)]
+
+        track_rows = []
+        all_x, all_y, all_t, all_p = [], [], [], []
+        objs = []
+        max_w = max(geo.width // 4, 24)
+        max_h = max(geo.height // 4, 24)
+        for k in range(2):
+            bw = int(rng.integers(max_w // 2, max_w))
+            bh = int(rng.integers(max_h // 2, max_h))
+            x1 = int(rng.integers(0, max(geo.width - bw - frames_per_sequence * 4, 1)))
+            y1 = int(rng.integers(0, max(geo.height - bh, 1)))
+            # DSEC class ids of the tracks: 2 = car, 0 = pedestrian
+            objs.append([x1, y1, bw, bh, 2 if k == 0 else 0])
+
+        for i, ts in enumerate(timestamps):
+            img = (rng.uniform(0, 40, (geo.height, geo.width, 3))).astype(np.uint8)
+            boxes = []
+            for tid, (x1, y1, bw, bh, cid) in enumerate(objs):
+                x = x1 + 4 * i
+                img[y1: y1 + bh, x: x + bw] = 200
+                track_rows.append((ts, float(x), float(y1), float(bw), float(bh), cid, 1.0, tid))
+                boxes.append((x, y1, x + bw, y1 + bh, 0))
+            image_io.imwrite(os.path.join(img_dir, f"{i:06d}.png"), img)
+            ex, ey, et, ep = _events_for_boxes(rng, geo, boxes, n_events=3000, t0=ts - dt, dt=dt)
+            all_x.append(ex), all_y.append(ey), all_t.append(et), all_p.append(ep)
+
+        with open(os.path.join(seq_dir, "images/timestamps.txt"), "w") as f:
+            f.write("\n".join(str(t) for t in timestamps) + "\n")
+        tracks = np.array(track_rows, dtype=dtype)
+        np.save(os.path.join(seq_dir, "object_detections/left/tracks.npy"), tracks)
+        write_event_h5(
+            os.path.join(seq_dir, "events/left/events_2x.h5"),
+            np.concatenate(all_x), np.concatenate(all_y),
+            np.concatenate(all_t), np.concatenate(all_p),
+            t_offset=t0 - dt,
+        )
+    return root

@@ -18,7 +18,7 @@ import torch
 from frn_tpu_torch.config import FrameworkConfig
 from frn_tpu_torch.data.loader import BatchLoader, to_device
 from frn_tpu_torch.entry import InferenceFn
-from frn_tpu_torch.ops.voxelize import normalize_event_voxel_batched
+from frn_tpu_torch.ops.voxelize import host_div, normalize_event_voxel_batched
 
 WIRES = ("f32", "compact")
 
@@ -49,7 +49,7 @@ class EvalInferenceFn(InferenceFn):
                     f"wire='compact' expects uint8 RGB + int8 event voxels, got "
                     f"rgb={rgb.dtype} event={event.dtype}: pass a compact-wire "
                     "dataset or use wire='f32'")
-            rgb = rgb.float() / 255.0
+            rgb = host_div(rgb.float(), 255.0)  # rounded as the host divides
             if self.rgb_standardize:
                 rgb = (rgb - self.rgb_mean) / self.rgb_std
             event = normalize_event_voxel_batched(event.float())

@@ -18,8 +18,13 @@ Counterpart of ``frn_tpu/train/loop.py``, with the reference trainer's recipe:
     step does. The decision stays on the device (no host sync per step).
 
 The step updates the state in place (the JAX step returns a new state) and
-returns the step's metrics as device scalars. Only the 'f32' input wire is
-ported (``TrainConfig.input_wire``).
+returns the step's metrics as device scalars. The input wire
+(``TrainConfig.input_wire``) says what the batch holds: 'f32' normalized
+floats; 'compact' uint8 RGB and int8 count voxels; 'events' uint8 RGB and raw
+padded event streams, voxelized on the device. The compact and events
+batches are normalized on the batch's device, outside autograd, before the
+model call, with the host pipeline's arithmetic (dataloader.py:522-534,
+dsec_data.py:461-462).
 """
 
 from __future__ import annotations
@@ -32,6 +37,11 @@ import torch
 from frn_tpu_torch.config import FrameworkConfig
 from frn_tpu_torch.data.loader import to_device
 from frn_tpu_torch.models.detector import FRNDetector, detection_loss, image_anchors, init_detector
+from frn_tpu_torch.ops.voxelize import (
+    host_div,
+    normalize_event_voxel_batched,
+    voxelize_events_batched,
+)
 
 
 @dataclasses.dataclass
@@ -134,13 +144,49 @@ def apply_gradients(state: TrainState, grads: List[torch.Tensor], config: Framew
     state.step += 1
 
 
+def make_batch_inputs(config: FrameworkConfig) -> Callable[[Dict], tuple]:
+    """The model's (rgb, event) f32 inputs from a batch of
+    ``config.train.input_wire`` already on its device: on the 'compact' and
+    'events' wires, uint8 RGB / 255 (then standardized iff
+    ``input_rgb_standardize``); the event voxel from int8 counts ('compact')
+    or from ``voxelize_events_batched`` ('events'), then the per-sample
+    conditional tanh squash."""
+    wire, geo = config.train.input_wire, config.geometry
+    standardize = config.train.input_rgb_standardize
+    mean_std: Dict[torch.device, tuple] = {}  # copied to each device once
+
+    @torch.no_grad()
+    def inputs(b: Dict) -> tuple:
+        if wire == "f32":
+            return b["rgb"], b["event"]
+        rgb = host_div(b["rgb"].float(), 255.0)
+        if standardize:
+            if rgb.device not in mean_std:
+                mean_std[rgb.device] = tuple(
+                    torch.tensor(v, dtype=torch.float32, device=rgb.device)
+                    for v in (geo.rgb_mean, geo.rgb_std))
+            mean, std = mean_std[rgb.device]
+            rgb = (rgb - mean) / std
+        if wire == "events":
+            event = voxelize_events_batched(
+                b["event_x"], b["event_y"], b["event_t"], b["event_p"], b["event_n"],
+                num_bins=geo.event_channels, height=geo.height, width=geo.width)
+        else:
+            event = b["event"].float()
+        return rgb, normalize_event_voxel_batched(event)
+
+    return inputs
+
+
 def make_train_step(
     config: FrameworkConfig, loss_skip_threshold: Optional[float] = None,
 ) -> Callable[[TrainState, Dict, torch.Generator], Dict[str, torch.Tensor]]:
     """Build the train step ``(state, batch, generator) -> metrics``.
 
-    ``batch`` holds 'rgb' (B, H, W, 3), 'event' (B, H, W, C) and 'annot'
-    (B, N, 5); ``generator`` draws the modality dropout. Metrics: 'loss',
+    ``batch`` holds 'rgb' (B, H, W, 3), 'event' (B, H, W, C) (on the events
+    wire 'event_x', 'event_y', 'event_t', 'event_p' (B, capacity) and
+    'event_n' (B,) in its place) and 'annot' (B, N, 5); ``generator`` draws
+    the modality dropout. Metrics: 'loss',
     'cls_loss', 'reg_loss' and 'skipped' (1.0 when the micro-step's gradients
     were zeroed). ``loss_skip_threshold`` defaults to the config's; None skips
     only non-finite losses.
@@ -148,13 +194,14 @@ def make_train_step(
     threshold = (config.train.loss_skip_threshold if loss_skip_threshold is None
                  else loss_skip_threshold)
     anchors: Dict[torch.device, torch.Tensor] = {}
+    inputs = make_batch_inputs(config)
 
     def train_step(state: TrainState, batch: Dict, generator: torch.Generator):
         device = state.params[0].device
         if device not in anchors:
             anchors[device] = image_anchors(config, device)
         b = to_device(batch, device)
-        cls, reg = state.model(b["rgb"], b["event"], train=True, generator=generator)
+        cls, reg = state.model(*inputs(b), train=True, generator=generator)
         cls_loss, reg_loss = detection_loss(cls, reg, b["annot"], config, anchors[device])
         loss = cls_loss + reg_loss
         grads = torch.autograd.grad(loss, state.params, allow_unused=True)

@@ -52,7 +52,9 @@ def test_importing_the_port_loads_no_jax():
                  "frn_tpu_torch.cli.test_dsec", "frn_tpu_torch.cli.test_ddd17",
                  "frn_tpu_torch.cli.train", "frn_tpu_torch.cli.train_dsec",
                  "frn_tpu_torch.cli.train_ddd17", "frn_tpu_torch.train.trainer",
-                 "frn_tpu_torch.data.loader"):
+                 "frn_tpu_torch.data.loader", "frn_tpu_torch.data.events",
+                 "frn_tpu_torch.data.dsec_det", "frn_tpu_torch.cli.train_dsec_det_fast",
+                 "frn_tpu_torch.cli.test_dsec_det"):
         assert name in result["imported"]
 
 

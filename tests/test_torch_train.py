@@ -363,14 +363,21 @@ def test_collate_fixed_matches_jax():
 
 
 def test_collate_events_wire_raises():
-    with pytest.raises(NotImplementedError):
-        collate_fixed([{"event_x": np.zeros(4), "rgb": np.zeros((32, 48, 3))}], TINY)
+    """Events-wire samples of different capacities do not stack (the events
+    branch itself is held against frn_tpu's in test_torch_dsec_det.py)."""
+    def sample(cap):
+        return {"event_x": np.zeros(cap, np.int16), "event_y": np.zeros(cap, np.int16),
+                "event_t": np.zeros(cap, np.int32), "event_p": np.zeros(cap, np.int8),
+                "event_n": np.int32(0), "rgb": np.zeros((32, 48, 3), np.uint8),
+                "annot": np.zeros((0, 5), np.float32)}
+    assert collate_fixed([sample(4), sample(4)], TINY)["event_x"].shape == (2, 4)
+    with pytest.raises(ValueError):
+        collate_fixed([sample(4), sample(6)], TINY)
 
 
 def test_unported_train_options_raise():
-    for wire in ("compact", "events"):
-        with pytest.raises(NotImplementedError):
-            tconfig.TrainConfig(input_wire=wire)
+    for wire in ("f32", "compact", "events"):
+        assert tconfig.TrainConfig(input_wire=wire).input_wire == wire
     with pytest.raises(ValueError):
         tconfig.TrainConfig(input_wire="png")
     with pytest.raises(NotImplementedError):
