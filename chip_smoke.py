@@ -136,7 +136,39 @@ Phases:
      in [0, 1], fps, idle share) and the two wires' logits on one batch
      within EVAL_F32_REL_TOL.
 
-Phases run in the order 1, 2, 5, 3, 6, 8, 4, 9, 10, 7. Phase 9 alone:
+ 11. serving at full width (DSEC 480x640, fusion ResNet-50, feature size 256,
+     3 classes, phase 8's seeded DSEC ``.pth``): ``cli/serve.build_engine``
+     at the serve CLI's defaults (f32, the compact wire, buckets 1-16, every
+     bucket warmed up) behind ``DetectionServer`` on loopback (/healthz,
+     /stats, a malformed /infer answered 400, then its traffic over HTTP);
+     then engines over one bf16 model on the f32, events and sparse wires,
+     and one int8_qk engine on the compact wire. Each engine: SERVE_SINGLE
+     requests from one client at max_delay_ms 0, then SERVE_CLIENTS
+     closed-loop clients for a ramp-up and a SERVE_BURST_S window, launch
+     counts zeroed just before and read just after (B1 at f32, B1, or B4 and
+     its pre-pass 4 times a batch, nothing else), every future resolved; h2d
+     bytes per request, latency p50/p90/p99 of both, requests/s and
+     mean_batch_fill of the window, peak memory; each request's detections
+     equal, bit for bit, to the direct forward of its padded batch (the
+     engine's own ``batch_records``, rebuilt by ``wire_batch`` and run by
+     ``device_program``); SERVE_BATCH1_CHECKS requests' logits and deltas
+     against their batch-1 forward beside a one-ulp witness; on the events
+     and sparse wires the device count grids equal the host's (the sparse
+     one with cells at +-300, past int8), the squashed grids within
+     WIRE_TANH_RTOL, RGB exact; one dispatch at bucket 1 and at the largest
+     broken down (the dispatcher's staging; wire decode, forward, decode +
+     NMS by the host clock and CUDA events); a profiled burst of
+     SERVE_PROFILE_ROUNDS rounds for the idle share.
+
+Phases run in the order 1, 2, 5, 3, 6, 8, 4, 9, 10, 11, 7. Phase 11 alone
+(about three minutes of a call after the build): ``python3 -c "import
+chip_smoke as c, tempfile, pathlib; c.phase_environment(); r = {k:
+{'launches': 0} for k in c._COUNTERS};
+c.phase_serving(r, c.write_eval_inputs(pathlib.Path(tempfile.mkdtemp())))"``.
+The serving engine's ``pipeline_depth`` 1 against 2 (not run by ``main``;
+about a minute): the same with ``i = c.write_eval_inputs(...);
+c.phase_serving_pipeline(i)``.
+Phase 9 alone:
 ``python3 -c "import chip_smoke as c, tempfile, pathlib; c.phase_environment();
 r = {k: {} for k in c.TRAIN_F32_KERNELS}; d = pathlib.Path(tempfile.mkdtemp());
 c.phase_train_f32(r, c.write_eval_inputs(d), d)"``. Phase 10 alone (about a
@@ -1666,11 +1698,12 @@ def phase_breakdown(fn, rgb, event, reps: int = 3) -> dict:
 
 
 def profile_pass(label: str, run_once, wall_ms: float, n_ops: int, n_kernels: int,
-                 n_host_ops: int = 0) -> None:
+                 n_host_ops: int = 0) -> float:
     """torch.profiler over one call of ``run_once`` (after one profiled
     warm-up call): the device-busy time summed over kernels, the idle share of
-    the unprofiled wall time ``wall_ms`` of one call, and the costliest
-    operators (by the device time of the kernels they launched) and kernels."""
+    the unprofiled wall time ``wall_ms`` of one call (returned), and the
+    costliest operators (by the device time of the kernels they launched) and
+    kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1708,6 +1741,7 @@ def profile_pass(label: str, run_once, wall_ms: float, n_ops: int, n_kernels: in
         print("  host operators by self CPU time:", flush=True)
         for ms, count, key in host[:n_host_ops]:
             print(f"  {ms:9.3f} ms  {count:5d}x  {key[:100]}", flush=True)
+    return idle
 
 
 def phase_small_reference():
@@ -2981,6 +3015,571 @@ def phase_dsec_det(kernel_rows, root: Path) -> None:
     kernel_rows["flash_fwd_f32"]["launches"] += f32_launches
 
 
+# phase 11: serving. The serve CLI's defaults: buckets 1-16, f32 compute, the
+# compact wire, every bucket warmed up. One client sends SERVE_SINGLE
+# requests one after another at max_delay_ms 0 (its engine's latency alone;
+# its p99 over 100 samples). A burst is SERVE_CLIENTS closed-loop clients
+# sending for SERVE_RAMP_S + SERVE_BURST_S seconds at the engine's
+# max_delay_ms: requests/s, latency percentiles and batch fill are taken over
+# the SERVE_BURST_S window after the SERVE_RAMP_S ramp-up (requests completed
+# and batches dispatched in it); the requests in flight when the clients stop
+# (the tail) are left out. The idle share is that of a profiled burst of
+# SERVE_PROFILE_ROUNDS rounds of SERVE_CLIENTS requests. Requests are drawn in
+# turn from a pool of SERVE_POOL seeded DSEC frames: a uint8 RGB image and a
+# window of SERVE_EVENTS events spread uniformly over the frame and its 50 ms
+# (a 50 ms DSEC window holds 25,000-50,000, clustered on edges), on every
+# wire. The sparse engine takes cell_capacity SERVE_SPARSE_CELLS: such a
+# window has at most SERVE_EVENTS nonzero cells, and the +-300 cells split
+# into 3 each
+SERVE_SINGLE, SERVE_CLIENTS, SERVE_POOL = 100, 16, 16
+SERVE_RAMP_S, SERVE_BURST_S, SERVE_PROFILE_ROUNDS = 1.0, 8.0, 4
+SERVE_EVENTS, SERVE_SPARSE_CELLS = 30_000, 32_768
+# the bf16 engines' wires (the CLI's engine serves the compact wire at f32)
+SERVE_BF16_WIRES = ("f32", "events", "sparse")
+# requests of each engine held against their batch-1 forward: the logits and
+# deltas of a request in its padded bucket against the same request alone,
+# max|diff| over max|ref|, at f32 within EVAL_F32_REL_TOL; at bf16 within
+# MAIN_REL_TOL or twice the one-ulp witness (the batch-1 forward with a
+# random half of its inputs one bf16 ulp up), whichever is larger: another
+# batch size may take another cuDNN algorithm, a change of rounding, and at
+# random weights one bf16 ulp of the stem alone moves the logits by 8e-2
+# (phase 6)
+SERVE_BATCH1_CHECKS = 2
+# the pipeline_depth A/B (``phase_serving_pipeline``, not in ``main``): the
+# depths in turns, each a fresh engine over one bf16 model on this wire
+SERVE_PIPELINE_TURNS, SERVE_PIPELINE_WIRE = (2, 1, 1, 2), "f32"
+
+
+def _serve_pool(geo, wire: str, seed: int) -> list:
+    """SERVE_POOL seeded requests of ``wire`` at the geometry's full size, each
+    (engine method, its arguments): 'compact' and 'sparse' the raw uint8
+    frame and count voxel (sparse: one cell at +300 and one at -301 in every
+    other request, past int8); 'f32' the host-normalized tensors; 'events' the
+    raw stream and the frame."""
+    import numpy as np
+
+    from frn_tpu_torch.data.transforms import normalize_rgb
+    from frn_tpu_torch.ops.voxelize import normalize_event_voxel_np, voxelize_events_np
+
+    rng = np.random.default_rng(seed)
+    pool = []
+    for i in range(SERVE_POOL):
+        rgb = rng.integers(0, 256, (geo.height, geo.width, 3), dtype=np.uint8)
+        x = rng.integers(0, geo.width, SERVE_EVENTS)
+        y = rng.integers(0, geo.height, SERVE_EVENTS)
+        t = 1_700_000_000_000 + np.sort(rng.integers(0, 50_000, SERVE_EVENTS))  # raw us timestamps
+        p = rng.integers(0, 2, SERVE_EVENTS)
+        if wire == "events":
+            pool.append(("submit_events", (x, y, t, p, rgb)))
+            continue
+        voxel = np.transpose(voxelize_events_np(x, y, t, p, geo.event_channels, geo.height,
+                                                geo.width), (1, 2, 0))
+        if wire == "sparse" and i % 2 == 0:
+            voxel[7, 9, 0], voxel[7, 9, 1] = 300.0, -301.0
+        if wire == "f32":
+            rgb = normalize_rgb(rgb.astype(np.float32) / 255.0, geo)
+            voxel = normalize_event_voxel_np(voxel)
+        pool.append(("submit", (rgb, voxel)))
+    return pool
+
+
+def _drive_clients(send, pool: list, clients: int, rounds: int):
+    """``clients`` threads, each sending ``rounds`` requests one after another
+    (``send(request)`` returns its latency in ms); returns (latencies, wall
+    seconds). Fails on any error."""
+    import threading
+
+    lat, errors, lock = [], [], threading.Lock()
+
+    def client(c):
+        for k in range(rounds):
+            try:
+                ms = send(pool[(c * rounds + k) % len(pool)])
+            except Exception as e:  # every future must resolve with a result
+                with lock:
+                    errors.append(repr(e))
+                return
+            with lock:
+                lat.append(ms)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    wall = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"serving: {len(errors)} of {clients * rounds} requests failed: {errors[:3]}")
+    return lat, wall
+
+
+def _drive_window(send, pool: list, clients: int):
+    """``clients`` closed-loop threads sending for SERVE_RAMP_S +
+    SERVE_BURST_S seconds; returns (the latencies of the requests completed
+    in the window after the ramp-up, (window start, window end) on the
+    perf_counter clock, requests sent in all). Fails on any error."""
+    import threading
+
+    done, errors, lock = [], [], threading.Lock()
+    t_lo = time.perf_counter() + SERVE_RAMP_S
+    t_hi = t_lo + SERVE_BURST_S
+
+    def client(c):
+        k = c
+        while time.perf_counter() < t_hi:
+            try:
+                ms = send(pool[k % len(pool)])
+            except Exception as e:  # every future must resolve with a result
+                with lock:
+                    errors.append(repr(e))
+                return
+            with lock:
+                done.append((time.perf_counter(), ms))
+            k += clients
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"serving: {len(errors)} of the burst's requests failed: {errors[:3]}")
+    return [ms for t, ms in done if t_lo <= t <= t_hi], (t_lo, t_hi), len(done)
+
+
+def _percentiles(lat) -> str:
+    import numpy as np
+
+    q = np.percentile(np.asarray(lat, np.float64), [50, 90, 99])
+    return f"p50 {q[0]:.2f} p90 {q[1]:.2f} p99 {q[2]:.2f} ms over {len(lat)} requests"
+
+
+def check_served_exact(label: str, engine, records) -> int:
+    """Each request of each recorded batch against the direct forward of the
+    same padded batch (``engine.wire_batch``, ``engine.device_program`` and
+    the host threshold and cap): scores, labels and boxes equal bit for bit.
+    Returns the requests checked."""
+    import numpy as np
+
+    thr = engine.options.score_threshold
+    cap = engine.options.max_detections or engine.config.eval.max_detections
+    checked = 0
+    for rec in records:
+        scores, labels, boxes = (x.cpu().numpy() for x in engine.device_program(
+            *engine.wire_batch(rec.requests, rec.bucket)))
+        for i, req in enumerate(rec.requests):
+            det = req.future.result(timeout=0)
+            keep = scores[i] > thr
+            want = (scores[i][keep][:cap], labels[i][keep][:cap], boxes[i][keep][:cap])
+            if not (det.batch_size == rec.bucket and all(
+                    np.array_equal(g, w) for g, w in zip((det.scores, det.labels, det.boxes), want))):
+                fail(f"serving ({label}): a request in a bucket of {rec.bucket} differs from the "
+                     f"direct forward of its padded batch")
+            checked += 1
+    return checked
+
+
+def check_served_batch1(label: str, engine, records, bf16: bool) -> None:
+    """SERVE_BATCH1_CHECKS requests that rode a bucket > 1: their logits and
+    deltas in the padded bucket against their batch-1 forward (the gate in
+    the comment at SERVE_BATCH1_CHECKS), beside the one-ulp witness; the
+    detections' agreement printed."""
+    model, eval_output = engine.infer_fn.model, engine.infer_fn.eval_output
+    done = 0
+    for rec in records:
+        if rec.bucket == 1 or done == SERVE_BATCH1_CHECKS:
+            continue
+        with torch.inference_mode():
+            rgb, voxel = engine.model_inputs(*engine.wire_batch(rec.requests, rec.bucket))
+            padded = model(rgb, voxel, eval_output=eval_output, train=False)
+            alone = model(rgb[:1], voxel[:1], eval_output=eval_output, train=False)
+            dt = torch.bfloat16 if bf16 else torch.float32
+            gen = torch.Generator(device=rgb.device).manual_seed(done)
+            x = rgb[:1].to(dt)
+            up = torch.nextafter(x, torch.full_like(x, math.inf))
+            half = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
+            nudged = torch.where(half, up, x).float()
+            witness = model(nudged, voxel[:1], eval_output=eval_output, train=False)
+        rel = max(((p[:1] - a).abs().max() / a.abs().max()).item() for p, a in zip(padded, alone))
+        wit = max(((w - a).abs().max() / a.abs().max()).item() for w, a in zip(witness, alone))
+        gate = max(MAIN_REL_TOL, 2 * wit) if bf16 else EVAL_F32_REL_TOL
+        det = rec.requests[0].future.result(timeout=0)
+        s1, l1, _ = (v[0].cpu().numpy() for v in engine.infer_fn(rgb[:1], voxel[:1]))
+        keep = s1 > engine.options.score_threshold
+        same = len(det.scores) == int(keep.sum()) and bool((det.labels == l1[keep]).all())
+        gap = float(abs(det.scores - s1[keep]).max()) if same and len(det.scores) else float("nan")
+        print(f"serving ({label}): a request in a bucket of {rec.bucket} vs alone: logits and "
+              f"deltas max|diff|/max|ref| {rel:.3e} (at most {gate:.1e}; one-ulp witness "
+              f"{wit:.3e}); detections {len(det.scores)} vs {int(keep.sum())}, labels "
+              f"{'equal' if same else 'differ'}, scores within {gap:.3e}", flush=True)
+        if not rel <= gate:
+            fail(f"serving ({label}): a request's outputs in a bucket of {rec.bucket} are "
+                 f"{rel:.3e} off its batch-1 forward")
+        done += 1
+    if done < SERVE_BATCH1_CHECKS:
+        fail(f"serving ({label}): only {done} batches rode a bucket > 1")
+
+
+def check_served_wire(label: str, engine, records, pool: list) -> None:
+    """The events and sparse wires on the card: the fullest recorded batch's
+    device count grid (``voxelize_events_batched``; ``voxel_from_sparse`` of
+    the uint16 deltas' bits) equal to the host's grid of each request,
+    exactly: the host voxelizer's of its raw stream (events), the voxel it
+    encoded, with its +-300 cells past int8 (sparse); the squashed grid the
+    model takes within WIRE_TANH_RTOL of the host squash, the standardized
+    RGB exact. A request's pool entry is found by its RGB array, which the
+    engine keeps as given (uint8)."""
+    import numpy as np
+
+    from frn_tpu_torch.data.transforms import normalize_rgb
+    from frn_tpu_torch.ops.voxelize import (normalize_event_voxel_np, voxel_from_sparse,
+                                            voxelize_events_batched, voxelize_events_np)
+
+    geo = engine.config.geometry
+    events = engine.options.wire_format == "events"
+    source = {id(a[-1] if events else a[0]): a for _, a in pool}
+    rec = max(records, key=lambda r: len(r.requests))
+    tensors = engine.wire_batch(rec.requests, rec.bucket)
+    with torch.inference_mode():
+        if events:
+            grid = voxelize_events_batched(*tensors[1:], num_bins=geo.event_channels,
+                                           height=geo.height, width=geo.width)
+        else:
+            grid = torch.stack([voxel_from_sparse(d.int() & 0xFFFF, c, geo.event_channels,
+                                                  geo.height, geo.width).permute(1, 2, 0)
+                                for d, c in zip(*tensors[1:])])
+        rgb, voxel = (x.cpu().numpy() for x in engine.model_inputs(*tensors))
+    grid, big = grid.cpu().numpy(), 0.0
+    for i, req in enumerate(rec.requests):
+        a = source[id(req.rgb)]
+        if events:
+            host = np.transpose(voxelize_events_np(*a[:4], geo.event_channels, geo.height,
+                                                   geo.width), (1, 2, 0))
+        else:
+            host = a[1]
+        big = max(big, float(np.abs(host).max()))
+        if not np.array_equal(grid[i], host):
+            fail(f"serving ({label}): the device count grid of request {i} differs from the host's")
+        if not np.allclose(voxel[i], normalize_event_voxel_np(host), rtol=WIRE_TANH_RTOL, atol=0):
+            fail(f"serving ({label}): the squashed grid of request {i} is "
+                 f"{_ulps(voxel[i], normalize_event_voxel_np(host)):.1f} ulps off the host's")
+        if not np.array_equal(rgb[i], normalize_rgb(req.rgb.astype(np.float32) / 255.0, geo)):
+            fail(f"serving ({label}): the standardized RGB of request {i} differs from the host's")
+    print(f"serving ({label}): the device count grids of a batch of {len(rec.requests)} (bucket "
+          f"{rec.bucket}) equal the host's exactly (largest |count| {big:.0f}); squashed within "
+          f"{WIRE_TANH_RTOL:.0e}, RGB exact", flush=True)
+
+
+def _serve_sender(engine, pool: list, http=None):
+    """(send, requests): ``send(request)`` submits one request and returns its
+    latency in ms, submit to result; over HTTP (``http`` = (server, npz
+    bodies)) the client's wall time of its POST /infer."""
+    if http is not None:
+        return (lambda body: _http_infer(http[0], body)), http[1]
+    return (lambda req: getattr(engine, req[0])(*req[1]).result(timeout=120).latency_ms), pool
+
+
+def serve_wire(label: str, engine, pool: list, kernel_rows, want_per_batch: dict,
+               http=None) -> dict:
+    """One engine's traffic on the card, after its warm-up: SERVE_SINGLE
+    requests from one client at max_delay_ms 0, then a burst window (both
+    over HTTP through ``http`` = (server, npz bodies) when given), launch
+    counts zeroed just before and read just after (``want_per_batch``
+    launches a batch, nothing else), every future resolved; then the checks
+    (each request against the direct forward of its padded batch; batch-1
+    forwards; the wire's device decode), the breakdown and a profiled burst
+    for the idle share. Returns the printed numbers."""
+    import collections
+    import dataclasses as dc
+
+    import numpy as np
+
+    from frn_tpu_torch.serve.engine import request_wire_bytes
+
+    nbytes = request_wire_bytes(engine.config.geometry, engine.options)
+    send, requests = _serve_sender(engine, pool, http)
+    engine.record_batches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    delay = engine.options.max_delay_ms
+    engine.options = dc.replace(engine.options, max_delay_ms=0.0)
+    single, _ = _drive_clients(send, requests, 1, SERVE_SINGLE)
+    engine.options = dc.replace(engine.options, max_delay_ms=delay)
+    n_single = len(engine.batch_records())
+    burst, (t_lo, t_hi), sent = _drive_window(send, requests, SERVE_CLIENTS)
+    torch.cuda.synchronize()
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    records = engine.batch_records()
+    want = {**dict.fromkeys(_COUNTERS, 0),
+            **{k: v * len(records) for k, v in want_per_batch.items()}}
+    if counts != want:
+        fail(f"serving ({label}) launched {counts} over {len(records)} batches, expected {want}")
+    for k in want_per_batch:
+        kernel_rows[k]["launches"] += counts[k]
+    window = [r for r in records[n_single:] if t_lo <= r.t_dispatch <= t_hi]
+    fill = sum(len(r.requests) for r in window) / sum(r.bucket for r in window)
+    sizes = dict(sorted(collections.Counter(len(r.requests) for r in window).items()))
+    host_ms = [float(np.median([r.host_ms for r in part])) for part in (records[:n_single], window)]
+    rps = len(burst) / SERVE_BURST_S
+    print(f"serving ({label}) on {card_name_and_power_limit()}: h2d {nbytes} bytes per request; "
+          f"one client, max_delay_ms 0: {_percentiles(single)}; burst of {SERVE_CLIENTS} clients "
+          f"(max_delay_ms {delay:g}{', over HTTP' if http else ''}), the {SERVE_BURST_S:g} s after "
+          f"a {SERVE_RAMP_S:g} s ramp-up: {_percentiles(burst)}, {rps:.2f} requests/s, "
+          f"{len(window)} batches (requests: batches {sizes}), mean_batch_fill {fill:.3f} "
+          f"({sent} burst requests in all); the dispatcher's host ms per batch, median: "
+          f"{host_ms[0]:.2f} (one client), {host_ms[1]:.2f} (burst); peak memory {peak:.2f} GiB; "
+          f"launches {json.dumps({k: v for k, v in counts.items() if v})}", flush=True)
+    checked = check_served_exact(label, engine, records)
+    print(f"serving ({label}): {checked} requests in {len(records)} batches equal the direct "
+          f"forward of their padded batch bit for bit", flush=True)
+    check_served_batch1(label, engine, records, engine.config.model.compute_dtype == "bfloat16")
+    if engine.options.wire_format in ("events", "sparse"):
+        check_served_wire(label, engine, records, pool)
+    serve_breakdown(label, engine, records)
+    _, round_wall = _drive_clients(send, requests, SERVE_CLIENTS, SERVE_PROFILE_ROUNDS)
+    idle = profile_pass(
+        f"serving profile ({label}): a burst of {SERVE_CLIENTS} clients x {SERVE_PROFILE_ROUNDS}, "
+        f"idle share of its unprofiled {round_wall * 1e3:.1f} ms",
+        lambda: _drive_clients(send, requests, SERVE_CLIENTS, SERVE_PROFILE_ROUNDS),
+        round_wall * 1e3, n_ops=4, n_kernels=6)
+    stats = engine.stats()
+    if "truncated_cells" in stats and stats["truncated_cells"]:
+        fail(f"serving ({label}): {stats['truncated_cells']} cells truncated")
+    if "truncated_events" in stats and stats["truncated_events"]:
+        fail(f"serving ({label}): {stats['truncated_events']} events truncated")
+    p_single = np.percentile(single, [50, 99])
+    p_burst = np.percentile(burst, [50, 99])
+    return {"bytes": nbytes, "single_p50": p_single[0], "single_p99": p_single[1],
+            "burst_p50": p_burst[0], "burst_p99": p_burst[1], "rps": rps, "fill": fill,
+            "idle": idle, "peak_gib": peak}
+
+
+def serve_breakdown(label: str, engine, records) -> None:
+    """Where one dispatch's time goes, on a recorded batch at bucket 1 and at
+    its largest bucket: staging by the dispatcher's own host clock (its
+    median over the recorded batches of that bucket); then, rerun from the
+    batch's wire tensors with the dispatcher idle, ``model_inputs``, the
+    forward and the pooled decode + NMS (whose greedy fixpoint reads a flag
+    on the host every iteration), each by the host clock and by CUDA events
+    on the card, median of 3."""
+    from frn_tpu_torch.models.detector import decode_detections
+
+    fn = engine.infer_fn
+    by_bucket = {}
+    for rec in records:
+        by_bucket.setdefault(rec.bucket, []).append(rec)
+    for bucket in sorted({1, max(by_bucket)} & set(by_bucket)):
+        rec = by_bucket[bucket][0]
+        stage = statistics.median(r.stage_ms for r in by_bucket[bucket])
+        tensors = engine.wire_batch(rec.requests, bucket)
+        host, dev = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            marks, events = [time.perf_counter()], [torch.cuda.Event(enable_timing=True)]
+            events[0].record()
+
+            def mark():
+                marks.append(time.perf_counter())
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+
+            with torch.inference_mode():
+                rgb, voxel = engine.model_inputs(*tensors)
+                mark()
+                cls, reg = fn.model(rgb, voxel, eval_output=fn.eval_output, train=False)
+                mark()
+                decode_detections(cls, reg, fn.config, anchors=fn.anchors)
+                mark()
+            torch.cuda.synchronize()
+            host.append([(b - a) * 1e3 for a, b in zip(marks, marks[1:])])
+            dev.append([a.elapsed_time(b) for a, b in zip(events, events[1:])])
+        host = [statistics.median(x) for x in zip(*host)]
+        dev = [statistics.median(x) for x in zip(*dev)]
+        steps = ("wire decode", "forward", "decode + NMS")
+        print(f"serving breakdown ({label}), {len(rec.requests)} requests in a bucket of {bucket}: "
+              f"staging {stage:.2f} host ms (the dispatcher's, median of "
+              f"{len(by_bucket[bucket])}); host ms / device ms: "
+              + ", ".join(f"{n} {h:.2f} / {d:.2f}" for n, h, d in zip(steps, host, dev)),
+              flush=True)
+
+
+def _http_infer(server, body: bytes) -> float:
+    """POST one npz body to /infer; its client-side latency in ms."""
+    import urllib.request
+
+    host, port = server.address
+    t0 = time.perf_counter()
+    req = urllib.request.Request(f"http://{host}:{port}/infer", data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        out = json.loads(resp.read())
+    ms = (time.perf_counter() - t0) * 1e3
+    if resp.status != 200 or not isinstance(out.get("detections"), list):
+        fail(f"serving over HTTP: status {resp.status}, {str(out)[:200]}")
+    return ms
+
+
+def _http_checks(server) -> None:
+    """/healthz, /stats and a malformed /infer (400) on the CLI's server."""
+    import urllib.error
+    import urllib.request
+
+    host, port = server.address
+    with urllib.request.urlopen(f"http://{host}:{port}/healthz", timeout=30) as r:
+        if json.loads(r.read()) != {"ok": True}:
+            fail("serving over HTTP: /healthz")
+    with urllib.request.urlopen(f"http://{host}:{port}/stats", timeout=30) as r:
+        if "mean_batch_fill" not in json.loads(r.read()):
+            fail("serving over HTTP: /stats")
+    req = urllib.request.Request(f"http://{host}:{port}/infer", data=b"not an npz", method="POST")
+    try:
+        urllib.request.urlopen(req, timeout=30)
+        fail("serving over HTTP: a malformed /infer was answered")
+    except urllib.error.HTTPError as e:
+        if e.code != 400:
+            fail(f"serving over HTTP: a malformed /infer gave {e.code}, not 400")
+
+
+def _serve_model(inputs: dict, **model_kw):
+    """Fusion ResNet-50 at DSEC's full width with phase 8's seeded ``.pth``,
+    on the card; (model, config)."""
+    from frn_tpu_torch.config import DSEC, FrameworkConfig, ModelConfig
+    from frn_tpu_torch.convert import load_reference_checkpoint
+    from frn_tpu_torch.models.detector import init_detector
+
+    cfg = FrameworkConfig(geometry=DSEC, model=ModelConfig(
+        variant="fusion", depth=50, num_classes=3, **model_kw))
+    model = init_detector(cfg, seed=0)
+    load_reference_checkpoint(inputs["dsec_pth"], model)
+    return model, cfg
+
+
+def _wire_options(wire: str, **kw):
+    """ServeOptions of ``wire``: the sparse wire with SERVE_SPARSE_CELLS cells."""
+    from frn_tpu_torch.serve import ServeOptions
+
+    if wire == "sparse":
+        kw["cell_capacity"] = SERVE_SPARSE_CELLS
+    return ServeOptions(wire_format=wire, **kw)
+
+
+def phase_serving(kernel_rows, inputs: dict) -> None:
+    """Serving at full width (DSEC 480x640, fusion ResNet-50, feature size
+    256, 3 classes, the seeded DSEC ``.pth`` of phase 8). Through the CLI:
+    ``cli/serve.build_engine`` at its defaults (f32, the compact wire,
+    buckets 1-16), every bucket warmed up, behind ``DetectionServer`` on
+    loopback: /healthz, /stats, a malformed /infer (400), then its traffic
+    (``serve_wire``) over HTTP (B1 at f32 4 times a batch). Then engines over
+    one bf16 model on the f32, events and sparse wires (B1 4 times a batch),
+    and one ``--attention_quant int8_qk`` engine on the compact wire (B4 and
+    its pre-pass 4 times a batch)."""
+    import io
+
+    import numpy as np
+
+    from frn_tpu_torch.cli import serve as serve_cli
+    from frn_tpu_torch.config import DSEC
+    from frn_tpu_torch.serve import DetectionServer, ServingEngine
+
+    print(f"serving on {card_name_and_power_limit()}", flush=True)
+    started = time.perf_counter()
+
+    def mark(what):
+        print(f"[phase 11 at {time.perf_counter() - started:.1f} s] {what}", flush=True)
+
+    args = serve_cli.get_parser().parse_args(["--checkpoint", inputs["dsec_pth"], "--port", "0"])
+    engine, config = serve_cli.build_engine(args)
+    if (engine.options.wire_format, config.model.compute_dtype, engine.options.buckets) != (
+            "compact", "float32", (1, 2, 4, 8, 16)):
+        fail(f"serving: the CLI's defaults are {engine.options}, {config.model.compute_dtype}")
+    engine.start()
+    t0 = time.perf_counter()
+    engine.warmup()
+    mark(f"the CLI's engine warmed up, buckets {engine.options.buckets} "
+         f"({time.perf_counter() - t0:.1f} s)")
+    server = DetectionServer(engine, port=0, timeout_s=120).start_background()
+    results = {}
+    try:
+        _http_checks(server)
+        pool = _serve_pool(DSEC, "compact", seed=41)
+        payloads = []
+        for _, (rgb, voxel) in pool:
+            buf = io.BytesIO()
+            np.savez(buf, rgb=rgb, event=voxel.astype(np.int8))
+            payloads.append(buf.getvalue())
+        results["compact f32 (CLI)"] = serve_wire("compact wire, f32, the serve CLI", engine, pool,
+                                                  kernel_rows, {"flash_fwd_f32": 4},
+                                                  http=(server, payloads))
+    finally:
+        server.shutdown()
+        engine.stop()
+    del engine, server
+    torch.cuda.empty_cache()
+    mark("the CLI's engine served")
+
+    model, cfg = _serve_model(inputs, compute_dtype="bfloat16")
+    for wire in SERVE_BF16_WIRES:
+        eng = ServingEngine(model, cfg, _wire_options(wire))
+        with eng:
+            eng.warmup()
+            results[f"{wire} bf16"] = serve_wire(f"{wire} wire, bf16", eng,
+                                                 _serve_pool(DSEC, wire, seed=42), kernel_rows,
+                                                 {"flash_fwd": 4})
+        mark(f"the {wire} wire served at bf16")
+    del model, eng
+    model, cfg = _serve_model(inputs, compute_dtype="bfloat16", attention_quant="int8_qk")
+    with ServingEngine(model, cfg, _wire_options("compact")) as eng:
+        eng.warmup()
+        results["compact bf16 int8_qk"] = serve_wire(
+            "compact wire, bf16, int8_qk", eng, _serve_pool(DSEC, "compact", seed=43), kernel_rows,
+            {"flash_int8_qk": 4, "int8_qk_prepass": 4})
+    del model, eng
+    torch.cuda.empty_cache()
+    mark("the int8_qk engine served")
+    print("serving summary: " + json.dumps({k: {m: round(float(v), 3) for m, v in r.items()}
+                                            for k, r in results.items()}), flush=True)
+
+
+def phase_serving_pipeline(inputs: dict) -> None:
+    """``pipeline_depth`` 1 against 2 on the card: one bf16 model, engines on
+    SERVE_PIPELINE_WIRE in turns SERVE_PIPELINE_TURNS (a fresh engine each,
+    warmed up), each a burst window as phase 11's (``_drive_window``);
+    requests/s and latency per turn and the median per depth. Not run by
+    ``main``: a measurement of the completer's overlap, which the NMS's host
+    reads hold back (the module docstring gives its command)."""
+    import numpy as np
+
+    from frn_tpu_torch.config import DSEC
+    from frn_tpu_torch.serve import ServingEngine
+
+    model, cfg = _serve_model(inputs, compute_dtype="bfloat16")
+    pool = _serve_pool(DSEC, SERVE_PIPELINE_WIRE, seed=44)
+    by_depth = {}
+    for depth in SERVE_PIPELINE_TURNS:
+        with ServingEngine(model, cfg, _wire_options(SERVE_PIPELINE_WIRE,
+                                                     pipeline_depth=depth)) as eng:
+            eng.warmup()
+            eng.record_batches()
+            send, requests = _serve_sender(eng, pool)
+            burst, (t_lo, t_hi), _ = _drive_window(send, requests, SERVE_CLIENTS)
+            window = [r for r in eng.batch_records() if t_lo <= r.t_dispatch <= t_hi]
+        rps = len(burst) / SERVE_BURST_S
+        fill = sum(len(r.requests) for r in window) / sum(r.bucket for r in window)
+        host_ms = float(np.median([r.host_ms for r in window]))
+        by_depth.setdefault(depth, []).append(rps)
+        print(f"serving pipeline ({SERVE_PIPELINE_WIRE} wire, bf16) on "
+              f"{card_name_and_power_limit()}: pipeline_depth {depth}: {rps:.2f} requests/s, "
+              f"{_percentiles(burst)}, {len(window)} batches, fill {fill:.3f}, the dispatcher's "
+              f"host ms per batch, median {host_ms:.2f}", flush=True)
+    print("serving pipeline summary, requests/s by pipeline_depth: " + json.dumps(
+        {d: {"turns": [round(v, 3) for v in r], "median": round(statistics.median(r), 3)}
+         for d, r in sorted(by_depth.items())}), flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -3031,6 +3630,7 @@ def main(argv=None) -> None:
         phase_training(rows, inputs, root)
         phase_train_f32(rows, inputs, root)
         phase_dsec_det(rows, root)
+        phase_serving(rows, inputs)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,10 @@ interface, ``_build/<name>-<hash>.so``, where the hash covers the source, the
 shared headers ``csrc/*.cuh`` and the flags, so an edited source is rebuilt
 and a stale library never loads.
 Several sources build in parallel, one nvcc each. Nothing is built when the
-package is imported.
+package is imported. Builds are serialized by a lock: two threads that reach
+a kernel's first use at once (a serving engine's warm-up in the caller's
+thread and its dispatcher thread) run one nvcc, and the second loads what
+the first built.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
@@ -27,6 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+_BUILD_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -52,7 +57,13 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[Path, float, str]]:
 
     Returns {name: (library path, seconds, compiler log)}; a library that was
     already built reports 0 seconds and an empty log. Raises on a failed build.
+    One build runs at a time in a process.
     """
+    with _BUILD_LOCK:
+        return _build(names)
+
+
+def _build(names: Iterable[str]) -> Dict[str, Tuple[Path, float, str]]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out: Dict[str, Tuple[Path, float, str]] = {}
     procs = {}

@@ -141,6 +141,12 @@ def load_checkpoint_into_model(args, model) -> None:
 
         mgr = CheckpointManager(path)
         epoch = mgr.latest_epoch()
+        if epoch is None and any(name.isdigit() for name in os.listdir(path)):
+            raise ValueError(
+                f"{path} looks like an orbax checkpoint directory of frn_tpu (numbered "
+                "step folders): the port reads .pt/.pth files and its own checkpoint "
+                "directories; converting an orbax directory is not ported yet (ROADMAP "
+                "A16, convert_checkpoint)")
         if epoch is None:
             raise FileNotFoundError(f"no checkpoints in {path}")
         path = mgr.path(epoch)

@@ -18,7 +18,7 @@ import torch
 from frn_tpu_torch.config import FrameworkConfig
 from frn_tpu_torch.data.loader import BatchLoader, to_device
 from frn_tpu_torch.entry import InferenceFn
-from frn_tpu_torch.ops.voxelize import host_div, normalize_event_voxel_batched
+from frn_tpu_torch.ops.voxelize import wire_model_inputs
 
 WIRES = ("f32", "compact")
 
@@ -34,9 +34,6 @@ class EvalInferenceFn(InferenceFn):
         self.wire = wire
         self.rgb_standardize = rgb_standardize
         self.device = self.anchors.device
-        geo = config.geometry
-        self.rgb_mean = torch.tensor(geo.rgb_mean, dtype=torch.float32, device=self.device)
-        self.rgb_std = torch.tensor(geo.rgb_std, dtype=torch.float32, device=self.device)
 
     @torch.inference_mode()
     def __call__(self, rgb: torch.Tensor, event: torch.Tensor):
@@ -49,10 +46,8 @@ class EvalInferenceFn(InferenceFn):
                     f"wire='compact' expects uint8 RGB + int8 event voxels, got "
                     f"rgb={rgb.dtype} event={event.dtype}: pass a compact-wire "
                     "dataset or use wire='f32'")
-            rgb = host_div(rgb.float(), 255.0)  # rounded as the host divides
-            if self.rgb_standardize:
-                rgb = (rgb - self.rgb_mean) / self.rgb_std
-            event = normalize_event_voxel_batched(event.float())
+            rgb, event = wire_model_inputs("compact", self.config.geometry, (rgb, event),
+                                           standardize=self.rgb_standardize)
         elif not (rgb.is_floating_point() and event.is_floating_point()):
             raise TypeError(
                 f"wire='f32' got integer inputs (rgb={rgb.dtype}, event={event.dtype}): "

@@ -311,3 +311,42 @@ def normalize_event_voxel_np(voxel: np.ndarray, threshold: float = 5.0) -> np.nd
     if np.abs(voxel).max() > threshold:
         return np.tanh(voxel / threshold).astype(np.float32)
     return voxel
+
+
+_RGB_CONSTANTS: dict = {}  # (mean, std, device) -> the standardization's tensors
+
+
+def wire_model_inputs(wire: str, geometry, tensors, standardize: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A batch on an input wire, already on its device -> the model's f32
+    (rgb, event voxel), NHWC: the one device-side decode of the compact,
+    events and sparse wires, exactly the host pipeline's arithmetic.
+
+    ``tensors``: 'f32' (rgb, event), returned as they are; 'compact' (uint8
+    rgb, int8 count voxel); 'events' (uint8 rgb, x, y, t, p, n) as
+    ``voxelize_events_batched`` takes them; 'sparse' (uint8 rgb, deltas,
+    counts) with the uint16 deltas as the int16 of the same bits. The RGB is
+    divided by 255 as the host divides (``host_div``), then standardized with
+    the geometry's mean and std iff ``standardize``; the voxel gets the
+    per-sample tanh squash. Runs under the caller's grad mode."""
+    if wire == "f32":
+        return tensors[0], tensors[1]
+    rgb = host_div(tensors[0].float(), 255.0)
+    if standardize:
+        key = (tuple(geometry.rgb_mean), tuple(geometry.rgb_std), rgb.device)
+        if key not in _RGB_CONSTANTS:  # filled once per device, not copied per batch
+            _RGB_CONSTANTS[key] = tuple(torch.tensor(v, dtype=torch.float32, device=rgb.device)
+                                        for v in key[:2])
+        mean, std = _RGB_CONSTANTS[key]
+        rgb = (rgb - mean) / std
+    shape = dict(num_bins=geometry.event_channels, height=geometry.height, width=geometry.width)
+    if wire == "compact":
+        voxel = tensors[1].float()
+    elif wire == "events":
+        voxel = voxelize_events_batched(*tensors[1:6], **shape)
+    elif wire == "sparse":
+        voxel = torch.stack([voxel_from_sparse(d.int() & 0xFFFF, c, **shape).permute(1, 2, 0)
+                             for d, c in zip(tensors[1], tensors[2])])
+    else:
+        raise ValueError(f"unknown input wire {wire!r}")
+    return rgb, normalize_event_voxel_batched(voxel)

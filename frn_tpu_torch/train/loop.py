@@ -37,11 +37,7 @@ import torch
 from frn_tpu_torch.config import FrameworkConfig
 from frn_tpu_torch.data.loader import to_device
 from frn_tpu_torch.models.detector import FRNDetector, detection_loss, image_anchors, init_detector
-from frn_tpu_torch.ops.voxelize import (
-    host_div,
-    normalize_event_voxel_batched,
-    voxelize_events_batched,
-)
+from frn_tpu_torch.ops.voxelize import wire_model_inputs
 
 
 @dataclasses.dataclass
@@ -150,30 +146,15 @@ def make_batch_inputs(config: FrameworkConfig) -> Callable[[Dict], tuple]:
     'events' wires, uint8 RGB / 255 (then standardized iff
     ``input_rgb_standardize``); the event voxel from int8 counts ('compact')
     or from ``voxelize_events_batched`` ('events'), then the per-sample
-    conditional tanh squash."""
+    conditional tanh squash (``ops/voxelize.wire_model_inputs``)."""
     wire, geo = config.train.input_wire, config.geometry
     standardize = config.train.input_rgb_standardize
-    mean_std: Dict[torch.device, tuple] = {}  # copied to each device once
+    keys = {"f32": ("rgb", "event"), "compact": ("rgb", "event"),
+            "events": ("rgb", "event_x", "event_y", "event_t", "event_p", "event_n")}[wire]
 
     @torch.no_grad()
     def inputs(b: Dict) -> tuple:
-        if wire == "f32":
-            return b["rgb"], b["event"]
-        rgb = host_div(b["rgb"].float(), 255.0)
-        if standardize:
-            if rgb.device not in mean_std:
-                mean_std[rgb.device] = tuple(
-                    torch.tensor(v, dtype=torch.float32, device=rgb.device)
-                    for v in (geo.rgb_mean, geo.rgb_std))
-            mean, std = mean_std[rgb.device]
-            rgb = (rgb - mean) / std
-        if wire == "events":
-            event = voxelize_events_batched(
-                b["event_x"], b["event_y"], b["event_t"], b["event_p"], b["event_n"],
-                num_bins=geo.event_channels, height=geo.height, width=geo.width)
-        else:
-            event = b["event"].float()
-        return rgb, normalize_event_voxel_batched(event)
+        return wire_model_inputs(wire, geo, [b[k] for k in keys], standardize=standardize)
 
     return inputs
 

@@ -54,7 +54,10 @@ def test_importing_the_port_loads_no_jax():
                  "frn_tpu_torch.cli.train_ddd17", "frn_tpu_torch.train.trainer",
                  "frn_tpu_torch.data.loader", "frn_tpu_torch.data.events",
                  "frn_tpu_torch.data.dsec_det", "frn_tpu_torch.cli.train_dsec_det_fast",
-                 "frn_tpu_torch.cli.test_dsec_det"):
+                 "frn_tpu_torch.cli.test_dsec_det", "frn_tpu_torch.serve",
+                 "frn_tpu_torch.serve.engine", "frn_tpu_torch.serve.http",
+                 "frn_tpu_torch.cli.serve", "frn_tpu_torch.cli.visualize",
+                 "frn_tpu_torch.utils.visualization"):
         assert name in result["imported"]
 
 
