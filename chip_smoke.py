@@ -159,8 +159,35 @@ Phases:
      broken down (the dispatcher's staging; wire decode, forward, decode +
      NMS by the host clock and CUDA events); a profiled burst of
      SERVE_PROFILE_ROUNDS rounds for the idle share.
+ 12. the trainer's instruments and the host data layer at full width (DSEC
+     480x640, fusion ResNet-50, f32, phase 8's fixture and seeded ``.pth``):
+     the native host library built from ``frn_tpu_torch/native`` and loaded
+     (a failed build fails with g++'s message), its scatter equal to numpy's
+     bincount on NATIVE_EVENTS events, its subsampler equal to the Python
+     fallback, its tanh squash within NATIVE_TANH_ULPS of numpy's, host ms of
+     both voxelizations; ``cli.convert_checkpoint`` of the ``.pth`` into the
+     port's directory, loaded bit for bit; from it ``Trainer(metrics_path=...,
+     log_every=2).fit(1)`` at the train CLI's batch 2 over
+     INSTRUMENT_IMAGES images, launch counts zeroed just before and read just
+     after (B1-lse, B2a and B2b at f32 4 times a micro-step, nothing else),
+     finite losses, frn_tpu's JSONL keys and types, every batch that the
+     side-stream prefetch hands the step equal to the loader's host batch
+     (compared after the step, on the consumer's stream), the first
+     micro-step's loss equal to the same state's on a ``to_device`` batch;
+     ``profiling.trace`` over TRACED_STEPS micro-steps naming the three f32
+     training kernels, ``StepTimer.stats()`` beside CUDA events;
+     ``collect_detections`` through the prefetch against the current
+     stream's loop at DSEC f32, batch 8 (detections bit for bit; B1 at f32 4
+     times a batch, nothing else), both loops warm in turns with img/s and
+     idle share beside phase 8's (printed, not gated);
+     ``default_augmentations`` on a DSEC-sized raw event sample with its RGB
+     image, which imports no OpenCV (events in the frame, the image finite).
 
-Phases run in the order 1, 2, 5, 3, 6, 8, 4, 9, 10, 11, 7. Phase 11 alone
+Phases run in the order 1, 2, 5, 3, 6, 8, 4, 9, 10, 11, 12, 7. Phase 12 alone
+(31.3 s of a 63.3 s call after the build and the fixtures): ``python3 -c "import chip_smoke as c, tempfile, pathlib;
+c.phase_environment(); r = {k: {'launches': 0} for k in c._COUNTERS}; d =
+pathlib.Path(tempfile.mkdtemp()); c.phase_instruments(r, c.write_eval_inputs(d), d)"``.
+Phase 11 alone
 (about three minutes of a call after the build): ``python3 -c "import
 chip_smoke as c, tempfile, pathlib; c.phase_environment(); r = {k:
 {'launches': 0} for k in c._COUNTERS};
@@ -1782,6 +1809,9 @@ def phase_small_reference():
 # the corruption runs take one batch each
 EVAL_IMAGES, EVAL_SWEEP_IMAGES = 24, 8
 EVAL_SEVERITIES = (1, 5)
+# phase 8's warm eval loops, by configuration: (img/s, idle share), printed
+# again by phase 12 beside its own
+EVAL_WARM_LOOPS: dict = {}
 # the CLI's configurations: label, CLI entry (module), flags, launches per
 # batch of each kernel (every other kernel of the port: none)
 EVAL_CONFIGS = (
@@ -2107,9 +2137,10 @@ def phase_evaluation(kernel_rows, inputs: dict, root: Path) -> None:
               f"included), {EVAL_IMAGES / warm_s:.2f} img/s over the loop again warm ({loop_ms:.2f} "
               f"ms per batch); forward + decode + NMS {dev_ms:.2f} ms per batch (CUDA events), "
               f"{EVAL_BATCH * 1e3 / dev_ms:.1f} img/s; mAP {summary['mAP']:.4f}", flush=True)
-        profile_pass(f"evaluation profile ({label}): one batch of {EVAL_BATCH}, idle share of the "
-                     f"warm eval loop's ms per batch", lambda: infer(rgb, event), loop_ms, n_ops=8,
-                     n_kernels=8)
+        idle = profile_pass(f"evaluation profile ({label}): one batch of {EVAL_BATCH}, idle share "
+                            f"of the warm eval loop's ms per batch", lambda: infer(rgb, event),
+                            loop_ms, n_ops=8, n_kernels=8)
+        EVAL_WARM_LOOPS[label] = (EVAL_IMAGES / warm_s, idle)
         if label == "DSEC f32":
             check_rows_match_inference(ds, config, infer)
             check_f32_logits(infer.model, config, rgb, event, infer.eval_output)
@@ -3580,6 +3611,371 @@ def phase_serving_pipeline(inputs: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------ the trainer's instruments
+
+# phase 12: about a DSEC window of events for the native voxelizer (5 bins,
+# 480x640), a zoom-out's worth for the subsampler, the trainer's images (4
+# micro-steps at the train CLI's batch 2, logged every 2), the traced
+# micro-steps, the eval loop's turns (prefetched and current stream, in
+# turns P C C P) and the augmented samples
+NATIVE_EVENTS, SUBSAMPLE_EVENTS = 1_000_000, 20_000
+INSTRUMENT_IMAGES, INSTRUMENT_LOG_EVERY, TRACED_STEPS = 8, 2, 2
+PREFETCH_TURNS = ("prefetch", "current stream", "current stream", "prefetch")
+# the eval loop's turns run over phase 8's 24 images (3 batches, where
+# filling the prefetch is a third of the loop) and over this many (the 24
+# cycled), nearer a steady state
+PREFETCH_LONG_IMAGES = 64
+AUGMENT_SAMPLES = 4
+# frn_tpu's JSONL record of a log window: its keys in order and their JSON
+# types (every metric goes through float(), the step stays an int)
+METRICS_KEYS = ("step", "time", "epoch", "loss", "cls_loss", "reg_loss", "step_time_s")
+# the native tanh squash (tanhf of v * (1 / 5) in C++) against numpy's
+# tanh(v / 5): f32 ulps apart at most
+NATIVE_TANH_ULPS = 4
+# the f32 training kernels as the trace names them (B1-lse at f32 is the f32
+# forward's tiled kernel with its lse output)
+TRACE_KERNELS = ("flash_fwd_f32_tiled", "flash_bwd_dq_f32_tiled", "flash_bwd_dkv_f32_tiled")
+
+
+def _host_ms(fn, reps: int = 5):
+    """(median host ms of ``reps`` calls, the last call's result)."""
+    times, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def check_native_library():
+    """The native host library built from the port's own source and loaded
+    (a failed build fails the phase with g++'s message); its scatter against
+    numpy's bincount through ``voxelize_events_np`` on NATIVE_EVENTS events,
+    its subsampler against the Python fallback on SUBSAMPLE_EVENTS, exactly;
+    its tanh squash against numpy's within NATIVE_TANH_ULPS. Returns the
+    events (x, y, t, p) for the augmentations."""
+    from unittest import mock
+
+    import numpy as np
+
+    from frn_tpu_torch.data import augment
+    from frn_tpu_torch.ops import voxelize
+    from frn_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    path = native.build()
+    lib = native.get_lib()
+    if lib is None:
+        fail(f"native library {path} built but did not load")
+    print(f"native library: {path.relative_to(Path(__file__).resolve().parent)} "
+          f"({time.perf_counter() - t0:.2f} s to build or find, and load)", flush=True)
+    rng = np.random.default_rng(31)
+    x = rng.integers(0, 640, NATIVE_EVENTS).astype(np.uint16)
+    y = rng.integers(0, 480, NATIVE_EVENTS).astype(np.uint16)
+    t = np.sort(rng.integers(0, 50_000, NATIVE_EVENTS)).astype(np.int64)
+    p = rng.integers(0, 2, NATIVE_EVENTS).astype(np.int8)
+
+    def vox():
+        return voxelize.voxelize_events_np(x, y, t, p, 5, 480, 640)
+
+    native_ms, got = _host_ms(vox)
+    with mock.patch.object(voxelize, "native_voxelize", lambda *a, **k: None):
+        numpy_ms, want = _host_ms(vox)
+    if not np.array_equal(got, want) or not np.abs(got).sum():
+        fail("native voxelization differs from numpy's bincount")
+    print(f"native voxelization on {card_name_and_power_limit()}'s host: {NATIVE_EVENTS:,} events, "
+          f"5x480x640: native {native_ms:.2f} ms, numpy bincount {numpy_ms:.2f} ms (medians of 5, "
+          f"voxelize_events_np whole), grids equal", flush=True)
+
+    pos = np.stack([rng.uniform(0, 639, SUBSAMPLE_EVENTS),
+                    rng.uniform(0, 479, SUBSAMPLE_EVENTS)], 1).astype(np.float32)
+    pol = rng.choice([-1.0, 1.0], SUBSAMPLE_EVENTS).astype(np.float32)
+    sub_ms, (npos, nmask) = _host_ms(lambda: native.native_event_subsample(pos, pol, 480, 640), 3)
+    t0 = time.perf_counter()
+    ppos, pmask = augment._subsample_python(pos, pol, 480, 640)
+    py_ms = (time.perf_counter() - t0) * 1e3
+    if not (np.array_equal(nmask, pmask) and np.array_equal(npos, ppos) and 0 < nmask.sum()):
+        fail("native event subsampling differs from the Python fallback")
+    print(f"native event subsampling: {SUBSAMPLE_EVENTS:,} events, {int(nmask.sum()):,} kept, equal "
+          f"to the Python fallback; native {sub_ms:.2f} ms, Python {py_ms:.1f} ms", flush=True)
+
+    grid = (want * 3).astype(np.float32)  # past the threshold, so the squash applies
+    squashed = native.native_tanh_normalize(grid.copy())
+    ulps = _ulps(squashed, voxelize.normalize_event_voxel_np(grid))
+    print(f"native tanh squash against numpy's: at most {ulps:.1f} f32 ulps (gate "
+          f"{NATIVE_TANH_ULPS})", flush=True)
+    if not ulps <= NATIVE_TANH_ULPS:
+        fail(f"native tanh squash differs from numpy's by {ulps} ulps")
+    return x, y, t, p
+
+
+class _Cycled(_FirstImages):
+    """``count`` images that cycle through ``dataset``'s."""
+
+    def __getitem__(self, i):
+        return self.dataset[i % len(self.dataset)]
+
+
+def _collect_on_current_stream(dataset, infer, config):
+    """``collect_detections``' loop as it ran before the prefetch: each batch
+    copied by ``to_device`` on the current stream, then run."""
+    import numpy as np
+
+    from frn_tpu_torch.data.loader import BatchLoader, to_device
+    from frn_tpu_torch.eval.detections import _rows_to_host
+
+    loader = BatchLoader(dataset, config.geometry, batch_size=EVAL_BATCH, shuffle=False,
+                         num_threads=8, max_annots=1)
+    out, t0 = [], time.perf_counter()
+    for batch in loader:
+        n_valid = int(batch["sample_mask"].sum())
+        b = to_device({"rgb": batch["rgb"], "event": batch["event"]}, infer.device)
+        rows = _rows_to_host(*infer(b["rgb"], b["event"]))
+        for i in range(n_valid):
+            r = rows[i][rows[i, :, 4] > config.eval.score_threshold][:config.eval.max_detections]
+            out.append([np.ascontiguousarray(r[r[:, 5] == c, :5])
+                        for c in range(dataset.num_classes())])
+    return out, time.perf_counter() - t0
+
+
+def check_prefetched_eval(kernel_rows, inputs: dict) -> None:
+    """``collect_detections`` (prefetched) at the eval CLI's DSEC f32 setup
+    against the same loop on the current stream: detections bit for bit, B1
+    at f32 4 times a batch and nothing else; then both loops warm in turns
+    PREFETCH_TURNS over the dataset and over PREFETCH_LONG_IMAGES, img/s and
+    idle share (one profiled batch's device-busy ms over the loop's ms per
+    batch) beside phase 8's."""
+    import numpy as np
+
+    from frn_tpu_torch.eval.detections import collect_detections
+
+    _, ds, config, infer = eval_model(inputs, "dsec")
+    batches = -(-len(ds) // EVAL_BATCH)
+    torch.cuda.synchronize()
+    _reset_counts()
+    got, _ = collect_detections(ds, infer, config, batch_size=EVAL_BATCH)
+    torch.cuda.synchronize()
+    counts = _counts()
+    want = {**dict.fromkeys(_COUNTERS, 0), "flash_fwd_f32": 4 * batches}
+    if counts != want:
+        fail(f"prefetched evaluation launched {counts}, expected {want}")
+    kernel_rows["flash_fwd_f32"]["launches"] += counts["flash_fwd_f32"]
+    ref, _ = _collect_on_current_stream(ds, infer, config)
+    rows = sum(len(d) for per_image in ref for d in per_image)
+    if not rows or len(got) != len(ref) or not all(
+            np.array_equal(g, r) for gi, ri in zip(got, ref) for g, r in zip(gi, ri)):
+        fail("prefetched collect_detections differs from the current stream's loop")
+    print(f"prefetched evaluation (DSEC f32, {len(ds)} images, batch {EVAL_BATCH}): {rows} "
+          f"detections equal bit for bit to the current stream's loop; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}", flush=True)
+
+    rgb, event = first_batch(ds, config)
+    busy = None
+    for images in (len(ds), PREFETCH_LONG_IMAGES):
+        loop_ds = _Cycled(ds, images)
+        warm = {}
+        for turn in PREFETCH_TURNS:
+            if turn == "prefetch":
+                _, seconds = collect_detections(loop_ds, infer, config, batch_size=EVAL_BATCH)
+            else:
+                _, seconds = _collect_on_current_stream(loop_ds, infer, config)
+            warm.setdefault(turn, []).append(seconds)
+        loop_ms = {turn: 1e3 * statistics.mean(v) / -(-images // EVAL_BATCH)
+                   for turn, v in warm.items()}
+        if busy is None:  # one profiled batch: the device-busy ms of every loop
+            idle = profile_pass(
+                f"prefetched evaluation profile: one batch of {EVAL_BATCH}, idle share of the "
+                f"prefetched warm loop's ms per batch", lambda: infer(rgb, event),
+                loop_ms["prefetch"], n_ops=3, n_kernels=3)
+            busy = (1 - idle) * loop_ms["prefetch"]
+        for turn in ("prefetch", "current stream"):
+            print(f"warm DSEC f32 eval loop of {images} images on {card_name_and_power_limit()}, "
+                  f"{turn}: {images / statistics.mean(warm[turn]):.2f} img/s (turns "
+                  f"{', '.join(f'{images / v:.2f}' for v in warm[turn])}), {loop_ms[turn]:.2f} ms "
+                  f"per batch, idle share {1 - busy / loop_ms[turn]:.3f} (device busy {busy:.3f} ms "
+                  f"per batch)", flush=True)
+    if "DSEC f32" in EVAL_WARM_LOOPS:
+        img_s, phase8_idle = EVAL_WARM_LOOPS["DSEC f32"]
+        print(f"  phase 8 (cli.test's loop of {len(ds)} images, prefetched): {img_s:.2f} img/s, "
+              f"idle share {phase8_idle:.3f}", flush=True)
+    del infer, rgb, event
+    torch.cuda.empty_cache()
+
+
+def phase_instruments(kernel_rows, inputs: dict, root: Path) -> None:
+    """Phase 12: the trainer's instruments and the host data layer at full
+    width (DSEC 480x640, fusion ResNet-50, f32) on phase 8's fixture and
+    seeded ``.pth``: the native host library; ``cli.convert_checkpoint``
+    into the port's directory (bit for bit the ``.pth``'s weights); from
+    it ``Trainer(metrics_path=..., log_every=2).fit(1)`` at the train CLI's
+    batch 2 over INSTRUMENT_IMAGES images (launches counted; finite losses;
+    frn_tpu's JSONL keys and types; every prefetched batch equal to the
+    loader's host batch after its step, on the consumer's stream; the first
+    micro-step's loss equal to the same state's on a ``to_device`` batch);
+    ``profiling.trace`` around TRACED_STEPS micro-steps (the trace names the
+    three f32 training kernels; ``StepTimer`` beside CUDA events); the
+    prefetched evaluation against the current stream's; and
+    ``default_augmentations`` on a DSEC-sized raw event sample."""
+    import collections
+
+    import numpy as np
+
+    from frn_tpu_torch.cli import common, convert_checkpoint, train
+    from frn_tpu_torch.data.augment import default_augmentations
+    from frn_tpu_torch.data.loader import to_device
+    from frn_tpu_torch.train.checkpoint import CheckpointManager
+    from frn_tpu_torch.train.trainer import Trainer
+    from frn_tpu_torch.utils import profiling
+
+    started = time.perf_counter()
+    print(f"the trainer's instruments and the host data layer on {card_name_and_power_limit()}",
+          flush=True)
+    x, y, t, p = check_native_library()
+
+    # convert phase 8's seeded .pth into the port's checkpoint directory
+    converted = str(root / "converted")
+    t0 = time.perf_counter()
+    convert_checkpoint.main(["--torch_checkpoint", inputs["dsec_pth"], "--output", converted,
+                             "--dataset_name", "dsec", "--fusion", "fpn_fusion", "--depth", "50"])
+    pth = torch.load(inputs["dsec_pth"], map_location="cpu", weights_only=True)["model_state_dict"]
+    saved = torch.load(CheckpointManager(converted).path(0), map_location="cpu", weights_only=True)
+    if saved["source"] != inputs["dsec_pth"] or saved["epoch"] != 0:
+        fail(f"convert_checkpoint wrote source {saved['source']}, epoch {saved['epoch']}")
+    args = train.get_parser().parse_args(_train_cli_flags(inputs, "dsec", root, F32_TRAIN_BATCH))
+    args.checkpoint = converted  # cli.train --continue_training --checkpoint <dir>
+    device = common.setup_device(args)
+    ds = _FirstImages(common.build_csv_dataset(args, args.csv_train), INSTRUMENT_IMAGES)
+    cfg = common.build_config(args, ds.num_classes(), args.batch_size, args.epochs)
+    metrics_path = str(root / "instruments" / "metrics.jsonl")
+    trainer = Trainer(cfg, ds, device=device, metrics_path=metrics_path,
+                      log_every=INSTRUMENT_LOG_EVERY)
+    common.load_checkpoint_into_state(args, trainer.state)
+    weights = trainer.state.model.state_dict()
+    if sorted(weights) != sorted(pth) or not all(torch.equal(weights[k].cpu(), pth[k]) for k in pth):
+        fail("the weights loaded from convert_checkpoint's directory differ from the .pth's")
+    print(f"convert_checkpoint: {len(pth)} tensors of {inputs['dsec_pth']} into {converted}, "
+          f"loaded into the trainer bit for bit ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # fit, with each prefetched batch held against the loader's host batch
+    # after its step (on the consumer's stream) and each micro-step's loss kept
+    host_batches, seen, losses = collections.deque(), [], []
+    loader_fn, step_fn = trainer._loader, trainer.step_fn
+
+    def tee_loader():
+        for b in loader_fn():
+            host_batches.append({k: v.copy() for k, v in b.items()})
+            yield b
+
+    def checked_step(state, batch, generator):
+        out = step_fn(state, batch, generator)
+        host = host_batches.popleft()
+        seen.append(host)
+        for key, want in host.items():
+            got = batch[key]
+            if not (got.device.type == device.type and torch.equal(got.cpu(), torch.from_numpy(want))):
+                fail(f"prefetched batch {len(losses)} '{key}' differs from the loader's host batch")
+        losses.append(out["loss"])
+        return out
+
+    generator_state = trainer.generator.get_state()
+    trainer._loader, trainer.step_fn = tee_loader, checked_step
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    history = trainer.fit(1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = _counts()
+    trainer._loader, trainer.step_fn = loader_fn, step_fn
+    steps = INSTRUMENT_IMAGES // F32_TRAIN_BATCH
+    want = {**dict.fromkeys(_COUNTERS, 0), **dict.fromkeys(TRAIN_F32_KERNELS, 4 * steps)}
+    if counts != want:
+        fail(f"Trainer.fit (prefetched) launched {counts}, expected {want}")
+    for key in TRAIN_F32_KERNELS:
+        kernel_rows[key]["launches"] += counts[key]
+    losses = [v.item() for v in losses]
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses + history):
+        fail(f"Trainer.fit: micro-step losses {losses}, history {history}")
+    with open(metrics_path) as f:
+        records = [json.loads(line) for line in f]
+    types = [[type(r[k]).__name__ for k in METRICS_KEYS] for r in records]
+    if ([tuple(r) for r in records] != [METRICS_KEYS] * (steps // INSTRUMENT_LOG_EVERY)
+            or [r["step"] for r in records] != list(range(2, steps + 1, 2))
+            or any(ty != ["int"] + ["float"] * 6 for ty in types)
+            or any(r["epoch"] != 0.0 or r["loss"] != losses[r["step"] - 1] for r in records)):
+        fail(f"metrics JSONL records {records}")
+    print(f"Trainer(metrics_path=..., log_every={INSTRUMENT_LOG_EVERY}).fit(1), prefetched: {steps} "
+          f"micro-steps of batch {F32_TRAIN_BATCH} in {fit_s:.1f} s, losses "
+          f"{', '.join(f'{v:.3f}' for v in losses)}; every prefetched batch equal to its host batch; "
+          f"launches {json.dumps({k: v for k, v in counts.items() if v})}; JSONL: {records}",
+          flush=True)
+
+    # the first micro-step again, from the same state on a to_device batch
+    common.load_checkpoint_into_state(args, trainer.state)
+    trainer.generator.set_state(generator_state)
+    batch = to_device(seen[0], device)
+    again = trainer.step_fn(trainer.state, batch, trainer.generator)["loss"].item()
+    print(f"first micro-step's loss, prefetched {losses[0]!r}, to_device {again!r}", flush=True)
+    if again != losses[0]:
+        fail("the prefetched first micro-step's loss differs from the to_device one's")
+
+    # a trace of TRACED_STEPS micro-steps, timed by StepTimer and CUDA events
+    trace_dir = root / "instruments" / "trace"
+    timer, events = profiling.StepTimer(), []
+    torch.cuda.synchronize()
+    with profiling.trace(str(trace_dir)):
+        for _ in range(TRACED_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            timer.start()
+            start.record()
+            out = trainer.step_fn(trainer.state, batch, trainer.generator)
+            end.record()
+            timer.stop(out)
+            events.append((start, end))
+        torch.cuda.synchronize()
+    files = sorted(trace_dir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        fail(f"profiling.trace wrote {files}")
+    with open(files[0]) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
+    missing = [k for k in TRACE_KERNELS if not any(k in n for n in names)]
+    if missing:
+        fail(f"the trace names no {missing}: {sorted(names)[:20]}")
+    event_ms = [s.elapsed_time(e) for s, e in events]
+    print(f"profiling.trace over {TRACED_STEPS} micro-steps: {files[0].name}, "
+          f"{files[0].stat().st_size / 2**20:.1f} MiB, {len(names)} kernel names, "
+          f"{', '.join(TRACE_KERNELS)} among them; StepTimer.stats() {json.dumps(timer.stats())}; "
+          f"CUDA events {', '.join(f'{ms:.2f}' for ms in event_ms)} ms (under the profiler)",
+          flush=True)
+    del trainer, batch, out, weights, pth, saved
+    torch.cuda.empty_cache()
+
+    check_prefetched_eval(kernel_rows, inputs)
+
+    # the augmentations on a DSEC-sized raw event sample (they import no OpenCV)
+    rgb = ds[0]["rgb"]  # the dataset's f32 image, as the loader hands a transform
+    sample = {"x": x.astype(np.int64), "y": y.astype(np.int64), "t": t, "p": p, "rgb": rgb,
+              "annot": np.asarray([[100, 120, 300, 260, 0], [400, 50, 600, 200, 1]], np.float32)}
+    augment = default_augmentations(480, 640, seed=33)
+    for i in range(AUGMENT_SAMPLES):
+        t0 = time.perf_counter()
+        out = augment(dict(sample))
+        ms = (time.perf_counter() - t0) * 1e3
+        inside = ((out["x"] >= 0) & (out["x"] < 640) & (out["y"] >= 0) & (out["y"] < 480)).all()
+        if not (inside and out["rgb"].shape == rgb.shape and np.isfinite(out["rgb"]).all()):
+            fail(f"augmented sample {i}: events outside the frame or the image not finite")
+        print(f"default_augmentations sample {i}: {len(out['x']):,} of {len(x):,} events kept, "
+              f"{len(out['annot'])} boxes, {ms:.1f} ms on the host", flush=True)
+    try:  # the augmentations import no OpenCV (tests/test_torch_imports.py); is it here?
+        import cv2
+        opencv = f"OpenCV {cv2.__version__} is installed, unused by the augmentations"
+    except ImportError:
+        opencv = "no OpenCV on this machine"
+    print(f"default_augmentations: {opencv}", flush=True)
+    print(f"phase 12 (the trainer's instruments and the host data layer) on "
+          f"{card_name_and_power_limit()}: {time.perf_counter() - started:.1f} s", flush=True)
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -3631,6 +4027,7 @@ def main(argv=None) -> None:
         phase_train_f32(rows, inputs, root)
         phase_dsec_det(rows, root)
         phase_serving(rows, inputs)
+        phase_instruments(rows, inputs, root)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

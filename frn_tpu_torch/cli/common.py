@@ -145,8 +145,8 @@ def load_checkpoint_into_model(args, model) -> None:
             raise ValueError(
                 f"{path} looks like an orbax checkpoint directory of frn_tpu (numbered "
                 "step folders): the port reads .pt/.pth files and its own checkpoint "
-                "directories; converting an orbax directory is not ported yet (ROADMAP "
-                "A16, convert_checkpoint)")
+                "directories (cli.convert_checkpoint writes one from a .pt); an orbax "
+                "directory is not read, since reading it needs orbax")
         if epoch is None:
             raise FileNotFoundError(f"no checkpoints in {path}")
         path = mgr.path(epoch)

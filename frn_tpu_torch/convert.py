@@ -17,12 +17,14 @@ Module paths map to the reference's torch names: ``rgb_backbone/layer1_0/...``
 ``fus.0``; flax's inner ``Conv_0`` level is dropped.
 
 ``load_reference_checkpoint`` reads the reference trainer's ``.pth`` files
-(or the port's own checkpoints), whose keys are already the port's.
+(or the port's own checkpoints), whose keys are already the port's, and
+``imagenet_backbone_init`` fills a model from a torchvision ResNet state
+dict with ``strict=False`` semantics.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,3 +117,48 @@ def load_reference_checkpoint(path: str, model: Optional[torch.nn.Module] = None
     if model is not None:
         model.load_state_dict(out, strict=True)
     return out
+
+
+def imagenet_backbone_init(torch_sd: Dict[str, Any], model: torch.nn.Module
+                           ) -> Dict[str, List[str]]:
+    """Out-of-the-box ImageNet-pretrained initialization (model.py:690-701),
+    in place; counterpart of
+    ``frn_tpu/convert/torch_import.py::imagenet_backbone_init``.
+
+    The reference's ``model.load_state_dict(torchvision_resnet_sd,
+    strict=False)`` (model.py:700): every parameter or buffer of ``model``
+    whose name is in ``torch_sd`` is filled. For 'fusion'/'rgb' that is the
+    3-channel RGB stem and all four RGB stages (conv1/bn1/layer1..4 match
+    torchvision's names), while the event stem and backbone (*_event names),
+    the fusion blocks, the FPN and the heads keep their current values.
+    Unknown keys (fc.*) are ignored; a present key of another shape raises
+    ``ValueError``, as torch does even under strict=False (the 'event'
+    variant's 5-channel conv1 therefore cannot take ImageNet weights, as in
+    the reference).
+
+    Recipe (given torchvision resnet50 weights at PATH):
+        sd = load_reference_checkpoint(PATH)
+        model = init_detector(cfg, seed=0, device=...)
+        report = imagenet_backbone_init(sd, model)
+
+    Returns the report: 'filled' (names copied, sorted), 'left_at_init' (the
+    model's names not in the state dict) and 'ignored' (keys of the state
+    dict with no target, e.g. fc.*; BatchNorm's num_batches_tracked is
+    neither).
+    """
+    targets = model.state_dict()
+    for name, value in torch_sd.items():
+        if name in targets and tuple(np.shape(value)) != tuple(targets[name].shape):
+            raise ValueError(f"{name}: shape {tuple(np.shape(value))} != the model's "
+                             f"{tuple(targets[name].shape)}")
+    filled = sorted(name for name in targets if name in torch_sd)
+    with torch.no_grad():
+        for name in filled:
+            value = torch_sd[name]
+            value = value if isinstance(value, torch.Tensor) else torch.from_numpy(np.asarray(value))
+            targets[name].copy_(value)
+    return {
+        "filled": filled,
+        "left_at_init": [name for name in targets if name not in torch_sd],
+        "ignored": [k for k in torch_sd if k not in targets and "num_batches_tracked" not in k],
+    }

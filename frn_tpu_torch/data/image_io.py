@@ -9,7 +9,8 @@ reduces it for OpenCV (``png_set_rgb_to_gray`` with 0.299 and 0.587: the
 15-bit fixed-point weights 9797, 19234 and 3737 over R, G and B, truncated,
 and a pixel whose three values are equal kept as it is). A file that is
 missing raises ``FileNotFoundError`` (``cv2.imread`` returns None); a PNG of
-another kind (palette, 16-bit, interlaced) raises ``ValueError``.
+another kind (palette, 16-bit, interlaced) raises ``ValueError``, and so does
+a JPEG, with a message that names the limitation.
 
 ``imwrite`` writes uint8 (H, W) gray, or (H, W, C) with C 1, 3 (BGR) or 4
 (BGRA), as ``cv2.imwrite`` does; every row takes the same filter
@@ -28,11 +29,15 @@ IMREAD_COLOR = 1
 IMREAD_GRAYSCALE = 0
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_JPEG_SIGNATURE = b"\xff\xd8\xff"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # color type -> samples per pixel
 _GRAY_WEIGHTS = (9797, 19234, 3737)  # R, G, B in 1/32768
 
 
 def _chunks(data: bytes, path: str):
+    if data[:3] == _JPEG_SIGNATURE:
+        raise ValueError(f"{path}: a JPEG file; this reader decodes PNG only (the JAX package "
+                         "reads any format through OpenCV): convert the images to PNG")
     if data[:8] != _SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     pos = 8

@@ -2,9 +2,10 @@
 
 ``BatchLoader`` is a copy of the JAX package's: a thread pool loads
 samples (numpy work that releases the GIL), a producer thread
-collates fixed-shape batches into a bounded queue. ``to_device`` takes the
-place of ``device_prefetch``: it pins each host array and copies it to the
-card without blocking the host.
+collates fixed-shape batches into a bounded queue. ``to_device`` pins each
+host array and copies it to the card on the current stream without blocking
+the host; ``device_prefetch`` keeps ``size`` batches in flight ahead of
+their consumer, copied on a side stream.
 """
 
 from __future__ import annotations
@@ -158,3 +159,65 @@ def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
                 x = x.pin_memory()
         out[key] = x.to(device, non_blocking=True)
     return out
+
+
+def device_prefetch(iterator, size: int = 2, device=None):
+    """Overlap host batch production and the host-to-device copy with device
+    compute: ``size`` batches are copied ahead of the one the consumer holds
+    (counterpart of ``frn_tpu/data/loader.py::device_prefetch``; one device,
+    so no sharding).
+
+    On the card each batch is pinned and copied on a side CUDA stream, and an
+    event is recorded after its copies. Before a batch is yielded the
+    consumer's current stream waits on that event, and each tensor is
+    recorded on the consumer's stream (``record_stream``), so that the caching
+    allocator does not hand its blocks back to the side stream while the
+    consumer's kernels still read them. On the CPU it is ``to_device``, in
+    the same order and the same number ahead. A batch is a dict of numpy
+    arrays or tensors; ``device`` defaults to the card.
+    """
+    device = torch.device("cuda") if device is None else torch.device(device)
+    buf = collections.deque()
+    side = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def put(batch):
+        if side is None:
+            return to_device(batch, device), None
+        with torch.cuda.stream(side):
+            out = {k: _copy_ahead(x, device) for k, x in batch.items()}
+            done = torch.cuda.Event()
+            done.record(side)
+        return out, done
+
+    def hand_over(item):
+        out, done = item
+        if done is not None:
+            consumer = torch.cuda.current_stream(device)
+            consumer.wait_event(done)
+            for x in out.values():
+                x.record_stream(consumer)
+        return out
+
+    it = iter(iterator)
+    try:
+        for _ in range(size):
+            buf.append(put(next(it)))
+    except StopIteration:
+        pass
+    while buf:
+        out = buf.popleft()
+        try:
+            buf.append(put(next(it)))
+        except StopIteration:
+            pass
+        yield hand_over(out)
+
+
+def _copy_ahead(x, device) -> torch.Tensor:
+    """One array or tensor of a batch onto the card, from pinned memory, on
+    the current (side) stream."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    if x.device.type == "cpu" and not x.is_pinned():
+        x = x.pin_memory()
+    return x.to(device, non_blocking=True)

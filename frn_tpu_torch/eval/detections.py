@@ -9,6 +9,7 @@ buckets them per class, in place of the reference's per-image host loop
 
 from __future__ import annotations
 
+import collections
 import time
 from typing import Callable, List, Optional, Tuple
 
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from frn_tpu_torch.config import FrameworkConfig
-from frn_tpu_torch.data.loader import BatchLoader, to_device
+from frn_tpu_torch.data.loader import BatchLoader, device_prefetch
 from frn_tpu_torch.entry import InferenceFn
 from frn_tpu_torch.ops.voxelize import wire_model_inputs
 
@@ -115,8 +116,9 @@ def collect_detections(
     Detections are score-sorted (the device top-k emits descending order),
     matching the reference's per-image sort + top-100 (csv_eval.py:109-119).
     Batches are loaded by ``BatchLoader``'s threads and copied to
-    ``infer_fn.device`` (the CPU if it has none) by ``to_device``; each
-    batch's detections come back in one host copy.
+    ``infer_fn.device`` (the CPU if it has none) by ``device_prefetch``, two
+    ahead; each batch's count of real images stays on the host, and its
+    detections come back in one host copy.
     """
     num_classes = dataset.num_classes()
     cap = max_detections or config.eval.max_detections
@@ -133,13 +135,18 @@ def collect_detections(
         for _ in range(len(dataset))
     ]
 
+    n_valid: collections.deque = collections.deque()  # per batch, in the loader's order
+
+    def host_batches():
+        for batch in loader:
+            n_valid.append(int(batch["sample_mask"].sum()))
+            yield {"rgb": batch["rgb"], "event": batch["event"]}
+
     t0 = time.perf_counter()
     index = 0
-    for batch in loader:
-        n_valid = int(batch["sample_mask"].sum())
-        batch = to_device({"rgb": batch["rgb"], "event": batch["event"]}, device)
+    for batch in device_prefetch(host_batches(), size=2, device=device):
         rows = _rows_to_host(*infer_fn(batch["rgb"], batch["event"]))
-        for b in range(n_valid):
+        for b in range(n_valid.popleft()):
             keep = rows[b, :, 4] > thr
             r = rows[b][keep][:cap]
             dets, labels = r[:, :5], r[:, 5]

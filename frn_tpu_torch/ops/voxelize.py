@@ -1,9 +1,10 @@
 """Event-stream rasterization on the host and on the device, and the voxel-grid
 normalization.
 
-Counterpart of ``frn_tpu/ops/voxelize.py``: ``voxelize_events_np`` (numpy
-bincount; the JAX package may take a native C++ scatter instead, whose f32
-sums of +-1 are the same values), the other host encodings
+Counterpart of ``frn_tpu/ops/voxelize.py``: ``voxelize_events_np`` (the
+native C++ scatter of ``utils/native.py`` where it loads, else numpy
+bincount: f32 sums of +-1 in any order, the same values), the other host
+encodings
 (``event_representation_np``, the sparse-cell wire), the device voxelizers
 over padded static-shape streams (``voxelize_events``,
 ``voxelize_events_batched``, ``voxel_from_sparse``), and the conditional tanh
@@ -32,6 +33,8 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
+from frn_tpu_torch.utils.native import native_voxelize
+
 
 def voxelize_events_np(
     x: np.ndarray,
@@ -44,6 +47,7 @@ def voxelize_events_np(
 ) -> np.ndarray:
     """Host-side voxelization -> (num_bins, height, width) float32.
 
+    Uses the native C++ scatter kernel when available, else numpy bincount.
     ``p`` may be {0,1} or {-1,1}; anything > 0 counts +1, else -1
     (dsec_data.py:356).
     """
@@ -56,6 +60,12 @@ def voxelize_events_np(
     t_norm = (t - t[0]) / (t[-1] - t[0] + 1e-6)
     t_bin = np.clip((t_norm * (num_bins - 1)).astype(np.int64), 0, num_bins - 1)
     pol = (p > 0).astype(np.float32) * 2.0 - 1.0
+    out = native_voxelize(
+        x.astype(np.int32), y.astype(np.int32), t_bin.astype(np.int32), pol,
+        num_bins, height, width,
+    )
+    if out is not None:
+        return out
     lin = (t_bin * height + y.astype(np.int64)) * width + x.astype(np.int64)
     flat = np.bincount(lin, weights=pol, minlength=num_bins * height * width)
     return flat.astype(np.float32).reshape(num_bins, height, width)

@@ -5,8 +5,11 @@ per-epoch plateau schedule on the mean epoch loss, periodic checkpoints, and
 an optional periodic evaluation (``eval_fn(model, state) -> mAP`` every
 ``eval_every`` epochs) that saves the epoch's checkpoint, with ``best_map``
 in its metadata, whenever the mAP beats the best so far; on top of the train
-step. One device; the mesh, the metrics logger and the step timer of the JAX
-trainer are not ported yet (``metrics_path`` raises).
+step. Batches reach the step through ``device_prefetch`` (two ahead, copied
+on a side stream on the card). At each log window the trainer prints a line
+and writes a JSONL record to ``metrics_path`` (``utils/profiling``'s
+``MetricsLogger``: step, epoch, losses, step time), as the JAX trainer does.
+One device; the JAX trainer's mesh is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,11 +21,12 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from frn_tpu_torch.config import NOT_PORTED, FrameworkConfig
-from frn_tpu_torch.data.loader import BatchLoader
+from frn_tpu_torch.config import FrameworkConfig
+from frn_tpu_torch.data.loader import BatchLoader, device_prefetch
 from frn_tpu_torch.train.checkpoint import CheckpointManager
 from frn_tpu_torch.train.loop import create_train_state, make_train_step, set_learning_rate
 from frn_tpu_torch.train.plateau import ReduceLROnPlateau
+from frn_tpu_torch.utils.profiling import MetricsLogger, StepTimer
 
 
 class Trainer:
@@ -39,8 +43,6 @@ class Trainer:
         device=None,
         transform: Optional[Callable] = None,  # per-sample host augmentation
     ):
-        if metrics_path is not None:
-            raise NotImplementedError(f"Trainer(metrics_path=...): {NOT_PORTED}")
         self.config = config
         self.dataset = dataset
         self.transform = transform
@@ -62,6 +64,8 @@ class Trainer:
         self.generator = torch.Generator().manual_seed(seed + 1)  # modality dropout
         self.ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
         self.history: list = []
+        self.metrics = MetricsLogger(metrics_path)
+        self.timer = StepTimer()
 
     def resume(self) -> bool:
         """Restore the latest checkpoint if there is one."""
@@ -109,7 +113,8 @@ class Trainer:
                     loss_n += 1
             return dict(zip(keys, host[-1]))
 
-        for i, batch in enumerate(self._loader()):
+        device = self.state.params[0].device
+        for i, batch in enumerate(device_prefetch(iter(self._loader()), size=2, device=device)):
             metrics = self.step_fn(self.state, batch, self.generator)
             pending.append(metrics)
             if self.log_every and (i + 1) % self.log_every == 0:
@@ -123,6 +128,11 @@ class Trainer:
                     f"running {sum(self.loss_window) / len(self.loss_window):.5f} "
                     f"({dt * 1e3:.0f} ms/step)",
                     flush=True,
+                )
+                self.metrics.log(
+                    int(self.state.step), epoch=self.epoch,
+                    loss=last["loss"], cls_loss=last["cls_loss"],
+                    reg_loss=last["reg_loss"], step_time_s=dt,
                 )
         drain()
         return {

@@ -1,0 +1,172 @@
+"""ctypes loader for the native host kernels (``frn_tpu_torch/native/voxelize.cpp``).
+
+Counterpart of ``frn_tpu/utils/native.py``, over the port's own copy of the
+C++ source. The shared library is built on first use with g++ (a plain C ABI
+bound by ctypes, no binding library) into
+``frn_tpu_torch/_build/libfrn_native-<hash>.so``, where the hash covers the
+source and the flags, so an edited source is rebuilt and a stale library
+never loads. Each build writes a temporary file and renames it into place,
+so processes that reach the first use at once never load a half-written
+library. Every entry point returns None where the library is unavailable
+(no g++, or ``FRN_DISABLE_NATIVE`` set), and callers take their numpy path.
+These are host kernels: they run on the CPU beside the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+SOURCE = Path(__file__).resolve().parents[1] / "native" / "voxelize.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+GXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
+
+_lock = threading.Lock()
+_lib = None
+_tried = False
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"libfrn_native-{digest}.so"
+
+
+def build() -> Path:
+    """Compile the library if it is missing; returns its path. Raises
+    RuntimeError with g++'s own message if the build fails."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    try:
+        proc = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+                              capture_output=True, text=True, timeout=120)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise RuntimeError(f"g++ could not build {SOURCE.name}: {e}") from e
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ exit {proc.returncode} building {SOURCE.name}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def get_lib() -> Optional[ctypes.CDLL]:
+    global _lib, _tried
+    with _lock:
+        if _lib is not None or _tried:
+            return _lib
+        _tried = True
+        if os.environ.get("FRN_DISABLE_NATIVE"):
+            return None
+        try:
+            lib = ctypes.CDLL(str(build()))
+        except (RuntimeError, OSError):
+            return None
+        lib.frn_voxelize.argtypes = [
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float),
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_float),
+        ]
+        lib.frn_voxelize_raw.argtypes = [
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int8),
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_float),
+        ]
+        lib.frn_tanh_normalize.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_float,
+        ]
+        lib.frn_event_subsample.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
+            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_float),
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_float,
+        ]
+        _lib = lib
+        return _lib
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def native_voxelize(
+    x: np.ndarray, y: np.ndarray, t_bin: np.ndarray, pol: np.ndarray,
+    num_bins: int, height: int, width: int,
+) -> Optional[np.ndarray]:
+    """Scatter pre-binned events; returns None if the native lib is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    x = np.ascontiguousarray(x, np.int32)
+    y = np.ascontiguousarray(y, np.int32)
+    t_bin = np.ascontiguousarray(t_bin, np.int32)
+    pol = np.ascontiguousarray(pol, np.float32)
+    out = np.zeros(num_bins * height * width, dtype=np.float32)
+    lib.frn_voxelize(
+        _ptr(x, ctypes.c_int32), _ptr(y, ctypes.c_int32), _ptr(t_bin, ctypes.c_int32),
+        _ptr(pol, ctypes.c_float), len(x), num_bins, height, width,
+        _ptr(out, ctypes.c_float),
+    )
+    return out.reshape(num_bins, height, width)
+
+
+def native_voxelize_raw(
+    x: np.ndarray, y: np.ndarray, t: np.ndarray, p: np.ndarray,
+    num_bins: int, height: int, width: int,
+) -> Optional[np.ndarray]:
+    """Full raw-event pipeline (normalize + bin + scatter) in one native pass."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    x = np.ascontiguousarray(x, np.int32)
+    y = np.ascontiguousarray(y, np.int32)
+    t = np.ascontiguousarray(t, np.int64)
+    p = np.ascontiguousarray(p, np.int8)
+    out = np.zeros(num_bins * height * width, dtype=np.float32)
+    lib.frn_voxelize_raw(
+        _ptr(x, ctypes.c_int32), _ptr(y, ctypes.c_int32), _ptr(t, ctypes.c_int64),
+        _ptr(p, ctypes.c_int8), len(x), num_bins, height, width,
+        _ptr(out, ctypes.c_float),
+    )
+    return out.reshape(num_bins, height, width)
+
+
+def native_event_subsample(
+    pos: np.ndarray, polarity: np.ndarray, height: int, width: int,
+    threshold: float = 1.0,
+) -> Optional[tuple]:
+    """Bilinear event subsampling (zoom augmentation). Returns (pos, mask) or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    pos = np.ascontiguousarray(pos, np.float32).copy()
+    polarity = np.ascontiguousarray(polarity, np.float32)
+    mask = np.zeros(len(pos), np.uint8)
+    count = np.zeros(height * width, np.float32)
+    lib.frn_event_subsample(
+        _ptr(pos, ctypes.c_float), _ptr(polarity, ctypes.c_float),
+        _ptr(mask, ctypes.c_uint8), _ptr(count, ctypes.c_float),
+        len(pos), height, width, threshold,
+    )
+    return pos, mask.astype(bool)
+
+
+def native_tanh_normalize(v: np.ndarray, threshold: float = 5.0) -> Optional[np.ndarray]:
+    """In place tanh(v / threshold) where max|v| > threshold (on a contiguous
+    f32 copy if ``v`` is not one); None if the native lib is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    v = np.ascontiguousarray(v, np.float32)
+    lib.frn_tanh_normalize(_ptr(v, ctypes.c_float), v.size, threshold)
+    return v

@@ -57,7 +57,9 @@ def test_importing_the_port_loads_no_jax():
                  "frn_tpu_torch.cli.test_dsec_det", "frn_tpu_torch.serve",
                  "frn_tpu_torch.serve.engine", "frn_tpu_torch.serve.http",
                  "frn_tpu_torch.cli.serve", "frn_tpu_torch.cli.visualize",
-                 "frn_tpu_torch.utils.visualization"):
+                 "frn_tpu_torch.utils.visualization", "frn_tpu_torch.utils.profiling",
+                 "frn_tpu_torch.utils.native", "frn_tpu_torch.data.augment",
+                 "frn_tpu_torch.data.extra_datasets", "frn_tpu_torch.cli.convert_checkpoint"):
         assert name in result["imported"]
 
 
@@ -79,3 +81,30 @@ def test_forbidden_prefix_is_exact():
     # frn_tpu_torch itself is allowed; frn_tpu and its submodules are not
     assert not _is_forbidden("frn_tpu_torch.ops")
     assert _is_forbidden("frn_tpu.config") and _is_forbidden("jax.numpy") and _is_forbidden("flax")
+
+
+# the host data layer and the trainer's instruments run on the card's
+# machine whether or not it has OpenCV, and build from the port's own copy
+# of the native source
+NO_OPENCV = ("frn_tpu_torch/data/augment.py", "frn_tpu_torch/data/extra_datasets.py",
+             "frn_tpu_torch/data/loader.py", "frn_tpu_torch/utils/native.py",
+             "frn_tpu_torch/utils/profiling.py", "frn_tpu_torch/train/trainer.py",
+             "frn_tpu_torch/cli/convert_checkpoint.py")
+
+
+@pytest.mark.parametrize("relpath", NO_OPENCV)
+def test_data_layer_needs_no_opencv_and_no_native_dir(relpath):
+    source = (ROOT / relpath).read_text()
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            assert all(alias.name.split(".")[0] != "cv2" for alias in node.names), relpath
+        elif isinstance(node, ast.ImportFrom):
+            assert (node.module or "").split(".")[0] != "cv2", relpath
+    assert '"native"' not in source or relpath == "frn_tpu_torch/utils/native.py"
+
+
+def test_native_library_builds_from_the_ports_source():
+    from frn_tpu_torch.utils import native
+
+    assert native.SOURCE == ROOT / "frn_tpu_torch" / "native" / "voxelize.cpp"
+    assert native.BUILD_DIR == ROOT / "frn_tpu_torch" / "_build"

@@ -560,7 +560,8 @@ def test_build_engine_matches_jax(argv, torch_only, monkeypatch):
 
 def test_build_engine_loads_checkpoints(served, tmp_path):
     """--checkpoint: a reference .pth loads strictly; an orbax directory of
-    frn_tpu raises, naming the conversion that is not ported yet."""
+    frn_tpu raises, naming convert_checkpoint (which writes the port's
+    directory from a .pt)."""
     state = served["tmodel"].state_dict()
     pth = tmp_path / "model.pth"
     torch.save({"model_state_dict": {"module." + k: v for k, v in state.items()}}, pth)

@@ -380,8 +380,6 @@ def test_unported_train_options_raise():
         assert tconfig.TrainConfig(input_wire=wire).input_wire == wire
     with pytest.raises(ValueError):
         tconfig.TrainConfig(input_wire="png")
-    with pytest.raises(NotImplementedError):
-        Trainer(tiny_config(), [], device="cpu", metrics_path="m.jsonl")
 
 
 def test_batch_loader_shuffles_by_seed_and_drops_last():
