@@ -182,8 +182,32 @@ Phases:
      idle share beside phase 8's (printed, not gated);
      ``default_augmentations`` on a DSEC-sized raw event sample with its RGB
      image, which imports no OpenCV (events in the frame, the image finite).
+ 13. data parallelism on the one card, at full width (DSEC 480x640, fusion
+     ResNet-50, phase 8's fixture and seeded ``.pth``): the train CLI (f32,
+     batch 2, 2 micro-steps) under ``torch.distributed.run --nproc_per_node
+     1`` (NCCL at world size 1) and twice plainly (its backend nccl, its
+     first micro-step's loss bit-equal to a plain run's, its parameters
+     within PARALLEL_SPREAD_FACTOR of the plain runs' spread; B1-lse, B2a and
+     B2b at f32 4 times a micro-step); two gloo ranks sharing cuda:0
+     (``parallel.launch.run_ranks``), each the CLI's step on its row of the
+     global batch of 2 (each rank's launches, the all-reduced loss against
+     one process's batch-2 loss, the all-reduced gradients against the
+     mean of the rows' gradients under the phase-9 gate and against batch 2
+     beside a one-ulp witness; one all-reduce of the gradients timed);
+     evaluation over PARALLEL_REPLICAS replicas on cuda:0, DSEC bf16 at
+     batch 8 (each replica's rows bit-equal to the single device's forward
+     + decode + NMS of its block; against the whole batch beside a one-ulp
+     witness; the eval loop in turns with one model's, img/s and the host's
+     enqueue ms a batch, B1 4 times a batch a replica); serving, a bf16
+     engine on the compact wire over the replicas and over one model
+     (every request bit-equal to its replica's forward of its row block;
+     requests/s, p50/p99 and the dispatcher's host ms a batch of both).
 
-Phases run in the order 1, 2, 5, 3, 6, 8, 4, 9, 10, 11, 12, 7. Phase 12 alone
+Phases run in the order 1, 2, 5, 3, 6, 8, 4, 9, 10, 11, 12, 13, 7. Phase 13
+alone (81.5 s of a 123.8 s call after the build and the fixtures): ``python3
+-c "import chip_smoke as c, tempfile, pathlib; c.phase_environment(); r =
+{k: {'launches': 0} for k in c._COUNTERS}; d = pathlib.Path(tempfile.mkdtemp());
+c.phase_parallel(r, c.write_eval_inputs(d), d)"``. Phase 12 alone
 (31.3 s of a 63.3 s call after the build and the fixtures): ``python3 -c "import chip_smoke as c, tempfile, pathlib;
 c.phase_environment(); r = {k: {'launches': 0} for k in c._COUNTERS}; d =
 pathlib.Path(tempfile.mkdtemp()); c.phase_instruments(r, c.write_eval_inputs(d), d)"``.
@@ -3145,16 +3169,17 @@ def _drive_clients(send, pool: list, clients: int, rounds: int):
     return lat, wall
 
 
-def _drive_window(send, pool: list, clients: int):
-    """``clients`` closed-loop threads sending for SERVE_RAMP_S +
-    SERVE_BURST_S seconds; returns (the latencies of the requests completed
-    in the window after the ramp-up, (window start, window end) on the
-    perf_counter clock, requests sent in all). Fails on any error."""
+def _drive_window(send, pool: list, clients: int, ramp_s: float = SERVE_RAMP_S,
+                  burst_s: float = SERVE_BURST_S):
+    """``clients`` closed-loop threads sending for ``ramp_s`` + ``burst_s``
+    seconds; returns (the latencies of the requests completed in the window
+    after the ramp-up, (window start, window end) on the perf_counter clock,
+    requests sent in all). Fails on any error."""
     import threading
 
     done, errors, lock = [], [], threading.Lock()
-    t_lo = time.perf_counter() + SERVE_RAMP_S
-    t_hi = t_lo + SERVE_BURST_S
+    t_lo = time.perf_counter() + ramp_s
+    t_hi = t_lo + burst_s
 
     def client(c):
         k = c
@@ -3976,6 +4001,545 @@ def phase_instruments(kernel_rows, inputs: dict, root: Path) -> None:
           f"{card_name_and_power_limit()}: {time.perf_counter() - started:.1f} s", flush=True)
 
 
+# ------------------------------------------------------------ data parallelism (phase 13)
+
+# phase 13 runs on the one card: replicas of the model on cuda:0 for
+# evaluation and serving, and ranks sharing it for training. One card cannot
+# show scaling; it shows that the split, the replicas, the launcher and the
+# reduction are right
+PARALLEL_REPLICAS = 2
+# the data-parallel serving engine (bf16, the compact wire): lone requests at
+# max_delay_ms 0, then closed-loop clients for a ramp-up and a window
+PARALLEL_BUCKETS = (2, 4, 8, 16)
+PARALLEL_SINGLE, PARALLEL_CLIENTS, PARALLEL_RAMP_S, PARALLEL_BURST_S = 20, 8, 1.0, 2.0
+# the eval loops in turns, replicas against one model: "mesh" or "single"
+PARALLEL_EVAL_TURNS = ("single", "mesh", "mesh", "single")
+# the launcher's train runs: the train CLI at f32 batch 2 over the first
+# PARALLEL_TRAIN_IMAGES images of phase 8's DSEC fixture, 2 micro-steps (the
+# second ends the accumulation cycle: no Adam step between them, so both
+# micro-steps' losses are forward passes at the checkpoint's weights)
+PARALLEL_TRAIN_IMAGES = 4
+# the launched run's parameters after its Adam step against a plain run's,
+# max|diff| over all tensors, at most this many times the spread of two plain
+# runs (cuDNN's f32 weight gradients are not bit-reproducible, and the first
+# Adam step moves an element by about lr whatever its gradient's size, so a
+# tiny gradient whose sign is rounding noise moves it by up to 2 lr)
+PARALLEL_SPREAD_FACTOR = 4.0
+# the two gloo ranks' all-reduced loss against one process's batch-2 loss:
+# f32 sums in another order, and the batch-1 convolutions may take other
+# cuDNN algorithms than batch 2's
+PARALLEL_LOSS_RTOL = 1e-4
+# each child process of the phase (it builds and loads the full-width model),
+# and each collective of the gloo ranks, fails after this long
+PARALLEL_CHILD_TIMEOUT_S = 300
+# the probe a child process runs (``train_probe``), from the repo root
+_TRAIN_PROBE = "import chip_smoke; chip_smoke.train_probe()"
+
+
+def train_probe() -> None:
+    """The body of the phase's train-CLI child processes: ``cli.train.main``
+    on ``sys.argv[2:]``, recording each micro-step's loss, the process
+    group's backend and world size, and the launch counts of the run; writes
+    them to ``sys.argv[1] + '.json'`` and the parameters after the run to
+    ``sys.argv[1] + '.pt'``. Started by ``torch.distributed.run`` (torchrun)
+    or plainly."""
+    from frn_tpu_torch.cli import train
+    from frn_tpu_torch.train import trainer
+
+    out, argv = sys.argv[1], sys.argv[2:]
+    record = {"losses": []}
+    build_step = trainer.make_train_step
+
+    def recording_step(*args, **kwargs):
+        step = build_step(*args, **kwargs)
+
+        def run(state, batch, generator):
+            metrics = step(state, batch, generator)
+            dist = torch.distributed
+            record.update(losses=record["losses"] + [metrics["loss"].item()], state=state,
+                          backend=dist.get_backend() if dist.is_initialized() else None,
+                          world=dist.get_world_size() if dist.is_initialized() else 1)
+            return metrics
+
+        return run
+
+    trainer.make_train_step = recording_step
+    _reset_counts()
+    train.main(argv)
+    if torch.cuda.is_available():  # the run's kernels have ended (on the CPU: a rehearsal)
+        torch.cuda.synchronize()
+    state = record.pop("state")
+    record["launches"] = _counts()
+    torch.save({n: p.detach().cpu() for n, p in zip(state.names, state.params)}, out + ".pt")
+    with open(out + ".json", "w") as f:
+        json.dump(record, f)
+
+
+def _start_train_probe(label: str, argv: list, out: Path, launcher: bool):
+    """Starts ``train_probe`` in a child process, under torchrun with one
+    process (NCCL at world size 1) or plainly; (label, process, log path)."""
+    log = out.with_suffix(".log")
+    cmd = [sys.executable, "-c", _TRAIN_PROBE, str(out), *argv]
+    if launcher:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "--no-python", *cmd]
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                cwd=str(Path(__file__).resolve().parent))
+    return label, proc, log
+
+
+def _finish_train_probe(label: str, proc, log: Path, out: Path):
+    """Waits for a ``train_probe`` child (killed past PARALLEL_CHILD_TIMEOUT_S);
+    (its record, its parameters). Fails if it failed."""
+    try:
+        rc = proc.wait(timeout=PARALLEL_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed at the time limit"
+    if rc != 0:
+        fail(f"data-parallel training ({label}) exited {rc}:\n{log.read_text()[-4000:]}")
+    with open(str(out) + ".json") as f:
+        record = json.load(f)
+    return record, torch.load(str(out) + ".pt", weights_only=True)
+
+
+def _parallel_train_setup(pth: str, fixture: dict, device):
+    """The train CLI's f32 batch-2 configuration over ``fixture``: (config,
+    its model on ``device`` with ``pth``'s weights, the first global batch
+    as host arrays), built by the CLI's helpers."""
+    from frn_tpu_torch.cli import common, train
+    from frn_tpu_torch.data.collate import collate_fixed
+    from frn_tpu_torch.models.detector import init_detector
+
+    args = train.get_parser().parse_args(_train_cli_flags(
+        {"dsec": fixture, "dsec_pth": pth}, "dsec", Path("unused"), F32_TRAIN_BATCH))
+    common.setup_device(args)
+    ds = common.build_csv_dataset(args, args.csv_train)
+    cfg = common.build_config(args, ds.num_classes(), args.batch_size, args.epochs)
+    model = init_detector(cfg, seed=0, device=device)
+    common.load_checkpoint_into_model(args, model)
+    b = F32_TRAIN_BATCH
+    batch = collate_fixed([ds[i] for i in range(b)], cfg.geometry, cfg.train.max_annots_per_image, b)
+    return cfg, model, {k: batch[k] for k in ("rgb", "event", "annot")}
+
+
+def _first_step_acc(cfg, model, batch, seed: int = 1):
+    """One micro-step of the train step from ``model``'s weights (the
+    process group's, if one is initialized): (its metrics, the running
+    gradient sum it leaves, the state)."""
+    from frn_tpu_torch.train.loop import create_train_state, make_train_step
+
+    state = create_train_state(cfg, model=model)
+    metrics = make_train_step(cfg)(state, batch, torch.Generator().manual_seed(seed))
+    return metrics, state.acc_grads, state
+
+
+def _row_mean_acc(state, cfg, batch, seed: int = 1) -> list:
+    """What the all-reduce should leave after one micro-step: each row's
+    gradients alone (batch 1, as each rank computes them; the modality
+    dropout drawn from the step's seeded generator), their mean, clipped as
+    the step clips its running sum."""
+    from frn_tpu_torch.data.loader import to_device
+    from frn_tpu_torch.models.detector import detection_loss, draw_modality_drop
+    from frn_tpu_torch.train.loop import torch_clip_by_global_norm
+
+    drop = draw_modality_drop(torch.Generator().manual_seed(seed), cfg.model.modality_dropout)
+    rows = []
+    for i in range(F32_TRAIN_BATCH):
+        b = to_device({k: v[i: i + 1] for k, v in batch.items()}, state.params[0].device)
+        cls, reg = state.model(b["rgb"], b["event"], train=True, drop=drop)
+        rows.append(torch.autograd.grad(sum(detection_loss(cls, reg, b["annot"], cfg)),
+                                        state.params))
+    two = torch.tensor(float(F32_TRAIN_BATCH), device=state.params[0].device)
+    mean = [sum(gs) / two for gs in zip(*rows)]
+    torch_clip_by_global_norm(mean, cfg.train.grad_clip_norm)
+    return mean
+
+
+def parallel_gloo_rank(rank: int, pth: str, fixture: dict, out_dir: str) -> dict:
+    """One of two gloo ranks on cuda:0 (``run_ranks``): the train CLI's f32
+    step on its row of the global batch of 2, the gradients all-reduced;
+    rank 0 writes the running gradient sum to ``out_dir``. Returns its loss,
+    its launches, and the ms and bytes of one more ``all_reduce_mean_`` of
+    tensors the size of the gradients (median of 3, host clock ending in a
+    synchronize)."""
+    from frn_tpu_torch.parallel.mesh import all_reduce_mean_
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, model, batch = _parallel_train_setup(pth, fixture, torch.device("cuda", 0))
+    mine = {k: v[rank: rank + 1] for k, v in batch.items()}
+    torch.cuda.synchronize()
+    _reset_counts()
+    metrics, acc, _ = _first_step_acc(cfg, model, mine)
+    torch.cuda.synchronize()
+    counts = _counts()
+    if rank == 0:
+        torch.save([a.cpu() for a in acc], str(Path(out_dir) / "gloo_acc.pt"))
+    grads = [torch.zeros_like(a) for a in acc]
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce_mean_(grads)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"loss": metrics["loss"].item(), "skipped": metrics["skipped"].item(),
+            "backend": torch.distributed.get_backend(), "launches": counts,
+            "all_reduce_ms": statistics.median(times),
+            "all_reduce_bytes": sum(g.numel() * g.element_size() for g in grads)}
+
+
+def _subset_fixture(fixture: dict, images: int, path: Path) -> dict:
+    """``fixture`` with its annotations CSV cut to its first ``images`` images."""
+    keys, rows = [], []
+    for line in Path(fixture["annotations_csv"]).read_text().splitlines():
+        key = line.split(",")[0]
+        if key not in keys:
+            keys.append(key)
+        if len(keys) <= images:
+            rows.append(line)
+    path.write_text("\n".join(rows) + "\n")
+    return {**fixture, "annotations_csv": str(path)}
+
+
+def check_parallel_training(kernel_rows, inputs: dict, root: Path) -> dict:
+    """Training through the launcher and across ranks (see phase_parallel)."""
+    from frn_tpu_torch.parallel.launch import run_ranks
+
+    fixture = _subset_fixture(inputs["dsec"], PARALLEL_TRAIN_IMAGES, root / "dp_train.csv")
+    steps = PARALLEL_TRAIN_IMAGES // F32_TRAIN_BATCH
+    runs = {}
+    for label, launcher in (("torchrun", True), ("plain A", False), ("plain B", False)):
+        out = root / f"dp_{label.replace(' ', '_')}"
+        argv = _train_cli_flags({"dsec": fixture, "dsec_pth": inputs["dsec_pth"]}, "dsec", out,
+                                F32_TRAIN_BATCH)
+        runs[label] = (out, _start_train_probe(label, argv, out, launcher))
+
+    # meanwhile: two gloo ranks sharing cuda:0 against one process
+    t0 = time.perf_counter()
+    ranks = run_ranks(parallel_gloo_rank, 2, args=(inputs["dsec_pth"], fixture, str(root)),
+                      device="cuda:0", backend="gloo", timeout_s=PARALLEL_CHILD_TIMEOUT_S)
+    gloo_s = time.perf_counter() - t0
+    cfg, model, batch = _parallel_train_setup(inputs["dsec_pth"], fixture, torch.device("cuda"))
+    # no Adam step at the first micro-step (accum_steps 2): the weights stay
+    metrics, single, state = _first_step_acc(cfg, model, batch)
+    row_mean = _row_mean_acc(state, cfg, batch)
+    gen = torch.Generator().manual_seed(13)
+    rgb = torch.from_numpy(batch["rgb"])
+    half = torch.rand(rgb.shape, generator=gen) < 0.5
+    nudged = {**batch, "rgb": torch.where(half, torch.nextafter(rgb, torch.full_like(rgb, math.inf)),
+                                          rgb).numpy()}
+    _, witness, _ = _first_step_acc(cfg, model, nudged)
+    dp = [a.to(single[0].device) for a in torch.load(str(root / "gloo_acc.pt"), weights_only=True)]
+    loss = metrics["loss"].item()
+    gaps = {("gloo ranks", "the rows' mean"): _worst_grad_gap(state.names, dp, row_mean),
+            ("gloo ranks", "batch 2"): _worst_grad_gap(state.names, dp, single),
+            ("one ulp of the RGB input", "batch 2"): _worst_grad_gap(state.names, witness, single)}
+    for (label, ref), ((gap, name), bias_gap, norm_gap) in gaps.items():
+        print(f"data-parallel gradients (f32, global batch {F32_TRAIN_BATCH}), {label} vs one "
+              f"process's {ref}: worst tensor max|diff|/max|ref| {gap:.3e} ({name}); theta "
+              f"biases {bias_gap:.3e}; over all params {norm_gap:.3e}", flush=True)
+    rank_losses = [r["loss"] for r in ranks]
+    print(f"data-parallel training, 2 gloo ranks on cuda:0 ({gloo_s:.1f} s, spawn to join): "
+          f"losses {rank_losses} (all-reduced) against one process's {loss}; launches per rank "
+          f"{[{k: v for k, v in r['launches'].items() if v} for r in ranks]}; all_reduce_mean_ of "
+          f"the gradients' {ranks[0]['all_reduce_bytes']} bytes in one gloo collective: "
+          f"{[round(r['all_reduce_ms'], 2) for r in ranks]} ms (rank 0, rank 1)", flush=True)
+    want = {**dict.fromkeys(_COUNTERS, 0), **dict.fromkeys(TRAIN_F32_KERNELS, 4)}
+    if not (all(r["backend"] == "gloo" and r["skipped"] == 0.0 and r["launches"] == want
+                for r in ranks) and rank_losses[0] == rank_losses[1]
+            and abs(rank_losses[0] - loss) <= PARALLEL_LOSS_RTOL * abs(loss)):
+        fail(f"data-parallel training (gloo): ranks {ranks}, one process's loss {loss}")
+    # the split and the reduction: against the mean of the rows' gradients,
+    # each computed as its rank computes it, under the phase-9 gate; against
+    # batch 2 (whose convolutions sum over both images in another order)
+    # within the phase-9 gate or twice the one-ulp witness, the larger
+    (wit_gap, _), _, wit_norm = gaps[("one ulp of the RGB input", "batch 2")]
+    for ref, rel_tol, norm_tol in (
+            ("the rows' mean", F32_GRAD_REL_TOL, F32_GRAD_NORM_TOL),
+            ("batch 2", max(F32_GRAD_REL_TOL, 2 * wit_gap), max(F32_GRAD_NORM_TOL, 2 * wit_norm))):
+        (gap, name), bias_gap, norm_gap = gaps[("gloo ranks", ref)]
+        if not (gap <= rel_tol and bias_gap <= F32_GRAD_REL_TOL and norm_gap <= norm_tol):
+            fail(f"data-parallel gradients disagree with one process's {ref} ({gap:.3e} at "
+                 f"{name}, theta biases {bias_gap:.3e}, over all params {norm_gap:.3e}; gates "
+                 f"{rel_tol:.1e}, {norm_tol:.1e})")
+    for r in ranks:
+        for key in TRAIN_F32_KERNELS:
+            kernel_rows[key]["launches"] += r["launches"][key]
+    del model, state, single, witness, dp, row_mean
+    torch.cuda.empty_cache()
+
+    done = {label: _finish_train_probe(label, *probe[1:], out) for label, (out, probe) in
+            runs.items()}
+    (rec, params), (rec_a, params_a), (_, params_b) = (done[k] for k in
+                                                        ("torchrun", "plain A", "plain B"))
+
+    def max_gap(a, b):
+        return max((a[n] - b[n]).abs().max().item() for n in a)
+
+    gap, spread = max_gap(params, params_a), max_gap(params_b, params_a)
+    want = {**dict.fromkeys(_COUNTERS, 0), **dict.fromkeys(TRAIN_F32_KERNELS, 4 * steps)}
+    print(f"data-parallel training, the train CLI under torchrun --nproc_per_node 1: backend "
+          f"{rec['backend']}, world {rec['world']}; micro-step losses {rec['losses']} against the "
+          f"plain runs' {done['plain A'][0]['losses']}, {done['plain B'][0]['losses']}; "
+          f"parameters after {steps} micro-steps max|diff| {gap:.3e} from plain A, the plain "
+          f"runs' spread {spread:.3e}; launches {json.dumps({k: v for k, v in rec['launches'].items() if v})}",
+          flush=True)
+    if not (rec["backend"] == "nccl" and rec["world"] == 1 and rec_a["backend"] is None
+            and len(rec["losses"]) == steps and rec["losses"][0] == rec_a["losses"][0]
+            and rec["launches"] == want and gap <= PARALLEL_SPREAD_FACTOR * spread):
+        fail(f"data-parallel training (torchrun): {rec} against plain {rec_a}; parameters "
+             f"{gap:.3e} off, spread {spread:.3e}")
+    for key in TRAIN_F32_KERNELS:
+        kernel_rows[key]["launches"] += rec["launches"][key]
+    return {"gloo_s": gloo_s, "gloo_all_reduce_ms": ranks[0]["all_reduce_ms"],
+            "gloo_all_reduce_bytes": ranks[0]["all_reduce_bytes"],
+            "gloo_grad_gap_rows": gaps[("gloo ranks", "the rows' mean")][2],
+            "gloo_grad_gap_batch2": gaps[("gloo ranks", "batch 2")][2],
+            "witness_grad_gap": wit_norm, "torchrun_param_gap": gap,
+            "plain_param_spread": spread}
+
+
+def _forward_enqueue_ms(fns, blocks) -> float:
+    """Median host ms to enqueue every inference function's wire decode and
+    forward on its block (nothing waits on the device), over 3 runs."""
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for fn, (rgb, event) in zip(fns, blocks):
+            with torch.cuda.device(fn.device):
+                fn.forward(*fn.inputs(rgb, event))
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def check_parallel_evaluation(kernel_rows, inputs: dict, mesh) -> dict:
+    """Evaluation over replicas (see phase_parallel)."""
+    import numpy as np
+
+    from frn_tpu_torch.eval.detections import collect_detections, make_inference_fn
+
+    _, ds, config, single = eval_model(inputs, "dsec", "--compute_dtype", "bfloat16")
+    infer = make_inference_fn(single.model, config, mesh=mesh)
+    rgb, event = first_batch(ds, config)
+    got = [x.cpu().numpy() for x in infer(rgb, event)]
+    b = EVAL_BATCH // mesh.size
+    for i in range(mesh.size):
+        alone = [x.cpu().numpy() for x in single(rgb[i * b:(i + 1) * b], event[i * b:(i + 1) * b])]
+        if not all(np.array_equal(g[i * b:(i + 1) * b], a) for g, a in zip(got, alone)):
+            fail(f"data-parallel evaluation: replica {i}'s rows differ from the single device's "
+                 f"forward + decode + NMS of the same {b}-row block")
+    # against the whole batch on one model, beside one bf16 ulp of the input
+    whole = single.forward(rgb, event)
+    blocks = [infer.replicas[i].forward(rgb[i * b:(i + 1) * b], event[i * b:(i + 1) * b])
+              for i in range(mesh.size)]
+    x = rgb.to(torch.bfloat16)
+    half = torch.rand(x.shape, generator=torch.Generator(device=x.device).manual_seed(3),
+                      device=x.device) < 0.5
+    witness = single.forward(torch.where(half, torch.nextafter(x, torch.full_like(x, math.inf)),
+                                         x).float(), event)
+    rel = max(((torch.cat([o[k] for o in blocks]) - w).abs().max() / w.abs().max()).item()
+              for k, w in enumerate(whole))
+    wit = max(((v - w).abs().max() / w.abs().max()).item() for v, w in zip(witness, whole))
+    s8, l8, _ = (v.cpu().numpy() for v in single(rgb, event))
+    thr = config.eval.score_threshold
+    same = [int((s8[i] > thr).sum()) == int((got[0][i] > thr).sum())
+            and np.array_equal(l8[i][s8[i] > thr], got[1][i][got[0][i] > thr])
+            for i in range(EVAL_BATCH)]
+    gate = max(MAIN_REL_TOL, 2 * wit)
+    print(f"data-parallel evaluation (DSEC bf16, batch {EVAL_BATCH} over {mesh.size} replicas on "
+          f"{mesh.devices[0]}): each replica's rows equal the single device's forward + decode + "
+          f"NMS of its {b}-row block bit for bit; logits and deltas against the whole batch on one "
+          f"model max|diff|/max|ref| {rel:.3e} (at most {gate:.1e}; one-ulp witness {wit:.3e}); "
+          f"detections of {sum(same)} of {EVAL_BATCH} images equal in count and labels", flush=True)
+    if not rel <= gate:
+        fail(f"data-parallel evaluation: the replicas' outputs are {rel:.3e} off the whole batch's")
+
+    turns, launches = [], 0
+    batches = -(-len(ds) // EVAL_BATCH)
+    for turn in PARALLEL_EVAL_TURNS:
+        fn = infer if turn == "mesh" else single
+        torch.cuda.synchronize()
+        _reset_counts()
+        _, seconds = collect_detections(ds, fn, config, batch_size=EVAL_BATCH)
+        torch.cuda.synchronize()
+        counts = _counts()
+        per_batch = 4 * (mesh.size if turn == "mesh" else 1)
+        if counts != {**dict.fromkeys(_COUNTERS, 0), "flash_fwd": per_batch * batches}:
+            fail(f"data-parallel evaluation ({turn}) launched {counts}")
+        launches += counts["flash_fwd"]
+        turns.append((turn, len(ds) / seconds))
+    kernel_rows["flash_fwd"]["launches"] += launches
+    enqueue = {"single": _forward_enqueue_ms([single], [(rgb, event)]),
+               "mesh": _forward_enqueue_ms(infer.replicas, [
+                   (rgb[i * b:(i + 1) * b], event[i * b:(i + 1) * b]) for i in range(mesh.size)])}
+    rates = {k: statistics.median(r for t, r in turns if t == k) for k in ("single", "mesh")}
+    phase8 = EVAL_WARM_LOOPS.get("DSEC bf16")
+    print(f"data-parallel evaluation loop over {len(ds)} images, turns "
+          f"{', '.join(f'{t} {r:.2f}' for t, r in turns)} img/s; the host's enqueue of a batch's "
+          f"wire decode and forward {enqueue['mesh']:.2f} ms over {mesh.size} replicas against "
+          f"{enqueue['single']:.2f} ms on one model; phase 8's warm loop "
+          f"{f'{phase8[0]:.2f} img/s, idle {phase8[1]:.3f}' if phase8 else 'not run'}", flush=True)
+    return {"eval_img_s_mesh": rates["mesh"], "eval_img_s_single": rates["single"],
+            "enqueue_ms_mesh": enqueue["mesh"], "enqueue_ms_single": enqueue["single"]}
+
+
+def check_replica_blocks(engine, records) -> int:
+    """Each request of each recorded batch against its replica's direct
+    forward of its row block of the padded batch (``wire_batch``, the
+    replica's own ``model_inputs`` and inference function): scores, labels
+    and boxes equal bit for bit. Returns the requests checked."""
+    import numpy as np
+
+    from frn_tpu_torch.parallel.mesh import row_blocks
+
+    thr = engine.options.score_threshold
+    cap = engine.options.max_detections or engine.config.eval.max_detections
+    checked = 0
+    for rec in records:
+        wire = engine.wire_batch(rec.requests, rec.bucket)
+        for fn, rows in zip(engine.replica_fns, row_blocks(rec.bucket, engine.mesh.size)):
+            with torch.cuda.device(fn.device):
+                out = fn(*engine.model_inputs(*[t[rows].to(fn.device) for t in wire]))
+            scores, labels, boxes = (x.cpu().numpy() for x in out)
+            for j, req in enumerate(rec.requests[rows]):
+                det = req.future.result(timeout=0)
+                keep = scores[j] > thr
+                want = (scores[j][keep][:cap], labels[j][keep][:cap], boxes[j][keep][:cap])
+                if not all(np.array_equal(g, w) for g, w in
+                           zip((det.scores, det.labels, det.boxes), want)):
+                    fail(f"data-parallel serving: a request in a bucket of {rec.bucket} differs "
+                         f"from its replica's forward of its block")
+                checked += 1
+    return checked
+
+
+def _serve_turn(label: str, engine, pool: list, replicas: int) -> dict:
+    """PARALLEL_SINGLE lone requests at max_delay_ms 0, then PARALLEL_CLIENTS
+    closed-loop clients over a PARALLEL_BURST_S window, launch counts zeroed
+    just before and read just after (B1 4 times a batch a replica); the
+    numbers printed and returned, the records kept."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    send, requests = _serve_sender(engine, pool)
+    engine.record_batches()
+    torch.cuda.synchronize()
+    _reset_counts()
+    delay = engine.options.max_delay_ms
+    engine.options = dc.replace(engine.options, max_delay_ms=0.0)
+    single, _ = _drive_clients(send, requests, 1, PARALLEL_SINGLE)
+    engine.options = dc.replace(engine.options, max_delay_ms=delay)
+    n_single = len(engine.batch_records())
+    burst, (t_lo, t_hi), _ = _drive_window(send, requests, PARALLEL_CLIENTS,
+                                           ramp_s=PARALLEL_RAMP_S, burst_s=PARALLEL_BURST_S)
+    torch.cuda.synchronize()
+    counts = _counts()
+    records = engine.batch_records()
+    if counts != {**dict.fromkeys(_COUNTERS, 0), "flash_fwd": 4 * replicas * len(records)}:
+        fail(f"data-parallel serving ({label}) launched {counts} over {len(records)} batches")
+    window = [r for r in records[n_single:] if t_lo <= r.t_dispatch <= t_hi]
+    out = {"rps": len(burst) / PARALLEL_BURST_S,
+           "p50": float(np.percentile(burst, 50)), "p99": float(np.percentile(burst, 99)),
+           "single_p50": float(np.percentile(single, 50)),
+           "host_ms": float(np.median([r.host_ms for r in window])),
+           "fill": sum(len(r.requests) for r in window) / sum(r.bucket for r in window),
+           "launches": counts["flash_fwd"]}
+    print(f"data-parallel serving ({label}): one client {_percentiles(single)}; "
+          f"{PARALLEL_CLIENTS} clients, the {PARALLEL_BURST_S:g} s after a {PARALLEL_RAMP_S:g} s "
+          f"ramp-up: {_percentiles(burst)}, {out['rps']:.2f} requests/s, {len(window)} batches, "
+          f"fill {out['fill']:.3f}; the dispatcher's host ms per batch, median {out['host_ms']:.2f}",
+          flush=True)
+    return out, records
+
+
+def check_parallel_serving(kernel_rows, inputs: dict, mesh) -> dict:
+    """Serving over replicas (see phase_parallel)."""
+    from frn_tpu_torch.config import DSEC
+    from frn_tpu_torch.serve import ServingEngine
+
+    model, cfg = _serve_model(inputs, compute_dtype="bfloat16")
+    pool = _serve_pool(DSEC, "compact", seed=44)
+    results = {}
+    for label, m in (("replicas", mesh), ("one model", None)):
+        with ServingEngine(model, cfg, _wire_options("compact", buckets=PARALLEL_BUCKETS),
+                           mesh=m) as engine:
+            engine.warmup()
+            replicas = len(engine.replica_fns)
+            results[label], records = _serve_turn(
+                f"{label}, bf16, the compact wire, buckets {PARALLEL_BUCKETS}", engine, pool,
+                replicas)
+            kernel_rows["flash_fwd"]["launches"] += results[label]["launches"]
+            if m is not None:
+                checked = check_replica_blocks(engine, records)
+                print(f"data-parallel serving: {checked} requests in {len(records)} batches equal "
+                      f"their replica's forward of their row block bit for bit", flush=True)
+            else:
+                check_served_exact("one model", engine, records)
+    del model, engine
+    torch.cuda.empty_cache()
+    r, s = results["replicas"], results["one model"]
+    print(f"data-parallel serving, {mesh.size} replicas against one model: {r['rps']:.2f} against "
+          f"{s['rps']:.2f} requests/s, p50 {r['p50']:.2f} against {s['p50']:.2f} ms, p99 "
+          f"{r['p99']:.2f} against {s['p99']:.2f} ms, the dispatcher's host ms per batch "
+          f"{r['host_ms']:.2f} against {s['host_ms']:.2f}", flush=True)
+    return {f"serve_{k}_{'mesh' if label == 'replicas' else 'single'}": v
+            for label, res in results.items() for k, v in res.items() if k != "launches"}
+
+
+def phase_parallel(kernel_rows, inputs: dict, root: Path) -> None:
+    """Data parallelism on the one card, at full width (DSEC 480x640, fusion
+    ResNet-50, feature size 256, 3 classes, phase 8's fixtures and seeded
+    ``.pth``). Training first, while nothing else loads the card:
+
+      * the train CLI (f32, batch 2, the first PARALLEL_TRAIN_IMAGES images:
+        2 micro-steps) under ``torch.distributed.run --nproc_per_node 1``
+        (NCCL at world size 1) and twice plainly, at once in three processes
+        (``train_probe``): the launched run's backend is nccl, its first
+        micro-step's loss bit-equal to a plain run's, its parameters after
+        the 2 micro-steps within PARALLEL_SPREAD_FACTOR of the two plain
+        runs' spread, B1-lse, B2a and B2b at f32 4 times a micro-step;
+      * meanwhile two gloo ranks sharing cuda:0 (``parallel.launch.run_ranks``),
+        each the CLI's step on its row of the global batch of 2: each rank's
+        launches (B1-lse, B2a and B2b at f32 4 times, nothing else), the
+        all-reduced loss within PARALLEL_LOSS_RTOL of one process's batch-2
+        loss, the all-reduced gradient sum under the phase-9 gate
+        (F32_GRAD_REL_TOL, F32_GRAD_NORM_TOL) against one process's, beside
+        the gap that one f32 ulp of half the RGB input makes.
+
+    Then evaluation over PARALLEL_REPLICAS replicas on cuda:0, DSEC bf16 at
+    batch 8 through the CLI's helpers and ``make_inference_fn(mesh=...)``:
+    each replica's rows bit-equal to the single device's forward + decode +
+    NMS of its block; the logits and deltas against the whole batch on one
+    model, beside a one-ulp witness (another batch size may take another
+    cuDNN algorithm); ``collect_detections`` in turns PARALLEL_EVAL_TURNS (B1
+    4 times a batch a replica), img/s and the host's enqueue ms a batch beside
+    phase 8's. Last, serving: a bf16 engine on the compact wire, buckets
+    PARALLEL_BUCKETS, over the replicas and over one model, each
+    PARALLEL_SINGLE lone requests and a PARALLEL_BURST_S window of
+    PARALLEL_CLIENTS clients: every request of the replicas' engine
+    bit-equal to its replica's forward of its row block, requests/s, p50/p99
+    and the dispatcher's host ms a batch of both."""
+    from frn_tpu_torch.parallel import make_mesh
+
+    print(f"data parallelism on {card_name_and_power_limit()}", flush=True)
+    started = time.perf_counter()
+    mesh = make_mesh(devices=["cuda:0"] * PARALLEL_REPLICAS)
+    summary = check_parallel_training(kernel_rows, inputs, root)
+    print(f"[phase 13 at {time.perf_counter() - started:.1f} s] training checked", flush=True)
+    summary.update(check_parallel_evaluation(kernel_rows, inputs, mesh))
+    print(f"[phase 13 at {time.perf_counter() - started:.1f} s] evaluation checked", flush=True)
+    summary.update(check_parallel_serving(kernel_rows, inputs, mesh))
+    print(f"phase 13 (data parallelism) passed in {time.perf_counter() - started:.1f} s; summary "
+          f"{json.dumps({k: float(f'{v:.4g}') for k, v in summary.items()})}", flush=True)
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -4028,6 +4592,7 @@ def main(argv=None) -> None:
         phase_dsec_det(rows, root)
         phase_serving(rows, inputs)
         phase_instruments(rows, inputs, root)
+        phase_parallel(rows, inputs, root)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

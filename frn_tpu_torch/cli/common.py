@@ -9,14 +9,20 @@ the card by default (``device.resolve_device``), ``cpu`` on request.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 
 from frn_tpu_torch.config import FrameworkConfig, ModelConfig, TrainConfig, geometry_for
 from frn_tpu_torch.device import resolve_device
+from frn_tpu_torch.parallel.mesh import init_distributed, launched
+
+# a collective waits this long for a rank (rank 0's periodic evaluation
+# included) before the group fails
+TRAIN_COLLECTIVE_TIMEOUT_S = 1800.0
 
 FUSION_TO_VARIANT = {"fpn_fusion": "fusion", "rgb": "rgb", "event": "event"}
 
@@ -71,6 +77,24 @@ def setup_device(args) -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     return device
+
+
+@contextlib.contextmanager
+def train_device(args) -> Iterator[torch.device]:
+    """The train CLIs' device (``setup_device``). Started by ``torchrun
+    --nproc_per_node N -m frn_tpu_torch.cli.train ...``, each process joins
+    the process group for the run (NCCL on ``cuda:LOCAL_RANK``; gloo with
+    ``--device cpu``) and trains data-parallel; started plainly, one device."""
+    device = setup_device(args)
+    if not launched():
+        yield device
+        return
+    device = init_distributed(None if args.device is None else device,
+                              timeout_s=TRAIN_COLLECTIVE_TIMEOUT_S)
+    try:
+        yield device
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def geometry_from_args(args, num_classes: Optional[int] = None):

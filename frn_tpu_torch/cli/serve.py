@@ -13,8 +13,9 @@ of batch sizes, a bounded coalescing delay and a stdlib HTTP front end
 
 ``--checkpoint`` takes a reference ``.pt``/``.pth`` file or a checkpoint
 directory of the port's trainer; an orbax directory of ``frn_tpu`` raises
-(converting one is ROADMAP A16). ``--data_parallel`` over more than one
-card raises (ROADMAP A14); with one card it serves from that card.
+(converting one is ROADMAP A16). ``--data_parallel`` serves
+replicas on every visible card, each batch split over them (every bucket a
+multiple of the cards); with one card it serves from that card.
 """
 
 from __future__ import annotations
@@ -69,9 +70,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_warmup", action="store_true",
                    help="skip running every bucket at startup")
     p.add_argument("--data_parallel", action="store_true",
-                   help="serve replicas over all cards: with one visible card it "
-                   "serves from that card; with more it raises (not ported yet, "
-                   "ROADMAP A14)")
+                   help="serve replicas over all visible cards, each batch split "
+                   "over them (every bucket a multiple of the cards); with one "
+                   "card it serves from that card")
     return p
 
 
@@ -83,10 +84,11 @@ def build_engine(args):
     from frn_tpu_torch.serve import ServeOptions, ServingEngine
 
     device = setup_device(args)
+    mesh = None
     if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"--data_parallel over {torch.cuda.device_count()} cards is not ported yet "
-            "(ROADMAP A14); make one card visible (CUDA_VISIBLE_DEVICES)")
+        from frn_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh()
     geo = geometry_from_args(args, args.num_classes)
     config = FrameworkConfig(
         geometry=geo,
@@ -120,7 +122,7 @@ def build_engine(args):
         config, eval=dataclasses.replace(config.eval, score_threshold=min(
             config.eval.score_threshold, args.score_threshold))
     )
-    return ServingEngine(model, config, options), config
+    return ServingEngine(model, config, options, mesh=mesh), config
 
 
 def main(argv=None) -> int:

@@ -11,8 +11,10 @@ JAX entry point's flags and artifacts:
 
 Eight of the on-the-fly corruptions need OpenCV (``ops/corruption.py``);
 --corruption_root (pre-generated folders) needs none. --approx_topk and
---postprocess dense raise (not ported); --data_parallel over more than one
-card raises (A14).
+--postprocess dense raise (not ported). --data_parallel evaluates over every
+visible card, one replica on each and every batch split over them
+(``--batch_size`` a multiple of the cards); with one card, or on the CPU, it
+runs on that device, as ``frn_tpu`` does on one device.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from frn_tpu_torch.cli.common import (
     load_checkpoint_into_model,
     setup_device,
 )
+from frn_tpu_torch.parallel.mesh import make_mesh
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -55,9 +58,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--load_detection", action="store_true")
     p.add_argument(
         "--data_parallel", "--mesh_eval", action="store_true",
-        help="shard eval batches over all devices (reference wraps eval in "
-        "DataParallel, test_dsec.py:103-105): with one visible card it runs on "
-        "that card; with more it raises (not ported yet, ROADMAP A14)",
+        help="shard eval batches over all visible cards, one model replica on "
+        "each (reference wraps eval in DataParallel, test_dsec.py:103-105); "
+        "with one card it runs on that card",
     )
     p.add_argument(
         "--pr_curve_path", default=None,
@@ -112,15 +115,26 @@ def write_corruption_artifacts(results, class_names, folder) -> None:
         pickle.dump(results, f)
 
 
+def data_parallel_mesh(args, device):
+    """The mesh ``--data_parallel`` evaluates over: every visible card when
+    there are several (``--batch_size`` must be a multiple of them); None on
+    one card, on the CPU or without the flag."""
+    if not (args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1):
+        return None
+    mesh = make_mesh()
+    if args.batch_size % mesh.shape["data"] != 0:
+        raise SystemExit(
+            f"--batch_size {args.batch_size} must be a multiple of the "
+            f"data-axis size {mesh.shape['data']}"
+        )
+    return mesh
+
+
 def main(argv=None):
     args = get_parser().parse_args(argv)
     if args.csv_test is None:
         raise SystemExit("--csv_test is required for evaluation")
     device = setup_device(args)
-    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"--data_parallel over {torch.cuda.device_count()} cards is not ported yet "
-            "(ROADMAP A14); make one card visible (CUDA_VISIBLE_DEVICES)")
 
     dataset = build_csv_dataset(args, args.csv_test)
     config = build_config(args, dataset.num_classes(), args.batch_size)
@@ -142,7 +156,7 @@ def main(argv=None):
 
     model = init_detector(config, seed=0, device=device)
     load_checkpoint_into_model(args, model)
-    infer = make_inference_fn(model, config)
+    infer = make_inference_fn(model, config, mesh=data_parallel_mesh(args, device))
 
     os.makedirs(args.save_detect_folder, exist_ok=True)
     if args.eval_corruption:

@@ -6,6 +6,7 @@
     python -m frn_tpu_torch.cli.train_dsec ...                        # DSEC defaults
     python -m frn_tpu_torch.cli.train_ddd17 ...                       # DDD17 defaults
     ... --device cpu                                                  # on the CPU
+    torchrun --nproc_per_node 4 -m frn_tpu_torch.cli.train ...        # 4 cards, data-parallel
 
 Recipe per the reference: Adam lr 1e-4, grad clip 0.1, optimizer step every 2
 micro-batches, ReduceLROnPlateau(patience 3) on mean epoch loss, p=0.15 RGB
@@ -16,6 +17,10 @@ is parsed and, as in ``frn_tpu`` (whose ``build_config`` drops it), not
 passed on: checkpoints are saved every ``TrainConfig.checkpoint_every`` (5)
 epochs, at each new best mAP and at the end. ``--csv_test`` turns on the
 periodic evaluation (mAP every ``--eval_every`` epochs, at f32 by default).
+Under ``torchrun`` each process trains on its card, on its shard of every
+batch of ``--batch_size`` (a multiple of the processes), and rank 0 alone
+prints, evaluates and saves (``Trainer``); ``frn_tpu`` takes every device
+without a launcher.
 """
 
 from __future__ import annotations
@@ -29,8 +34,9 @@ from frn_tpu_torch.cli.common import (
     build_csv_dataset,
     load_checkpoint_into_state,
     make_eval_fn,
-    setup_device,
+    train_device,
 )
+from frn_tpu_torch.parallel.mesh import is_main
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -66,8 +72,11 @@ def get_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> list:
     """Trains; returns the per-epoch mean loss history."""
     args = get_parser().parse_args(argv)
-    device = setup_device(args)
+    with train_device(args) as device:
+        return _train(args, device)
 
+
+def _train(args, device) -> list:
     dataset = build_csv_dataset(args, args.csv_train)
     config = build_config(args, dataset.num_classes(), args.batch_size, args.epochs)
 
@@ -100,7 +109,8 @@ def main(argv=None) -> list:
             trainer.resume()
 
     history = trainer.fit(args.epochs)
-    print("final loss history:", [round(h, 4) for h in history[-5:]])
+    if is_main():
+        print("final loss history:", [round(h, 4) for h in history[-5:]])
     return history
 
 

@@ -6,6 +6,7 @@ train_dsec_det_fast.py).
     ... --wire events                  # raw event streams, voxelized on the card
     ... --debug_data                   # print 5 batches and exit
     ... --device cpu                   # on the CPU
+    torchrun --nproc_per_node 4 -m frn_tpu_torch.cli.train_dsec_det_fast ...  # data-parallel
 
 Trains directly from DSEC-Det sequence directories (event h5 + tracks.npy,
 which need ``h5py``), with the reference recipe: Adam lr 5e-5, grad clip 1.0,
@@ -13,15 +14,18 @@ an optimizer step every micro-batch, plateau factor 0.5, safe-step guards
 (non-finite or loss > 50: zero gradients), and with --split_yaml (pyyaml) an
 evaluation of the 'val' split every --eval_every epochs, keeping the best-mAP
 checkpoint. At the default ``--compute_dtype float32`` TF32 is off and the
-attention runs the f32 flash kernels on the card.
+attention runs the f32 flash kernels on the card. Under ``torchrun`` each
+process trains on its card and its shard of every batch, as ``cli/train.py``
+says.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from frn_tpu_torch.cli.common import FUSION_TO_VARIANT, add_model_args, make_eval_fn, setup_device
+from frn_tpu_torch.cli.common import FUSION_TO_VARIANT, add_model_args, make_eval_fn, train_device
 from frn_tpu_torch.config import DSEC_DET, FrameworkConfig, ModelConfig, TrainConfig
+from frn_tpu_torch.parallel.mesh import is_main
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -111,12 +115,16 @@ def print_debug_batches(args, train_ds, config) -> None:
 def main(argv=None):
     """Trains; returns the per-epoch mean loss history (0 after --debug_data)."""
     args = get_parser().parse_args(argv)
-    device = setup_device(args)
+    with train_device(args) as device:
+        return _train(args, device)
 
+
+def _train(args, device):
     train_ds = train_dataset(args)
     config = build_config(args, train_ds)
     if args.debug_data:
-        print_debug_batches(args, train_ds, config)
+        if is_main():
+            print_debug_batches(args, train_ds, config)
         return 0
 
     eval_fn = None

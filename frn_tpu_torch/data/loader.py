@@ -2,10 +2,11 @@
 
 ``BatchLoader`` is a copy of the JAX package's: a thread pool loads
 samples (numpy work that releases the GIL), a producer thread
-collates fixed-shape batches into a bounded queue. ``to_device`` pins each
-host array and copies it to the card on the current stream without blocking
-the host; ``device_prefetch`` keeps ``size`` batches in flight ahead of
-their consumer, copied on a side stream.
+collates fixed-shape batches into a bounded queue; under data-parallel
+training each rank loads only its shard of every global batch. ``to_device``
+pins each host array and copies it to the card on the current stream without
+blocking the host; ``device_prefetch`` keeps ``size`` batches in flight ahead
+of their consumer, copied on a side stream, or split over a mesh's devices.
 """
 
 from __future__ import annotations
@@ -14,13 +15,14 @@ import collections
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from frn_tpu_torch.config import DatasetGeometry
 from frn_tpu_torch.data.collate import collate_fixed
+from frn_tpu_torch.parallel.mesh import row_blocks
 
 
 class BatchLoader:
@@ -35,6 +37,11 @@ class BatchLoader:
       num_threads: sample-loading worker threads (0 = synchronous).
       transform: per-sample host augmentation (sample dict -> sample dict),
         applied as each sample is loaded, in the worker threads.
+      shard: (rank, world size) under data-parallel training: every rank
+        draws the same permutation and cuts the same global batches of
+        ``batch_size``, and loads and collates only its rows of each,
+        [rank * b, (rank + 1) * b) with b = batch_size / world size, so that
+        every rank takes the same number of steps. Needs ``drop_last``.
     """
 
     def __init__(
@@ -48,7 +55,14 @@ class BatchLoader:
         drop_last: bool = False,
         seed: int = 0,
         transform: Optional[Callable] = None,
+        shard: Tuple[int, int] = (0, 1),
     ):
+        size = shard[1]
+        if size > 1 and not drop_last:
+            raise ValueError("a sharded BatchLoader needs drop_last: every rank must take "
+                             "the same number of steps")
+        if batch_size % size:
+            raise ValueError(f"batch_size {batch_size} does not divide over {size} ranks")
         self.dataset = dataset
         self.geometry = geometry
         self.batch_size = batch_size
@@ -57,6 +71,7 @@ class BatchLoader:
         self.max_annots = max_annots
         self.drop_last = drop_last
         self.transform = transform
+        self.shard = shard
         self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
@@ -78,13 +93,18 @@ class BatchLoader:
         return s
 
     def _collate(self, samples) -> Dict[str, np.ndarray]:
-        return collate_fixed(samples, self.geometry, self.max_annots, self.batch_size)
+        return collate_fixed(samples, self.geometry, self.max_annots,
+                             self.batch_size // self.shard[1])
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         indices = self._epoch_indices()
         batches = [indices[i: i + self.batch_size] for i in range(0, len(indices), self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
+        rank, size = self.shard
+        if size > 1:
+            mine = row_blocks(self.batch_size, size)[rank]
+            batches = [b[mine] for b in batches]
 
         if self.num_threads <= 0:
             for b in batches:
@@ -161,11 +181,10 @@ def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def device_prefetch(iterator, size: int = 2, device=None):
+def device_prefetch(iterator, size: int = 2, device=None, mesh=None):
     """Overlap host batch production and the host-to-device copy with device
     compute: ``size`` batches are copied ahead of the one the consumer holds
-    (counterpart of ``frn_tpu/data/loader.py::device_prefetch``; one device,
-    so no sharding).
+    (counterpart of ``frn_tpu/data/loader.py::device_prefetch``).
 
     On the card each batch is pinned and copied on a side CUDA stream, and an
     event is recorded after its copies. Before a batch is yielded the
@@ -175,28 +194,47 @@ def device_prefetch(iterator, size: int = 2, device=None):
     consumer's kernels still read them. On the CPU it is ``to_device``, in
     the same order and the same number ahead. A batch is a dict of numpy
     arrays or tensors; ``device`` defaults to the card.
+
+    With ``mesh`` (``parallel.make_mesh``; ``frn_tpu``'s ``sharding=``) each
+    batch is split into the mesh's row blocks (``parallel.row_blocks``), each
+    block copied to its device on that device's side stream, and yielded as
+    ``shard_batch`` gives it: key -> list of blocks in mesh order.
     """
-    device = torch.device("cuda") if device is None else torch.device(device)
+    if mesh is None:
+        targets = [torch.device("cuda") if device is None else torch.device(device)]
+    else:
+        targets = list(mesh.devices)
+    sides = {d: torch.cuda.Stream(d) for d in targets if d.type == "cuda"}
     buf = collections.deque()
-    side = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     def put(batch):
-        if side is None:
-            return to_device(batch, device), None
-        with torch.cuda.stream(side):
-            out = {k: _copy_ahead(x, device) for k, x in batch.items()}
-            done = torch.cuda.Event()
-            done.record(side)
-        return out, done
+        if mesh is None:
+            parts = [batch]
+        else:
+            rows = {k: row_blocks(len(x), mesh.size) for k, x in batch.items()}
+            parts = [{k: x[rows[k][i]] for k, x in batch.items()} for i in range(mesh.size)]
+        placed = []
+        for d, part in zip(targets, parts):
+            if d.type != "cuda":
+                placed.append((d, to_device(part, d), None))
+                continue
+            with torch.cuda.stream(sides[d]):
+                out = {k: _copy_ahead(x, d) for k, x in part.items()}
+                done = torch.cuda.Event()
+                done.record(sides[d])
+            placed.append((d, out, done))
+        return placed
 
-    def hand_over(item):
-        out, done = item
-        if done is not None:
-            consumer = torch.cuda.current_stream(device)
-            consumer.wait_event(done)
-            for x in out.values():
-                x.record_stream(consumer)
-        return out
+    def hand_over(placed):
+        for d, out, done in placed:
+            if done is not None:
+                consumer = torch.cuda.current_stream(d)
+                consumer.wait_event(done)
+                for x in out.values():
+                    x.record_stream(consumer)
+        if mesh is None:
+            return placed[0][1]
+        return {k: [out[k] for _, out, _ in placed] for k in placed[0][1]}
 
     it = iter(iterator)
     try:

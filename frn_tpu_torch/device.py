@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -17,3 +18,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def on_device(device: torch.device):
+    """The context that makes ``device`` current, so that work enqueued for
+    it goes on its own current stream (nothing for the CPU)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()

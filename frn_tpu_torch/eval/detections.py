@@ -18,8 +18,9 @@ import torch
 
 from frn_tpu_torch.config import FrameworkConfig
 from frn_tpu_torch.data.loader import BatchLoader, device_prefetch
-from frn_tpu_torch.entry import InferenceFn
+from frn_tpu_torch.entry import InferenceFn, replica_detections
 from frn_tpu_torch.ops.voxelize import wire_model_inputs
+from frn_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
 
 WIRES = ("f32", "compact")
 
@@ -34,10 +35,14 @@ class EvalInferenceFn(InferenceFn):
         super().__init__(model, config)
         self.wire = wire
         self.rgb_standardize = rgb_standardize
-        self.device = self.anchors.device
 
     @torch.inference_mode()
     def __call__(self, rgb: torch.Tensor, event: torch.Tensor):
+        return super().__call__(*self.inputs(rgb, event))
+
+    @torch.inference_mode()
+    def inputs(self, rgb: torch.Tensor, event: torch.Tensor):
+        """The model's f32 (rgb, event) of a batch on the wire."""
         # a compact-wire batch fed to the f32 wire (or the reverse) would run
         # raw [0, 255] uint8 through the model, or divide [0, 1] floats by 255
         # again: both raise
@@ -54,7 +59,37 @@ class EvalInferenceFn(InferenceFn):
                 f"wire='f32' got integer inputs (rgb={rgb.dtype}, event={event.dtype}): "
                 "this looks like a compact-wire dataset; pass wire='compact' to "
                 "make_inference_fn")
-        return super().__call__(rgb, event)
+        return rgb, event
+
+
+class MeshInferenceFn:
+    """Data-parallel evaluation over a ``Mesh``: one ``EvalInferenceFn`` per
+    replica (its weights and anchors on its device). A batch is split into
+    the mesh's row blocks (``shard_batch``); each replica runs the wire's
+    decode, the forward, the decode and the NMS on its block, on its device
+    (``entry.replica_detections``). The rows come back in batch order,
+    gathered on the first device."""
+
+    def __init__(self, model, config: FrameworkConfig, mesh: Mesh, wire: str,
+                 rgb_standardize: bool):
+        self.mesh = mesh
+        self.config = config
+        self.replicas = [EvalInferenceFn(m, config, wire, rgb_standardize)
+                         for m in replicate(model, mesh)]
+        self.device = mesh.devices[0]
+
+    @torch.inference_mode()
+    def __call__(self, rgb, event):
+        """``rgb`` and ``event``: whole-batch tensors (any device; their batch
+        must divide over the mesh), or ``shard_batch``'s lists of row blocks,
+        block i on device i (``device_prefetch(mesh=...)`` gives those)."""
+        if isinstance(rgb, torch.Tensor):
+            blocks = shard_batch({"rgb": rgb, "event": event}, self.mesh)
+            rgb, event = blocks["rgb"], blocks["event"]
+        rows = replica_detections(self.replicas, zip(rgb, event),
+                                  lambda fn, part: fn.inputs(*part))
+        return tuple(torch.cat([r[k].to(self.device, non_blocking=True) for r in rows])
+                     for k in range(3))
 
 
 def make_inference_fn(
@@ -75,10 +110,15 @@ def make_inference_fn(
     (dsec_data.py:461-462 semantics); int8 clipping at +-127 is exact through
     the tanh saturation. ``wire='f32'`` takes the dataset's normalized floats.
 
-    Not ported: ``mesh`` (data-parallel inference over several devices, A14)
-    raises NotImplementedError; ``input_format='auto'`` raises too: it lets
-    XLA choose the arguments' memory layouts, a compiler feature with no
-    PyTorch counterpart.
+    With ``mesh`` (``parallel.make_mesh``) inference is data-parallel over
+    the mesh's devices (``MeshInferenceFn``): one replica of the model on
+    each, every batch split into row blocks; the batch must divide over the
+    mesh (it raises ``ValueError`` otherwise). Each image's postprocess is
+    independent of the others', so the detections are the single device's.
+
+    Not ported: ``input_format='auto'`` raises: it lets XLA choose the
+    arguments' memory layouts, a compiler feature with no PyTorch
+    counterpart.
     """
     if wire not in WIRES:
         raise ValueError(f"unknown wire {wire!r}")
@@ -88,9 +128,7 @@ def make_inference_fn(
         raise NotImplementedError(
             "input_format='auto' is an XLA argument-layout feature with no PyTorch counterpart")
     if mesh is not None:
-        raise NotImplementedError(
-            "make_inference_fn(mesh=...): data-parallel evaluation over several devices "
-            "is not ported yet (ROADMAP A14)")
+        return MeshInferenceFn(model, config, mesh, wire, rgb_standardize)
     return EvalInferenceFn(model, config, wire, rgb_standardize)
 
 
@@ -117,13 +155,15 @@ def collect_detections(
     matching the reference's per-image sort + top-100 (csv_eval.py:109-119).
     Batches are loaded by ``BatchLoader``'s threads and copied to
     ``infer_fn.device`` (the CPU if it has none) by ``device_prefetch``, two
-    ahead; each batch's count of real images stays on the host, and its
-    detections come back in one host copy.
+    ahead, or split over ``infer_fn.mesh`` where it has one; each batch's
+    count of real images stays on the host, and its detections come back in
+    one host copy.
     """
     num_classes = dataset.num_classes()
     cap = max_detections or config.eval.max_detections
     thr = config.eval.score_threshold
     device = getattr(infer_fn, "device", torch.device("cpu"))
+    mesh = getattr(infer_fn, "mesh", None)
 
     loader = BatchLoader(
         dataset, config.geometry, batch_size=batch_size, shuffle=False,
@@ -144,7 +184,7 @@ def collect_detections(
 
     t0 = time.perf_counter()
     index = 0
-    for batch in device_prefetch(host_batches(), size=2, device=device):
+    for batch in device_prefetch(host_batches(), size=2, device=device, mesh=mesh):
         rows = _rows_to_host(*infer_fn(batch["rgb"], batch["event"]))
         for b in range(n_valid.popleft()):
             keep = rows[b, :, 4] > thr

@@ -40,6 +40,14 @@ bucket), in turn. A slot's copy to the card records an event, and the
 dispatcher waits on that event before it writes into the slot again, so no
 buffer is refilled while its copy is in flight.
 
+Data parallelism (``mesh``, ``parallel.make_mesh``): one replica of the
+model on each device of the mesh, and every batch split into the mesh's row
+blocks (every bucket must divide over the mesh). A slot's row blocks are
+copied each to its replica's card; each replica runs ``device_program``'s
+work on its block; its rows come back by one non-blocking copy into pinned
+memory with one CUDA event, and the completer waits on every replica's. The
+dispatcher enqueues every replica's launches from its one thread.
+
 Nothing falls back: a kernel that fails to build or launch, a fault on the
 card, or an engine without the card raises, into every waiting future. The
 engine runs on the device of the model's parameters; the CPU only when the
@@ -59,8 +67,10 @@ import numpy as np
 import torch
 
 from frn_tpu_torch.config import DatasetGeometry, FrameworkConfig
-from frn_tpu_torch.entry import InferenceFn
+from frn_tpu_torch.device import on_device
+from frn_tpu_torch.entry import InferenceFn, replica_detections
 from frn_tpu_torch.ops.voxelize import wire_model_inputs
+from frn_tpu_torch.parallel.mesh import replicate, row_blocks
 
 WIRE_FORMATS = ("f32", "compact", "events", "sparse")
 _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int8): torch.int8,
@@ -194,13 +204,13 @@ class Detections:
 
 class _Slot:
     """Pinned host buffers for one batch in flight, sized for the largest
-    bucket, and the event of their last copy to the card."""
+    bucket, and the events of their last copies to the cards."""
 
     def __init__(self, layout, rows: int):
         self.tensors = [torch.empty((rows, *shape), dtype=_TORCH_DTYPES[_signed(dt)],
                                     pin_memory=True) for shape, dt in layout]
         self.arrays = [t.numpy().view(dt) for t, (_, dt) in zip(self.tensors, layout)]
-        self.copied = torch.cuda.Event()
+        self.copied: List[torch.cuda.Event] = []
 
 
 def _signed(dt: np.dtype) -> np.dtype:
@@ -230,14 +240,19 @@ class ServingEngine:
         mesh=None,
     ):
         """``model``: an ``FRNDetector`` with its weights loaded, on the device
-        to serve from. ``mesh`` (per-device replicas with every batch split
-        over several cards) is not ported yet: it raises."""
+        to serve from. ``mesh``: serve replicas of it, one on each device of
+        the mesh, every batch split over them (each bucket a multiple of the
+        mesh's size); per-image postprocess independence makes each
+        request's detections the single device's."""
         if not options.buckets or list(options.buckets) != sorted(set(options.buckets)):
             raise ValueError(f"buckets must be ascending and unique: {options.buckets}")
         if mesh is not None:
-            raise NotImplementedError(
-                "ServingEngine(mesh=...): serving replicas over several devices is not "
-                "ported yet (ROADMAP A14)")
+            nd = mesh.shape["data"]
+            bad = [b for b in options.buckets if b % nd]
+            if bad:
+                raise ValueError(
+                    f"buckets {bad} not divisible by the mesh data axis ({nd})"
+                )
         if options.wire_format not in WIRE_FORMATS:
             raise ValueError(f"unknown wire_format {options.wire_format!r}")
         if options.wire_format != "f32" and config.geometry.event_channels == 1:
@@ -247,8 +262,12 @@ class ServingEngine:
             )
         self.config = config
         self.options = options
-        self.infer_fn = InferenceFn(model, config)
-        self.device = self.infer_fn.anchors.device
+        self.mesh = mesh
+        # one inference function a replica; the first is the engine's device
+        self.replica_fns = [InferenceFn(m, config)
+                            for m in (replicate(model, mesh) if mesh is not None else [model])]
+        self.infer_fn = self.replica_fns[0]
+        self.device = self.infer_fn.device
         self._layout = wire_layout(config.geometry, options)
         self._slots: List[_Slot] = []  # pinned staging on the card, made by start()
         self._next_slot = 0
@@ -335,10 +354,33 @@ class ServingEngine:
         ``ops/voxelize.wire_model_inputs``, always standardizing)."""
         return wire_model_inputs(self.options.wire_format, self.config.geometry, tensors)
 
-    def device_program(self, *tensors: torch.Tensor):
+    @torch.inference_mode()
+    def device_program(self, *tensors):
         """``model_inputs``, then the forward, the pooled decode and the NMS
-        -> (scores, labels, boxes) of every row of the batch."""
-        return self.infer_fn(*self.model_inputs(*tensors))
+        -> (scores, labels, boxes) of every row of the batch.
+
+        Over a mesh each replica runs them on its row block, on its device
+        (``entry.replica_detections``). ``tensors`` are then whole
+        batches (on any device; the rows come back gathered in order on the
+        engine's device) or lists of row blocks, block i on replica i's
+        device (each output then a list of the replicas' blocks)."""
+        if self.mesh is None:
+            return self.infer_fn(*self.model_inputs(*tensors))
+        blocked = isinstance(tensors[0], (list, tuple))
+        if not blocked:
+            tensors = self._blocks(tensors)
+        results = replica_detections(self.replica_fns, zip(*tensors),
+                                     lambda fn, part: self.model_inputs(*part))
+        if blocked:
+            return tuple(list(x) for x in zip(*results))
+        return tuple(torch.cat([r[k].to(self.device) for r in results]) for k in range(3))
+
+    def _blocks(self, tensors: Sequence[torch.Tensor], copy: bool = True) -> List[list]:
+        """Whole-batch wire tensors as lists of the mesh's row blocks, each
+        moved to its replica's device unless ``copy`` is false."""
+        rows = row_blocks(tensors[0].shape[0], self.mesh.size)
+        return [[t[r].to(fn.device, non_blocking=True) if copy else t[r]
+                 for fn, r in zip(self.replica_fns, rows)] for t in tensors]
 
     def warmup(self) -> None:
         """Run every bucket once ahead of traffic (zero inputs made on the
@@ -553,19 +595,33 @@ class ServingEngine:
         self._fill(arrays, batch)
         return wire_tensors(arrays, self.device)
 
-    def _stage(self, batch: List[Request], bucket: int) -> List[torch.Tensor]:
+    def _stage(self, batch: List[Request], bucket: int) -> list:
         """On the card: ``batch`` written into the next slot's pinned buffers,
-        once that slot's previous copy has left them, and copied to the card
-        without blocking."""
+        once that slot's previous copies have left them, and copied to the
+        card without blocking (over a mesh, each replica's row block to its
+        card: lists of blocks, as ``device_program`` takes them)."""
         slot = self._slots[self._next_slot]
         self._next_slot = (self._next_slot + 1) % len(self._slots)
-        slot.copied.synchronize()
+        for event in slot.copied:
+            event.synchronize()
         arrays = [a[:bucket] for a in slot.arrays]
         for a in arrays:
             a[len(batch):] = 0
         self._fill(arrays, batch)
-        tensors = [t[:bucket].to(self.device, non_blocking=True) for t in slot.tensors]
-        slot.copied.record()
+        host = [t[:bucket] for t in slot.tensors]
+        if self.mesh is None:
+            tensors = [t.to(self.device, non_blocking=True) for t in host]
+            slot.copied = [torch.cuda.Event()]
+            slot.copied[0].record()
+            return tensors
+        views = self._blocks(host, copy=False)
+        tensors, slot.copied = [[] for _ in host], []
+        for i, fn in enumerate(self.replica_fns):
+            with on_device(fn.device):
+                for blocks, out in zip(views, tensors):
+                    out.append(blocks[i].to(fn.device, non_blocking=True))
+                slot.copied.append(torch.cuda.Event())
+                slot.copied[-1].record()
         return tensors
 
     def _dispatch_batch(self, batch: List[Request]):
@@ -576,16 +632,21 @@ class ServingEngine:
             tensors = self._stage(batch, bucket)
         else:
             tensors = self.wire_batch(batch, bucket)
+            if self.mesh is not None:
+                tensors = self._blocks(tensors)
         t_staged = time.perf_counter()
-        scores, labels, boxes = self.device_program(*tensors)
-        rows = torch.cat([boxes.float(), scores.float()[..., None], labels.float()[..., None]], 2)
-        done = None
-        if rows.device.type == "cuda":
-            host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-            host.copy_(rows, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-            rows = host
+        out = self.device_program(*tensors)
+        rows, done = [], []
+        for scores, labels, boxes in (zip(*out) if self.mesh is not None else [out]):
+            r = torch.cat([boxes.float(), scores.float()[..., None], labels.float()[..., None]], 2)
+            if r.device.type == "cuda":  # one copy back and one event a replica
+                with on_device(r.device):
+                    host = torch.empty(r.shape, dtype=r.dtype, pin_memory=True)
+                    host.copy_(r, non_blocking=True)
+                    done.append(torch.cuda.Event())
+                    done[-1].record()
+                r = host
+            rows.append(r)
         if self._records is not None:
             t_end = time.perf_counter()
             with self._lock:
@@ -600,9 +661,9 @@ class ServingEngine:
                 return
             batch, bucket, rows, done = item
             try:
-                if done is not None:
-                    done.synchronize()  # this batch's rows alone, not the batches after it
-                self._complete_batch(batch, bucket, rows.numpy())
+                for event in done:  # this batch's rows alone, not the batches after it
+                    event.synchronize()
+                self._complete_batch(batch, bucket, np.concatenate([r.numpy() for r in rows]))
             except Exception as e:  # device faults reach every waiter
                 for req in batch:
                     if not req.future.done():

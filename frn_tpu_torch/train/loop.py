@@ -18,7 +18,14 @@ Counterpart of ``frn_tpu/train/loop.py``, with the reference trainer's recipe:
     step does. The decision stays on the device (no host sync per step).
 
 The step updates the state in place (the JAX step returns a new state) and
-returns the step's metrics as device scalars. The input wire
+returns the step's metrics as device scalars. Under a process group of world
+n > 1 (``parallel.init_distributed``) each rank computes the gradients of its
+shard of the global batch, and one all-reduce replaces them and the loss
+terms by their means over the ranks before the optimizer recipe: the loss is
+a mean of per-image losses, so with equal shards the mean of the shards'
+gradients is the global batch's, as in ``frn_tpu``'s one sharded step. The
+safe-step decision and the metrics read the global loss, so every rank skips
+or steps together. The input wire
 (``TrainConfig.input_wire``) says what the batch holds: 'f32' normalized
 floats; 'compact' uint8 RGB and int8 count voxels; 'events' uint8 RGB and raw
 padded event streams, voxelized on the device. The compact and events
@@ -38,6 +45,7 @@ from frn_tpu_torch.config import FrameworkConfig
 from frn_tpu_torch.data.loader import to_device
 from frn_tpu_torch.models.detector import FRNDetector, detection_loss, image_anchors, init_detector
 from frn_tpu_torch.ops.voxelize import wire_model_inputs
+from frn_tpu_torch.parallel.mesh import World, all_reduce_mean_, world as current_world
 
 
 @dataclasses.dataclass
@@ -161,6 +169,7 @@ def make_batch_inputs(config: FrameworkConfig) -> Callable[[Dict], tuple]:
 
 def make_train_step(
     config: FrameworkConfig, loss_skip_threshold: Optional[float] = None,
+    world: Optional[World] = None,
 ) -> Callable[[TrainState, Dict, torch.Generator], Dict[str, torch.Tensor]]:
     """Build the train step ``(state, batch, generator) -> metrics``.
 
@@ -170,10 +179,13 @@ def make_train_step(
     the modality dropout. Metrics: 'loss',
     'cls_loss', 'reg_loss' and 'skipped' (1.0 when the micro-step's gradients
     were zeroed). ``loss_skip_threshold`` defaults to the config's; None skips
-    only non-finite losses.
+    only non-finite losses. ``world`` defaults to the initialized process
+    group's (``parallel.world()``); with more than one rank, ``batch`` is this
+    rank's shard and the gradients and metrics are averaged over the ranks.
     """
     threshold = (config.train.loss_skip_threshold if loss_skip_threshold is None
                  else loss_skip_threshold)
+    data_parallel = (current_world() if world is None else world).size > 1
     anchors: Dict[torch.device, torch.Tensor] = {}
     inputs = make_batch_inputs(config)
 
@@ -186,10 +198,14 @@ def make_train_step(
         cls_loss, reg_loss = detection_loss(cls, reg, b["annot"], config, anchors[device])
         loss = cls_loss + reg_loss
         grads = torch.autograd.grad(loss, state.params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(state.params, grads)]
+        if data_parallel:
+            terms = torch.stack([loss, cls_loss, reg_loss]).detach()
+            all_reduce_mean_(grads + [terms])
+            loss, cls_loss, reg_loss = terms.unbind()
         ok = torch.isfinite(loss)
         if threshold is not None:
             ok = ok & (loss < threshold)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(state.params, grads)]
         apply_gradients(state, grads, config, ok)
         return {"loss": loss.detach(), "cls_loss": cls_loss.detach(),
                 "reg_loss": reg_loss.detach(), "skipped": (~ok).float()}

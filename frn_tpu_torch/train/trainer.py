@@ -1,4 +1,4 @@
-"""Epoch-level trainer on one device (counterpart of ``frn_tpu/train/trainer.py``).
+"""Epoch-level trainer (counterpart of ``frn_tpu/train/trainer.py``).
 
 The reference scripts' control flow: a running-mean loss window, the
 per-epoch plateau schedule on the mean epoch loss, periodic checkpoints, and
@@ -9,7 +9,20 @@ step. Batches reach the step through ``device_prefetch`` (two ahead, copied
 on a side stream on the card). At each log window the trainer prints a line
 and writes a JSONL record to ``metrics_path`` (``utils/profiling``'s
 ``MetricsLogger``: step, epoch, losses, step time), as the JAX trainer does.
-One device; the JAX trainer's mesh is not ported yet.
+
+Data parallelism (``use_mesh``, as in JAX): under a process group of world n
+> 1 (``parallel.init_distributed``, one process per card, as ``torchrun``
+starts them) each rank loads its shard of every global batch of
+``batch_size`` and the step averages the shards' gradients
+(``train/loop.py``). ``batch_size`` must divide over the ranks: where
+``frn_tpu`` falls back to one device, separate processes cannot, so it
+raises. Every rank seeds the modality dropout alike and draws it once a step,
+so the ranks blank RGB together, as JAX's one draw does. Rank 0 alone prints,
+writes the checkpoints and the JSONL metrics and runs ``eval_fn``; it
+broadcasts the mAP, and the others wait for it. ``resume`` loads the same
+checkpoint on every rank. ``transform``'s draws come from each rank's own
+objects (JAX draws them in one process, in thread order), so an augmented run
+is reproducible in neither package across layouts.
 """
 
 from __future__ import annotations
@@ -23,6 +36,7 @@ import torch
 
 from frn_tpu_torch.config import FrameworkConfig
 from frn_tpu_torch.data.loader import BatchLoader, device_prefetch
+from frn_tpu_torch.parallel.mesh import World, broadcast_value, world
 from frn_tpu_torch.train.checkpoint import CheckpointManager
 from frn_tpu_torch.train.loop import create_train_state, make_train_step, set_learning_rate
 from frn_tpu_torch.train.plateau import ReduceLROnPlateau
@@ -42,7 +56,12 @@ class Trainer:
         metrics_path: Optional[str] = None,
         device=None,
         transform: Optional[Callable] = None,  # per-sample host augmentation
+        use_mesh: bool = True,
     ):
+        self.world = world() if use_mesh else World()
+        if config.train.batch_size % self.world.size:
+            raise ValueError(f"batch_size {config.train.batch_size} does not divide over "
+                             f"{self.world.size} ranks")
         self.config = config
         self.dataset = dataset
         self.transform = transform
@@ -52,7 +71,7 @@ class Trainer:
 
         seed = config.train.seed if seed is None else seed
         self.state = create_train_state(config, seed=seed, device=device)
-        self.step_fn = make_train_step(config)
+        self.step_fn = make_train_step(config, world=self.world)
         self.scheduler = ReduceLROnPlateau(
             base_lr=config.train.learning_rate,
             factor=config.train.plateau_factor,
@@ -64,7 +83,7 @@ class Trainer:
         self.generator = torch.Generator().manual_seed(seed + 1)  # modality dropout
         self.ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
         self.history: list = []
-        self.metrics = MetricsLogger(metrics_path)
+        self.metrics = MetricsLogger(metrics_path if self.world.is_main else None)
         self.timer = StepTimer()
 
     def resume(self) -> bool:
@@ -88,6 +107,7 @@ class Trainer:
             self.dataset, self.config.geometry, batch_size=tc.batch_size,
             shuffle=True, num_threads=8, max_annots=tc.max_annots_per_image,
             drop_last=True, seed=tc.seed + self.epoch, transform=self.transform,
+            shard=(self.world.rank, self.world.size),
         )
 
     def train_epoch(self) -> Dict[str, float]:
@@ -122,13 +142,11 @@ class Trainer:
                 dt = (time.perf_counter() - t_window) / self.log_every
                 t_window = time.perf_counter()
                 self.loss_window.append(last["loss"])
-                print(
+                self._print(
                     f"epoch {self.epoch} iter {i + 1}: cls {last['cls_loss']:.5f} "
                     f"reg {last['reg_loss']:.5f} "
                     f"running {sum(self.loss_window) / len(self.loss_window):.5f} "
-                    f"({dt * 1e3:.0f} ms/step)",
-                    flush=True,
-                )
+                    f"({dt * 1e3:.0f} ms/step)")
                 self.metrics.log(
                     int(self.state.step), epoch=self.epoch,
                     loss=last["loss"], cls_loss=last["cls_loss"],
@@ -153,11 +171,11 @@ class Trainer:
             set_learning_rate(self.state, lr)
             skipped = (f" skipped {int(stats['skipped'])}/{stats['num_steps']}"
                        if stats["skipped"] else "")
-            print(f"epoch {self.epoch}/{epochs}: loss {stats['mean_loss']:.5f} lr {lr:.2e} "
-                  f"({stats['epoch_time_s']:.1f}s){skipped}", flush=True)
+            self._print(f"epoch {self.epoch}/{epochs}: loss {stats['mean_loss']:.5f} lr {lr:.2e} "
+                        f"({stats['epoch_time_s']:.1f}s){skipped}")
             if self.eval_fn is not None and self.epoch % self.eval_every == 0:
-                current_map = float(self.eval_fn(self.state.model, self.state))
-                print(f"epoch {self.epoch}: mAP {current_map:.4f}", flush=True)
+                current_map = self._evaluate()
+                self._print(f"epoch {self.epoch}: mAP {current_map:.4f}")
                 if current_map > self.best_map:
                     self.best_map = current_map
                     if self.ckpt:
@@ -168,7 +186,25 @@ class Trainer:
             self._save()
         return self.history
 
+    def _print(self, line: str) -> None:
+        if self.world.is_main:
+            print(line, flush=True)
+
+    def _evaluate(self) -> float:
+        """``eval_fn``'s mAP, from rank 0 on every rank."""
+        current_map = float(self.eval_fn(self.state.model, self.state)) if self.world.is_main else 0.0
+        if self.world.size > 1:
+            current_map = broadcast_value(current_map, self.state.params[0].device)
+        return current_map
+
     def _save(self) -> None:
+        """Rank 0 writes the epoch's checkpoint; the others wait until it is written."""
+        if self.world.is_main:
+            self._write_checkpoint()
+        if self.world.size > 1:
+            torch.distributed.barrier()
+
+    def _write_checkpoint(self) -> None:
         meta = {
             "loss_history": self.history,
             "scheduler": self.scheduler.state_dict(),

@@ -40,6 +40,7 @@ from frn_tpu_torch.data.synthetic import box_samples
 from frn_tpu_torch.eval import detections as tdetections
 from frn_tpu_torch.eval import evaluator as tevaluator
 from frn_tpu_torch.models import detector as tdetector
+from frn_tpu_torch.parallel import make_mesh
 from frn_tpu_torch.train.checkpoint import CheckpointManager
 from frn_tpu_torch.train.trainer import Trainer
 from test_torch_detector import seeded_variables
@@ -153,8 +154,11 @@ def test_make_inference_fn_guards_match_jax(slice_setup):
         infer(*f32)
     with pytest.raises(ValueError, match="unknown wire"):
         tdetections.make_inference_fn(s["tmodel"], s["tcfg"], wire="events")
-    with pytest.raises(NotImplementedError, match="A14"):
-        tdetections.make_inference_fn(s["tmodel"], s["tcfg"], mesh=object())
+    # over a mesh the batch must divide: 1 image over 3 replicas raises
+    mesh_infer = tdetections.make_inference_fn(s["tmodel"], s["tcfg"],
+                                               mesh=make_mesh(devices=["cpu"] * 3))
+    with pytest.raises(ValueError, match="does not divide over the mesh data axis"):
+        mesh_infer(*f32)
     with pytest.raises(NotImplementedError, match="XLA"):
         tdetections.make_inference_fn(s["tmodel"], s["tcfg"], input_format="auto")
 

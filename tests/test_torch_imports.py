@@ -59,7 +59,9 @@ def test_importing_the_port_loads_no_jax():
                  "frn_tpu_torch.cli.serve", "frn_tpu_torch.cli.visualize",
                  "frn_tpu_torch.utils.visualization", "frn_tpu_torch.utils.profiling",
                  "frn_tpu_torch.utils.native", "frn_tpu_torch.data.augment",
-                 "frn_tpu_torch.data.extra_datasets", "frn_tpu_torch.cli.convert_checkpoint"):
+                 "frn_tpu_torch.data.extra_datasets", "frn_tpu_torch.cli.convert_checkpoint",
+                 "frn_tpu_torch.parallel", "frn_tpu_torch.parallel.mesh",
+                 "frn_tpu_torch.parallel.launch"):
         assert name in result["imported"]
 
 

@@ -44,6 +44,7 @@ from frn_tpu_torch.cli import serve as tcli
 from frn_tpu_torch.convert import state_dict_from_jax
 from frn_tpu_torch.entry import InferenceFn
 from frn_tpu_torch.models import detector as tdetector
+from frn_tpu_torch.parallel import make_mesh
 from frn_tpu_torch.serve import DetectionServer, ServeOptions, ServingEngine
 from frn_tpu_torch.serve import http as thttp
 from frn_tpu_torch.serve.engine import request_wire_bytes, wire_layout
@@ -305,9 +306,27 @@ def test_options_validation_matches_jax(served, case):
 
 
 def test_mesh_is_not_ported(served):
-    with pytest.raises(NotImplementedError, match="A14"):
-        ServingEngine(served["tmodel"], served["tcfg"], ServeOptions(wire_format="f32"),
-                      mesh=object())
+    """Serving over a mesh of two CPU replicas: a lone request rides a bucket
+    of 2, split over them; its detections are bit for bit the batch-1
+    forward's of the same weights (replica 0's block is that request alone),
+    and a burst of 3 fills a bucket of 4."""
+    eng = ServingEngine(served["tmodel"], served["tcfg"],
+                        ServeOptions(buckets=(2, 4), max_delay_ms=300.0, score_threshold=THR,
+                                     wire_format="f32"),
+                        mesh=make_mesh(devices=["cpu"] * 2))
+    direct = InferenceFn(served["tmodel"], served["tcfg"])
+    with eng:
+        rgb, event = rand_inputs(30)
+        det = eng.infer(rgb, event, timeout=300)
+        burst = [eng.submit(*rand_inputs(31 + i)) for i in range(3)]
+        burst = [f.result(timeout=300) for f in burst]
+    s, l, b = (x[0].numpy() for x in direct(torch.from_numpy(rgb[None]), torch.from_numpy(event[None])))
+    keep = s > THR
+    assert det.batch_size == 2 and len(det.scores) > 0
+    np.testing.assert_array_equal(det.scores, s[keep])
+    np.testing.assert_array_equal(det.labels, l[keep])
+    np.testing.assert_array_equal(det.boxes, b[keep])
+    assert [d.batch_size for d in burst] == [4, 4, 4]
 
 
 @pytest.mark.parametrize("wire, case", [("f32", "short_rgb"), ("f32", "short_event"),
