@@ -202,8 +202,37 @@ Phases:
      engine on the compact wire over the replicas and over one model
      (every request bit-equal to its replica's forward of its row block;
      requests/s, p50/p99 and the dispatcher's host ms a batch of both).
+ 14. the last model and postprocess options at full width (fusion ResNet-50,
+     feature size 256, phase 8's seeded ``.pth`` files and fixtures): the
+     fused heads (``ModelConfig.fused_heads``) against the unfused heads at
+     the same weights, at inference with the 'pooled' postprocess (DSEC bf16
+     at batch 16: B1 4 a batch; DDD17 f32 at batch 8, the cls-padding case: B1
+     at f32 2 a batch; nothing else; ms a batch and detections of both, no
+     detection slot differing, the gap of the probabilities and the deltas
+     under twice the one-ulp witness of the pyramid through the unfused
+     heads) and in one f32 micro-step of the train CLI's trainer at batch 2
+     (the loss within WIRE_LOSS_RTOL, the gradients under the phase-9 gate
+     beside a one-ulp witness; B1-lse, B2a and B2b at f32 4 each); on that
+     batch's head outputs at bf16 and f32, as the random weights give them
+     (logits up to 1e4: the probabilities tie at 1.0) and tempered (the
+     logits scaled by a power of two into [-8, 8]), the postprocess rungs
+     (dense equal to pooled bit for bit; the logit rungs' differing
+     detections against dense printed) and the pool's top-k (two_stage equal
+     to the sort bit for bit on the (B*K, 230,220) tables and a tied table),
+     with the device ms of each and of each rung's decode + NMS;
+     ``FRN_DISABLE_FLASH=1`` set inside the phase (a forward raises before
+     any launch) and removed (B1 4 times); ``cli.test --postprocess dense
+     --approx_topk`` on phase 8's DSEC fixture at bf16 (B1 4 a batch,
+     nothing else; the summary beside phase 8's).
 
-Phases run in the order 1, 2, 5, 3, 6, 8, 4, 9, 10, 11, 12, 13, 7. Phase 13
+The script fails at its start if ``FRN_DISABLE_FLASH`` is in the
+environment (the port raises on every flash path then). Phases run
+in the order 1, 2, 5, 3, 6, 8, 4, 9, 10, 11, 12, 13, 14, 7. Phase 14 alone:
+``python3 -c "import chip_smoke as c, tempfile, pathlib; c.phase_environment();
+r = {k: {'launches': 0} for k in c._COUNTERS}; d = pathlib.Path(tempfile.mkdtemp());
+c.phase_options(r, c.write_eval_inputs(d), d)"``; another revision's
+``core/nms.py`` against this one on the main path's decode + NMS:
+``phase_postprocess_against`` (not run by ``main``). Phase 13
 alone (81.5 s of a 123.8 s call after the build and the fixtures): ``python3
 -c "import chip_smoke as c, tempfile, pathlib; c.phase_environment(); r =
 {k: {'launches': 0} for k in c._COUNTERS}; d = pathlib.Path(tempfile.mkdtemp());
@@ -233,6 +262,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1834,8 +1864,9 @@ def phase_small_reference():
 EVAL_IMAGES, EVAL_SWEEP_IMAGES = 24, 8
 EVAL_SEVERITIES = (1, 5)
 # phase 8's warm eval loops, by configuration: (img/s, idle share), printed
-# again by phase 12 beside its own
+# again by phase 12 beside its own; and its summaries, printed again by phase 14
 EVAL_WARM_LOOPS: dict = {}
+EVAL_SUMMARIES: dict = {}
 # the CLI's configurations: label, CLI entry (module), flags, launches per
 # batch of each kernel (every other kernel of the port: none)
 EVAL_CONFIGS = (
@@ -2148,6 +2179,7 @@ def phase_evaluation(kernel_rows, inputs: dict, root: Path) -> None:
             fail(f"evaluation ({label}) launched {counts}, expected {want}")
         f32_launches += counts["flash_fwd_f32"]
         fps, summary = check_eval_summary(label, text, folder)
+        EVAL_SUMMARIES[label] = summary
 
         # the same function the CLI evaluated with: the eval loop again, warm
         # (the CLI's fps includes its first batch), and its first batch alone
@@ -4540,6 +4572,486 @@ def phase_parallel(kernel_rows, inputs: dict, root: Path) -> None:
           f"{json.dumps({k: float(f'{v:.4g}') for k, v in summary.items()})}", flush=True)
 
 
+# ------------------------------------------------------------ A17: the last model and postprocess options
+
+# phase 14: the fused heads at inference, by configuration: label, dataset,
+# compute dtype, batch, launches a batch of each kernel (every other: none)
+OPTIONS_INFERENCE = (("DSEC bf16", "dsec", "bfloat16", MAIN_BATCH, {"flash_fwd": 4}),
+                     ("DDD17 f32", "ddd17", "float32", EVAL_BATCH, {"flash_fwd_f32": 2}))
+# timed batches of each inference model
+OPTIONS_TIMED = 3
+# the postprocess rungs (EvalConfig.postprocess) and the heads' emission
+# each takes (classification mode, regression mode)
+POSTPROCESS_RUNGS = {"dense": ("probs", "rows"), "pooled": ("probs", "rows"),
+                     "pooled_logits": ("logits", "rows"),
+                     "pooled_chanlast": ("logits_chanlast", "flat36")}
+# the tempered head outputs: logits scaled by a power of two to at most this
+# in magnitude (random weights give logits up to 1e4, whose probabilities
+# tie at 1.0)
+TEMPERED_LOGIT_MAX = 8.0
+
+
+def _ulp_step(x, gen):
+    """``x`` with every nonzero element moved one ulp of its dtype (f32 or
+    bf16) up or down in magnitude (seeded), outside autograd: the witness of
+    what one rounding step of ``x`` does downstream."""
+    ints = torch.int32 if x.dtype == torch.float32 else torch.int16
+    step = torch.randint(0, 2, x.shape, generator=gen, device=x.device, dtype=ints) * 2 - 1
+    with torch.no_grad():
+        moved = (x.detach().contiguous().view(ints) + step).view(x.dtype)  # sign-magnitude bits
+        moved = torch.where(x == 0, x.detach(), moved)
+    return x + (moved - x).detach() if x.requires_grad else moved
+
+
+def _gap(got, want):
+    """(max |got - want|, mean |got - want|). Both: at random weights the
+    logits reach 1e4, so most probabilities saturate and one flip near the
+    threshold makes a max gap of 1; the mean tells a few differing elements
+    from a shift of all of them."""
+    diff = (got.float() - want.float()).abs()
+    return diff.max().item(), diff.mean().item()
+
+
+def _gap_text(gap) -> str:
+    return f"{gap[0]:.3e} (mean {gap[1]:.3e})"
+
+
+def _under(gap, witness, factor: float) -> bool:
+    """Max and mean gap each at most ``factor`` times the witness's."""
+    return gap[0] <= factor * witness[0] and gap[1] <= factor * witness[1]
+
+
+def _options_fn(inputs: dict, dataset: str, dtype: str, **model_kw):
+    """The full-width fusion ResNet-50 of ``dataset`` on the card at
+    ``dtype``, with phase 8's seeded ``.pth`` and the ``ModelConfig`` fields
+    ``model_kw``, as an inference function with the 'pooled' postprocess
+    (the 'probs' emission, which the fused heads serve)."""
+    from frn_tpu_torch import config as c
+    from frn_tpu_torch.convert import load_reference_checkpoint
+    from frn_tpu_torch.entry import InferenceFn
+    from frn_tpu_torch.models.detector import init_detector
+
+    geo = c.geometry_for(dataset)
+    cfg = c.FrameworkConfig(geometry=geo, eval=c.EvalConfig(postprocess="pooled"),
+                            model=c.ModelConfig(variant="fusion", depth=50,
+                                                num_classes=geo.num_classes,
+                                                compute_dtype=dtype, **model_kw))
+    model = init_detector(cfg, seed=0, device="cuda")
+    load_reference_checkpoint(inputs[f"{dataset}_pth"], model)
+    return InferenceFn(model, cfg)
+
+
+def _fixture_batch(inputs: dict, dataset: str, n: int):
+    """The first ``n`` images of phase 8's fixture of ``dataset``, collated
+    as ``collect_detections`` collates them, on the card."""
+    from frn_tpu_torch import config as c
+    from frn_tpu_torch.data.collate import collate_fixed
+    from frn_tpu_torch.data.csv_dataset import CSVDetectionDataset
+    from frn_tpu_torch.data.loader import to_device
+
+    fix, geo = inputs[dataset], c.geometry_for(dataset)
+    ds = CSVDetectionDataset(geo, fix["annotations_csv"], fix["class_map_csv"], fix["event_dir"],
+                             fix["img_dir"])
+    batch = collate_fixed([ds[i] for i in range(n)], geo, 1, n)
+    batch = to_device({"rgb": batch["rgb"], "event": batch["event"]}, "cuda")
+    return batch["rgb"], batch["event"]
+
+
+def _pyramid(model, rgb, event):
+    """The FPN's five levels of a batch (the backbones, the fusion stages with
+    the flash kernels, the FPN), in the model's compute dtype."""
+    with torch.inference_mode():
+        dtype = model.compute_dtype
+        r = model._backbones["rgb"](rgb.to(dtype).permute(0, 3, 1, 2))
+        e = model._backbones["event"](event.to(dtype).permute(0, 3, 1, 2))
+        return model.fpn([fus(ei, ri) for fus, ei, ri in zip(model.fus, e, r)])
+
+
+def _heads_witness(model, pyramid, seed: int):
+    """(the gap of the probabilities, of the deltas) that one ulp of the
+    pyramid (each element moved up or down, seeded) makes through the unfused
+    heads (``_gap``): the scale of a rounding difference at the heads' input."""
+    from frn_tpu_torch.models.heads import apply_heads
+
+    gen = torch.Generator(device=pyramid[0].device).manual_seed(seed)
+    heads = model.classificationModel, model.regressionModel
+    with torch.inference_mode():
+        want = apply_heads(*heads, pyramid)
+        moved = apply_heads(*heads, [_ulp_step(p, gen) for p in pyramid])
+    return _gap(moved[0], want[0]), _gap(moved[1], want[1])
+
+
+def _differing_slots(got, want) -> int:
+    """Detection slots (image, rank) that hold a detection in either and
+    whose score, label or box differ."""
+    scores, labels, boxes = (g != w for g, w in zip(got, want))
+    valid = (got[1] >= 0) | (want[1] >= 0)
+    return int((valid & (scores | labels | boxes.any(dim=-1))).sum())
+
+
+def check_fused_inference(kernel_rows, inputs: dict, label: str, dataset: str, dtype: str,
+                          batch: int, per_batch: dict):
+    """The fused heads at inference against the unfused heads at the same
+    weights and batch ('pooled' postprocess): each model's ms a batch over
+    OPTIONS_TIMED batches with its launches (``per_batch`` each, nothing
+    else) and its detections; the gap of the probabilities and the deltas
+    (max and mean), gated under twice the one-ulp witness of the pyramid
+    through the unfused heads, and no detection slot differing. Returns (the unfused function, the batch, its pyramid)."""
+    from frn_tpu_torch.models.heads import apply_heads, fused_dual_heads
+
+    rgb, event = _fixture_batch(inputs, dataset, batch)
+    fns, res = {}, {}
+    for fused in (False, True):
+        fn = fns[fused] = _options_fn(inputs, dataset, dtype, fused_heads=fused)
+        fn(rgb, event)  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        ms, dets = cuda_ms(lambda: fn(rgb, event), reps=OPTIONS_TIMED, warmup=0)
+        counts = _counts()
+        want = {**dict.fromkeys(_COUNTERS, 0),
+                **{k: n * OPTIONS_TIMED for k, n in per_batch.items()}}
+        if counts != want:
+            fail(f"fused heads ({label}, fused {fused}) launched {counts}, expected {want}")
+        for key, n in per_batch.items():
+            kernel_rows[key]["launches"] += counts[key]
+        res[fused] = ms, dets, fn.forward(rgb, event)
+    model = fns[False].model
+    pyramid = _pyramid(model, rgb, event)
+    with torch.inference_mode():
+        heads = model.classificationModel, model.regressionModel
+        unfused = apply_heads(*heads, pyramid)
+        fused = fused_dual_heads(*heads, pyramid, model.config.model.num_classes,
+                                 model.config.anchors.num_anchors_per_cell, model.compute_dtype)
+    witness = _heads_witness(model, pyramid, seed=41)
+    gaps = [_gap(f, u) for f, u in zip(res[True][2], res[False][2])]
+    heads_gaps = [_gap(f, u) for f, u in zip(fused, unfused)]
+    valid = [int((res[f][1][1] >= 0).sum()) for f in (False, True)]
+    differ = _differing_slots(res[True][1], res[False][1])
+    print(f"fused heads ({label}, batch {batch}, postprocess pooled): unfused "
+          f"{res[False][0]:.2f} ms a batch, fused {res[True][0]:.2f} (forward + decode + NMS, "
+          f"CUDA events over {OPTIONS_TIMED} batches); detections {valid[0]} and {valid[1]} valid "
+          f"slots, {differ} differ; fused vs unfused model: "
+          f"max gap probs {_gap_text(gaps[0])}, deltas {_gap_text(gaps[1])} (heads alone on one "
+          f"pyramid {_gap_text(heads_gaps[0])}, {_gap_text(heads_gaps[1])}); one-ulp witness of "
+          f"the pyramid {_gap_text(witness[0])}, {_gap_text(witness[1])}; launches "
+          f"{json.dumps(per_batch)} a batch", flush=True)
+    # at random weights most probabilities saturate, so a max gap of a flip
+    # near 0 or 1 passes the witness's; the detections must not differ at all
+    if not all(_under(g, w, 2) for g, w in zip(gaps, witness)) or min(valid) == 0 or differ:
+        fail(f"fused heads ({label}): gaps {gaps} over twice the one-ulp witness {witness}, "
+             f"no detections ({valid}), or {differ} detection slots differ")
+    del fns[True], res
+    return fns[False], (rgb, event), pyramid
+
+
+def _rung_outputs(model, pyramid):
+    """Each postprocess rung's head outputs of ``pyramid`` in its emission
+    (the 'probs' emissions in f32, as the detector gives them)."""
+    from frn_tpu_torch.models.heads import apply_heads
+
+    heads = model.classificationModel, model.regressionModel
+    out = {}
+    with torch.inference_mode():
+        for rung, (cls_mode, reg_mode) in POSTPROCESS_RUNGS.items():
+            if rung == "pooled":
+                out[rung] = out["dense"]
+                continue
+            cls, reg = apply_heads(*heads, pyramid, cls_mode, reg_mode)
+            out[rung] = (cls.float(), reg.float()) if cls_mode == "probs" else (cls, reg)
+    return out
+
+
+def _tempered(out):
+    """The rungs' head outputs with the logits scaled by a power of two
+    (exact) to at most TEMPERED_LOGIT_MAX in magnitude, and the 'probs'
+    emissions their f32 sigmoid: probabilities that do not saturate, for
+    pools and NMS that rank by score rather than by index among ties at 1.0."""
+    logits, reg_rows = out["pooled_logits"]
+    scale = 2.0 ** math.floor(math.log2(TEMPERED_LOGIT_MAX / logits.float().abs().max().item()))
+    probs = torch.sigmoid((logits * scale).float())
+    return {"dense": (probs, reg_rows), "pooled": (probs, reg_rows),
+            "pooled_logits": (logits * scale, reg_rows),
+            "pooled_chanlast": (out["pooled_chanlast"][0] * scale, out["pooled_chanlast"][1])}
+
+
+def _pool_tables(out, config):
+    """(B*K, A) score tables as the pool takes them: the thresholded
+    probabilities (nonnegative, no -0.0), the logits with the logit-space
+    sentinel, and the probabilities rounded to 1/32 (a table of ties)."""
+    from frn_tpu_torch.core.nms import LOGIT_LO
+
+    thr = config.eval.score_threshold
+    probs = out["dense"][0].transpose(1, 2).flatten(0, 1)
+    logits = out["pooled_chanlast"][0].flatten(0, 1)
+    lo = torch.tensor(LOGIT_LO, dtype=logits.dtype, device=logits.device)
+    logit_thr = torch.tensor(math.log(thr / (1 - thr)), dtype=logits.dtype, device=logits.device)
+    return {"probs": (torch.where(probs > thr, probs, torch.zeros_like(probs)), True),
+            "logits": (torch.where(logits > logit_thr, logits, lo), False),
+            "tied": ((probs * 32).round() / 32, True)}
+
+
+def check_postprocess_rungs(fn, pyramid, label: str) -> dict:
+    """The postprocess rungs on one batch's head outputs, as the random
+    weights give them and tempered (``_tempered``): dense against pooled bit
+    for bit, pooled_logits and pooled_chanlast against dense (printed: at
+    the random weights the detections that differ are sigmoid-saturation
+    ties); the pool's top-k (two_stage) against the sort bit for bit (values
+    and indices) on the (B*K, A) score tables and a tied table; device ms of
+    the sort and the pool on the probabilities and of each rung's decode +
+    NMS. Returns {name: ms}."""
+    from frn_tpu_torch.core import nms
+    from frn_tpu_torch.models.detector import decode_detections
+
+    config = fn.config
+    saturated = _rung_outputs(fn.model, pyramid)
+    times = {}
+    for outputs, out in (("random weights", saturated), ("tempered", _tempered(saturated))):
+        dets = {}
+        for rung in POSTPROCESS_RUNGS:
+            cfg = dataclasses.replace(config, eval=dataclasses.replace(config.eval,
+                                                                       postprocess=rung))
+            ms, dets[rung] = cuda_ms(
+                lambda: decode_detections(*out[rung], cfg, anchors=fn.anchors), reps=5)
+            times[f"{outputs}: {rung}"] = ms
+        if not all(torch.equal(a, b) for a, b in zip(dets["dense"], dets["pooled"])):
+            fail(f"postprocess ({label}, {outputs}): dense and pooled disagree")
+        differ = {rung: (_differing_slots(dets[rung], dets["dense"]),
+                         int((dets[rung][1] != dets["dense"][1]).sum()))
+                  for rung in ("pooled_logits", "pooled_chanlast")}
+        valid = int((dets["dense"][1] >= 0).sum())
+        ties = int((dets["dense"][0] == 1.0).sum())
+        k = config.eval.per_class_topk
+        for name, (table, nonneg) in _pool_tables(out, config).items():
+            pools = {"sort": lambda: nms.exact_topk(table, k),
+                     "two_stage": lambda: nms.exact_topk_two_stage(table, k, nonnegative=nonneg)}
+            res = {}
+            for pool, run in pools.items():
+                ms, res[pool] = cuda_ms(run, reps=5)
+                if name == "probs":
+                    times[f"{outputs}: pool {pool}"] = ms
+            bits = torch.int16 if table.dtype == torch.bfloat16 else torch.int32
+            if not (torch.equal(res["two_stage"][1], res["sort"][1])
+                    and torch.equal(res["two_stage"][0].view(bits), res["sort"][0].view(bits))):
+                fail(f"postprocess ({label}, {outputs}): the two_stage pool differs from the "
+                     f"sort on the {name} table {tuple(table.shape)}")
+        print(f"postprocess rungs ({label}, {outputs}, {tuple(out['dense'][0].shape)} "
+              f"probabilities): dense = pooled bit for bit, {valid} valid slots, {ties} of them "
+              f"at probability 1.0; against dense, (slots that differ, of them in label) "
+              f"{differ['pooled_logits']} in pooled_logits and {differ['pooled_chanlast']} in "
+              f"pooled_chanlast; the two_stage pool equal to the sort bit for bit on the probs, "
+              f"logits and tied tables ({table.shape[0]} rows of {table.shape[1]}, k {k})",
+              flush=True)
+    print(f"postprocess device ms ({label}, CUDA events): "
+          f"{json.dumps({n: round(t, 4) for n, t in times.items()})}", flush=True)
+    return times
+
+
+def check_fused_training(kernel_rows, inputs: dict, root: Path) -> None:
+    """One f32 micro-step of the train CLI's ``Trainer`` (batch 2, DSEC, the
+    seeded ``.pth``) with ``fused_heads`` against the unfused trainer at the
+    same weights and batch: the losses within WIRE_LOSS_RTOL, the gradients
+    per tensor and over all parameters under the phase-9 gate
+    (F32_GRAD_REL_TOL, F32_GRAD_NORM_TOL), beside the unfused step again
+    (the run to run spread) and a witness (the unfused step with the pyramid
+    moved one f32 ulp); the fused step's launches (B1-lse, B2a and B2b at
+    f32 4 each, nothing else)."""
+    from frn_tpu_torch.cli import common, train
+    from frn_tpu_torch.data.collate import collate_fixed
+    from frn_tpu_torch.data.loader import to_device
+    from frn_tpu_torch.train.trainer import Trainer
+
+    args = train.get_parser().parse_args(_train_cli_flags(inputs, "dsec", root, F32_TRAIN_BATCH))
+    device = common.setup_device(args)
+    ds = common.build_csv_dataset(args, args.csv_train)
+    cfg = common.build_config(args, ds.num_classes(), args.batch_size, args.epochs)
+    states = {}
+    for fused in (False, True):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, fused_heads=fused))
+        trainer = Trainer(c, ds, device=device)
+        common.load_checkpoint_into_state(args, trainer.state)
+        states[fused] = trainer.state, c
+    b = F32_TRAIN_BATCH
+    batch = to_device(collate_fixed([ds[i] for i in range(b)], cfg.geometry,
+                                    cfg.train.max_annots_per_image, b), device)
+    torch.cuda.synchronize()
+    _reset_counts()
+    loss_f, grads_f = _batch_grads(*states[True], batch)
+    counts = _counts()
+    want = {**dict.fromkeys(_COUNTERS, 0), **dict.fromkeys(TRAIN_F32_KERNELS, 4)}
+    if counts != want:
+        fail(f"fused-heads micro-step launched {counts}, expected {want}")
+    for key in TRAIN_F32_KERNELS:
+        kernel_rows[key]["launches"] += counts[key]
+    state, c = states[False]
+    loss_u, grads_u = _batch_grads(state, c, batch)
+    _, grads_again = _batch_grads(state, c, batch)
+    fpn, gen = state.model.fpn, torch.Generator(device=device).manual_seed(47)
+    fpn_forward = fpn.forward
+    fpn.forward = lambda feats: [_ulp_step(p, gen) for p in fpn_forward(feats)]
+    try:
+        _, grads_ulp = _batch_grads(state, c, batch)
+    finally:
+        del fpn.forward
+    worst = {}
+    for name, got in (("fused", grads_f), ("unfused again", grads_again),
+                      ("unfused, pyramid one ulp", grads_ulp)):
+        worst[name] = _worst_grad_gap(state.names, got, grads_u)
+        (gap, tensor), bias_gap, norm_gap = worst[name]
+        print(f"fused-heads training (DSEC f32, batch {b}, one micro-step), {name} vs unfused: "
+              f"worst tensor max|diff|/max|ref| {gap:.3e} ({tensor}); theta biases {bias_gap:.3e}; "
+              f"over all params {norm_gap:.3e}", flush=True)
+    (gap, tensor), bias_gap, norm_gap = worst["fused"]
+    rel = abs(loss_f.item() - loss_u.item()) / abs(loss_u.item())
+    print(f"fused-heads training: loss {loss_f.item():.6f} fused, {loss_u.item():.6f} unfused "
+          f"(relative gap {rel:.3e}, at most {WIRE_LOSS_RTOL:.0e}); gradient gates "
+          f"{F32_GRAD_REL_TOL:.0e} per tensor, {F32_GRAD_NORM_TOL:.0e} over all params; launches "
+          f"{json.dumps({k: counts[k] for k in TRAIN_F32_KERNELS})}", flush=True)
+    if not rel <= WIRE_LOSS_RTOL:
+        fail(f"fused-heads training: losses {loss_f.item()} and {loss_u.item()} disagree")
+    if not (gap <= F32_GRAD_REL_TOL and bias_gap <= F32_GRAD_REL_TOL
+            and norm_gap <= F32_GRAD_NORM_TOL):
+        fail(f"fused-heads training: gradients disagree with the unfused heads' ({gap:.3e} at "
+             f"{tensor}, theta biases {bias_gap:.3e}, over all params {norm_gap:.3e})")
+
+
+def check_disable_flash(kernel_rows, fn, rgb, event) -> None:
+    """One bf16 batch with ``FRN_DISABLE_FLASH=1`` set inside the phase: the
+    forward raises before any launch (the port has no dense route on the
+    card); with it removed again, B1 4 times."""
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        _reset_counts()
+        os.environ["FRN_DISABLE_FLASH"] = "1"
+        try:
+            fn.model(rgb, event, eval_output="logits_chanlast36", train=False)
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+        finally:
+            del os.environ["FRN_DISABLE_FLASH"]
+        torch.cuda.synchronize()
+        off = _counts()
+        _reset_counts()
+        fn.model(rgb, event, eval_output="logits_chanlast36", train=False)
+        torch.cuda.synchronize()
+        on = _counts()
+    print(f"FRN_DISABLE_FLASH=1 (bf16, batch {rgb.shape[0]}): raised {raised!r}, launches "
+          f"{sum(off.values())}; removed again: flash_fwd {on['flash_fwd']} launches", flush=True)
+    if raised is None or "FRN_DISABLE_FLASH" not in raised or any(off.values()):
+        fail(f"FRN_DISABLE_FLASH: the forward did not raise ({raised!r}) or launched {off}")
+    if on != {**dict.fromkeys(_COUNTERS, 0), "flash_fwd": 4}:
+        fail(f"FRN_DISABLE_FLASH removed: launches {on}")
+    kernel_rows["flash_fwd"]["launches"] += on["flash_fwd"]
+
+
+def phase_options(kernel_rows, inputs: dict, root: Path) -> None:
+    """The last model and postprocess options (A17) at full width (fusion
+    ResNet-50, feature size 256, phase 8's seeded ``.pth`` files and
+    fixtures): the fused heads at inference (DSEC bf16 at batch 16, DDD17
+    f32 at batch 8: the cls-padding cases) and in one f32 micro-step of the
+    train CLI's trainer; the postprocess rungs and the pool's top-k on the
+    bf16 batch's head outputs at bf16 and f32; ``FRN_DISABLE_FLASH`` set and
+    removed inside the phase; and ``cli.test --postprocess dense
+    --approx_topk`` on phase 8's DSEC fixture at bf16 (B1 4 times a batch,
+    nothing else; its summary beside phase 8's)."""
+    print(f"model and postprocess options on {card_name_and_power_limit()}", flush=True)
+    started = time.perf_counter()
+    fn = rgb = event = pyramid = None
+    for label, dataset, dtype, batch, per_batch in OPTIONS_INFERENCE:
+        got = check_fused_inference(kernel_rows, inputs, label, dataset, dtype, batch, per_batch)
+        if dataset == "dsec":
+            fn, (rgb, event), pyramid = got
+        del got
+    print(f"[phase 14 at {time.perf_counter() - started:.1f} s] fused heads at inference checked",
+          flush=True)
+    for label, pyr in (("bf16", pyramid), ("f32", [p.float() for p in pyramid])):
+        check_postprocess_rungs(fn, pyr, f"{label}, batch {MAIN_BATCH}")
+    check_disable_flash(kernel_rows, fn, rgb, event)
+    del fn, rgb, event, pyramid
+    torch.cuda.empty_cache()
+    print(f"[phase 14 at {time.perf_counter() - started:.1f} s] postprocess rungs and "
+          f"FRN_DISABLE_FLASH checked", flush=True)
+    check_fused_training(kernel_rows, inputs, root)
+    torch.cuda.empty_cache()
+    folder = str(root / "eval_dense_approx")
+    batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    text, counts, seconds = run_eval_cli(
+        "DSEC bf16, --postprocess dense --approx_topk", "test",
+        _cli_flags(inputs, "dsec", folder, "--compute_dtype", "bfloat16", "--postprocess", "dense",
+                   "--approx_topk"))
+    if counts != {**dict.fromkeys(_COUNTERS, 0), "flash_fwd": 4 * batches}:
+        fail(f"evaluation (dense, approx_topk) launched {counts}")
+    kernel_rows["flash_fwd"]["launches"] += counts["flash_fwd"]
+    fps, summary = check_eval_summary("DSEC bf16, dense, approx_topk", text, folder)
+    print(f"evaluation DSEC bf16, --postprocess dense --approx_topk: {fps:.2f} img/s, summary "
+          f"{json.dumps(summary)}; phase 8 (pooled_chanlast, exact pool): "
+          f"{json.dumps(EVAL_SUMMARIES.get('DSEC bf16'))}", flush=True)
+    print(f"phase 14 (model and postprocess options) passed in "
+          f"{time.perf_counter() - started:.1f} s", flush=True)
+
+
+def phase_postprocess_against(other_nms: str, turns: int = 2) -> None:
+    """The main path's decode + NMS (pooled_chanlast, the default) with
+    another revision's ``core/nms.py`` against this one's, on the main
+    path's head outputs (DSEC bf16 batch 16 at phase 3's random head weights,
+    and the same outputs cast to f32), in turns other, this, this, other:
+    ms a call by CUDA events over 10 back-to-back calls (the host's enqueue
+    time where it is the longer) and the device-busy ms of all kernels
+    (torch.profiler); and the whole main path, forward + decode + NMS, ms a
+    batch by the host clock over MAIN_TIMED batches, as phase 3 times it.
+    Each is the mean over its turns; the detections of both must be equal.
+    Not run by ``main``; the kernels build on first use: ``python3 -c
+    "import chip_smoke as c; c.phase_postprocess_against('OLD/core/nms.py')"``."""
+    import importlib.util
+
+    from frn_tpu_torch.entry import entry
+    from frn_tpu_torch.models import detector
+
+    spec = importlib.util.spec_from_file_location("nms_other", other_nms)
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    this = detector.pooled_detection_postprocess
+    fn, (rgb, event) = entry(device="cuda", batch=MAIN_BATCH)
+    _random_head_outputs(fn.model, seed=1)
+    cls, reg = fn.forward(rgb, event)
+    print(f"decode + NMS, {other_nms} against this revision ({fn.config.eval.postprocess}, "
+          f"batch {MAIN_BATCH}) on {card_name_and_power_limit()}", flush=True)
+
+    def main_path_ms():
+        fn(rgb, event)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MAIN_TIMED):
+            fn(rgb, event)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / MAIN_TIMED
+
+    for label, outputs in (("bf16", (cls, reg)), ("f32", (cls.float(), reg.float()))):
+        runs = {"other": [], "this": []}
+        dets = {}
+        for name in ("other", "this", "this", "other") * turns:
+            detector.pooled_detection_postprocess = (
+                other.pooled_detection_postprocess if name == "other" else this)
+            try:
+                call = lambda: fn.decode(*outputs)  # noqa: E731
+                ms, dets[name] = cuda_ms(call, reps=10)
+                busy = device_ms(call, [""], reps=10)
+                whole = main_path_ms() if label == "bf16" else float("nan")
+            finally:
+                detector.pooled_detection_postprocess = this
+            runs[name].append((ms, busy, whole))
+        if not all(torch.equal(a, b) for a, b in zip(dets["other"], dets["this"])):
+            fail(f"decode + NMS ({label}): the other revision's detections differ")
+        mean = {n: [sum(r[i] for r in v) / len(v) for i in (0, 1, 2)] for n, v in runs.items()}
+        whole = (f"; the main path (forward + decode + NMS, host clock): other "
+                 f"{mean['other'][2]:.2f}, this {mean['this'][2]:.2f} ms a batch"
+                 if label == "bf16" else "")
+        print(f"decode + NMS ({label}): other {mean['other'][0]:.4f} ms a call, device busy "
+              f"{mean['other'][1]:.4f} ms; this {mean['this'][0]:.4f} ms a call, device busy "
+              f"{mean['this'][1]:.4f} ms{whole} (turns {json.dumps(runs)}); detections equal",
+              flush=True)
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -4552,6 +5064,8 @@ def main(argv=None) -> None:
                              "it), built and its entry points "
                              "timed in turns with this revision's; repeatable")
     args = parser.parse_args(argv)
+    if "FRN_DISABLE_FLASH" in os.environ:  # every flash path raises with it set
+        fail("FRN_DISABLE_FLASH is set: unset it, the script checks the flash kernels' paths")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
     started = time.perf_counter()
@@ -4593,6 +5107,7 @@ def main(argv=None) -> None:
         phase_serving(rows, inputs)
         phase_instruments(rows, inputs, root)
         phase_parallel(rows, inputs, root)
+        phase_options(rows, inputs, root)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

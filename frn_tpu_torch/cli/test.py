@@ -11,7 +11,9 @@ JAX entry point's flags and artifacts:
 
 Eight of the on-the-fly corruptions need OpenCV (``ops/corruption.py``);
 --corruption_root (pre-generated folders) needs none. --approx_topk and
---postprocess dense raise (not ported). --data_parallel evaluates over every
+--exact_pool set the config as the JAX entry point does, and every setting
+takes the port's one candidate pool, the ``lax.top_k`` result
+(``core/nms.py``); --postprocess picks the pipeline's shape, 'dense' included. --data_parallel evaluates over every
 visible card, one replica on each and every batch split over them
 (``--batch_size`` a multiple of the cards); with one card, or on the CPU, it
 runs on that device, as ``frn_tpu`` does on one device.
@@ -69,20 +71,20 @@ def get_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--approx_topk", action="store_true",
-        help="approximate per-class NMS candidate pool: not ported (raises); the "
-        "exact pool is the default",
+        help="EvalConfig.approx_topk, off in record runs unless given, as in the JAX "
+        "entry point; the port's pool is the lax.top_k result for every setting",
     )
     p.add_argument(
         "--exact_pool", default=None, choices=["two_stage", "radix"],
-        help="exact candidate-pool algorithm (EvalConfig.exact_pool): both name the "
-        "same exact top-k in the port. Default: config default.",
+        help="EvalConfig.exact_pool, kept for the JAX entry point's flags: the port's "
+        "pool is the lax.top_k result for both. Default: config default.",
     )
     p.add_argument(
         "--postprocess", default=None,
         choices=["dense", "pooled", "pooled_logits", "pooled_chanlast"],
-        help="eval postprocess pipeline shape (EvalConfig.postprocess): the pooled "
-        "rungs decode only the per-class top-k pool; dense is not ported (raises). "
-        "Default: config default.",
+        help="eval postprocess pipeline shape (EvalConfig.postprocess): dense decodes "
+        "and clips every anchor before NMS, the pooled rungs decode only the "
+        "per-class top-k pool. Default: config default.",
     )
     p.add_argument(
         "--max_detections", type=int, default=100,
@@ -138,7 +140,7 @@ def main(argv=None):
 
     dataset = build_csv_dataset(args, args.csv_test)
     config = build_config(args, dataset.num_classes(), args.batch_size)
-    # record runs use the exact candidate pool (the only one ported)
+    # record runs set approx_topk off unless --approx_topk is given, as frn_tpu's do
     config = dataclasses.replace(
         config,
         eval=dataclasses.replace(

@@ -2,16 +2,15 @@
 
 A copy of the dataclasses of ``frn_tpu/config.py`` (the port imports nothing of
 the JAX package). Field names, defaults and geometry constants are the same, so
-one set of settings describes a model in both packages. Two differences:
+one set of settings describes a model in both packages. One difference:
+``attention_quant`` outside {None, 'int8_qk', 'int8'} and ``exact_pool``
+outside {'two_stage', 'radix'} raise ``ValueError`` here (the JAX package finds
+the first only when a kernel asserts).
 
-* ``ModelConfig.fused_heads`` keeps its field, and setting it raises
-  ``NotImplementedError``; ``attention_quant`` outside {None, 'int8_qk',
-  'int8'} raises ``ValueError`` here (the JAX package finds it only when a
-  kernel asserts);
-* ``EvalConfig.approx_topk`` defaults to ``False``: torch has no
-  ``approx_max_k``, so the port implements only the exact candidate pool.
-  ``exact_pool`` is kept for config parity; both of its values select the same
-  exact top-k (``core/nms.py``). The ``dense`` postprocess is not ported.
+``EvalConfig.approx_topk`` and ``exact_pool`` keep their fields and defaults;
+the port computes one candidate pool for every setting of them, the
+``jax.lax.top_k`` result, which ``approx_max_k`` gives off a TPU and both
+exact pools give (``core/nms.py`` says where the radix select differs).
 """
 
 from __future__ import annotations
@@ -19,8 +18,6 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import Optional, Tuple
-
-NOT_PORTED = "not ported yet"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,7 +111,9 @@ class ModelConfig:
     compute_dtype: str = "float32"
     # query-block size of the dense attention route (memory bound, exact)
     attention_chunk: int = 1024
-    fused_heads: bool = False  # not ported: raises
+    # both heads' towers as one chain of grouped convs ('probs' emission:
+    # training and the 'dense' / 'pooled' postprocesses; models/heads.py)
+    fused_heads: bool = False
     # inference only (a training forward ignores them): the stem as one fused
     # conv + frozen BN + ReLU kernel (ops/stem.py); the flash forward with
     # bf16 softmax weights; int8 attention, 'int8_qk' (QK^T in int8) or
@@ -127,8 +126,6 @@ class ModelConfig:
     fused_attention: bool = False
 
     def __post_init__(self):
-        if self.fused_heads:
-            raise NotImplementedError(f"ModelConfig.fused_heads: {NOT_PORTED}")
         if self.attention_quant not in (None, "int8_qk", "int8"):
             raise ValueError(f"Unknown attention_quant {self.attention_quant!r}")
 
@@ -147,20 +144,17 @@ class EvalConfig:
     nms_iou: float = 0.5
     max_detections: int = 100
     per_class_topk: int = 400
-    # torch has no approx_max_k: only the exact pool is ported
-    approx_topk: bool = False
-    # 'two_stage' | 'radix': TPU algorithms of the same exact top-k; the port
-    # computes that top-k one way for both
+    # the JAX package's pools: approx_max_k, or the exact_pool algorithm
+    # ('two_stage' | 'radix') when False. The port computes one pool for all,
+    # the jax.lax.top_k result (core/nms.py)
+    approx_topk: bool = True
     exact_pool: str = "two_stage"
-    # 'pooled' | 'pooled_logits' | 'pooled_chanlast' ('dense' is not ported)
+    # 'dense' (decode + clip every anchor, then NMS) | 'pooled' |
+    # 'pooled_logits' | 'pooled_chanlast' (per-class score pool first)
     postprocess: str = "pooled_chanlast"
     reg_flat36: bool = True
 
     def __post_init__(self):
-        if self.approx_topk:
-            raise NotImplementedError(f"EvalConfig.approx_topk: {NOT_PORTED}")
-        if self.postprocess == "dense":
-            raise NotImplementedError(f"EvalConfig.postprocess='dense': {NOT_PORTED}")
         if self.exact_pool not in ("two_stage", "radix"):
             raise ValueError(f"Unknown exact_pool {self.exact_pool!r}")
 

@@ -56,7 +56,7 @@ DRYRUN_TIMEOUT_S = 300.0
 
 
 class InferenceFn:
-    """Forward in the configured emission, then the pooled decode and NMS."""
+    """Forward in the configured emission, then the configured decode and NMS."""
 
     def __init__(self, model: FRNDetector, config: FrameworkConfig):
         self.model = model
@@ -76,7 +76,8 @@ class InferenceFn:
 
     @torch.inference_mode()
     def decode(self, cls: torch.Tensor, reg: torch.Tensor):
-        """(scores, labels, boxes) of ``forward``'s outputs: the pooled decode and NMS."""
+        """(scores, labels, boxes) of ``forward``'s outputs: the decode and NMS
+        of ``EvalConfig.postprocess``."""
         return decode_detections(cls, reg, self.config, anchors=self.anchors)
 
 

@@ -18,7 +18,10 @@ blanks the whole RGB batch with probability ``modality_dropout``, drawn from a
 the two give different bits from one seed). The inference-only options of
 ``ModelConfig`` (``stem_kernel``, ``flash_exp_bf16``, ``attention_quant``) reach
 the backbones and the fusion stages only when not training, as in the JAX
-package; ``fused_attention`` applies in both.
+package; ``fused_attention`` applies in both. ``fused_heads`` runs both heads
+as one chain of grouped convs (``models/heads.fused_dual_heads``) for the
+'probs' emission, in training and for the 'dense' and 'pooled'
+postprocesses; the logits emissions ignore it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,11 +34,17 @@ import torch.nn as nn
 from frn_tpu_torch.config import FrameworkConfig
 from frn_tpu_torch.core.anchors import anchors_tensor
 from frn_tpu_torch.core.losses import focal_detection_loss
-from frn_tpu_torch.core.nms import pooled_detection_postprocess
+from frn_tpu_torch.core.boxes import clip_boxes, decode_boxes
+from frn_tpu_torch.core.nms import batched_detection_postprocess, pooled_detection_postprocess
 from frn_tpu_torch.device import resolve_device
 from frn_tpu_torch.models.fpn import PyramidFeatures
 from frn_tpu_torch.models.fusion import REFusion
-from frn_tpu_torch.models.heads import ClassificationHead, RegressionHead, apply_heads
+from frn_tpu_torch.models.heads import (
+    ClassificationHead,
+    RegressionHead,
+    apply_heads,
+    fused_dual_heads,
+)
 from frn_tpu_torch.models.resnet import ResNetBackbone
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -137,8 +146,13 @@ class FRNDetector(nn.Module):
         else:
             feats = self._backbones[variant](rgb if variant == "rgb" else event, stem_kernel)
         pyramid = self.fpn(feats)
-        cls, reg = apply_heads(self.classificationModel, self.regressionModel, pyramid,
-                               cls_mode, reg_mode)
+        if mc.fused_heads and eval_output == "probs":
+            cls, reg = fused_dual_heads(self.classificationModel, self.regressionModel, pyramid,
+                                        mc.num_classes, self.config.anchors.num_anchors_per_cell,
+                                        dtype)
+        else:
+            cls, reg = apply_heads(self.classificationModel, self.regressionModel, pyramid,
+                                   cls_mode, reg_mode)
         if eval_output == "probs":
             return cls.float(), reg.float()
         return cls, reg
@@ -179,8 +193,9 @@ def decode_detections(
     config: FrameworkConfig,
     anchors: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Pooled decode + clip + class-aware NMS -> (scores (B, M), labels (B, M)
-    int32, boxes (B, M, 4)), M = max_detections."""
+    """Decode + clip + class-aware NMS -> (scores (B, M), labels (B, M) int32,
+    boxes (B, M, 4)), M = max_detections: the pooled postprocesses decode the
+    per-class score pool only, 'dense' decodes and clips every anchor first."""
     geo, ev = config.geometry, config.eval
     if anchors is None:
         anchors = image_anchors(config, classification.device)
@@ -206,16 +221,19 @@ def decode_detections(
             f"regression shape {tuple(regression.shape)} does not match the "
             f"(B, {a}, 4) layout postprocess={ev.postprocess!r} requires"
         )
-    return pooled_detection_postprocess(
-        anchors, regression, classification, (geo.height, geo.width),
-        std=config.box_coder.std,
-        score_threshold=ev.score_threshold,
-        iou_threshold=ev.nms_iou,
-        per_class_topk=ev.per_class_topk,
-        max_detections=ev.max_detections,
-        logits=ev.postprocess in ("pooled_logits", "pooled_chanlast"),
-        class_major=ev.postprocess == "pooled_chanlast",
-    )
+    pool = dict(score_threshold=ev.score_threshold, iou_threshold=ev.nms_iou,
+                per_class_topk=ev.per_class_topk, max_detections=ev.max_detections)
+    if ev.postprocess != "dense":
+        return pooled_detection_postprocess(
+            anchors, regression, classification, (geo.height, geo.width),
+            std=config.box_coder.std,
+            logits=ev.postprocess in ("pooled_logits", "pooled_chanlast"),
+            class_major=ev.postprocess == "pooled_chanlast",
+            **pool,
+        )
+    boxes = decode_boxes(anchors, regression.float(), std=config.box_coder.std)
+    boxes = clip_boxes(boxes, (geo.height, geo.width))
+    return batched_detection_postprocess(boxes, classification, **pool)
 
 
 def init_detector(config: FrameworkConfig, seed: int = 0, device=None) -> FRNDetector:

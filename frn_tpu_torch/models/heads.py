@@ -9,15 +9,22 @@ Emission modes, from the output map (B, A*X, H, W):
   classification 'probs'  (B, HWA, K) f32 sigmoid; 'logits' (B, HWA, K);
                  'logits_chanlast' class-major (B, K, HWA)
   regression     'rows'   (B, HWA, 4); 'flat36' (B, HW, A*4)
+
+The fused dual heads (``fused_dual_heads``, ``ModelConfig.fused_heads``) run
+the 'probs' emission on the same parameters as one conv chain: layer 1 one
+conv to the two towers' channels, layers 2-4 and the output layer convs of 2
+groups whose weights are the two towers' concatenated, each output slot
+padded to the wider of A*K and A*4.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from frn_tpu_torch.models.layers import Conv, conv_init_
 
@@ -80,6 +87,52 @@ class ClassificationHead(_Tower):
         if mode == "logits":
             return out
         raise ValueError(f"Unknown classification mode {mode!r}")
+
+
+def fused_dual_heads(
+    cls_head: ClassificationHead, reg_head: RegressionHead, features: Sequence[torch.Tensor],
+    num_classes: int, num_anchors: int = 9, dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both heads' towers in one conv chain per level: ((B, A, K) f32 sigmoid,
+    (B, A, 4)).
+
+    Reads the two heads' own weights on every call (the state_dict is
+    unchanged, and autograd reaches them). Layer 1 concatenates the two
+    conv1 weights along the output axis (one conv); layers 2-4 are convs of
+    2 groups whose weight is the two towers' concatenated; the output layer
+    pads the cls (A*K) and reg (A*4) slots to max(A*K, A*4) each and runs as
+    one conv of 2 groups, the padding sliced off. Weights and biases are cast
+    to ``dtype`` (None: the features' dtype).
+    """
+    a, k = num_anchors, num_classes
+    tower = ("conv1", "conv2", "conv3", "conv4")
+    layers = []
+    for i, name in enumerate(tower):
+        c, r = getattr(cls_head, name), getattr(reg_head, name)
+        layers.append((torch.cat([c.weight, r.weight], 0), torch.cat([c.bias, r.bias], 0),
+                       1 if i == 0 else 2))
+    co, ro = a * k, a * 4
+    pad = max(co, ro)
+    cw = F.pad(cls_head.output.weight, (0, 0, 0, 0, 0, 0, 0, pad - co))
+    rw = F.pad(reg_head.output.weight, (0, 0, 0, 0, 0, 0, 0, pad - ro))
+    cb = F.pad(cls_head.output.bias, (0, pad - co))
+    rb = F.pad(reg_head.output.bias, (0, pad - ro))
+    layers.append((torch.cat([cw, rw], 0), torch.cat([cb, rb], 0), 2))
+    dtype = features[0].dtype if dtype is None else dtype
+    layers = [(w.to(dtype), b.to(dtype), g) for w, b, g in layers]
+
+    cls_rows, reg_rows = [], []
+    for f in features:
+        x = f.to(dtype)
+        for i, (w, b, g) in enumerate(layers):
+            x = F.conv2d(x, w, b, 1, 1, groups=g)
+            if i < len(layers) - 1:
+                x = torch.relu(x)
+        out = x.permute(0, 2, 3, 1)  # (B, H, W, 2*pad)
+        n = out.shape[0]
+        cls_rows.append(torch.sigmoid(out[..., :co].float()).reshape(n, -1, k))
+        reg_rows.append(out[..., pad:pad + ro].reshape(n, -1, 4))
+    return torch.cat(cls_rows, dim=1), torch.cat(reg_rows, dim=1)
 
 
 def apply_heads(

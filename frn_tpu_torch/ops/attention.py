@@ -16,10 +16,17 @@ input on that route raises. The rest, and every CPU tensor, take the
 exact dense route under autograd whatever the options: f32 scores, softmax, p
 cast to g's dtype, PV with f32 accumulation, over query blocks of ``chunk``
 rows to bound memory.
+
+The JAX package's ``FRN_DISABLE_FLASH``, an escape from Pallas lowering, does
+not apply: the port has no dense route on the card for a sequence the
+kernels take. Set to any non-empty value (``"0"`` too, as the JAX package
+tests ``not os.environ.get(...)``) it makes such a call raise, read on every
+call, instead of being ignored.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -40,9 +47,20 @@ def _dense(g: torch.Tensor, theta: torch.Tensor, phi: torch.Tensor) -> torch.Ten
     return torch.bmm(attn.float(), g.float()).to(g.dtype)
 
 
+def flash_route(is_cuda: bool, hw: int, head_dim: int) -> bool:
+    """Whether attention over ``hw`` tokens at ``head_dim`` takes the kernels:
+    a CUDA tensor, HW >= FLASH_MIN_TOKENS and a head dim under 128. Raises
+    there if ``FRN_DISABLE_FLASH`` is set and not empty."""
+    kernels = is_cuda and hw >= FLASH_MIN_TOKENS and head_dim < 128
+    if kernels and os.environ.get("FRN_DISABLE_FLASH"):
+        raise RuntimeError(
+            "FRN_DISABLE_FLASH is set: the port has no dense attention route on the card "
+            f"for {hw} tokens; unset it")
+    return kernels
+
+
 def _kernel_route(g: torch.Tensor) -> bool:
-    """A CUDA tensor with HW >= FLASH_MIN_TOKENS and a head dim under 128."""
-    return g.is_cuda and g.shape[1] >= FLASH_MIN_TOKENS and g.shape[2] < 128
+    return flash_route(g.is_cuda, g.shape[1], g.shape[2])
 
 
 def nonlocal_attention(

@@ -1,7 +1,9 @@
 """The port's pooled decode and NMS against the JAX package's exact pool, on the CPU.
 
 Inputs are seeded numpy arrays fed to both. The JAX side runs with
-``approx_topk=False``: the port implements only the exact candidate pool.
+``approx_topk=False`` (its two-stage exact pool), the port with its one
+pool (the ``lax.top_k`` result); the port's pool is held against each of
+frn_tpu's in ``test_torch_postprocess_options.py``.
 Labels and valid-slot counts must be identical, scores agree within 1e-6 and
 boxes within 1e-4 px (f32 decode in another operation order).
 """

@@ -496,8 +496,7 @@ def test_config_accepts_the_opt_in_flags():
         True, True, "int8_qk", True)
     with pytest.raises(ValueError, match="attention_quant"):
         tconfig.ModelConfig(attention_quant="int4")
-    with pytest.raises(NotImplementedError, match="fused_heads"):
-        tconfig.ModelConfig(fused_heads=True)
+    assert tconfig.ModelConfig(fused_heads=True).fused_heads  # ported: no longer raises
 
 
 def test_build_lists_the_new_sources():

@@ -237,8 +237,7 @@ def test_entry_takes_model_config_fields():
     assert cfg.model == dataclasses.replace(dsec_fusion_config().model, **ALL_FLAGS)
     with pytest.raises(TypeError):
         dsec_fusion_config(no_such_option=True)
-    with pytest.raises(NotImplementedError):
-        dsec_fusion_config(fused_heads=True)
+    assert dsec_fusion_config(fused_heads=True).model.fused_heads  # ported: no longer raises
     fn, (rgb, event) = entry(device="cpu", batch=1, attention_quant="int8_qk", stem_kernel=True)
     assert fn.config.model.attention_quant == "int8_qk" and fn.config.model.stem_kernel
     assert all(f.fused_attention is False for f in fn.model.fus)
