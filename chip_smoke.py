@@ -15,9 +15,10 @@ Phases:
      kernel of the port built from ``frn_tpu_torch/csrc`` (one nvcc each, in
      parallel), with each kernel instance's registers and spills (the
      path's wgmma instances of the forward, the backward, the int8 forward
-     and the stem, and the f32 forward's, dQ and dK/dV kernels'
-     register-blocked instances at d 32 and 64 and their first designs at d
-     8 and 16, must each be there, and may not spill);
+     and the stem, and the f32 forward's register-blocked instances at every
+     head dim (``flash_fwd_f32_tiled`` at d 32 and 64, ``flash_fwd_f32_small``
+     at d 8 and 16), the dQ and dK/dV kernels' at d 32 and 64 and their
+     first designs at d 8 and 16, must each be there, and may not spill);
   2. each kernel against its plain PyTorch version on the card, at the shapes
      of its path (the forward; the forward with lse and the dQ and dK/dV
      backward kernels, ragged N and head dims 8 and 16 included, and the
@@ -224,10 +225,28 @@ Phases:
      any launch) and removed (B1 4 times); ``cli.test --postprocess dense
      --approx_topk`` on phase 8's DSEC fixture at bf16 (B1 4 a batch,
      nothing else; the summary beside phase 8's).
+ 15. the depth-18 and -34 paths at full width (DSEC 480x640, fusion,
+     feature size 256, seeded random weights), whose stages 1 and 2 run the
+     flash kernels at d 8 and 16 (N 19,200 and 4,800; DDD17 N 5,655 at d 8):
+     the eleven d 8 and 16 instances (B1, B1-lse, B3, B2a, B2b, B4 in both
+     modes; B1, B1-lse, B2a, B2b at f32) against their plain versions at the
+     paths' N and d at batch 2, then timed at the paths' batches beside
+     their bounds, blocks per launch, plain versions and SDPA at scale 1.0
+     (with the backend it took), as rows ``<kind>_d8_16`` of the kernels
+     line; bf16 inference at batch 16 through ``entry(depth=18)`` (the
+     logits against the plain attention), the three opt-in configurations
+     and depth 34; ``cli.test --depth 18`` at f32 (DSEC, and DDD17 through
+     ``test_ddd17``); one f32 micro-step of ``cli.train --depth 18`` at batch
+     2 and one bf16 micro-step of ``train_entry(depth=18)`` at batch 8. Each
+     run with the launch counts zeroed just before and read just after, its
+     outputs or loss finite; each row's launches summed over them.
 
 The script fails at its start if ``FRN_DISABLE_FLASH`` is in the
 environment (the port raises on every flash path then). Phases run
-in the order 1, 2, 5, 3, 6, 8, 4, 9, 10, 11, 12, 13, 14, 7. Phase 14 alone:
+in the order 1, 2, 5, 3, 6, 8, 4, 9, 10, 11, 12, 13, 14, 15, 7. Phase 15 alone:
+``python3 -c "import chip_smoke as c, tempfile, pathlib; c.phase_environment();
+d = pathlib.Path(tempfile.mkdtemp()); c.phase_depth18({}, c.write_eval_inputs(d), d)"``.
+Phase 14 alone:
 ``python3 -c "import chip_smoke as c, tempfile, pathlib; c.phase_environment();
 r = {k: {'launches': 0} for k in c._COUNTERS}; d = pathlib.Path(tempfile.mkdtemp());
 c.phase_options(r, c.write_eval_inputs(d), d)"``; another revision's
@@ -364,6 +383,10 @@ TRAIN_GRAD_REL_TOL = 5e-2
 FLASH_SHAPES = ((19200, 32), (4800, 64))
 # DDD17's one flash stage (stage 1, ragged), two directions per forward
 DDD17_FLASH_SHAPE = (5655, 32)
+# the same stages of the depth-18 and -34 detectors (stage widths 64 and 128,
+# head dim C / 8)
+DEPTH18_FLASH_SHAPES = ((19200, 8), (4800, 16))
+DEPTH18_DDD17_SHAPE = (5655, 8)
 # the evaluation CLI's default batch
 EVAL_BATCH = 8
 # the train CLI's batches (cli/train.py, cli/train_ddd17.py)
@@ -397,9 +420,10 @@ TRAIN_F32_KERNELS = ("flash_fwd_lse_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32
 # arguments): the forward at d 32 and 64, with and without exp_bf16; the dQ
 # and dK/dV kernels at d 32 and 64; the int8 forward at d 32 and 64 in modes
 # int8_qk (0) and int8 (1); the stem at C 3 and 5; and the f32 kernels (CUDA
-# cores): the forward's, the dQ and the dK/dV kernels' register-blocked
-# kernels at d 32 and 64 and their first designs at d 8 and 16 (the f32 train
-# CLI takes them at depths 18 and 34). Phase 1 fails unless each is in the
+# cores): the forward's register-blocked kernels at every head dim (its small
+# one at d 8 and 16), the dQ and the dK/dV kernels' register-blocked kernels
+# at d 32 and 64 and their first designs at d 8 and 16 (the f32 paths take d
+# 8 and 16 at depths 18 and 34). Phase 1 fails unless each is in the
 # compiler's log once, unspilled
 PATH_INSTANCES = {
     "flash_attention": [("flash_fwd_wgmma", d, e) for d in (32, 64) for e in (0, 1)],
@@ -407,7 +431,7 @@ PATH_INSTANCES = {
                             for d in (32, 64)],
     "flash_attention_int8": [("flash_int8_wgmma", d, f) for d in (32, 64) for f in (0, 1)],
     "stem": [("stem_wgmma", c) for c in (3, 5)],
-    "flash_attention_f32": [("flash_fwd_f32", 8), ("flash_fwd_f32", 16),
+    "flash_attention_f32": [("flash_fwd_f32_small", 8), ("flash_fwd_f32_small", 16),
                             ("flash_fwd_f32_tiled", 32), ("flash_fwd_f32_tiled", 64)],
     "flash_attention_bwd_f32": [(f"flash_bwd_{part}_f32{tiled}", d) for part in ("dq", "dkv")
                                 for d, tiled in ((8, ""), (16, ""), (32, "_tiled"), (64, "_tiled"))],
@@ -596,10 +620,10 @@ class KernelTimes:
     """One kernel's timings at its path's shapes, summed over its launches
     per forward or micro-step (``count`` at each shape: two directions at
     each flash shape), with the bound of that sum, as a row of the kernels
-    line."""
+    line, named ``name`` (default ``kind``)."""
 
-    def __init__(self, kind: str):
-        self.kind, self.per_shape, self.launches_per = kind, [], 0
+    def __init__(self, kind: str, name: str = ""):
+        self.kind, self.name, self.per_shape, self.launches_per = kind, name or kind, [], 0
         self.totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
         self.t_bytes = self.t_ops = 0.0
 
@@ -616,7 +640,7 @@ class KernelTimes:
         row = {**shape, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                **(extra or {}), "bound_ms": max(t_bytes, t_ops) * 1e3,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations", "count": count}
-        print(f"{self.kind} timing {json.dumps(row)}", flush=True)
+        print(f"{self.name} timing {json.dumps(row)}", flush=True)
         self.per_shape.append(row)
         for key in ("ms", "plain_ms", "library_ms", *(extra or {})):
             total = self.totals.get(key, 0.0)
@@ -631,11 +655,11 @@ class KernelTimes:
         bound_by = "bytes" if self.t_bytes >= self.t_ops else "operations"
         others = ", ".join(f"{k} {v:.3f} ms" if v is not None else f"{k} none"
                            for k, v in self.totals.items() if k != "ms")
-        print(f"{self.kind} per {per} ({self.launches_per} launches): kernel "
+        print(f"{self.name} per {per} ({self.launches_per} launches): kernel "
               f"{self.totals['ms']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), {others}",
               flush=True)
         source, replaces = KERNEL_SOURCES[self.kind]
-        return {"name": self.kind, "route": "cuda", "source": source, "replaces": replaces,
+        return {"name": self.name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": None, "max_abs_err": max_abs_err, **self.totals,
                 "bound_ms": bound_ms, "bound_by": bound_by, "per_shape": self.per_shape}
 
@@ -711,7 +735,7 @@ def kernel_instances(log: str) -> dict:
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv|int8)_(?:mma|wgmma)"
-                          r"|flash_(?:fwd|bwd_dq|bwd_dkv)_f32(?:_tiled)?|stem_wgmma)"
+                          r"|flash_(?:fwd|bwd_dq|bwd_dkv)_f32(?:_tiled|_small)?|stem_wgmma)"
                           r"I((?:L[ib]\d+E)+)E", entry.group(1))
             current = None if m is None else (
                 m.group(1), *(int(x) for x in re.findall(r"L[ib](\d+)E", m.group(2))))
@@ -1248,19 +1272,23 @@ def phase_other_backwards(others: dict) -> None:
 
 def phase_other_f32_forward(others: dict) -> None:
     """This revision's f32 forward (B1 and B1-lse at f32) timed in turns with
-    other revisions' (``build_others``) at every launch of its paths: without
-    lse at the eval batch (DSEC stages 1 and 2, DDD17's stage 1), with lse at
-    the train CLIs' batches (DSEC at F32_TRAIN_BATCH, DDD17 at
+    other revisions' (``build_others``) at every launch of its paths, at
+    depth 50 (d 32 and 64) and at depths 18 and 34 (d 8 and 16): without lse
+    at the eval batch (DSEC stages 1 and 2, DDD17's stage 1), with lse at the
+    train CLIs' batches (DSEC at F32_TRAIN_BATCH, DDD17 at
     DDD17_TRAIN_BATCH). Each timed output, o and lse, of every revision is
     held against the plain version at the f32 tolerances; each row carries
     this revision's block count (``f32_launch_plan``)."""
     from frn_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(11)
-    launches = [("flash_fwd_f32", EVAL_BATCH, n, d, False) for n, d in FLASH_SHAPES]
-    launches.append(("flash_fwd_f32 DDD17", EVAL_BATCH, *DDD17_FLASH_SHAPE, False))
-    launches += [("flash_fwd_lse_f32", F32_TRAIN_BATCH, n, d, True) for n, d in FLASH_SHAPES]
-    launches.append(("flash_fwd_lse_f32 DDD17", DDD17_TRAIN_BATCH, *DDD17_FLASH_SHAPE, True))
+    launches = []
+    for depth, shapes, ddd17 in (("", FLASH_SHAPES, DDD17_FLASH_SHAPE),
+                                 (" R18", DEPTH18_FLASH_SHAPES, DEPTH18_DDD17_SHAPE)):
+        launches += [(f"flash_fwd_f32{depth}", EVAL_BATCH, n, d, False) for n, d in shapes]
+        launches.append((f"flash_fwd_f32{depth} DDD17", EVAL_BATCH, *ddd17, False))
+        launches += [(f"flash_fwd_lse_f32{depth}", F32_TRAIN_BATCH, n, d, True) for n, d in shapes]
+        launches.append((f"flash_fwd_lse_f32{depth} DDD17", DDD17_TRAIN_BATCH, *ddd17, True))
     errs, per_step = {}, {}
     for kind, b, n, d, with_lse in launches:
         q, k, v = (torch.randn((b, n, d), generator=gen, device="cuda") for _ in range(3))
@@ -4990,6 +5018,389 @@ def phase_options(kernel_rows, inputs: dict, root: Path) -> None:
           f"{time.perf_counter() - started:.1f} s", flush=True)
 
 
+# ------------------------------------------------------------ phase 15: depth 18 and 34
+
+# the d 8 and 16 instances (the depth-18 and -34 detectors' stages 1 and 2):
+# rows of the kernels line named after their kind, beside the depth-50 rows
+DEPTH18_SUFFIX = "_d8_16"
+# the kernels' checks at the paths' N and d run at batch 2: the plain
+# versions take 0.1-0.6 s a launch at the paths' batches
+DEPTH18_CHECK_BATCH = 2
+# rows a block owns in the d 8 and 16 mma.sync kernels: the forward's
+# (csrc/flash_attention.cu, launch_mma: 128), the backward's and the int8
+# forward's (flash_common.cuh, kRows: 64)
+MMA_ROWS = {"flash_fwd": 128, "flash_fwd_lse": 128, "flash_fwd_bf16exp": 128,
+            "flash_bwd_dq": 64, "flash_bwd_dkv": 64, "flash_int8_qk": 64, "flash_int8": 64}
+# the depth-18 paths' runs: inference batches timed, the bf16 micro-step's
+# batch, the f32 train CLI's images (one micro-step at its batch 2)
+DEPTH18_TIMED = 3
+DEPTH18_TRAIN_IMAGES = F32_TRAIN_BATCH
+
+
+def depth18_blocks(kind: str, b: int, n: int, d: int) -> int:
+    """Blocks of one launch of ``kind`` at (B, N, d), d 8 or 16."""
+    from frn_tpu_torch.ops import flash_attention as fa
+
+    if kind in ("flash_fwd_f32", "flash_fwd_lse_f32"):
+        return fa.f32_launch_plan(b, n, d)["blocks"]
+    if kind in ("flash_bwd_dq_f32", "flash_bwd_dkv_f32"):
+        return fa.f32_bwd_launch_plan(b, n, d, kind.split("_")[2])["blocks"]
+    return b * -(-n // MMA_ROWS[kind])
+
+
+def depth18_launch_shapes() -> dict:
+    """{kind: [(B, N, d, count)]}: every timed launch of the eleven d 8 and 16
+    instances at its path's batch, ``count`` its launches per inference
+    batch or micro-step (two directions at DSEC stages 1 and 2; B4 ``int8``
+    once over 2B under fused attention), DDD17's stage 1 with count 0 (a
+    launch of its own, printed beside the DSEC sum)."""
+    dsec = DEPTH18_FLASH_SHAPES
+    ddd17_n, ddd17_d = DEPTH18_DDD17_SHAPE
+    out = {kind: [(MAIN_BATCH, n, d, 2) for n, d in dsec]
+           for kind in ("flash_fwd", "flash_fwd_bf16exp", "flash_int8_qk")}
+    out["flash_int8"] = [(2 * MAIN_BATCH, n, d, 1) for n, d in dsec]
+    for kind in TRAIN_KERNELS:
+        out[kind] = [(TRAIN_BATCH, n, d, 2) for n, d in dsec]
+    out["flash_fwd_f32"] = ([(EVAL_BATCH, n, d, 2) for n, d in dsec]
+                            + [(EVAL_BATCH, ddd17_n, ddd17_d, 0)])
+    for kind in TRAIN_F32_KERNELS:
+        out[kind] = ([(F32_TRAIN_BATCH, n, d, 2) for n, d in dsec]
+                     + [(DDD17_TRAIN_BATCH, ddd17_n, ddd17_d, 0)])
+    return out
+
+
+def depth18_path_launches() -> dict:
+    """Each d 8 and 16 instance's launches over phase 15's runs:
+    DEPTH18_TIMED default batches at depth 18 and one at depth 34 (B1 4 a
+    batch), one batch of each opt-in configuration (B3 4, B4 ``int8_qk`` 4,
+    B4 ``int8`` 2 over 2B), ``cli.test`` at depth 18 over EVAL_IMAGES (B1 at
+    f32 4 a DSEC batch, 2 a DDD17 one), one f32 train-CLI micro-step and one
+    bf16 micro-step (4 each)."""
+    batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    steps = DEPTH18_TRAIN_IMAGES // F32_TRAIN_BATCH
+    return {"flash_fwd": 4 * (DEPTH18_TIMED + 1), "flash_fwd_bf16exp": 4, "flash_int8_qk": 4,
+            "flash_int8": 2, **dict.fromkeys(TRAIN_KERNELS, 4),
+            "flash_fwd_f32": (4 + 2) * batches, **dict.fromkeys(TRAIN_F32_KERNELS, 4 * steps)}
+
+
+def depth18_bound(kind: str, b: int, n: int, d: int):
+    """(bytes time, operations time) of one launch of ``kind``: ``f32_bound``
+    for the f32 kinds, ``kernel_bound`` for the others."""
+    return f32_bound(b, n, d, kind) if kind.endswith("_f32") else kernel_bound(kind, b, n, d)
+
+
+def _sdpa_backend(q4, k4, v4) -> str:
+    """The backend SDPA takes on these (B, 1, N, d) inputs at scale 1.0 (a
+    gradient wanted where they require one), by torch's own selector."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q4, k4, v4, scale=1.0)).name
+
+
+def _sdpa_times(q, k, v, do=None):
+    """SDPA at scale 1.0 on (B, N, d) q, k, v as one head: (forward ms,
+    backward ms or None, backend); with ``do``, its autograd backward (dQ,
+    dK and dV together) on the forward's graph."""
+    import torch.nn.functional as F
+
+    q4, k4, v4 = (x.unsqueeze(1).detach().requires_grad_(do is not None) for x in (q, k, v))
+    backend = _sdpa_backend(q4, k4, v4)
+    fwd_ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0), reps=10)
+    bwd_ms = None
+    if do is not None:
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+        bwd_ms, _ = cuda_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), do.unsqueeze(1),
+                                                        retain_graph=True), reps=10)
+        del out
+    return fwd_ms, bwd_ms, backend
+
+
+def _depth18_calls(fa, kind: str, q, k, v, do=None, lse=None, delta=None):
+    """(kernel, plain) callables of ``kind`` on these inputs."""
+    if kind in ("flash_fwd", "flash_fwd_f32"):
+        return lambda: fa.flash_attention(q, k, v), lambda: fa.flash_attention_plain(q, k, v)
+    if kind in ("flash_fwd_lse", "flash_fwd_lse_f32"):
+        return (lambda: fa.flash_attention(q, k, v, return_lse=True),
+                lambda: fa.flash_attention_plain(q, k, v, return_lse=True))
+    if kind == "flash_fwd_bf16exp":
+        return lambda: fa.flash_attention_bf16exp(q, k, v), lambda: fa.flash_attention_bf16exp_plain(q, k, v)
+    if kind in ("flash_int8_qk", "flash_int8"):
+        mode = kind[len("flash_"):]
+        return (lambda: fa.flash_attention_int8(q, k, v, mode),
+                lambda: fa.flash_attention_int8_plain(q, k, v, mode))
+    if kind.startswith("flash_bwd_dq"):
+        return (lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta),
+                lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta))
+    return (lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta),
+            lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta))
+
+
+def _depth18_check(kind: str, got, want, shape, errs: dict) -> None:
+    """``kind``'s outputs against its plain version's at the gates of its
+    depth-50 instances (the f32 and bf16 forward, lse and backward gates)."""
+    f32 = kind.endswith("_f32")
+    if kind.startswith("flash_bwd"):
+        atol, rtol = (BWD_F32_ATOL, BWD_F32_RTOL) if f32 else (BWD_ATOL, BWD_RTOL)
+        pairs = ((("dq", got, want),) if "_dq" in kind
+                 else (("dk", got[0], want[0]), ("dv", got[1], want[1])))
+        for name, g, w in pairs:
+            check_close(kind, name, g, w, atol * w.float().abs().max().item(), rtol, shape, errs)
+        return
+    atol, rtol = (FLASH_F32_ATOL, FLASH_F32_RTOL) if f32 else (FLASH_ATOL, FLASH_RTOL)
+    if "_lse" not in kind:
+        check_close(kind, "o", got, want, atol, rtol, shape, errs)
+        return
+    check_close(kind, "o", got[0], want[0], atol, rtol, shape, errs)
+    check_close(kind, "lse", got[1], want[1], LSE_F32_ATOL if f32 else LSE_ATOL, 0.0, shape, errs)
+    if not f32:
+        check_mean_lse(kind, got[1], want[1], shape)
+
+
+def phase_depth18_kernels() -> dict:
+    """The eleven d 8 and 16 instances (B1, B1-lse, B3, B2a, B2b, B4 in both
+    modes at bf16; B1, B1-lse, B2a, B2b at f32): each against its plain
+    version at the depth-18 paths' N and d (DSEC stages 1 and 2, DDD17's
+    stage 1) at batch DEPTH18_CHECK_BATCH, then timed at its path's batch
+    (``depth18_launch_shapes``) beside its bound, its blocks per launch, its
+    plain version and SDPA at scale 1.0 (f32 for the f32 rows; its autograd
+    backward for B2; for B4, no PyTorch call computes the quantized
+    function: SDPA at bf16 beside it), with the backend SDPA took. Returns
+    the rows, named ``<kind>_d8_16``."""
+    from frn_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(30)
+
+    def inputs(b, n, d, dtype, forward=fa.flash_attention_plain):
+        """q, k, v, dO, and lse and D from ``forward`` (both backward
+        versions get the same)."""
+        q, k, v, do = (torch.randn((b, n, d), generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        o, lse = forward(q, k, v, return_lse=True)
+        return q, k, v, do, lse, fa.attention_delta(o, do)
+
+    plan = depth18_launch_shapes()
+    errs = {}
+    for n, d in DEPTH18_FLASH_SHAPES + (DEPTH18_DDD17_SHAPE,):
+        shape = (DEPTH18_CHECK_BATCH, n, d)
+        for dtype in (torch.bfloat16, torch.float32):
+            args = inputs(*shape, dtype)
+            for kind in plan:
+                if kind.endswith("_f32") == (dtype == torch.float32):
+                    kernel, plain = _depth18_calls(fa, kind, *args)
+                    _depth18_check(kind, kernel(), plain(), shape, errs)
+            del args
+
+    rows = {}
+    for kind, launches in plan.items():
+        f32 = kind.endswith("_f32")
+        times = KernelTimes(kind, kind + DEPTH18_SUFFIX)
+        for b, n, d, count in launches:
+            args = inputs(b, n, d, torch.float32 if f32 else torch.bfloat16, fa.flash_attention)
+            q, k, v, do = args[:4]
+            fwd_ms, bwd_ms, backend = _sdpa_times(q, k, v, do if kind.startswith("flash_bwd") else None)
+            library_ms, extra = (bwd_ms or fwd_ms), None
+            if kind in ("flash_int8_qk", "flash_int8"):
+                library_ms, extra = None, {"sdpa_bf16_ms": fwd_ms}
+            shape = {"B": b, "N": n, "d": d, "blocks": depth18_blocks(kind, b, n, d),
+                     "sdpa_backend": backend}
+            kernel, plain = _depth18_calls(fa, kind, *args)
+            got, want = times.add(shape, depth18_bound(kind, b, n, d), kernel, plain, library_ms,
+                                  count=count, extra=extra)
+            _depth18_check(kind, got, want, (b, n, d), errs)
+            del args, got, want
+        rows[times.name] = times.row(errs[kind], "depth-18 batch or micro-step")
+    print(f"depth-18 kernels: checks and timings in {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
+def _depth18_pth(root: Path, geo, name: str) -> str:
+    """A ``.pth`` of the seeded fusion ResNet-18 (feature size 256) at ``geo``,
+    random head output convs, as ``write_eval_inputs`` writes depth 50's."""
+    from frn_tpu_torch import config as c
+    from frn_tpu_torch.models.detector import init_detector
+
+    cfg = c.FrameworkConfig(geometry=geo, model=c.ModelConfig(
+        variant="fusion", num_classes=geo.num_classes, depth=18))
+    model = init_detector(cfg, seed=15, device="cpu")
+    _random_head_outputs(model, seed=16)
+    path = str(root / f"{name}_r18.pth")
+    torch.save({"model_state_dict": model.state_dict(), "epoch": 0}, path)
+    return path
+
+
+def _depth18_inference(depth: int, batches: int, optin: dict, want_per_batch: dict,
+                       label: str, compare: bool = False) -> dict:
+    """``entry(depth=depth, batch=MAIN_BATCH, **optin)`` on the card: one
+    warm-up batch, then ``batches`` timed with the launch counts zeroed just
+    before and read just after (``want_per_batch`` a batch, nothing else);
+    detections finite, of the expected shapes, labels in range; with
+    ``compare``, the logits and deltas against the same model with the plain
+    attention (MAIN_REL_TOL). Returns the counts."""
+    from frn_tpu_torch.entry import entry
+    from frn_tpu_torch.ops import attention
+    from frn_tpu_torch.ops import flash_attention as fa
+
+    fn, (rgb, event) = entry(device="cuda", batch=MAIN_BATCH, depth=depth, **optin)
+    _random_head_outputs(fn.model, seed=1)
+    fn(rgb, event)
+    torch.cuda.synchronize()
+    _reset_counts()
+    times = []
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        scores, labels, boxes = fn(rgb, event)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = _counts()
+    want = {**dict.fromkeys(_COUNTERS, 0), **{k: v * batches for k, v in want_per_batch.items()}}
+    ms = statistics.mean(times)
+    print(f"depth {depth} ({label}): DSEC 480x640 fusion R{depth} bf16 batch {MAIN_BATCH}, forward + "
+          f"decode + NMS {ms:.2f} ms/batch (runs {', '.join(f'{t:.2f}' for t in times)}), "
+          f"{MAIN_BATCH * 1e3 / ms:.1f} img/s; launches {json.dumps(counts)}", flush=True)
+    if counts != want:
+        fail(f"depth {depth} ({label}) launched {counts}, expected {want}")
+    m, k = fn.config.eval.max_detections, fn.config.model.num_classes
+    if ((scores.shape, labels.shape, boxes.shape) != ((MAIN_BATCH, m), (MAIN_BATCH, m),
+                                                      (MAIN_BATCH, m, 4))
+            or not (torch.isfinite(scores).all() and torch.isfinite(boxes).all())
+            or int((labels >= 0).sum()) == 0 or int(labels.max()) >= k):
+        fail(f"depth {depth} ({label}): detections of shapes {scores.shape} {labels.shape} "
+             f"{boxes.shape}, {int((labels >= 0).sum())} valid, labels up to {int(labels.max())}")
+    if compare:
+        with torch.inference_mode():
+            got = fn.model(rgb, event, eval_output=fn.eval_output)
+            kernel_fn = attention.flash_attention
+            attention.flash_attention = fa.flash_attention_plain
+            try:
+                want_out = fn.model(rgb, event, eval_output=fn.eval_output)
+            finally:
+                attention.flash_attention = kernel_fn
+        for name, g, w in zip(("logits", "deltas"), got, want_out):
+            rel = ((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+            print(f"depth {depth} {name}, kernel vs plain attention: max|diff|/max|ref| = "
+                  f"{rel:.3e}", flush=True)
+            if not rel <= MAIN_REL_TOL:
+                fail(f"depth {depth} {name} disagree with the plain attention run ({rel:.3e})")
+    del fn, rgb, event
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _add_launches(total: dict, counts: dict) -> None:
+    for kind, n in counts.items():
+        total[kind] = total.get(kind, 0) + n
+
+
+def phase_depth18(kernel_rows, inputs: dict, root: Path) -> None:
+    """The depth-18 and -34 paths at full width (DSEC 480x640, fusion, feature
+    size 256, 3 classes, seeded random weights), whose REFusion stages 1 and
+    2 run the flash kernels at d 8 and 16: the eleven d 8 and 16 instances
+    checked and timed (``phase_depth18_kernels``, rows added to
+    ``kernel_rows``); bf16 inference at batch 16 through ``entry(depth=18)``
+    (DEPTH18_TIMED batches after a warm-up, B1 4 a batch, the logits against
+    the plain attention), the three opt-in configurations (OPTIN_CONFIGS) and
+    depth 34, one batch each; ``cli.test --depth 18`` at f32 on phase 8's
+    DSEC fixture (B1 at f32 4 a batch) and ``test_ddd17 --depth 18`` (2 a
+    batch); one f32 micro-step of ``cli.train --depth 18`` at batch 2 (B1-lse,
+    B2a and B2b at f32 4 each); one bf16 micro-step of
+    ``train_entry(depth=18)`` at batch 8 (B1-lse, B2a, B2b 4 each). Each run
+    with the launch counts zeroed just before and read just after, its
+    outputs or losses finite; each row's launches are the sum over these
+    runs."""
+    from frn_tpu_torch import config as c
+    from frn_tpu_torch.entry import train_entry
+    from frn_tpu_torch.train.checkpoint import CheckpointManager
+
+    print(f"depth 18 and 34 on {card_name_and_power_limit()}", flush=True)
+    t0 = time.perf_counter()
+    rows = phase_depth18_kernels()
+    launches: dict = {}
+
+    # bf16 inference: the default path, the opt-in configurations, depth 34
+    _add_launches(launches, _depth18_inference(18, DEPTH18_TIMED, {}, {"flash_fwd": 4}, "default",
+                                               compare=True))
+    for label, optin, per_batch in OPTIN_CONFIGS:
+        _add_launches(launches, _depth18_inference(18, 1, optin, per_batch, label))
+    _add_launches(launches, _depth18_inference(34, 1, {}, {"flash_fwd": 4}, "default"))
+
+    # f32 evaluation through the CLIs at depth 18
+    pths = {"dsec": _depth18_pth(root, c.DSEC, "dsec"), "ddd17": _depth18_pth(root, c.DDD17, "ddd17")}
+    batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    for label, module, dataset, per_batch in (("DSEC f32", "test", "dsec", 4),
+                                              ("DDD17 f32", "test_ddd17", "ddd17", 2)):
+        folder = str(root / f"eval_r18_{dataset}")
+        fix = inputs[dataset]
+        argv = ["--csv_classes", fix["class_map_csv"], "--root_img", fix["img_dir"],
+                "--root_event", fix["event_dir"], "--csv_test", fix["annotations_csv"],
+                "--checkpoint", pths[dataset], "--batch_size", str(EVAL_BATCH),
+                "--save_detect_folder", folder, "--depth", "18"]
+        text, counts, seconds = run_eval_cli(f"depth 18, {label}", module, argv)
+        want = {**dict.fromkeys(_COUNTERS, 0), "flash_fwd_f32": per_batch * batches}
+        if counts != want:
+            fail(f"depth-18 evaluation ({label}) launched {counts}, expected {want}")
+        fps, summary = check_eval_summary(f"depth 18, {label}", text, folder)
+        print(f"depth-18 evaluation ({label}): {fps:.2f} img/s by the CLI ({EVAL_IMAGES} images, "
+              f"batch {EVAL_BATCH}), {seconds:.1f} s; mAP {summary['mAP']:.4f}", flush=True)
+        _add_launches(launches, counts)
+
+    # one f32 micro-step through the train CLI at its batch 2
+    fix = _subset_fixture(inputs["dsec"], DEPTH18_TRAIN_IMAGES, root / "r18_train.csv")
+    ckpt_dir = root / "train_r18"
+    argv = ["--csv_train", fix["annotations_csv"], "--csv_classes", fix["class_map_csv"],
+            "--root_img", fix["img_dir"], "--root_event", fix["event_dir"],
+            "--compute_dtype", "float32", "--batch_size", str(F32_TRAIN_BATCH), "--epochs", "1",
+            "--continue_training", "--checkpoint", pths["dsec"], "--checkpoint_dir",
+            str(ckpt_dir), "--depth", "18"]
+    history, text, counts, seconds = run_cli("depth 18, train CLI, DSEC f32", "train", argv)
+    steps = DEPTH18_TRAIN_IMAGES // F32_TRAIN_BATCH
+    want = {**dict.fromkeys(_COUNTERS, 0), **dict.fromkeys(TRAIN_F32_KERNELS, 4 * steps)}
+    if counts != want:
+        fail(f"depth-18 train CLI launched {counts}, expected {want}")
+    if not (len(history) == 1 and math.isfinite(history[0])) or "skipped" in text:
+        fail(f"depth-18 train CLI: loss history {history}, a micro-step skipped or not finite")
+    saved = torch.load(CheckpointManager(str(ckpt_dir)).path(1), map_location="cpu",
+                       weights_only=True)
+    if saved["epoch"] != 1:
+        fail("depth-18 train CLI wrote no checkpoint of epoch 1")
+    print(f"depth-18 train CLI: {steps} f32 micro-step of batch {F32_TRAIN_BATCH} in {seconds:.1f} s "
+          f"(model build and loading included); loss {history[0]:.5f}", flush=True)
+    _add_launches(launches, counts)
+    del saved
+
+    # one bf16 micro-step through train_entry at batch 8, after a warm-up step
+    trainer, batch = train_entry(device="cuda", batch=TRAIN_BATCH, num_samples=TRAIN_BATCH,
+                                 depth=18)
+    trainer.step_fn(trainer.state, batch, trainer.generator)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t1 = time.perf_counter()
+    metrics = trainer.step_fn(trainer.state, batch, trainer.generator)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) * 1e3
+    counts = _counts()
+    want = {**dict.fromkeys(_COUNTERS, 0), **dict.fromkeys(TRAIN_KERNELS, 4)}
+    loss = metrics["loss"].item()
+    print(f"depth-18 bf16 micro-step (batch {TRAIN_BATCH}): {step_ms:.2f} ms, loss {loss:.5f}, "
+          f"skipped {metrics['skipped'].item():.0f}; launches {json.dumps(counts)}", flush=True)
+    if counts != want or not math.isfinite(loss) or metrics["skipped"].item() != 0:
+        fail(f"depth-18 bf16 micro-step: loss {loss}, launches {counts}, expected {want}")
+    _add_launches(launches, counts)
+    del trainer, batch, metrics
+    torch.cuda.empty_cache()
+
+    for kind, want in depth18_path_launches().items():
+        if launches.get(kind, 0) != want:
+            fail(f"{kind} was launched {launches.get(kind, 0)} times on the depth-18 and -34 "
+                 f"paths, expected {want}")
+        rows[kind + DEPTH18_SUFFIX]["launches"] = want
+    kernel_rows.update(rows)
+    print(f"depth 18 and 34: launches of the d 8 and 16 instances "
+          f"{json.dumps(depth18_path_launches())}; phase in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def phase_postprocess_against(other_nms: str, turns: int = 2) -> None:
     """The main path's decode + NMS (pooled_chanlast, the default) with
     another revision's ``core/nms.py`` against this one's, on the main
@@ -5108,6 +5519,7 @@ def main(argv=None) -> None:
         phase_instruments(rows, inputs, root)
         phase_parallel(rows, inputs, root)
         phase_options(rows, inputs, root)
+        phase_depth18(rows, inputs, root)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

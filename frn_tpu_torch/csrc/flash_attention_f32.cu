@@ -49,10 +49,27 @@
 // and 64-row blocks give every launch of the paths more blocks than the
 // card has SMs.
 //
-// d 8 and 16 (the depth-18/34 f32 train CLI) keep the first design,
-// flash_fwd_f32: a block owns 128 query rows, one per thread, and keeps the
-// row's q, its accumulator and a tile's scores in registers; every thread of a
-// warp reads the same key's float4 at once (a broadcast).
+// d 8 and 16 (the depth-18 and -34 detectors: stage widths 64 and 128, head
+// dim C / 8): flash_fwd_f32_small, register-blocked on the same thread map
+// (128 threads, 64 query rows, thread (rg, kg) owns rows rg + 16 i, i < 4, and
+// keys kg + 8 j of each tile), built for small d. At d 8 a row's accumulator
+// is two float4s, too narrow to split its columns over 8 lanes as the tiled
+// kernel does, and a round trip of p through shared memory would cost as many
+// shared reads as V's. So p stays in registers: each thread accumulates O
+// over its own keys for all d columns (4 x d accumulators, rescaled by the
+// row group's shared alpha), and the 8 lanes' partial O and l are summed once
+// at the end by __shfl_xor_sync (O and l are linear in the keys). The
+// thread's 4 q rows stay in registers for the whole walk, so each float4 of K
+// or V read from shared memory feeds 16 FMAs. Tiles of 64 keys (8 a thread)
+// are staged by cp.async into a two-slot ring of padded rows (16 bytes: the 8
+// distinct rows a warp reads at once fall on distinct banks); 4 blocks an SM
+// at d 8 (128 registers), 2 at d 16 (254). The first design, one
+// query row per thread in 128-row blocks, fed 1 FMA per value read and left
+// the train CLI's stage 2 (B 2, N 4,800) 76 blocks; 64-row blocks give it
+// 150. What is left besides the 4d FMAs per score (about 4 more FP32
+// operations: the exp's argument, the max, l, the rescale, and one ex2 on
+// the special-function unit) keeps it under about 80% of the flops bound; on
+// the H100 it reached 48% at d 8 and 41% at d 16 (PERF.md).
 //
 // Both: keys past N are zero-filled in the ring and their scores masked to
 // -inf on the last, ragged tile only; rows past N compute and store nothing
@@ -65,139 +82,6 @@
 namespace {
 
 using namespace flash;
-
-constexpr int kTileF32 = 64;  // keys per tile of the first design
-
-// ------------------------------------------------------------ d 8 and 16
-
-constexpr int kRowsF32 = 128;  // query rows (threads) per block
-
-template <int D>
-constexpr int f32_ring_bytes() {
-  return 2 * 2 * kTileF32 * D * 4;  // two slots of a K and a V tile
-}
-
-// one tile of the online softmax for this thread's row
-template <int D, bool kMask>
-__device__ __forceinline__ void tile_step(const float (&q)[D], const float* __restrict__ kt,
-                                          const float* __restrict__ vt, int key0, int n, float& m,
-                                          float& l, float (&acc)[D]) {
-  float s[kTileF32];
-#pragma unroll
-  for (int j = 0; j < kTileF32; ++j) s[j] = 0.f;
-#pragma unroll
-  for (int c = 0; c < D; c += 4) {
-#pragma unroll
-    for (int j = 0; j < kTileF32; ++j) {
-      const float4 kv = *reinterpret_cast<const float4*>(kt + j * D + c);
-      s[j] = fmaf(q[c], kv.x, s[j]);
-      s[j] = fmaf(q[c + 1], kv.y, s[j]);
-      s[j] = fmaf(q[c + 2], kv.z, s[j]);
-      s[j] = fmaf(q[c + 3], kv.w, s[j]);
-    }
-  }
-  if constexpr (kMask) {
-#pragma unroll
-    for (int j = 0; j < kTileF32; ++j)
-      if (key0 + j >= n) s[j] = -INFINITY;
-  }
-  float mx = m;
-#pragma unroll
-  for (int j = 0; j < kTileF32; ++j) mx = fmaxf(mx, s[j]);  // finite: a tile holds a valid key
-  const float alpha = ex2((m - mx) * kLog2e);  // 0 on the first tile (m = -inf)
-  const float mb = mx * kLog2e;
-  m = mx;
-  float ts = 0.f;
-#pragma unroll
-  for (int j = 0; j < kTileF32; ++j) {
-    s[j] = ex2(fmaf(s[j], kLog2e, -mb));  // 0 for a masked key
-    ts += s[j];
-  }
-  l = l * alpha + ts;
-#pragma unroll
-  for (int c = 0; c < D; ++c) acc[c] *= alpha;
-#pragma unroll
-  for (int j = 0; j < kTileF32; ++j) {
-#pragma unroll
-    for (int c = 0; c < D; c += 4) {
-      const float4 vv = *reinterpret_cast<const float4*>(vt + j * D + c);
-      acc[c] = fmaf(s[j], vv.x, acc[c]);
-      acc[c + 1] = fmaf(s[j], vv.y, acc[c + 1]);
-      acc[c + 2] = fmaf(s[j], vv.z, acc[c + 2]);
-      acc[c + 3] = fmaf(s[j], vv.w, acc[c + 3]);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kRowsF32)
-    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                  int n) {
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  float* ring = reinterpret_cast<float*>(smem_raw);
-  const size_t base = static_cast<size_t>(blockIdx.y) * n * D;
-  q += base;
-  k += base;
-  v += base;
-  o += base;
-  const int row = blockIdx.x * kRowsF32 + threadIdx.x;
-  const bool live = row < n;
-
-  float qr[D], acc[D];
-#pragma unroll
-  for (int c = 0; c < D; c += 4) {
-    const float4 x = live ? *reinterpret_cast<const float4*>(q + static_cast<size_t>(row) * D + c)
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
-    qr[c] = x.x;
-    qr[c + 1] = x.y;
-    qr[c + 2] = x.z;
-    qr[c + 3] = x.w;
-  }
-#pragma unroll
-  for (int c = 0; c < D; ++c) acc[c] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  const int tiles = (n + kTileF32 - 1) / kTileF32;
-  const bool ragged = n % kTileF32 != 0;
-  load_rows_f32<D, kTileF32, kRowsF32>(k, v, 0, n, ring, ring + kTileF32 * D);
-  cp_async_commit();
-  for (int t = 0; t < tiles; ++t) {
-    if (t + 1 < tiles) {
-      float* next = ring + ((t + 1) % 2) * 2 * kTileF32 * D;
-      load_rows_f32<D, kTileF32, kRowsF32>(k, v, (t + 1) * kTileF32, n, next, next + kTileF32 * D);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* kt = ring + (t % 2) * 2 * kTileF32 * D;
-    if (ragged && t == tiles - 1)
-      tile_step<D, true>(qr, kt, kt + kTileF32 * D, t * kTileF32, n, m, l, acc);
-    else
-      tile_step<D, false>(qr, kt, kt + kTileF32 * D, t * kTileF32, n, m, l, acc);
-    __syncthreads();  // the slot is refilled by the next iteration's copy
-  }
-  if (live) {
-#pragma unroll
-    for (int c = 0; c < D; c += 4)
-      *reinterpret_cast<float4*>(o + static_cast<size_t>(row) * D + c) =
-          make_float4(acc[c] / l, acc[c + 1] / l, acc[c + 2] / l, acc[c + 3] / l);
-    if (lse != nullptr) lse[static_cast<size_t>(blockIdx.y) * n + row] = m + logf(l);
-  }
-}
-
-template <int D>
-int launch_f32(const float* q, const float* k, const float* v, float* o, float* lse, int batch,
-               int n, cudaStream_t stream) {
-  static int set_for_device = -1;
-  const int rc = allow_smem(flash_fwd_f32<D>, f32_ring_bytes<D>(), set_for_device);
-  if (rc != 0) return rc;
-  const dim3 grid((n + kRowsF32 - 1) / kRowsF32, batch);
-  flash_fwd_f32<D><<<grid, kRowsF32, f32_ring_bytes<D>(), stream>>>(q, k, v, o, lse, n);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ------------------------------------------------------------ d 32 and 64
 
@@ -429,6 +313,207 @@ int launch_tiled(const float* q, const float* k, const float* v, float* o, float
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ d 8 and 16
+
+constexpr int kSmallRows = 64;  // BM: query rows a block owns
+constexpr int kSmallThreads = 128;
+
+// keys per tile (BN): a thread takes 8 keys of a 64-key tile. By
+// measurement on the H100 (PERF.md): at d 8, 128-key tiles spilled at
+// 3 blocks an SM and ran 10% slower at 2; at d 16, 32-key tiles ran 17%
+// slower and 128-key ones 3%
+template <int D>
+__host__ __device__ constexpr int small_keys() {
+  return D == 8 ? 64 : 64;
+}
+
+// blocks an SM: 4 at d 8 (16 warps, 128 registers a thread: 8% faster than
+// 3); 2 at d 16, whose 64 q and 64 accumulator registers a thread spill at 3
+template <int D>
+__host__ __device__ constexpr int small_blocks_per_sm() {
+  return D == 8 ? 4 : 2;
+}
+
+template <int D>
+struct Small {
+  static constexpr int kBN = small_keys<D>();
+  static constexpr int kR = kSmallThreads / kKeyGroups;  // row groups
+  static constexpr int kTM = kSmallRows / kR;            // rows per thread
+  static constexpr int kTN = kBN / kKeyGroups;           // keys per thread
+  static constexpr int kS = D + 4;                       // padded row stride, in floats
+  static constexpr int kTile = kBN * kS;                 // floats of a staged K or V tile
+  static constexpr int kBytes = 4 * 2 * 2 * kTile;       // two slots of K and V
+  static_assert(kTM * kR == kSmallRows && kTN * kKeyGroups == kBN && D % 4 == 0,
+                "whole tiles, float4 columns");
+  static_assert(small_blocks_per_sm<D>() * (kBytes + 1024) <= 228 * 1024, "blocks an SM");
+};
+
+// one tile for this thread's rows and keys: S = Q K^T, the online softmax
+// step of its rows (m, the partial l and acc rescaled by alpha), then acc +=
+// P V over its own keys in order; p never leaves the registers
+template <int D, bool kMask>
+__device__ __forceinline__ void small_tile(const float4 (&qr)[Small<D>::kTM][D / 4],
+                                           const float* __restrict__ kt,
+                                           const float* __restrict__ vt, int key0, int n, int kg,
+                                           float (&m)[Small<D>::kTM], float (&l)[Small<D>::kTM],
+                                           float (&acc)[Small<D>::kTM][D]) {
+  using T = Small<D>;
+  constexpr int TM = T::kTM, TN = T::kTN, G = kKeyGroups;
+  float s[TM][TN];
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const float* krow = kt + (kg + G * j) * T::kS;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) s[i][j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 4; ++c) {  // each float4 of K feeds TM * 4 FMAs
+      const float4 kf = *reinterpret_cast<const float4*>(krow + 4 * c);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) fma4(s[i][j], qr[i][c], kf);
+    }
+  }
+  if constexpr (kMask) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      if (key0 + kg + G * j >= n) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) s[i][j] = -INFINITY;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    float mx = m[i];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) mx = fmaxf(mx, s[i][j]);
+#pragma unroll
+    for (int off = 1; off < G; off *= 2)  // the row group's G lanes
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    // finite: the tile's first key is valid
+    const float alpha = ex2((m[i] - mx) * kLog2e);  // 0 on the first tile (m = -inf)
+    const float mb = mx * kLog2e;
+    m[i] = mx;
+    float ts = 0.f;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      s[i][j] = ex2(fmaf(s[i][j], kLog2e, -mb));  // 0 for a masked key
+      ts += s[i][j];
+    }
+    l[i] = l[i] * alpha + ts;
+#pragma unroll
+    for (int c = 0; c < D; ++c) acc[i][c] *= alpha;
+  }
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {  // keys in order
+    const float* vrow = vt + (kg + G * j) * T::kS;
+#pragma unroll
+    for (int c = 0; c < D / 4; ++c) {  // each float4 of V feeds TM * 4 FMAs
+      const float4 vf = *reinterpret_cast<const float4*>(vrow + 4 * c);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        float* a = acc[i] + 4 * c;
+        a[0] = fmaf(s[i][j], vf.x, a[0]);
+        a[1] = fmaf(s[i][j], vf.y, a[1]);
+        a[2] = fmaf(s[i][j], vf.z, a[2]);
+        a[3] = fmaf(s[i][j], vf.w, a[3]);
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kSmallThreads, small_blocks_per_sm<D>())
+    flash_fwd_f32_small(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int n) {
+  using T = Small<D>;
+  constexpr int TM = T::kTM, G = kKeyGroups, R = T::kR, BN = T::kBN;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);  // two slots
+  float* vs = ks + 2 * T::kTile;                   // two slots
+  const size_t base = static_cast<size_t>(blockIdx.y) * n * D;
+  q += base;
+  k += base;
+  v += base;
+  o += base;
+  const int row0 = blockIdx.x * kSmallRows;
+  const int kg = threadIdx.x % G;  // keys kg + G j of every tile
+  const int rg = threadIdx.x / G;  // rows row0 + rg + R i
+
+  stage_rows_f32<D, BN, T::kS, kSmallThreads>(k, 0, n, ks);
+  stage_rows_f32<D, BN, T::kS, kSmallThreads>(v, 0, n, vs);
+  cp_async_commit();
+
+  // the thread's q rows stay in registers (rows past n: zeros, never stored)
+  float4 qr[TM][D / 4];
+  float m[TM], l[TM], acc[TM][D];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = row0 + rg + R * i;
+#pragma unroll
+    for (int c = 0; c < D / 4; ++c)
+      qr[i][c] = row < n ? *reinterpret_cast<const float4*>(q + static_cast<size_t>(row) * D + 4 * c)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D; ++c) acc[i][c] = 0.f;
+  }
+  const int tiles = (n + BN - 1) / BN;
+  const bool ragged = n % BN != 0;
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is in; every thread is done with tile t - 1 and its slot
+    if (t + 1 < tiles) {
+      const int slot = (t + 1) % 2;
+      stage_rows_f32<D, BN, T::kS, kSmallThreads>(k, (t + 1) * BN, n, ks + slot * T::kTile);
+      stage_rows_f32<D, BN, T::kS, kSmallThreads>(v, (t + 1) * BN, n, vs + slot * T::kTile);
+      cp_async_commit();
+    }
+    const float* kt = ks + (t % 2) * T::kTile;
+    const float* vt = vs + (t % 2) * T::kTile;
+    if (ragged && t == tiles - 1)
+      small_tile<D, true>(qr, kt, vt, t * BN, n, kg, m, l, acc);
+    else
+      small_tile<D, false>(qr, kt, vt, t * BN, n, kg, m, l, acc);
+  }
+  // the G lanes' partial l and acc over their own keys, summed once (both are
+  // linear in the keys, and every lane scaled by the same alphas); the xor
+  // butterfly leaves the same sums in all G lanes
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int off = 1; off < G; off *= 2) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+#pragma unroll
+      for (int c = 0; c < D; ++c) acc[i][c] += __shfl_xor_sync(0xffffffffu, acc[i][c], off);
+    }
+    const int row = row0 + rg + R * i;
+    if (row >= n) continue;
+#pragma unroll
+    for (int c = 0; c < D / 4; ++c) {  // lane c stores the row's float4 c
+      if (kg == c) {
+        const float* a = acc[i] + 4 * c;
+        *reinterpret_cast<float4*>(o + static_cast<size_t>(row) * D + 4 * c) =
+            make_float4(a[0] / l[i], a[1] / l[i], a[2] / l[i], a[3] / l[i]);
+      }
+    }
+    if (lse != nullptr && kg == G - 1)
+      lse[static_cast<size_t>(blockIdx.y) * n + row] = m[i] + logf(l[i]);
+  }
+}
+
+template <int D>
+int launch_small(const float* q, const float* k, const float* v, float* o, float* lse, int batch,
+                 int n, cudaStream_t stream) {
+  static int set_for_device = -1;
+  const int rc = allow_smem(flash_fwd_f32_small<D>, Small<D>::kBytes, set_for_device);
+  if (rc != 0) return rc;
+  const dim3 grid((n + kSmallRows - 1) / kSmallRows, batch);
+  flash_fwd_f32_small<D><<<grid, kSmallThreads, Small<D>::kBytes, stream>>>(q, k, v, o, lse, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes. Launches on `stream` and returns the
@@ -445,8 +530,8 @@ extern "C" int frn_flash_fwd_f32(const void* q, const void* k, const void* v, vo
   auto* lf = static_cast<float*>(lse);
   auto* s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 8: return launch_f32<8>(qf, kf, vf, of, lf, batch, n, s);
-    case 16: return launch_f32<16>(qf, kf, vf, of, lf, batch, n, s);
+    case 8: return launch_small<8>(qf, kf, vf, of, lf, batch, n, s);
+    case 16: return launch_small<16>(qf, kf, vf, of, lf, batch, n, s);
     case 32: return launch_tiled<32>(qf, kf, vf, of, lf, batch, n, s);
     case 64: return launch_tiled<64>(qf, kf, vf, of, lf, batch, n, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

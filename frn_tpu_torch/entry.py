@@ -99,11 +99,11 @@ def replica_detections(fns, parts, inputs) -> list:
 
 def dsec_fusion_config(**model_options) -> FrameworkConfig:
     """DSEC fusion ResNet-50 in bf16; ``model_options`` are further
-    ``ModelConfig`` fields."""
+    ``ModelConfig`` fields, which may override these (e.g. ``depth=18``)."""
     return FrameworkConfig(
         geometry=DSEC,
-        model=ModelConfig(variant="fusion", depth=50, num_classes=3, compute_dtype="bfloat16",
-                          **model_options),
+        model=ModelConfig(**{"variant": "fusion", "depth": 50, "num_classes": 3,
+                             "compute_dtype": "bfloat16", **model_options}),
     )
 
 
@@ -123,14 +123,16 @@ def entry(device=None, batch: int = 1, seed: int = 0,
     return InferenceFn(model, cfg), (rgb, event)
 
 
-def train_entry(device=None, batch: int = 8, seed: int = 0,
-                num_samples: int = 48) -> Tuple[Trainer, Dict[str, torch.Tensor]]:
-    """(trainer, example batch): the DSEC fusion ResNet-50 bf16 ``Trainer`` at
+def train_entry(device=None, batch: int = 8, seed: int = 0, num_samples: int = 48,
+                **model_options) -> Tuple[Trainer, Dict[str, torch.Tensor]]:
+    """(trainer, example batch): the DSEC fusion ResNet-50 bf16 ``Trainer``,
+    with the ``ModelConfig`` fields ``model_options`` (e.g. ``depth=18``), at
     batch ``batch`` over ``num_samples`` seeded samples with 1-3 boxes each
     (``data/synthetic.py``), and the first ``batch`` of them collated on the
     device ('rgb', 'event', 'annot', 'sample_mask')."""
     device = resolve_device(device)
-    cfg = dataclasses.replace(dsec_fusion_config(), train=TrainConfig(batch_size=batch, seed=seed))
+    cfg = dataclasses.replace(dsec_fusion_config(**model_options),
+                              train=TrainConfig(batch_size=batch, seed=seed))
     samples = box_samples(num_samples, cfg.geometry, seed=seed + 1)
     trainer = Trainer(cfg, samples, seed=seed, device=device)
     example = collate_fixed(samples[:batch], cfg.geometry, cfg.train.max_annots_per_image, batch)

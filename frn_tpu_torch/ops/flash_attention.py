@@ -49,6 +49,9 @@ _LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)  # the kernels' k
 # kTiledRows, tiled_keys): query rows a block owns, keys per tile by head dim
 F32_TILED_ROWS = 64
 F32_TILED_KEYS = {32: 64, 64: 32}
+# and its register-blocked kernel at d 8 and 16 (kSmallRows, small_keys): the
+# same 64-row blocks, keys per tile by head dim
+F32_SMALL_KEYS = {8: 64, 16: 64}
 # the f32 dK/dV kernel's register-blocked design at d 32 and 64
 # (csrc/flash_attention_bwd_f32.cu: tiled_key_rows, tiled_queries): key rows a
 # block owns and query rows per tile, by head dim
@@ -117,15 +120,17 @@ def bind_f32(lib):
 
 def f32_launch_plan(b: int, n: int, d: int) -> dict:
     """The f32 forward's launch at (B, N, d), as ``frn_flash_fwd_f32`` makes
-    it: {'kernel', 'bm' (query rows a block owns), 'key_tile', 'blocks'}. d 32
-    and 64 take the register-blocked kernel (``flash_fwd_f32_tiled``, 64-row
-    blocks); d 8 and 16 the first design (``flash_fwd_f32``, a row per
-    thread, 128-row blocks, 64-key tiles)."""
-    if d in F32_TILED_KEYS:
-        kernel, bm, key_tile = "flash_fwd_f32_tiled", F32_TILED_ROWS, F32_TILED_KEYS[d]
-    else:
-        kernel, bm, key_tile = "flash_fwd_f32", 128, KERNEL_TILE
-    return {"kernel": kernel, "bm": bm, "key_tile": key_tile, "blocks": b * -(-n // bm)}
+    it: {'kernel', 'bm' (query rows a block owns), 'key_tile', 'blocks'}.
+    Both kernels are register-blocked on 64-row blocks of 128 threads: d 32
+    and 64 take ``flash_fwd_f32_tiled`` (p through shared memory, the
+    accumulator's columns split over 8 lanes), d 8 and 16
+    ``flash_fwd_f32_small`` (p in registers, each lane's partial O over its
+    own keys summed across the 8 at the end; 128-key tiles at d 8, 64 at
+    d 16)."""
+    kernel = "flash_fwd_f32_tiled" if d in F32_TILED_KEYS else "flash_fwd_f32_small"
+    key_tile = F32_TILED_KEYS[d] if d in F32_TILED_KEYS else F32_SMALL_KEYS[d]
+    return {"kernel": kernel, "bm": F32_TILED_ROWS, "key_tile": key_tile,
+            "blocks": b * -(-n // F32_TILED_ROWS)}
 
 
 def f32_bwd_launch_plan(b: int, n: int, d: int, kind: str) -> dict:
