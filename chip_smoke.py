@@ -15,10 +15,11 @@ Phases:
      kernel of the port built from ``frn_tpu_torch/csrc`` (one nvcc each, in
      parallel), with each kernel instance's registers and spills (the
      path's wgmma instances of the forward, the backward, the int8 forward
-     and the stem, and the f32 forward's register-blocked instances at every
-     head dim (``flash_fwd_f32_tiled`` at d 32 and 64, ``flash_fwd_f32_small``
-     at d 8 and 16), the dQ and dK/dV kernels' at d 32 and 64 and their
-     first designs at d 8 and 16, must each be there, and may not spill);
+     and the stem, the backward's ring dK/dV kernel at d 8 and 16, and the
+     f32 forward's register-blocked instances at every head dim
+     (``flash_fwd_f32_tiled`` at d 32 and 64, ``flash_fwd_f32_small`` at d 8
+     and 16), the dQ and dK/dV kernels' at d 32 and 64 and their first
+     designs at d 8 and 16, must each be there, and may not spill);
   2. each kernel against its plain PyTorch version on the card, at the shapes
      of its path (the forward; the forward with lse and the dQ and dK/dV
      backward kernels, ragged N and head dims 8 and 16 included, and the
@@ -35,7 +36,8 @@ Phases:
      backward beside them, each launch's block count, and DDD17 at batch 4);
      with ``--other-source``, each
      other revision's forward entry points (B1, B1 with lse, B3) or backward
-     entry points (B2a dQ, B2b dK/dV) or f32 forward (B1 and B1-lse at f32,
+     entry points (B2a dQ, B2b dK/dV; at depth 50's and depth 18's shapes)
+     or f32 forward (B1 and B1-lse at f32,
      at every launch of the eval and f32 train paths, with each launch's
      block count) or f32 backward (B2a and B2b at f32, at every launch of
      the f32 train path, with each launch's block count) built by the same
@@ -418,7 +420,8 @@ TRAIN_KERNELS = ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_F32_KERNELS = ("flash_fwd_lse_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
 # the path's wgmma instances of each source, as (kernel, its first template
 # arguments): the forward at d 32 and 64, with and without exp_bf16; the dQ
-# and dK/dV kernels at d 32 and 64; the int8 forward at d 32 and 64 in modes
+# and dK/dV kernels at d 32 and 64, and the ring dK/dV kernel at d 8 and 16
+# (the depth-18 and -34 training path); the int8 forward at d 32 and 64 in modes
 # int8_qk (0) and int8 (1); the stem at C 3 and 5; and the f32 kernels (CUDA
 # cores): the forward's register-blocked kernels at every head dim (its small
 # one at d 8 and 16), the dQ and the dK/dV kernels' register-blocked kernels
@@ -428,7 +431,7 @@ TRAIN_F32_KERNELS = ("flash_fwd_lse_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32
 PATH_INSTANCES = {
     "flash_attention": [("flash_fwd_wgmma", d, e) for d in (32, 64) for e in (0, 1)],
     "flash_attention_bwd": [(kernel, d) for kernel in ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
-                            for d in (32, 64)],
+                            for d in (32, 64)] + [("flash_bwd_dkv_ring", d) for d in (8, 16)],
     "flash_attention_int8": [("flash_int8_wgmma", d, f) for d in (32, 64) for f in (0, 1)],
     "stem": [("stem_wgmma", c) for c in (3, 5)],
     "flash_attention_f32": [("flash_fwd_f32_small", 8), ("flash_fwd_f32_small", 16),
@@ -734,7 +737,7 @@ def kernel_instances(log: str) -> dict:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv|int8)_(?:mma|wgmma)"
+            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv|int8)_(?:mma|wgmma)|flash_bwd_dkv_ring"
                           r"|flash_(?:fwd|bwd_dq|bwd_dkv)_f32(?:_tiled|_small)?|stem_wgmma)"
                           r"I((?:L[ib]\d+E)+)E", entry.group(1))
             current = None if m is None else (
@@ -1222,18 +1225,20 @@ def phase_other_forwards(others: dict) -> None:
 
 
 def _other_backwards_in_turns(others: dict, launches, dtype, atol: float, rtol: float,
-                              seed: int) -> None:
+                              seed: int, checks=()) -> None:
     """This revision's dQ and dK/dV entry points timed in turns with other
     revisions' (``build_others``) at ``launches`` [(label suffix, B, N, d)],
     on the same inputs, lse and D; each timed output of every revision held
-    against the plain versions (atol a share of each output's max |value|).
-    f32 rows carry this revision's block count (``f32_bwd_launch_plan``)."""
+    against the plain versions (atol a share of each output's max |value|),
+    and so are every revision's outputs at ``checks`` [(B, N, d)], untimed.
+    f32 rows carry this revision's block count (``f32_bwd_launch_plan``),
+    bf16 rows at d 8 and 16 the d 8/16 kernels' (``depth18_blocks``)."""
     from frn_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     f32 = dtype == torch.float32
     errs, per_step = {}, {}
-    for suffix, b, n, d in launches:
+    for suffix, b, n, d in [(None, *shape) for shape in checks] + list(launches):
         q, k, v, do = (torch.randn((b, n, d), generator=gen, device="cuda").to(dtype)
                        for _ in range(4))
         o, lse = fa.flash_attention_plain(q, k, v, return_lse=True)
@@ -1253,9 +1258,15 @@ def _other_backwards_in_turns(others: dict, launches, dtype, atol: float, rtol: 
                     check_close(label, name, got, want, atol * want.float().abs().max().item(),
                                 rtol, q.shape, errs)
 
+            if suffix is None:  # a check shape: held against the plain versions, untimed
+                for name, run in runs.items():
+                    check(f"{kind} {'this revision' if name == 'this' else name}", run())
+                continue
             shape = {"B": b, "N": n, "d": d}
             if f32:
                 shape["blocks"] = fa.f32_bwd_launch_plan(b, n, d, part)["blocks"]
+            elif d in (8, 16):
+                shape["blocks"] = depth18_blocks(kind, b, n, d)
             time_in_turns(kind + suffix, shape, runs, check, per_step)
         del q, k, v, do, o, lse, delta, dq_ref, dkv_ref
     print_per_step(per_step)
@@ -1263,11 +1274,15 @@ def _other_backwards_in_turns(others: dict, launches, dtype, atol: float, rtol: 
 
 def phase_other_backwards(others: dict) -> None:
     """This revision's dQ and dK/dV entry points (B2a, B2b) timed in turns
-    with other revisions' at the training path's shapes and batch
-    (FLASH_SHAPES, TRAIN_BATCH), held against the plain versions as in
-    phase 2."""
-    _other_backwards_in_turns(others, [("", TRAIN_BATCH, n, d) for n, d in FLASH_SHAPES],
-                              torch.bfloat16, BWD_ATOL, BWD_RTOL, seed=7)
+    with other revisions' at the bf16 training paths' shapes and batch: depth
+    50's (FLASH_SHAPES) and depth 18's (DEPTH18_FLASH_SHAPES, rows " R18"),
+    at TRAIN_BATCH, held against the plain versions as in phase 2; before
+    them every revision's outputs at the ragged DEPTH18_DDD17_SHAPE (batch
+    DEPTH18_CHECK_BATCH) against the plain versions."""
+    launches = [("", TRAIN_BATCH, n, d) for n, d in FLASH_SHAPES]
+    launches += [(" R18", TRAIN_BATCH, n, d) for n, d in DEPTH18_FLASH_SHAPES]
+    _other_backwards_in_turns(others, launches, torch.bfloat16, BWD_ATOL, BWD_RTOL, seed=7,
+                              checks=[(DEPTH18_CHECK_BATCH, *DEPTH18_DDD17_SHAPE)])
 
 
 def phase_other_f32_forward(others: dict) -> None:
@@ -5027,10 +5042,11 @@ DEPTH18_SUFFIX = "_d8_16"
 # versions take 0.1-0.6 s a launch at the paths' batches
 DEPTH18_CHECK_BATCH = 2
 # rows a block owns in the d 8 and 16 mma.sync kernels: the forward's
-# (csrc/flash_attention.cu, launch_mma: 128), the backward's and the int8
+# (csrc/flash_attention.cu, launch_mma: 128), the ring dK/dV kernel's
+# (csrc/flash_attention_bwd.cu, dkv_rows: 128), the dQ kernel's and the int8
 # forward's (flash_common.cuh, kRows: 64)
 MMA_ROWS = {"flash_fwd": 128, "flash_fwd_lse": 128, "flash_fwd_bf16exp": 128,
-            "flash_bwd_dq": 64, "flash_bwd_dkv": 64, "flash_int8_qk": 64, "flash_int8": 64}
+            "flash_bwd_dq": 64, "flash_bwd_dkv": 128, "flash_int8_qk": 64, "flash_int8": 64}
 # the depth-18 paths' runs: inference batches timed, the bf16 micro-step's
 # batch, the f32 train CLI's images (one micro-step at its batch 2)
 DEPTH18_TIMED = 3

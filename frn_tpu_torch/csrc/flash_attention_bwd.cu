@@ -56,11 +56,29 @@
 // make it redundant: a zero key row gives s = 0 and p = exp(-lse), which is
 // inf once lse < -88, and inf * 0 is NaN.
 //
-// At d 8 and 16 (off the path: tests and tiny configurations) the first,
-// simple mma.sync kernels stay: one block of 4 warps owns 64 rows, each warp
-// 16, with the tiles staged synchronously and the B operands of the products
-// that contract over keys or queries read from tiles transposed element by
-// element in padded shared memory.
+// At d 8 and 16 (the depth-18 and -34 training path: N 19,200 at d 8, N
+// 4,800 at d 16) the exponentials bound both kernels: 6d or 8d flops per exp
+// is far below the tensor cores' 254. The dQ kernel keeps its first, simple
+// mma.sync design: one block of 4 warps owns 64 query rows, each warp 16, with
+// the key tiles staged synchronously and dQ's B operand read from a tile
+// transposed element by element in padded shared memory. The dK/dV kernel,
+// flash_bwd_dkv_ring, follows the forward's mma.sync kernel
+// (flash_attention.cu, flash_fwd_mma): a block of dkv_warps (4) warps owns
+// dkv_rows (128) key rows, each warp dkv_key_tiles (2) 16-row tiles with K
+// and V as A fragments in registers, and walks 64-query tiles of Q and dO that
+// all threads stage by 16-byte cp.async into the forward's swizzled ring (kStages
+// slots, kAhead tiles in flight, one __syncthreads per tile). Beside it,
+// threads 0..127 carry each tile's lse and D a tile ahead in a register and
+// write them into one of two slots as the fragments read them: lse * log2(e)
+// in pairs, and -D as the C fragment that starts dP^T's accumulator, so that
+// a score costs one FFMA and one ex2 for P and one FMUL for dS. Per 16
+// queries: S^T = K Q^T and dP^T = V dO^T - D take their B fragments by
+// ldmatrix from the row-major tiles (m16n8k8 at d 8, m16n8k16 at d 16);
+// P^T = ex2(S^T log2(e) - lse log2(e)) and dS^T = P^T dP^T are packed once to
+// bf16 A fragments; dV += P^T dO and dK += dS^T Q take theirs by
+// ldmatrix.trans from the same tiles, so no tile is transposed in memory.
+// Only the ragged last tile takes the select that gives queries at or past N
+// P = 0. Each block writes its own dK and dV rows once.
 
 #include <math.h>
 
@@ -148,115 +166,236 @@ flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   store_rows<D>(dq + base, acc, row0, row1, ok0, ok1, t);
 }
 
+// ------------------------------------------------------------ the ring dK/dV kernel (d 8, 16)
+
+// Its block, by head dim: warps, each owning dkv_key_tiles 16-row tiles of
+// keys, and the blocks an SM that __launch_bounds__ keeps registers for.
+// Chosen in turns on the H100 (PERF.md): two key tiles a warp share
+// each B fragment and beat one by 18-20% at (8, 19,200, 8); 4 warps at 3
+// blocks an SM fit them unspilled (157 and 158 registers), where 4 blocks
+// spill and 4 key tiles a warp (209 registers, 2 blocks) run slower.
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int n) {
-  static_assert(D == 8 || D == 16, "the mma.sync backward takes head dims 8 and 16");
-  constexpr int KD = kSteps<D>();
-  __shared__ __align__(16) __nv_bfloat16 q_tile[kTile][D + kPad];    // [query][d]
-  __shared__ __align__(16) __nv_bfloat16 do_tile[kTile][D + kPad];   // [query][d]
-  __shared__ __align__(16) __nv_bfloat16 qt_tile[D][kTile + kPad];   // [d][query]
-  __shared__ __align__(16) __nv_bfloat16 dot_tile[D][kTile + kPad];  // [d][query]
-  __shared__ float lse_s[kTile], dl_s[kTile];
+__host__ __device__ constexpr int dkv_warps() { return 4; }
+template <int D>
+__host__ __device__ constexpr int dkv_key_tiles() { return 2; }
+template <int D>
+__host__ __device__ constexpr int dkv_blocks_per_sm() { return 3; }
+template <int D>
+__host__ __device__ constexpr int dkv_rows() { return dkv_warps<D>() * 16 * dkv_key_tiles<D>(); }
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+// One query tile's statistics in shared memory, laid out as the fragments
+// read them (c0 = 16 kk + 2t, c1 = c0 + 8; c = 8 nt + 2t):
+//  - lb[kk][t] = {lb(c0), lb(c0 + 1), lb(c1), lb(c1 + 1)}, lb = lse log2(e):
+//    the exponent's offsets of 16 queries' two score tiles;
+//  - nd[nt][t] = {-D(c), -D(c + 1), -D(c), -D(c + 1)}: the C fragment (rows g
+//    and g + 8) that starts dP^T of score tile nt at -D.
+struct DkvStats {
+  float4 lb[kTile / 16][4];
+  float4 nd[kTile / 8][4];
+};
+
+// This thread's statistic of query tile `tile` of its batch (lse, delta: the
+// batch's (n,) rows): threads 0..kTile-1 read lse, kTile..2 kTile-1 read D, of
+// the tile's query threadIdx.x % kTile, by a plain load that is used a tile
+// later (put_stat); queries past n and other threads give 0.
+__device__ __forceinline__ float load_stat(const float* __restrict__ lse,
+                                           const float* __restrict__ delta, int tile, int n) {
+  const int i = threadIdx.x;
+  const int query = tile * kTile + i % kTile;
+  if (i >= 2 * kTile || query >= n) return 0.f;
+  return i < kTile ? lse[query] : delta[query];
+}
+
+// Writes this thread's statistic x (load_stat) into st: lse as lse * log2(e)
+// into its lb slot, D as -D into both of its nd slots.
+__device__ __forceinline__ void put_stat(float x, DkvStats& st) {
+  const int i = threadIdx.x;
+  if (i < kTile) {  // query i: chunk i / 16, lane column t = (i % 8) / 2, half (i / 8) % 2
+    reinterpret_cast<float*>(st.lb)[((i / 16) * 4 + (i % 8) / 2) * 4 + ((i / 8) % 2) * 2 + i % 2] =
+        x * kLog2e;
+  } else if (i < 2 * kTile) {  // query c: score tile c / 8, lane column t = (c % 8) / 2
+    const int c = i - kTile;
+    float* nd = reinterpret_cast<float*>(st.nd) + ((c / 8) * 4 + (c % 8) / 2) * 4 + c % 2;
+    nd[0] = -x;
+    nd[2] = -x;
+  }
+}
+
+// One query tile (kTile queries from q0, Q and dO in the swizzled ring tiles
+// qt and ot, statistics st) for this warp's M 16-row key tiles, 16 queries at
+// a time: S^T = K Q^T and dP^T = V dO^T - D, their B fragments by ldmatrix
+// from the row-major tiles (d 8: m16n8k8), dP^T's accumulator started at -D;
+// P^T = ex2(S^T log2(e) - lb), dS^T = P^T dP^T, each packed once to bf16 A
+// fragments; dV += P^T dO and dK += dS^T Q, their B fragments by
+// ldmatrix.trans from the same tiles. Each B fragment serves the M key
+// tiles, and each key tile's products follow its P^T and dS^T, so that one
+// tile's A fragments are live at a time. With kMask (the ragged last tile)
+// queries at or past n get P = 0 by a select, whatever their statistics
+// read.
+template <int D, int M, bool kMask>
+__device__ __forceinline__ void dkv_tile(const uint32_t (&ka)[M][kSteps<D>()][4],
+                                         const uint32_t (&va)[M][kSteps<D>()][4],
+                                         const __nv_bfloat16* qt, const __nv_bfloat16* ot,
+                                         const DkvStats& st, int q0, int n, int lane,
+                                         float (&dk)[M][D / 8][4], float (&dv)[M][D / 8][4]) {
+  const int r8 = lane & 7, mat = lane >> 3, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {  // queries q0 + 16 kk ..: score tiles 2 kk, 2 kk + 1
+    // B fragments of S^T and dP^T (b) and of dK and dV (bt). d 8: Q rows +0,
+    // +8 and dO rows +0, +8, plain and transposed. d 16: plain, rows +0 chunk
+    // 0, rows +0 chunk 1, rows +8 chunk 0, rows +8 chunk 1 of Q (b[0..3]),
+    // then of dO (b[4..7]); transposed, rows +0 chunk 0, rows +8 chunk 0,
+    // rows +0 chunk 1, rows +8 chunk 1 of Q (bt[0..3]), then of dO (bt[4..7])
+    uint32_t b[D == 8 ? 4 : 8], bt[D == 8 ? 4 : 8];
+    if constexpr (D == 8) {
+      const int off = swz<D>(kk * 16 + (mat & 1) * 8 + r8, 0);
+      ldmatrix_x4(b, (mat < 2 ? qt : ot) + off);
+      ldmatrix_x4_trans(bt, (mat < 2 ? qt : ot) + off);
+    } else {
+      const int off = swz<D>(kk * 16 + (mat >> 1) * 8 + r8, mat & 1);
+      const int off_t = swz<D>(kk * 16 + (mat & 1) * 8 + r8, mat >> 1);
+      ldmatrix_x4(b, qt + off);
+      ldmatrix_x4(b + 4, ot + off);
+      ldmatrix_x4_trans(bt, qt + off_t);
+      ldmatrix_x4_trans(bt + 4, ot + off_t);
+    }
+    const float4 lb = st.lb[kk][t];
+    const float4 nd[2] = {st.nd[2 * kk][t], st.nd[2 * kk + 1][t]};
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+        dp[i][0] = nd[i].x;
+        dp[i][1] = nd[i].y;
+        dp[i][2] = nd[i].z;
+        dp[i][3] = nd[i].w;
+      }
+      if constexpr (D == 8) {
+        const uint32_t k8[2] = {ka[m][0][0], ka[m][0][1]}, v8[2] = {va[m][0][0], va[m][0][1]};
+        mma_1688(s[0], k8, b[0]);
+        mma_1688(s[1], k8, b[1]);
+        mma_1688(dp[0], v8, b[2]);
+        mma_1688(dp[1], v8, b[3]);
+      } else {
+        const uint32_t q0b[2] = {b[0], b[1]}, q1b[2] = {b[2], b[3]};
+        const uint32_t o0b[2] = {b[4], b[5]}, o1b[2] = {b[6], b[7]};
+        mma_16816(s[0], ka[m][0], q0b);
+        mma_16816(s[1], ka[m][0], q1b);
+        mma_16816(dp[0], va[m][0], o0b);
+        mma_16816(dp[1], va[m][0], o1b);
+      }
+      uint32_t pa[4], dsa[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // score tile 2 kk + i: its lb pair is lb.{x,y} or lb.{z,w}
+        const float l0 = i == 0 ? lb.x : lb.z, l1 = i == 0 ? lb.y : lb.w;
+        float p0 = ex2(fmaf(s[i][0], kLog2e, -l0)), p1 = ex2(fmaf(s[i][1], kLog2e, -l1));
+        float p2 = ex2(fmaf(s[i][2], kLog2e, -l0)), p3 = ex2(fmaf(s[i][3], kLog2e, -l1));
+        if constexpr (kMask) {
+          const int c = q0 + kk * 16 + i * 8 + 2 * t;
+          if (c >= n) p0 = p2 = 0.f;
+          if (c + 1 >= n) p1 = p3 = 0.f;
+        }
+        pa[2 * i] = pack_bf16x2(p0, p1);  // row g
+        pa[2 * i + 1] = pack_bf16x2(p2, p3);  // row g + 8
+        dsa[2 * i] = pack_bf16x2(p0 * dp[i][0], p1 * dp[i][1]);
+        dsa[2 * i + 1] = pack_bf16x2(p2 * dp[i][2], p3 * dp[i][3]);
+      }
+      // dK += dS^T Q and dV += P^T dO for this key tile at once, so that its
+      // P^T and dS^T live only until here
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const uint32_t bk[2] = {bt[2 * j], bt[2 * j + 1]};
+        const uint32_t bv[2] = {bt[(D == 8 ? 2 : 4) + 2 * j], bt[(D == 8 ? 2 : 4) + 2 * j + 1]};
+        mma_16816(dk[m][j], dsa, bk);
+        mma_16816(dv[m][j], pa, bv);
+      }
+    }
+  }
+}
+
+// dkv_warps warps of dkv_key_tiles 16-row key tiles each; all threads stage
+// the query tiles of Q and dO by 16-byte cp.async into the forward's
+// swizzled ring (kStages slots, kAhead tiles ahead), threads 0..2 kTile-1
+// each one statistic a tile, a tile ahead in a register (two slots).
+template <int D>
+__global__ void __launch_bounds__(dkv_warps<D>() * 32, dkv_blocks_per_sm<D>())
+flash_bwd_dkv_ring(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int n) {
+  static_assert(D == 8 || D == 16, "the ring dK/dV kernel takes head dims 8 and 16");
+  constexpr int kThreads = dkv_warps<D>() * 32, M = dkv_key_tiles<D>(), KD = kSteps<D>();
+  static_assert(kThreads >= 2 * kTile, "a thread for each statistic of a tile");
+  extern __shared__ uint8_t smem_raw[];
+  __nv_bfloat16* ring = ring_base(smem_raw);
+  __shared__ DkvStats stats[2];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const size_t base = static_cast<size_t>(blockIdx.y) * n * D;
-  const size_t rbase = static_cast<size_t>(blockIdx.y) * n;
-  const int row0 = blockIdx.x * kRows + warp * 16 + g;  // key rows row0, row0 + 8
-  const int row1 = row0 + 8;
-  const bool ok0 = row0 < n, ok1 = row1 < n;
-  const size_t off0 = static_cast<size_t>(ok0 ? row0 : 0) * D;
-  const size_t off1 = static_cast<size_t>(ok1 ? row1 : 0) * D;
+  const float* lse_b = lse + static_cast<size_t>(blockIdx.y) * n;
+  const float* delta_b = delta + static_cast<size_t>(blockIdx.y) * n;
+  const int key0 = blockIdx.x * dkv_rows<D>() + warp * 16 * M;  // this warp's first key row
+  const int tiles = (n + kTile - 1) / kTile;
+  const bool ragged = n % kTile != 0;
 
-  uint32_t ka[KD][4], va[KD][4];
-  load_a_rows<D>(ka, k + base + off0, k + base + off1, ok0, ok1, t);
-  load_a_rows<D>(va, v + base + off0, v + base + off1, ok0, ok1, t);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    dk_acc[j][0] = dk_acc[j][1] = dk_acc[j][2] = dk_acc[j][3] = 0.f;
-    dv_acc[j][0] = dv_acc[j][1] = dv_acc[j][2] = dv_acc[j][3] = 0.f;
+  for (int j = 0; j < kAhead; ++j) {
+    if (j < tiles) {
+      __nv_bfloat16* slot = slot_tile<D>(ring, j);
+      load_kv_async<D, kThreads>(q + base, dout + base, j * kTile, n, slot, slot + kTile * D);
+    }
+    cp_async_commit();
   }
-
-  for (int qt = 0; qt < n; qt += kTile) {
-    __syncthreads();
-    stage_tile<D>(qt, n, q + base, q_tile, qt_tile);
-    stage_tile<D>(qt, n, dout + base, do_tile, dot_tile);
-    for (int i = threadIdx.x; i < kTile; i += kWarps * 32) {
-      const bool in = qt + i < n;
-      lse_s[i] = in ? lse[rbase + qt + i] : 0.f;
-      dl_s[i] = in ? delta[rbase + qt + i] : 0.f;
-    }
-    __syncthreads();
-
-    // P^T = exp(K Q^T - lse[col]) for this warp's 16 keys x the tile's queries;
-    // kept in f32 for dS^T and as bf16 A fragments for dV += P^T dO
-    float pt[kTile / 8][4];
-    uint32_t pa[kTile / 16][4];
+  put_stat(load_stat(lse_b, delta_b, 0, n), stats[0]);
+  float next = tiles > 1 ? load_stat(lse_b, delta_b, 1, n) : 0.f;  // tile 1's statistic
+  // K and V rows; rows past n read as zeros (their dK and dV are never stored)
+  uint32_t ka[M][KD][4], va[M][KD][4];
+  float dk_acc[M][D / 8][4], dv_acc[M][D / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t b[2];
-        b_from_rows<D>(b, q_tile[nt * 8 + g], kk, t);
-        mma_16816(s, ka[kk], b);
-      }
-      const int c = nt * 8 + 2 * t;  // query column in the tile
-      const bool in0 = qt + c < n, in1 = qt + c + 1 < n;
-      pt[nt][0] = in0 ? __expf(s[0] - lse_s[c]) : 0.f;
-      pt[nt][1] = in1 ? __expf(s[1] - lse_s[c + 1]) : 0.f;
-      pt[nt][2] = in0 ? __expf(s[2] - lse_s[c]) : 0.f;
-      pt[nt][3] = in1 ? __expf(s[3] - lse_s[c + 1]) : 0.f;
-      to_a_frag(pa, nt, pt[nt][0], pt[nt][1], pt[nt][2], pt[nt][3]);
-    }
+  for (int m = 0; m < M; ++m) {
+    const int r0 = key0 + m * 16 + g, r1 = r0 + 8;
+    const size_t off0 = static_cast<size_t>(r0 < n ? r0 : 0) * D;
+    const size_t off1 = static_cast<size_t>(r1 < n ? r1 : 0) * D;
+    load_a_rows<D>(ka[m], k + base + off0, k + base + off1, r0 < n, r1 < n, t);
+    load_a_rows<D>(va[m], v + base + off0, v + base + off1, r0 < n, r1 < n, t);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
 #pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        uint32_t b[2];
-        b_from_cols(b, dot_tile[j * 8 + g], kk, t);
-        mma_16816(dv_acc[j], pa[kk], b);
-      }
-    }
-
-    // dS^T = P^T * (V dO^T - D[col]), zero in the masked query columns
-    uint32_t dsa[kTile / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      float dp[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t b[2];
-        b_from_rows<D>(b, do_tile[nt * 8 + g], kk, t);
-        mma_16816(dp, va[kk], b);
-      }
-      const int c = nt * 8 + 2 * t;
-      const bool in0 = qt + c < n, in1 = qt + c + 1 < n;
-      to_a_frag(dsa, nt, in0 ? pt[nt][0] * (dp[0] - dl_s[c]) : 0.f,
-                in1 ? pt[nt][1] * (dp[1] - dl_s[c + 1]) : 0.f,
-                in0 ? pt[nt][2] * (dp[2] - dl_s[c]) : 0.f,
-                in1 ? pt[nt][3] * (dp[3] - dl_s[c + 1]) : 0.f);
-    }
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        uint32_t b[2];
-        b_from_cols(b, qt_tile[j * 8 + g], kk, t);
-        mma_16816(dk_acc[j], dsa[kk], b);
-      }
+      for (int i = 0; i < 4; ++i) dk_acc[m][j][i] = dv_acc[m][j][i] = 0.f;
     }
   }
-  store_rows<D>(dk + base, dk_acc, row0, row1, ok0, ok1, t);
-  store_rows<D>(dv + base, dv_acc, row0, row1, ok0, ok1, t);
+
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait<kAhead - 1>();  // this thread's copies of tile j have landed
+    __syncthreads();  // everyone's have, tile j's statistics are written, and tile j - 1 is read
+    if (j + kAhead < tiles) {
+      __nv_bfloat16* slot = slot_tile<D>(ring, (j + kAhead) % kStages);
+      load_kv_async<D, kThreads>(q + base, dout + base, (j + kAhead) * kTile, n, slot,
+                                 slot + kTile * D);
+    }
+    cp_async_commit();
+    if (j + 1 < tiles) {  // into the slot tile j - 1 used
+      put_stat(next, stats[(j + 1) & 1]);
+      if (j + 2 < tiles) next = load_stat(lse_b, delta_b, j + 2, n);
+    }
+    const __nv_bfloat16* qt = slot_tile<D>(ring, j % kStages);
+    if (ragged && j == tiles - 1) {
+      dkv_tile<D, M, true>(ka, va, qt, qt + kTile * D, stats[j & 1], j * kTile, n, lane, dk_acc,
+                           dv_acc);
+    } else {
+      dkv_tile<D, M, false>(ka, va, qt, qt + kTile * D, stats[j & 1], j * kTile, n, lane, dk_acc,
+                            dv_acc);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int r0 = key0 + m * 16 + g, r1 = r0 + 8;
+    store_rows<D>(dk + base, dk_acc[m], r0, r1, r0 < n, r1 < n, t);
+    store_rows<D>(dv + base, dv_acc[m], r0, r1, r0 < n, r1 < n, t);
+  }
 }
 
 // ------------------------------------------------------------ wgmma kernels (d 32, 64)
@@ -596,10 +735,13 @@ int launch_dq_mma(const Args& a) {
 }
 
 template <int D>
-int launch_dkv_mma(const Args& a) {
-  const dim3 grid((a.n + kRows - 1) / kRows, a.batch);
-  flash_bwd_dkv_mma<D><<<grid, kWarps * 32, 0, a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta,
-                                                           a.dk, a.dv, a.n);
+int launch_dkv_ring(const Args& a) {
+  static int set_for_device = -1;
+  const int rc = allow_smem(flash_bwd_dkv_ring<D>, ring_bytes<D>(), set_for_device);
+  if (rc != 0) return rc;
+  const dim3 grid((a.n + dkv_rows<D>() - 1) / dkv_rows<D>(), a.batch);
+  flash_bwd_dkv_ring<D><<<grid, dkv_warps<D>() * 32, ring_bytes<D>(), a.stream>>>(
+      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -672,8 +814,8 @@ extern "C" int frn_flash_bwd_dkv_bf16(const void* q, const void* k, const void* 
   if (int rc = check_args(batch, n)) return rc;
   const Args a = make_args(q, k, v, dout, lse, delta, nullptr, dk, dv, batch, n, stream);
   switch (d) {
-    case 8: return launch_dkv_mma<8>(a);
-    case 16: return launch_dkv_mma<16>(a);
+    case 8: return launch_dkv_ring<8>(a);
+    case 16: return launch_dkv_ring<16>(a);
     case 32: return launch_dkv_wgmma<32>(a);
     case 64: return launch_dkv_wgmma<64>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -41,6 +41,17 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// c (16x8 f32) += a (16x8 bf16, row-major: a[0] row g, a[1] row g + 8, columns
+// 2t, 2t + 1) * b (8x8 bf16, column-major: rows 2t, 2t + 1 of column g): a
+// contraction over d = 8 without the zero upper half of m16n8k16
+__device__ __forceinline__ void mma_1688(float c[4], const uint32_t a[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
 __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p, bool valid) {
   return valid ? *reinterpret_cast<const uint32_t*>(p) : 0u;
 }
@@ -80,8 +91,8 @@ __device__ __forceinline__ void b_from_cols(uint32_t b[2], const __nv_bfloat16* 
 // Stage rows [r0, r0 + kTile) of two (n, D) bf16 matrices a and b, each into
 // a row-major shared tile and/or its transpose (a null tile is skipped); rows
 // past n are 0. One loop loads both 16-byte chunks before storing either: for
-// the forward and the dQ kernel (one transposed tile) that is faster than a
-// loop per matrix; the dK/dV kernel (two transposed tiles) uses stage_tile.
+// the dQ kernel (one transposed tile) that is faster than a loop per matrix;
+// the int8 forward stages its one transposed tile by stage_tile.
 template <int D>
 __device__ __forceinline__ void stage_chunk(uint4 x, __nv_bfloat16 (*rows)[D + kPad],
                                             __nv_bfloat16 (*tr)[kTile + kPad], int r, int c) {
