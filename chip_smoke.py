@@ -15,7 +15,8 @@ Phases:
      kernel of the port built from ``frn_tpu_torch/csrc`` (one nvcc each, in
      parallel), with each kernel instance's registers and spills (the
      path's wgmma instances of the forward, the backward, the int8 forward
-     and the stem, the backward's ring dK/dV kernel at d 8 and 16, and the
+     and the stem, the backward's ring dK/dV kernel and the int8 forward's
+     ring kernel (both modes) at d 8 and 16, and the
      f32 forward's register-blocked instances at every head dim
      (``flash_fwd_f32_tiled`` at d 32 and 64, ``flash_fwd_f32_small`` at d 8
      and 16), the dQ and dK/dV kernels' at d 32 and 64 and their first
@@ -63,14 +64,16 @@ Phases:
      train step on the card against the CPU;
   5. the opt-in inference kernels (the bf16-exp forward, the int8 forward in
      both modes, the fused stem) against their plain versions at the same
-     check shapes (the stem at C 3 and 5, DSEC and DDD17 sizes, a tiny image
-     and a ragged last 64-pixel tile), and the
+     check shapes (the int8 forward also at N 129 at d 16, a ragged row past
+     whole blocks, and at an odd N at d 8; the stem at C 3 and 5, DSEC and DDD17 sizes, a
+     tiny image and a ragged last 64-pixel tile), and the
      int8 forward's quantization pre-pass kernel bitwise against its plain
      version there, then timed at the opt-in path's batches beside their
      bounds, their plain versions and a PyTorch yardstick; with
      ``--other-source``, another revision's int8 forward (after the torch
      pre-pass, as its wrapper ran it) timed in turns with this revision's,
-     whole and kernel alone, and another revision's stem timed in turns with
+     whole and kernel alone, at depth 50's and depth 18's launches, and
+     another revision's stem timed in turns with
      this revision's at the opt-in batch; run before phase 3, and phase 3
      asserts that the default path launches none of them;
   6. the opt-in inference path through ``entry(..., **ModelConfig fields)``
@@ -234,7 +237,9 @@ Phases:
      modes; B1, B1-lse, B2a, B2b at f32) against their plain versions at the
      paths' N and d at batch 2, then timed at the paths' batches beside
      their bounds, blocks per launch, plain versions and SDPA at scale 1.0
-     (with the backend it took), as rows ``<kind>_d8_16`` of the kernels
+     (with the backend it took; B4's rows the kernel alone and the
+     pre-pass's device time beside the wrapper's), as rows
+     ``<kind>_d8_16`` of the kernels
      line; bf16 inference at batch 16 through ``entry(depth=18)`` (the
      logits against the plain attention), the three opt-in configurations
      and depth 34; ``cli.test --depth 18`` at f32 (DSEC, and DDD17 through
@@ -357,6 +362,11 @@ FWD_EDGE_SHAPES = ((2, 40, 8), (2, 40, 16), (2, 40, 32), (2, 40, 64), (2, 4800, 
 # their plain versions at both
 BWD_CHECK_SHAPES = PATH_CHECK_SHAPES + tuple(
     s for s in FWD_EDGE_SHAPES if s not in PATH_CHECK_SHAPES)
+# the int8 forward (and its pre-pass) is held to its plain version there and,
+# for the ring kernel at d 8 and 16, at a ragged row past whole blocks (N 129
+# at d 16) and at an odd N at d 8 (K rows of 8 bytes that start 8-byte
+# aligned in odd batches)
+INT8_CHECK_SHAPES = BWD_CHECK_SHAPES + ((2, 129, 16), (2, 131, 8))
 # the f32 training kernels (B1-lse, B2a, B2b at f32): the f32 train path's
 # shapes (DSEC stages 1 and 2 at batch 2, DDD17 at batch 4 and N 5,655,
 # ragged), one shape at each of d 8 and 16, and the block edges (N 40 at
@@ -421,8 +431,10 @@ TRAIN_F32_KERNELS = ("flash_fwd_lse_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32
 # the path's wgmma instances of each source, as (kernel, its first template
 # arguments): the forward at d 32 and 64, with and without exp_bf16; the dQ
 # and dK/dV kernels at d 32 and 64, and the ring dK/dV kernel at d 8 and 16
-# (the depth-18 and -34 training path); the int8 forward at d 32 and 64 in modes
-# int8_qk (0) and int8 (1); the stem at C 3 and 5; and the f32 kernels (CUDA
+# (the depth-18 and -34 training path); the int8 forward at d 32 and 64 and its
+# ring kernel at d 8 and 16, in modes int8_qk (0) and int8 (1) (the ring
+# kernel: the depth-18 and -34 opt-in paths); the stem at C 3 and 5; and the
+# f32 kernels (CUDA
 # cores): the forward's register-blocked kernels at every head dim (its small
 # one at d 8 and 16), the dQ and the dK/dV kernels' register-blocked kernels
 # at d 32 and 64 and their first designs at d 8 and 16 (the f32 paths take d
@@ -432,7 +444,9 @@ PATH_INSTANCES = {
     "flash_attention": [("flash_fwd_wgmma", d, e) for d in (32, 64) for e in (0, 1)],
     "flash_attention_bwd": [(kernel, d) for kernel in ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
                             for d in (32, 64)] + [("flash_bwd_dkv_ring", d) for d in (8, 16)],
-    "flash_attention_int8": [("flash_int8_wgmma", d, f) for d in (32, 64) for f in (0, 1)],
+    "flash_attention_int8": [(kernel, d, f) for kernel, dims in (("flash_int8_wgmma", (32, 64)),
+                                                                 ("flash_int8_ring", (8, 16)))
+                             for d in dims for f in (0, 1)],
     "stem": [("stem_wgmma", c) for c in (3, 5)],
     "flash_attention_f32": [("flash_fwd_f32_small", 8), ("flash_fwd_f32_small", 16),
                             ("flash_fwd_f32_tiled", 32), ("flash_fwd_f32_tiled", 64)],
@@ -737,7 +751,8 @@ def kernel_instances(log: str) -> dict:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv|int8)_(?:mma|wgmma)|flash_bwd_dkv_ring"
+            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv|int8)_(?:mma|wgmma)"
+                          r"|flash_(?:bwd_dkv|int8)_ring"
                           r"|flash_(?:fwd|bwd_dq|bwd_dkv)_f32(?:_tiled|_small)?|stem_wgmma)"
                           r"I((?:L[ib]\d+E)+)E", entry.group(1))
             current = None if m is None else (
@@ -1340,19 +1355,23 @@ def phase_other_f32_backward(others: dict) -> None:
 
 def phase_other_int8(others: dict) -> None:
     """This revision's int8 forward timed in turns with other revisions'
-    (``build_others``) in both modes at the opt-in path's shapes and batches
-    (int8_qk at MAIN_BATCH, two launches per shape; int8 at 2 MAIN_BATCH, one):
-    whole, as each revision's wrapper ran it (another revision after the
-    torch pre-pass, ``int8_kernel_inputs``; this one after its pre-pass
-    kernel), and the kernel alone on the same quantized inputs. Each timed
-    output is held against the plain version."""
+    (``build_others``) in both modes at the opt-in paths' shapes and batches
+    (int8_qk at MAIN_BATCH, two launches per shape; int8 at 2 MAIN_BATCH, one),
+    depth 50's (FLASH_SHAPES) and depth 18's (DEPTH18_FLASH_SHAPES, rows
+    " R18" with this revision's blocks): whole, as each revision's wrapper
+    ran it (another revision after the torch pre-pass,
+    ``int8_kernel_inputs``; this one after its pre-pass kernel), and the
+    kernel alone on the same quantized inputs. Each timed output is held
+    against the plain version."""
     from frn_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(8)
     errs, per_step = {}, {}
+    launches = [("", n, d) for n, d in FLASH_SHAPES] + [(" R18", n, d)
+                                                        for n, d in DEPTH18_FLASH_SHAPES]
     for mode in fa.INT8_MODES:
         batch, count = (2 * MAIN_BATCH, 1) if mode == "int8" else (MAIN_BATCH, 2)
-        for n, d in FLASH_SHAPES:
+        for suffix, n, d in launches:
             q, k, v = (torch.randn((batch, n, d), generator=gen, device="cuda").to(torch.bfloat16)
                        for _ in range(3))
             want = fa.flash_attention_int8_plain(q, k, v, mode)
@@ -1362,15 +1381,18 @@ def phase_other_int8(others: dict) -> None:
                 check_close(label, "o", out, want, FLASH_ATOL, FLASH_RTOL, q.shape, errs)
 
             shape = {"B": batch, "N": n, "d": d}
+            if suffix:
+                shape["blocks"] = depth18_blocks(f"flash_{mode}", batch, n, d)
             runs = {src: (lambda lib=lib: other_int8(lib, q, fa.int8_kernel_inputs(q, k, v, mode),
                                                      mode))
                     for src, lib in others.items()}
             runs["this"] = lambda: fa.flash_attention_int8(q, k, v, mode)
-            time_in_turns(f"flash_{mode}", shape, runs, check, per_step, count)
+            time_in_turns(f"flash_{mode}{suffix}", shape, runs, check, per_step, count)
             runs = {src: (lambda lib=lib: other_int8(lib, q, inputs, mode))
                     for src, lib in others.items()}
             runs["this"] = lambda: other_int8(fa._int8_library(), q, inputs, mode)
-            time_in_turns(f"flash_{mode} kernel alone", shape, runs, check, per_step, count)
+            time_in_turns(f"flash_{mode}{suffix} kernel alone", shape, runs, check, per_step,
+                          count)
             del want, inputs
     print_per_step(per_step)
 
@@ -1434,8 +1456,9 @@ def _random_head_outputs(model, seed: int) -> None:
 
 def phase_optin_kernels() -> dict:
     """The bf16-exp forward, the int8 forward in both modes and the stem
-    against their plain versions: the flash forwards at BWD_CHECK_SHAPES
-    (with the int8 pre-pass kernel held bitwise to ``int8_kernel_inputs``),
+    against their plain versions: the flash forwards at BWD_CHECK_SHAPES (the
+    int8 forward, with its pre-pass kernel held bitwise to
+    ``int8_kernel_inputs``, at INT8_CHECK_SHAPES),
     the stem at STEM_CHECK_SHAPES. Then each timed at the opt-in path's batch
     and shapes (the int8 mode under fused attention at 2B), the timed runs'
     outputs held against each other; the pre-pass is timed on its own beside
@@ -1457,11 +1480,12 @@ def phase_optin_kernels() -> dict:
              "flash_int8": (lambda q, k, v: fa.flash_attention_int8(q, k, v, "int8"),
                             lambda q, k, v: fa.flash_attention_int8_plain(q, k, v, "int8"))}
     errs = {}
-    for shape in BWD_CHECK_SHAPES:
+    for shape in INT8_CHECK_SHAPES:
         q, k, v = qkv(*shape)
         for kind, (kernel, plain) in flash.items():
-            check_close(kind, "o", kernel(q, k, v), plain(q, k, v), FLASH_ATOL, FLASH_RTOL,
-                        shape, errs)
+            if kind.startswith("flash_int8") or shape in BWD_CHECK_SHAPES:
+                check_close(kind, "o", kernel(q, k, v), plain(q, k, v), FLASH_ATOL, FLASH_RTOL,
+                            shape, errs)
         for mode in fa.INT8_MODES:
             check_prepass(f"{mode}_prepass", fa.int8_prepass(q, k, v, mode),
                           fa.int8_kernel_inputs(q, k, v, mode), shape)
@@ -5043,8 +5067,9 @@ DEPTH18_SUFFIX = "_d8_16"
 DEPTH18_CHECK_BATCH = 2
 # rows a block owns in the d 8 and 16 mma.sync kernels: the forward's
 # (csrc/flash_attention.cu, launch_mma: 128), the ring dK/dV kernel's
-# (csrc/flash_attention_bwd.cu, dkv_rows: 128), the dQ kernel's and the int8
-# forward's (flash_common.cuh, kRows: 64)
+# (csrc/flash_attention_bwd.cu, dkv_rows: 128), the ring int8 forward's
+# (csrc/flash_attention_int8.cu, ring_rows: 64) and the dQ kernel's
+# (flash_common.cuh, kRows: 64)
 MMA_ROWS = {"flash_fwd": 128, "flash_fwd_lse": 128, "flash_fwd_bf16exp": 128,
             "flash_bwd_dq": 64, "flash_bwd_dkv": 128, "flash_int8_qk": 64, "flash_int8": 64}
 # the depth-18 paths' runs: inference batches timed, the bf16 micro-step's
@@ -5218,7 +5243,20 @@ def phase_depth18_kernels() -> dict:
             fwd_ms, bwd_ms, backend = _sdpa_times(q, k, v, do if kind.startswith("flash_bwd") else None)
             library_ms, extra = (bwd_ms or fwd_ms), None
             if kind in ("flash_int8_qk", "flash_int8"):
-                library_ms, extra = None, {"sdpa_bf16_ms": fwd_ms}
+                # the wrapper's time holds the pre-pass's: the kernel alone on
+                # the pre-pass's outputs (CUDA events) and the pre-pass's
+                # device time beside it show the kernel's share. Late in the
+                # whole script torch.profiler has recorded no device kernel
+                # in this process: a 0 there is not measured (null)
+                mode = kind[len("flash_"):]
+                quantized = fa.int8_prepass(q, k, v, mode)
+                kernel_ms, _ = cuda_ms(lambda: other_int8(fa._int8_library(), q, quantized, mode),
+                                       reps=10)
+                prepass_ms = device_ms(lambda: fa.int8_prepass(q, k, v, mode),
+                                       ("int8_absmax_partial", "int8_quantize")) or None
+                library_ms, extra = None, {"sdpa_bf16_ms": fwd_ms, "kernel_ms": kernel_ms,
+                                           "prepass_device_ms": prepass_ms}
+                del quantized
             shape = {"B": b, "N": n, "d": d, "blocks": depth18_blocks(kind, b, n, d),
                      "sdpa_backend": backend}
             kernel, plain = _depth18_calls(fa, kind, *args)

@@ -217,35 +217,6 @@ __device__ __forceinline__ void qk_mma(float (&s)[kTile / 8][4], const uint32_t 
   }
 }
 
-// acc (16 x D) += P V for this warp's rows, V fragments by ldmatrix.x4.trans
-template <int D>
-__device__ __forceinline__ void pv_mma(float (&acc)[D / 8][4], const uint32_t pa[][4],
-                                       const __nv_bfloat16* vt, int lane) {
-  const int r8 = lane & 7, mat = lane >> 3;
-  if constexpr (D == 16) {  // matrices: keys +0 / +8 of the step x d chunks 0, 1
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < D / 8; j += 2) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, vt + swz<D>(kk * 16 + (mat & 1) * 8 + r8, j + (mat >> 1)));
-        const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-        mma_16816(acc[j], pa[kk], b0);
-        mma_16816(acc[j + 1], pa[kk], b1);
-      }
-    }
-  } else {  // D == 8, matrices: keys +0, +8, +16, +24 of two steps
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; kk += 2) {
-      uint32_t r[4];
-      ldmatrix_x4_trans(r, vt + swz<D>(kk * 16 + mat * 8 + r8, 0));
-      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-      mma_16816(acc[0], pa[kk], b0);
-      mma_16816(acc[0], pa[kk + 1], b1);
-    }
-  }
-}
-
 // 8 warps of 16 query rows each; every warp reads the whole K and V tile
 template <int D, bool kExpBf16>
 __global__ void __launch_bounds__(256, 2)

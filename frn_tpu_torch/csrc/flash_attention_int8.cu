@@ -22,7 +22,9 @@
 // only halves the product term, which was already the smaller. Device memory
 // is not the limit. What else each score costs is dispatch slots beside its
 // MUFU.EX2: a conversion of the int32 score, the row max, the exponent's FFMA
-// and, in mode 'int8', the rounding of 127 p and its byte.
+// and, in mode 'int8', the rounding of 127 p and its byte. No score takes a
+// second special-function instruction (I2F, F2I): both kernels convert by
+// the magic add and round by an FADD.
 //
 // Pre-pass (two launches, frn_flash_int8_prepass): (a) int8_absmax_partial,
 // kPartials blocks per batch slice and tensor, each a partial max|x| over its
@@ -69,10 +71,30 @@
 //    flush is decided for the whole warpgroup (__syncthreads_or): ptxas turns
 //    the zeroed sums into the next product's scale-d operand, which must be
 //    the same for its four warps.
-// d 8 and 16 (off the path; 8- and 16-byte int8 rows break TMA's 16-byte
-// stride rule) keep the first mma.sync m16n8k32 kernel, flash_int8_mma, with
-// all threads staging each tile synchronously; it reads the same pre-pass
-// outputs.
+// The kernel at d 8 and 16 (flash_int8_ring; the depth-18 and -34 paths; 8-
+// and 16-byte int8 rows break TMA's 16-byte stride rule, not cp.async's)
+// follows the bf16 forward's mma.sync kernel (flash_attention.cu,
+// flash_fwd_mma) and reuses the score helpers above: a block of ring_warps (4)
+// warps owns ring_rows (64) query rows, each warp ring_row_tiles (1) 16-row
+// tiles with Qi as m16n8k16 A fragments in registers, 4 blocks an SM; all
+// threads stage the 64-key tiles
+// by cp.async into a ring of kStages slots, kAhead tiles ahead, one
+// __syncthreads a tile: K a key a copy (8 bytes at d 8, into rows padded to
+// 16), V bf16 into pv_mma's swizzled tile, or the pre-pass's V^T slice, keys
+// past N zero-filled.
+//  - Q K^T: mma.sync m16n8k16 s8 (at d 16 exact, at d 8 the upper half of
+//    Q's fragment zero), K's B fragments by ldmatrix, each serving the warp's
+//    tiles. The accumulator starts at kMagic, so a score comes out as the
+//    bits of the float 1.5 * 2^23 + s: the helpers' row max on the int32
+//    scores, then float(s) one FADD, the exponent one FFMA, p one MUFU.EX2.
+//  - 'int8_qk': the helpers' bf16 pack and tensor-core row sums; P V is
+//    m16n8k16 bf16 with V fragments by ldmatrix.trans (pv_mma).
+//  - 'int8': p_q by the helpers' FADD rounding and byte packing, in the PV
+//    key order; P V is m16n8k32 s8 with V^T fragments by ldmatrix, and the
+//    row sums of p_q are P times a ones fragment on the tensor core. Both
+//    int32 sums are flushed into f32 as in the wgmma kernel, decided per
+//    warp: mma.sync takes each thread's own accumulator.
+//  - Only the last, ragged tile masks keys past N (by a select, INT_MIN).
 
 #include <limits.h>
 #include <math.h>
@@ -91,7 +113,6 @@ constexpr int kMagic = 0x4B400000;        // the bits of 1.5 * 2^23
 constexpr float kMagicF = 12582912.f;     // 1.5 * 2^23
 constexpr int kFlushTiles = 1024;         // 1024 * 64 * 127^2 < 2^31
 constexpr float kLog2_127 = 6.988684686772166f;
-constexpr int kPad8 = 16;                 // mma.sync kernel: int8 row padding in bytes
 
 __device__ __forceinline__ uint32_t warp_max_u32(uint32_t x) {
 #pragma unroll
@@ -226,232 +247,21 @@ int8_quantize(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   }
 }
 
-// ------------------------------------------------------------ mma.sync kernel (d 8, 16)
+// ------------------------------------------------------------ the ring slots (both kernels)
 
-// c (16x8 s32) += a (16x32 s8, row-major) * b (32x8 s8, column-major)
-__device__ __forceinline__ void mma_16832_s8(int c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_s8x4(int a, int b, int c, int d) {
-  return (static_cast<uint32_t>(a) & 0xffu) | ((static_cast<uint32_t>(b) & 0xffu) << 8) |
-         ((static_cast<uint32_t>(c) & 0xffu) << 16) | (static_cast<uint32_t>(d) << 24);
-}
-
-// Stage rows [r0, r0 + kTile) of a (n, D) int8 matrix into a shared tile;
-// rows past n are 0. 16-byte chunks (8-byte for D = 8).
+// bytes of a K row in a ring slot: d 8 rows are padded to 16, so that one
+// ldmatrix reads 8 keys as an 8x8 b16 matrix (the ring kernel)
 template <int D>
-__device__ __forceinline__ void stage_rows_s8(int r0, int n, const int8_t* __restrict__ a,
-                                              int8_t (*rows)[D + kPad8]) {
-  if constexpr (D >= 16) {
-    constexpr int kChunks = D / 16;
-    for (int i = threadIdx.x; i < kTile * kChunks; i += kWarps * 32) {
-      const int r = i / kChunks;
-      const int c = (i % kChunks) * 16;
-      uint4 x = make_uint4(0, 0, 0, 0);
-      if (r0 + r < n) x = *reinterpret_cast<const uint4*>(a + static_cast<size_t>(r0 + r) * D + c);
-      *reinterpret_cast<uint4*>(&rows[r][c]) = x;
-    }
-  } else {
-    for (int r = threadIdx.x; r < kTile; r += kWarps * 32) {
-      uint2 x = make_uint2(0, 0);
-      if (r0 + r < n) x = *reinterpret_cast<const uint2*>(a + static_cast<size_t>(r0 + r) * D);
-      *reinterpret_cast<uint2*>(&rows[r][0]) = x;
-    }
-  }
+__host__ __device__ constexpr int k_row_bytes() {
+  return D < 16 ? 16 : D;
 }
 
-template <int D, bool kFull>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_int8_mma(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
-               const void* __restrict__ v, const float* __restrict__ scale,
-               const float* __restrict__ v_scale, __nv_bfloat16* __restrict__ o, int n,
-               int n_pad) {
-  static_assert(D == 8 || D == 16, "the mma.sync int8 kernel takes head dims 8 and 16");
-  using VT = std::conditional_t<kFull, int8_t, __nv_bfloat16>;
-  constexpr int kVPad = kFull ? kPad8 : kPad;
-  __shared__ __align__(16) int8_t k_tile[kTile][D + kPad8];  // [key][d]
-  __shared__ __align__(16) VT vt_tile[D][kTile + kVPad];     // [d][key]
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  const int batch = blockIdx.y;
-  const size_t base = static_cast<size_t>(batch) * n * D;
-  const int row0 = blockIdx.x * kRows + warp * 16 + g;  // rows row0 and row0 + 8
-  const int row1 = row0 + 8;
-  const bool ok0 = row0 < n, ok1 = row1 < n;
-  const float c = scale[batch];
-
-  // Q as one m16n8k32 A fragment; rows past n and columns past D read as zeros
-  uint32_t qa[4];
-  {
-    const int8_t* q0 = q + base + static_cast<size_t>(ok0 ? row0 : 0) * D;
-    const int8_t* q1 = q + base + static_cast<size_t>(ok1 ? row1 : 0) * D;
-    const int lo = 4 * t, hi = lo + 16;
-    qa[0] = load_u32(q0 + lo, ok0 && lo < D);
-    qa[1] = load_u32(q1 + lo, ok1 && lo < D);
-    qa[2] = load_u32(q0 + hi, ok0 && hi < D);
-    qa[3] = load_u32(q1 + hi, ok1 && hi < D);
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running row max (rows row0, row1)
-  float l0 = 0.f, l1 = 0.f;              // this thread's share of the denominators
-
-  for (int kt = 0; kt < n; kt += kTile) {
-    __syncthreads();  // the previous tile has been read by every warp
-    stage_rows_s8<D>(kt, n, k + base, k_tile);
-    if constexpr (kFull) {
-      // int8 V^T, (B, D, n_pad), already in the PV key order and zero-padded
-      const int8_t* vt = static_cast<const int8_t*>(v) + static_cast<size_t>(batch) * D * n_pad;
-      for (int i = threadIdx.x; i < D * (kTile / 16); i += kWarps * 32) {
-        const int d = i / (kTile / 16);
-        const int col = (i % (kTile / 16)) * 16;
-        *reinterpret_cast<uint4*>(&vt_tile[d][col]) =
-            *reinterpret_cast<const uint4*>(vt + static_cast<size_t>(d) * n_pad + kt + col);
-      }
-    } else {
-      stage_tile<D>(kt, n, static_cast<const __nv_bfloat16*>(v) + base, nullptr, vt_tile);
-    }
-    __syncthreads();
-
-    // S = (Qi Ki^T) * c for this warp's 16 rows: kTile / 8 tiles of 16x8
-    float s[kTile / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      int si[4] = {0, 0, 0, 0};
-      const int8_t* krow = k_tile[nt * 8 + g];
-      const int lo = 4 * t, hi = lo + 16;
-      const uint32_t b[2] = {load_u32(krow + lo, lo < D), load_u32(krow + hi, hi < D)};
-      mma_16832_s8(si, qa, b);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = static_cast<float>(si[e]) * c;
-    }
-
-    // mask the key tail, then the online-softmax update
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      const int key = kt + nt * 8 + 2 * t;
-      if (key >= n) { s[nt][0] = -INFINITY; s[nt][2] = -INFINITY; }
-      if (key + 1 >= n) { s[nt][1] = -INFINITY; s[nt][3] = -INFINITY; }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    mx0 = quad_max(mx0);  // every tile holds a valid key, so mx is finite
-    mx1 = quad_max(mx1);
-    const float alpha0 = __expf(m0 - mx0);  // 0 on the first tile (m = -inf)
-    const float alpha1 = __expf(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= alpha0;
-      acc[j][1] *= alpha0;
-      acc[j][2] *= alpha1;
-      acc[j][3] *= alpha1;
-    }
-
-    if constexpr (kFull) {
-      // p_q = round(127 p) in [0, 127], kept in the C order: A fragment kk of
-      // the 32 keys of tiles 4kk..4kk+3 (see the key order above)
-      uint32_t pa[kTile / 32][4];
-      int rs0 = 0, rs1 = 0;
-#pragma unroll
-      for (int kk = 0; kk < kTile / 32; ++kk) {
-        int pq[4][4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int nt = 4 * kk + u;
-          pq[u][0] = __float2int_rn(__expf(s[nt][0] - mx0) * 127.f);
-          pq[u][1] = __float2int_rn(__expf(s[nt][1] - mx0) * 127.f);
-          pq[u][2] = __float2int_rn(__expf(s[nt][2] - mx1) * 127.f);
-          pq[u][3] = __float2int_rn(__expf(s[nt][3] - mx1) * 127.f);
-          rs0 += pq[u][0] + pq[u][1];
-          rs1 += pq[u][2] + pq[u][3];
-        }
-        pa[kk][0] = pack_s8x4(pq[0][0], pq[0][1], pq[1][0], pq[1][1]);
-        pa[kk][1] = pack_s8x4(pq[0][2], pq[0][3], pq[1][2], pq[1][3]);
-        pa[kk][2] = pack_s8x4(pq[2][0], pq[2][1], pq[3][0], pq[3][1]);
-        pa[kk][3] = pack_s8x4(pq[2][2], pq[2][3], pq[3][2], pq[3][3]);
-      }
-      l0 = l0 * alpha0 + static_cast<float>(127 * rs0);
-      l1 = l1 * alpha1 + static_cast<float>(127 * rs1);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        int pv[4] = {0, 0, 0, 0};
-        const int8_t* vrow = vt_tile[j * 8 + g];
-#pragma unroll
-        for (int kk = 0; kk < kTile / 32; ++kk) {
-          const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(vrow + kk * 32 + 4 * t),
-                                 *reinterpret_cast<const uint32_t*>(vrow + kk * 32 + 16 + 4 * t)};
-          mma_16832_s8(pv, pa[kk], b);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] += static_cast<float>(pv[e]);
-      }
-    } else {
-      // p rounded to bf16 feeds both the PV product and the denominator
-      uint32_t pa[kTile / 16][4];
-      float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt) {
-        const float p0 = round_bf16(__expf(s[nt][0] - mx0));
-        const float p1 = round_bf16(__expf(s[nt][1] - mx0));
-        const float p2 = round_bf16(__expf(s[nt][2] - mx1));
-        const float p3 = round_bf16(__expf(s[nt][3] - mx1));
-        rs0 += p0 + p1;
-        rs1 += p2 + p3;
-        to_a_frag(pa, nt, p0, p1, p2, p3);
-      }
-      l0 = l0 * alpha0 + rs0;
-      l1 = l1 * alpha1 + rs1;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-#pragma unroll
-        for (int kk = 0; kk < kTile / 16; ++kk) {
-          uint32_t b[2];
-          b_from_cols(b, vt_tile[j * 8 + g], kk, t);
-          mma_16816(acc[j], pa[kk], b);
-        }
-      }
-    }
-  }
-
-  // O = bf16(acc / l); in 'int8' mode then bf16(O * sv), as the JAX wrapper
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  const float sv = kFull ? v_scale[batch] : 1.f;
-  __nv_bfloat16* out = o + base;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = j * 8 + 2 * t;
-    __nv_bfloat162 y0 = __floats2bfloat162_rn(acc[j][0] / l0, acc[j][1] / l0);
-    __nv_bfloat162 y1 = __floats2bfloat162_rn(acc[j][2] / l1, acc[j][3] / l1);
-    if constexpr (kFull) {
-      y0 = __floats2bfloat162_rn(__low2float(y0) * sv, __high2float(y0) * sv);
-      y1 = __floats2bfloat162_rn(__low2float(y1) * sv, __high2float(y1) * sv);
-    }
-    if (ok0) *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(row0) * D + col) = y0;
-    if (ok1) *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(row1) * D + col) = y1;
-  }
-}
-
-// ------------------------------------------------------------ wgmma kernel (d 32, 64)
-
-// bytes of a ring slot: the [kTile][D] int8 K tile, then the V tile, [kTile][D]
-// bf16 in 'int8_qk' mode or the [D][kTile] int8 V^T tile in 'int8'
+// bytes of a ring slot: the [kTile][k_row_bytes] int8 K tile, then the V
+// tile, [kTile][D] bf16 in 'int8_qk' mode or the [D][kTile] int8 V^T tile in
+// 'int8'
 template <int D, bool kFull>
 __host__ __device__ constexpr int slot_bytes() {
-  return kTile * D + (kFull ? 1 : 2) * kTile * D;
+  return kTile * k_row_bytes<D>() + (kFull ? 1 : 2) * kTile * D;
 }
 
 template <int D, bool kFull>
@@ -460,6 +270,7 @@ constexpr int int8_ring_bytes() {
 }
 
 // One thread stages tile `tile` (K, then V or V^T) into its ring slot by TMA
+// (the wgmma kernel)
 template <int D, bool kFull>
 __device__ __forceinline__ void stage_kv(const CUtensorMap* kmap, const CUtensorMap* vmap, int tile,
                                          uint8_t* ring, uint64_t* ready) {
@@ -474,11 +285,25 @@ __device__ __forceinline__ void stage_kv(const CUtensorMap* kmap, const CUtensor
   }
 }
 
-// The row max of this thread's rows g and g + 8 over a tile of int32 scores
-// (s[nt][0..1] row g, s[nt][2..3] row g + 8, keys key + nt * 8 + {0, 1});
-// with kMask, keys past n become INT_MIN. Updates m (f32, c times the int
-// max), returns alpha = exp(m_old - m) and mb = m * log2(e).
-template <bool kMask>
+// ------------------------------------------------------------ a score tile's softmax (both kernels)
+
+// The helpers below take a warp's 16 x 64 int32 scores as C fragments
+// (s[nt][0..1] row g, s[nt][2..3] row g + 8, keys key + nt * 8 + {0, 1}).
+// With kBiased (the ring kernel) each holds s + kMagic, the bits of the float
+// 1.5 * 2^23 + s (exact: |s| < 2^22), its product's accumulator having
+// started at kMagic: the conversion to float is one FADD, no IADD.
+
+// float(s) of a score as the helpers hold it (exact)
+template <bool kBiased>
+__device__ __forceinline__ float score_float(int s) {
+  return kBiased ? __int_as_float(s) - kMagicF : small_int_to_float(s);
+}
+
+// The row max of this thread's rows g and g + 8 over a tile of int32 scores;
+// with kMask, keys past n become INT_MIN (below every score, biased or not).
+// Updates m (f32, c times the int max), returns alpha = exp(m_old - m) and
+// mb = m * log2(e).
+template <bool kMask, bool kBiased>
 __device__ __forceinline__ void tile_max(int (&s)[kTile / 8][4], int key, int n, float c,
                                          float (&m)[2], float (&alpha)[2], float (&mb)[2]) {
   int mi[2] = {INT_MIN, INT_MIN};
@@ -494,7 +319,8 @@ __device__ __forceinline__ void tile_max(int (&s)[kTile / 8][4], int key, int n,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     // every tile holds a valid key; c > 0, so c * max(s) is the max of c * s
-    const float mx = fmaxf(m[i], c * static_cast<float>(quad_max_i(mi[i])));
+    const int top = quad_max_i(mi[i]);
+    const float mx = fmaxf(m[i], c * (kBiased ? score_float<true>(top) : static_cast<float>(top)));
     alpha[i] = ex2((m[i] - mx) * kLog2e);  // 0 on the first tile (m = -inf)
     m[i] = mx;
     mb[i] = mx * kLog2e;
@@ -502,27 +328,28 @@ __device__ __forceinline__ void tile_max(int (&s)[kTile / 8][4], int key, int n,
 }
 
 // p = exp(c s - m) as ex2(s * c log2(e) - m log2(e)); 0 for a masked key
-template <bool kMask>
+template <bool kMask, bool kBiased>
 __device__ __forceinline__ float score_exp(int s, float cl2, float mb) {
-  const float x = fmaf(small_int_to_float(s), cl2, -mb);
+  const float x = fmaf(score_float<kBiased>(s), cl2, -mb);
   return ex2(kMask && s == INT_MIN ? -INFINITY : x);
 }
 
 // 'int8_qk': the bf16 p as the A fragments of the bf16 PV product, and l
 // (whole rows) = l * alpha + the sum of those p, on the tensor core
-template <bool kMask>
+template <bool kMask, bool kBiased>
 __device__ __forceinline__ void softmax_qk(int (&s)[kTile / 8][4], int key, int n, float c,
                                            float (&m)[2], float (&l)[2], float (&alpha)[2],
                                            uint32_t (&pa)[kTile / 16][4]) {
   float mb[2];
-  tile_max<kMask>(s, key, n, c, m, alpha, mb);
+  tile_max<kMask, kBiased>(s, key, n, c, m, alpha, mb);
   const float cl2 = c * kLog2e;
 #pragma unroll
   for (int nt = 0; nt < kTile / 8; ++nt) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {  // h = 0: row g, h = 1: row g + 8
-      pa[nt / 2][(nt % 2) * 2 + h] = pack_bf16x2(score_exp<kMask>(s[nt][2 * h], cl2, mb[h]),
-                                                 score_exp<kMask>(s[nt][2 * h + 1], cl2, mb[h]));
+      pa[nt / 2][(nt % 2) * 2 + h] =
+          pack_bf16x2(score_exp<kMask, kBiased>(s[nt][2 * h], cl2, mb[h]),
+                      score_exp<kMask, kBiased>(s[nt][2 * h + 1], cl2, mb[h]));
     }
   }
   float sums[4] = {l[0] * alpha[0], 0.f, l[1] * alpha[1], 0.f};  // c0: row g, c2: row g + 8
@@ -537,27 +364,30 @@ __device__ __forceinline__ void softmax_qk(int (&s)[kTile / 8][4], int key, int 
 // (fragment kk: the keys of score tiles 4kk..4kk+3 in the accumulator's
 // order), and this thread's share of each row's sum of p_q in rs. 127 p is
 // ex2 of the exponent plus log2(127), one FFMA and one MUFU.EX2 as for p.
-template <bool kMask>
+// With kBiased rs is left alone: the ring kernel sums p_q on the tensor core.
+template <bool kMask, bool kBiased>
 __device__ __forceinline__ void softmax_full(int (&s)[kTile / 8][4], int key, int n, float c,
                                              float (&m)[2], float (&alpha)[2],
                                              uint32_t (&pa)[kTile / 32][4], uint32_t (&rs)[2]) {
   float mb[2];
-  tile_max<kMask>(s, key, n, c, m, alpha, mb);
+  tile_max<kMask, kBiased>(s, key, n, c, m, alpha, mb);
   const float cl2 = c * kLog2e;
   const float mq[2] = {mb[0] - kLog2_127, mb[1] - kLog2_127};
   uint32_t bits[kTile / 8][4];  // 1.5 * 2^23 + p_q, as f32 bits
-  rs[0] = rs[1] = 0u;
+  if constexpr (!kBiased) rs[0] = rs[1] = 0u;
 #pragma unroll
   for (int nt = 0; nt < kTile / 8; ++nt) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float p127 = score_exp<kMask>(s[nt][e], cl2, mq[e / 2]);  // at most 127.5
+      const float p127 = score_exp<kMask, kBiased>(s[nt][e], cl2, mq[e / 2]);  // at most 127.5
       bits[nt][e] = __float_as_uint(__fadd_rn(p127, kMagicF));
-      rs[e / 2] += bits[nt][e];  // modulo 2^32
+      if constexpr (!kBiased) rs[e / 2] += bits[nt][e];  // modulo 2^32
     }
   }
-  rs[0] -= static_cast<uint32_t>(kTile / 4) * static_cast<uint32_t>(kMagic);
-  rs[1] -= static_cast<uint32_t>(kTile / 4) * static_cast<uint32_t>(kMagic);
+  if constexpr (!kBiased) {
+    rs[0] -= static_cast<uint32_t>(kTile / 4) * static_cast<uint32_t>(kMagic);
+    rs[1] -= static_cast<uint32_t>(kTile / 4) * static_cast<uint32_t>(kMagic);
+  }
 #pragma unroll
   for (int kk = 0; kk < kTile / 32; ++kk) {
     const int nt = 4 * kk;
@@ -601,6 +431,28 @@ __device__ __forceinline__ void flush(float (&acc)[J][4], int (&acc_i)[J][4], fl
   }
 }
 
+// O = bf16(acc / l) for this thread's rows r0 and r0 + 8 of a (n, D) output
+// (l0, l1 their whole sums); in 'int8' mode then bf16(O * sv), as the JAX
+// wrapper
+template <int D, bool kFull>
+__device__ __forceinline__ void store_out(__nv_bfloat16* out, const float (&acc)[D / 8][4],
+                                          float l0, float l1, float sv, int r0, int n, int t) {
+#pragma unroll
+  for (int jd = 0; jd < D / 8; ++jd) {
+    const int col = jd * 8 + 2 * t;
+    __nv_bfloat162 y0 = __floats2bfloat162_rn(acc[jd][0] / l0, acc[jd][1] / l0);
+    __nv_bfloat162 y1 = __floats2bfloat162_rn(acc[jd][2] / l1, acc[jd][3] / l1);
+    if constexpr (kFull) {
+      y0 = __floats2bfloat162_rn(__low2float(y0) * sv, __high2float(y0) * sv);
+      y1 = __floats2bfloat162_rn(__low2float(y1) * sv, __high2float(y1) * sv);
+    }
+    if (r0 < n) *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r0) * D + col) = y0;
+    if (r0 + 8 < n) {
+      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r0 + 8) * D + col) = y1;
+    }
+  }
+}
+
 template <int J>
 __device__ __forceinline__ void fence_acc(float (&acc)[J][4]) {
 #pragma unroll
@@ -618,6 +470,8 @@ __device__ __forceinline__ void fence_acc(int (&acc)[J][4]) {
     for (int i = 0; i < 4; ++i) fence_reg(acc[j][i]);
   }
 }
+
+// ------------------------------------------------------------ wgmma kernel (d 32, 64)
 
 // One warpgroup of 64 query rows per block; kmap: the int8 K map, vmap: the
 // bf16 V map ('int8_qk') or the int8 V^T map ('int8')
@@ -704,9 +558,9 @@ flash_int8_wgmma(const __grid_constant__ CUtensorMap kmap, const __grid_constant
     if constexpr (kFull) {
       uint32_t pa[kTile / 32][4], rs[2];
       if (mask) {
-        softmax_full<true>(s, key, n, c, m, alpha, pa, rs);
+        softmax_full<true, false>(s, key, n, c, m, alpha, pa, rs);
       } else {
-        softmax_full<false>(s, key, n, c, m, alpha, pa, rs);
+        softmax_full<false, false>(s, key, n, c, m, alpha, pa, rs);
       }
       // the whole warpgroup (the block) flushes or none of it: the zeroed
       // int32 sums may become the products' scale-d operand, one for all
@@ -728,9 +582,9 @@ flash_int8_wgmma(const __grid_constant__ CUtensorMap kmap, const __grid_constant
     } else {
       uint32_t pa[kTile / 16][4];
       if (mask) {
-        softmax_qk<true>(s, key, n, c, m, l, alpha, pa);
+        softmax_qk<true, false>(s, key, n, c, m, l, alpha, pa);
       } else {
-        softmax_qk<false>(s, key, n, c, m, l, alpha, pa);
+        softmax_qk<false, false>(s, key, n, c, m, l, alpha, pa);
       }
       rescale(acc, alpha);
       const uint64_t vdesc =
@@ -755,20 +609,254 @@ flash_int8_wgmma(const __grid_constant__ CUtensorMap kmap, const __grid_constant
     l1 = quad_sum(l[1]);
   }
 
-  // O = bf16(acc / l); in 'int8' mode then bf16(O * sv), as the JAX wrapper
-  const float sv = kFull ? v_scale[blockIdx.y] : 1.f;
-  __nv_bfloat16* out = o + base;
+  store_out<D, kFull>(o + base, acc, l0, l1, kFull ? v_scale[blockIdx.y] : 1.f, row0, n, t);
+}
+
+// ------------------------------------------------------------ ring kernel (d 8, 16)
+
+// Its block, by head dim: warps, 16-row query tiles a warp, and the blocks an
+// SM that __launch_bounds__ keeps registers for. Chosen in turns on the H100
+// (PERF.md): blocks of 4 warps at 4 an SM (72-85 registers) beat 8 warps at
+// 2 by 9% (int8_qk) and 4% (int8) a depth-18 batch; 5 blocks an SM ran level,
+// 2 warps at 8 3-6% slower, two query tiles a warp (3 or 4 blocks an SM)
+// 1-2% slower in int8_qk and up to 3% faster in int8 (one block shape serves
+// both modes). m16n8k32 for Q K^T (its upper half zero) ran 6% slower.
+template <int D>
+__host__ __device__ constexpr int ring_warps() { return 4; }
+template <int D>
+__host__ __device__ constexpr int ring_row_tiles() { return 1; }
+template <int D>
+__host__ __device__ constexpr int ring_blocks_per_sm() { return 4; }
+template <int D>
+__host__ __device__ constexpr int ring_rows() { return ring_warps<D>() * 16 * ring_row_tiles<D>(); }
+
+// c = a b + kMagic, s8 m16n8k16: a (16 x 16 s8, row-major: a[0] row g, a[1]
+// row g + 8, bytes 4t..4t+3), b (16 x 8 s8, column-major: bytes 4t..4t+3 of
+// column g); the accumulator starts at kMagic, so each score comes out
+// biased as the softmax helpers' kBiased wants it
+__device__ __forceinline__ void mma_16816_s8_biased(int (&c)[4], const uint32_t (&a)[2],
+                                                    uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %8, %9, %10};\n"
+      : "=r"(c[0]), "=r"(c[1]), "=r"(c[2]), "=r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b), "r"(kMagic), "r"(kMagic), "r"(kMagic), "r"(kMagic));
+}
+
+// c (16x8 s32) += a (16x32 s8, row-major: a[0], a[1] rows g, g + 8 at bytes
+// 4t..4t+3, a[2], a[3] at 16 + 4t..) * b (32x8 s8, column-major: b[0] bytes
+// 4t..4t+3 of column g, b[1] bytes 16 + 4t..)
+__device__ __forceinline__ void mma_16832_s8(int (&c)[4], const uint32_t (&a)[4],
+                                             const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Starts the copy of tile `tile` of this block's batch into its ring slot,
+// kThreads threads sharing the copies (the caller commits): K (int8 (n, D))
+// as kTile rows of k_row_bytes, a key a copy (8 bytes at d 8, where a batch's
+// K starts only 8-byte aligned for odd n); then V, bf16 (n, D) in the
+// swizzled [kTile][D] tile of pv_mma ('int8_qk'), or the pre-pass's zero-padded
+// int8 V^T slice ('int8': v the batch's (D, n_pad), rows of kTile bytes whose
+// 16-byte chunks are swizzled as a bf16 [D][32] tile's). Keys past n are
+// zero-filled; nothing past a tensor is read.
+template <int D, bool kFull, int kThreads>
+__device__ __forceinline__ void load_ring_tile(const int8_t* __restrict__ k, const void* v,
+                                               int tile, int n, int n_pad, uint8_t* slot) {
+  constexpr int kCopies = kTile + (kFull ? D * kTile / 16 : kTile * D / 8);
+  const int key0 = tile * kTile;
+  uint8_t* vt = slot + kTile * k_row_bytes<D>();
+#pragma unroll
+  for (int it = 0; it < (kCopies + kThreads - 1) / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    if (kCopies % kThreads != 0 && i >= kCopies) break;
+    if (i < kTile) {
+      const bool ok = key0 + i < n;
+      const int8_t* src = k + static_cast<size_t>(ok ? key0 + i : 0) * D;
+      if constexpr (D == 8) {
+        cp_async_8(slot + i * k_row_bytes<D>(), src, ok);
+      } else {
+        cp_async_16(slot + i * k_row_bytes<D>(), src, ok);
+      }
+    } else if constexpr (kFull) {
+      const int r = (i - kTile) / 4, ch = (i - kTile) % 4;  // row d, chunk of 16 keys
+      cp_async_16(vt + 2 * swz<32>(r, ch),
+                  static_cast<const int8_t*>(v) + static_cast<size_t>(r) * n_pad + key0 + ch * 16,
+                  true);
+    } else {
+      const int r = (i - kTile) / (D / 8), ch = (i - kTile) % (D / 8);
+      const bool ok = key0 + r < n;
+      cp_async_16(reinterpret_cast<__nv_bfloat16*>(vt) + swz<D>(r, ch),
+                  static_cast<const __nv_bfloat16*>(v) + static_cast<size_t>(ok ? key0 + r : 0) * D +
+                      ch * 8,
+                  ok);
+    }
+  }
+}
+
+// 'int8': acc_i += p_q V and l_i += the row sums of p_q for a warp's 16 rows,
+// s8 m16n8k32 over the tile's two 32-key steps. V's B fragments come by
+// ldmatrix from the swizzled V^T tile vt (matrix i: the 16-byte chunk i,
+// slots 16i..16i+15, of d rows 8 jd..8 jd + 7), in the key order that pa
+// holds; the row sums multiply pa by a ones B fragment, from zero each tile
+// (a ones column: every c of a row is its sum).
+template <int D>
+__device__ __forceinline__ void pv_int8(int (&acc_i)[D / 8][4], uint32_t (&l_i)[2],
+                                        const uint32_t (&pa)[kTile / 32][4], const uint8_t* vt,
+                                        int lane) {
+  const int r8 = lane & 7, mat = lane >> 3;
 #pragma unroll
   for (int jd = 0; jd < D / 8; ++jd) {
-    const int col = jd * 8 + 2 * t;
-    __nv_bfloat162 y0 = __floats2bfloat162_rn(acc[jd][0] / l0, acc[jd][1] / l0);
-    __nv_bfloat162 y1 = __floats2bfloat162_rn(acc[jd][2] / l1, acc[jd][3] / l1);
+    uint32_t b[4];
+    ldmatrix_x4(b, vt + 2 * swz<32>(jd * 8 + r8, mat));
+    const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+    mma_16832_s8(acc_i[jd], pa[0], b0);
+    mma_16832_s8(acc_i[jd], pa[1], b1);
+  }
+  int sums[4] = {0, 0, 0, 0};
+  const uint32_t ones[2] = {0x01010101u, 0x01010101u};
+#pragma unroll
+  for (int kk = 0; kk < kTile / 32; ++kk) mma_16832_s8(sums, pa[kk], ones);
+  l_i[0] += static_cast<uint32_t>(sums[0]);
+  l_i[1] += static_cast<uint32_t>(sums[2]);
+}
+
+// One 64-key tile (its ring slot `slot`, its first key j * kTile) for this
+// warp's M 16-row query tiles: K's B fragments by ldmatrix (matrix i: the
+// rows of 8 keys; at d 8 the upper 8 bytes of a row meet the zero upper half
+// of qa), each serving the M tiles; then each tile's softmax and PV product
+// in turn. Per score: the product, one IMNMX, FADD, FFMA and MUFU.EX2, and
+// a bf16 pack ('int8_qk') or the rounding FADD and a byte pack ('int8').
+template <int D, bool kFull, int M, bool kMask>
+__device__ __forceinline__ void ring_tile(const uint8_t* slot, const uint32_t (&qa)[M][2], int j,
+                                          int n, float c, float (&m)[M][2], float (&l)[M][2],
+                                          float (&acc)[M][D / 8][4], int (&acc_i)[M][D / 8][4],
+                                          uint32_t (&l_i)[M][2], int lane) {
+  const int r8 = lane & 7, mat = lane >> 3, t = lane & 3;
+  uint32_t kb[kTile / 8];
+#pragma unroll
+  for (int h = 0; h < kTile / 32; ++h) {
+    ldmatrix_x4(&kb[4 * h], slot + ((4 * h + mat) * 8 + r8) * k_row_bytes<D>());
+  }
+  int s[M][kTile / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < M; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) mma_16816_s8_biased(s[mt][nt], qa[mt], kb[nt]);
+  }
+  const uint8_t* vt = slot + kTile * k_row_bytes<D>();
+  const int key = j * kTile + 2 * t;
+#pragma unroll
+  for (int mt = 0; mt < M; ++mt) {
+    float alpha[2];
     if constexpr (kFull) {
-      y0 = __floats2bfloat162_rn(__low2float(y0) * sv, __high2float(y0) * sv);
-      y1 = __floats2bfloat162_rn(__low2float(y1) * sv, __high2float(y1) * sv);
+      uint32_t pa[kTile / 32][4], unused[2];
+      softmax_full<kMask, true>(s[mt], key, n, c, m[mt], alpha, pa, unused);
+      // each thread owns its rows' sums: a warp flushes on its own
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f) ||
+          j % kFlushTiles == kFlushTiles - 1) {
+        flush(acc[mt], acc_i[mt], l[mt], l_i[mt], alpha);
+      }
+      pv_int8<D>(acc_i[mt], l_i[mt], pa, vt, lane);
+    } else {
+      uint32_t pa[kTile / 16][4];
+      softmax_qk<kMask, true>(s[mt], key, n, c, m[mt], l[mt], alpha, pa);
+      rescale(acc[mt], alpha);
+      pv_mma<D>(acc[mt], pa, reinterpret_cast<const __nv_bfloat16*>(vt), lane);
     }
-    if (ok0) *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(row0) * D + col) = y0;
-    if (ok1) *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(row1) * D + col) = y1;
+  }
+}
+
+// ring_warps warps of ring_row_tiles 16-row query tiles each; all threads
+// stage the 64-key tiles by cp.async into a ring of kStages slots, kAhead
+// tiles ahead, one __syncthreads a tile. v: bf16 (B, n, D) ('int8_qk') or the
+// pre-pass's int8 V^T (B, D, n_pad) ('int8').
+template <int D, bool kFull>
+__global__ void __launch_bounds__(ring_warps<D>() * 32, ring_blocks_per_sm<D>())
+flash_int8_ring(const int8_t* __restrict__ q, const int8_t* __restrict__ k, const void* v,
+                const float* __restrict__ scale, const float* __restrict__ v_scale,
+                __nv_bfloat16* __restrict__ o, int n, int n_pad) {
+  static_assert(D == 8 || D == 16, "the ring int8 forward takes head dims 8 and 16");
+  constexpr int kThreads = ring_warps<D>() * 32, M = ring_row_tiles<D>();
+  constexpr int kSlot = slot_bytes<D, kFull>();
+  __shared__ __align__(128) uint8_t ring[kStages * kSlot];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int batch = blockIdx.y;
+  const size_t base = static_cast<size_t>(batch) * n * D;
+  const int8_t* kb = k + base;
+  const void* vb = kFull ? static_cast<const void*>(static_cast<const int8_t*>(v) +
+                                                    static_cast<size_t>(batch) * D * n_pad)
+                         : static_cast<const void*>(static_cast<const __nv_bfloat16*>(v) + base);
+  const int row0 = blockIdx.x * ring_rows<D>() + warp * 16 * M + g;  // tile m: + 16 m, + 8
+  const int tiles = (n + kTile - 1) / kTile;
+  const bool ragged = n % kTile != 0;
+  const float c = scale[batch];
+
+  if constexpr (D < 16) {  // the K rows' pad (never copied into), zeroed once
+    for (int i = threadIdx.x; i < kStages * kTile; i += kThreads) {
+      *reinterpret_cast<uint2*>(ring + (i / kTile) * kSlot + (i % kTile) * 16 + 8) =
+          make_uint2(0, 0);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) {
+    if (j < tiles) load_ring_tile<D, kFull, kThreads>(kb, vb, j, n, n_pad, ring + j * kSlot);
+    cp_async_commit();
+  }
+  uint32_t qa[M][2];  // rows past n and bytes past D read as zeros
+  float acc[M][D / 8][4], m[M][2], l[M][2];
+  int acc_i[M][D / 8][4];  // 'int8': the PV sums since the last flush
+  uint32_t l_i[M][2];      // 'int8': the p_q row sums since the last flush
+#pragma unroll
+  for (int mt = 0; mt < M; ++mt) {
+    const int r0 = row0 + 16 * mt, r1 = r0 + 8;
+    qa[mt][0] = load_u32(q + base + static_cast<size_t>(r0 < n ? r0 : 0) * D + 4 * t,
+                         r0 < n && 4 * t < D);
+    qa[mt][1] = load_u32(q + base + static_cast<size_t>(r1 < n ? r1 : 0) * D + 4 * t,
+                         r1 < n && 4 * t < D);
+#pragma unroll
+    for (int jd = 0; jd < D / 8; ++jd) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[mt][jd][e] = 0.f;
+        acc_i[mt][jd][e] = 0;
+      }
+    }
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.f;
+    l_i[mt][0] = l_i[mt][1] = 0u;
+  }
+
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait<kAhead - 1>();  // this thread's copies of tile j have landed
+    __syncthreads();              // everyone's have, and tile j - 1 is no longer read
+    if (j + kAhead < tiles) {
+      load_ring_tile<D, kFull, kThreads>(kb, vb, j + kAhead, n, n_pad,
+                                         ring + ((j + kAhead) % kStages) * kSlot);
+    }
+    cp_async_commit();
+    const uint8_t* slot = ring + (j % kStages) * kSlot;
+    if (ragged && j == tiles - 1) {
+      ring_tile<D, kFull, M, true>(slot, qa, j, n, c, m, l, acc, acc_i, l_i, lane);
+    } else {
+      ring_tile<D, kFull, M, false>(slot, qa, j, n, c, m, l, acc, acc_i, l_i, lane);
+    }
+  }
+
+  const float sv = kFull ? v_scale[batch] : 1.f;
+#pragma unroll
+  for (int mt = 0; mt < M; ++mt) {
+    if constexpr (kFull) {
+      const float one[2] = {1.f, 1.f};
+      flush(acc[mt], acc_i[mt], l[mt], l_i[mt], one);
+    }
+    // l holds whole rows (the tensor core's sums)
+    store_out<D, kFull>(o + base, acc[mt], l[mt][0], l[mt][1], sv, row0 + 16 * mt, n, t);
   }
 }
 
@@ -784,10 +872,10 @@ struct Args {
 };
 
 template <int D, bool kFull>
-int launch_mma(const Args& a) {
-  const dim3 grid((a.n + kRows - 1) / kRows, a.batch);
-  flash_int8_mma<D, kFull>
-      <<<grid, kWarps * 32, 0, a.stream>>>(a.q, a.k, a.v, a.scale, a.v_scale, a.o, a.n, a.n_pad);
+int launch_ring(const Args& a) {
+  const dim3 grid((a.n + ring_rows<D>() - 1) / ring_rows<D>(), a.batch);
+  flash_int8_ring<D, kFull><<<grid, ring_warps<D>() * 32, 0, a.stream>>>(
+      a.q, a.k, a.v, a.scale, a.v_scale, a.o, a.n, a.n_pad);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -818,8 +906,8 @@ int launch_wgmma(const Args& a) {
 template <bool kFull>
 int launch_d(int d, const Args& a) {
   switch (d) {
-    case 8: return launch_mma<8, kFull>(a);
-    case 16: return launch_mma<16, kFull>(a);
+    case 8: return launch_ring<8, kFull>(a);
+    case 16: return launch_ring<16, kFull>(a);
     case 32: return launch_wgmma<32, kFull, 4>(a);
     case 64: return launch_wgmma<64, kFull, 3>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -27,11 +27,6 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// x rounded to bf16 (to nearest even), as f32
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 // c (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, column-major)
 __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
   asm volatile(
@@ -91,8 +86,7 @@ __device__ __forceinline__ void b_from_cols(uint32_t b[2], const __nv_bfloat16* 
 // Stage rows [r0, r0 + kTile) of two (n, D) bf16 matrices a and b, each into
 // a row-major shared tile and/or its transpose (a null tile is skipped); rows
 // past n are 0. One loop loads both 16-byte chunks before storing either: for
-// the dQ kernel (one transposed tile) that is faster than a loop per matrix;
-// the int8 forward stages its one transposed tile by stage_tile.
+// the dQ kernel (one transposed tile) that is faster than a loop per matrix.
 template <int D>
 __device__ __forceinline__ void stage_chunk(uint4 x, __nv_bfloat16 (*rows)[D + kPad],
                                             __nv_bfloat16 (*tr)[kTile + kPad], int r, int c) {
@@ -124,22 +118,6 @@ __device__ __forceinline__ void stage_tiles(int r0, int n,
     }
     stage_chunk<D>(xa, a_rows, a_tr, r, c);
     stage_chunk<D>(xb, b_rows, b_tr, r, c);
-  }
-}
-
-// Stage rows [r0, r0 + kTile) of one (n, D) bf16 matrix into a row-major
-// shared tile and its transpose; rows past n are 0.
-template <int D>
-__device__ __forceinline__ void stage_tile(int r0, int n, const __nv_bfloat16* __restrict__ a,
-                                           __nv_bfloat16 (*rows)[D + kPad],
-                                           __nv_bfloat16 (*tr)[kTile + kPad]) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kWarps * 32) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (r0 + r < n) x = *reinterpret_cast<const uint4*>(a + static_cast<size_t>(r0 + r) * D + c);
-    stage_chunk<D>(x, rows, tr, r, c);
   }
 }
 

@@ -58,6 +58,13 @@ __device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool vali
                : "memory");
 }
 
+// the same for 8 bytes (src 8-byte aligned), through L1
+__device__ __forceinline__ void cp_async_8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 8 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -296,6 +303,37 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* row
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(row))
                : "memory");
+}
+
+// acc (16 x D) += P V for a warp's 16 rows (pa: the bf16 A fragments of P
+// over the tile's 64 keys) from the swizzled [kTile][D] bf16 V tile vt
+// (d 8 or 16), V fragments by ldmatrix.x4.trans
+template <int D>
+__device__ __forceinline__ void pv_mma(float (&acc)[D / 8][4], const uint32_t pa[][4],
+                                       const __nv_bfloat16* vt, int lane) {
+  const int r8 = lane & 7, mat = lane >> 3;
+  if constexpr (D == 16) {  // matrices: keys +0 / +8 of the step x d chunks 0, 1
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < D / 8; j += 2) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, vt + swz<D>(kk * 16 + (mat & 1) * 8 + r8, j + (mat >> 1)));
+        const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+        mma_16816(acc[j], pa[kk], b0);
+        mma_16816(acc[j + 1], pa[kk], b1);
+      }
+    }
+  } else {  // D == 8, matrices: keys +0, +8, +16, +24 of two steps
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; kk += 2) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, vt + swz<D>(kk * 16 + mat * 8 + r8, 0));
+      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      mma_16816(acc[0], pa[kk], b0);
+      mma_16816(acc[0], pa[kk + 1], b1);
+    }
+  }
 }
 
 // ------------------------------------------------------------ exponentials

@@ -202,6 +202,9 @@ def test_phase_15_kernel_checks_and_timings_rehearsed_on_the_cpu(monkeypatch, ca
     monkeypatch.setattr(torch, "Generator", lambda device=None: _gen())
     monkeypatch.setattr(torch, "randn", lambda *a, device=None, **k: _randn(*a, **k))
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps, warmup=2, windows=1: (1.0, fn()))
+    monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, names, reps=10: fn() and 0.25)
+    monkeypatch.setattr(fa, "_int8_library", lambda: None)
+    monkeypatch.setattr(chip_smoke, "other_int8", lambda lib, q, inputs, mode: torch.empty_like(q))
     monkeypatch.setattr(chip_smoke, "DEPTH18_FLASH_SHAPES", ((131, 8), (70, 16)))
     monkeypatch.setattr(chip_smoke, "DEPTH18_DDD17_SHAPE", (77, 8))
     for name in ("MAIN_BATCH", "TRAIN_BATCH", "EVAL_BATCH"):
@@ -217,6 +220,12 @@ def test_phase_15_kernel_checks_and_timings_rehearsed_on_the_cpu(monkeypatch, ca
     assert [s["count"] for s in rows["flash_fwd_f32_d8_16"]["per_shape"]] == [2, 2, 0]
     assert rows["flash_fwd_f32_d8_16"]["ms"] == 4.0  # the DSEC launches of one eval batch
     assert rows["flash_int8_d8_16"]["library_ms"] is None
+    # the B4 rows time the wrapper: the kernel alone and the pre-pass's
+    # device time beside it
+    for kind in ("flash_int8_qk_d8_16", "flash_int8_d8_16"):
+        assert [s["prepass_device_ms"] for s in rows[kind]["per_shape"]] == [0.25, 0.25]
+        assert [s["kernel_ms"] for s in rows[kind]["per_shape"]] == [1.0, 1.0]
+        assert rows[kind]["prepass_device_ms"] == (1.0 if kind == "flash_int8_qk_d8_16" else 0.5)
     assert rows["flash_int8_d8_16"]["per_shape"][0]["B"] == 4  # 2B under fused attention
     assert re.search(r'flash_bwd_dkv_f32_d8_16 timing \{"B": 2, "N": 70, "d": 16, "blocks": 2,',
                      out)

@@ -102,8 +102,10 @@ def test_bf16exp_plain_rounds_the_weights_to_bf16_for_bf16_values():
     pytest.param(2, 131, 64, 128, id="2-131-64"),
     # the kernels' key tile (KERNEL_TILE), on which mode 'int8' depends through
     # its running max: ragged last tiles at d 32 and 64, one partial tile, an
-    # exact fit
-    (2, 131, 32, 64), (1, 200, 64, 64), (2, 40, 32, 64), (1, 128, 64, 64)])
+    # exact fit; at d 8 (the depth-18 paths' stage 1, where the plain version
+    # is the card's oracle) a ragged odd N and an exact fit
+    (2, 131, 32, 64), (1, 200, 64, 64), (2, 40, 32, 64), (1, 128, 64, 64), (2, 131, 8, 64),
+    (1, 128, 8, 64)])
 def test_int8_plain_matches_pallas_kernel(mode, b, n, d, block):
     q, k, v = _inputs(b, n, d, seed=56)
     want = np.asarray(_flash_forward_int8(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mode=mode,
