@@ -383,6 +383,11 @@ F32_TRAIN_CHECK_SHAPES = ((2, 19200, 32), (2, 4800, 64), (4, 5655, 32), (2, 4800
 # |value| (the largest gap on an H100 was 1.2e-4 of it, dQ at N 517, d 64)
 F32_LSE_TRAP_SHAPES = ((2, 131, 16), (4, 5655, 32), (2, 517, 64))
 F32_TRAP_ATOL = 1e-3
+# the bf16 backward kernels at d 8 and 16 with the scores shifted far below
+# zero (``_shift_scores``: lse < -88), at ragged N (3 keys in the last tile at
+# N 131, 23 at N 5,655): the select on the ragged tile is what keeps dQ
+# finite there. Held at phase 2's gate (BWD_ATOL, BWD_RTOL)
+BWD_LSE_TRAP_SHAPES = ((2, 131, 16), (2, 5655, 8))
 # the training step is launch-bound on the host, so its time varies with the
 # host's load: ten timed micro-steps, and the median beside the mean
 TRAIN_BATCH, TRAIN_SAMPLES, TRAIN_TIMED = 8, 48, 10
@@ -430,8 +435,8 @@ TRAIN_KERNELS = ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_F32_KERNELS = ("flash_fwd_lse_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
 # the path's wgmma instances of each source, as (kernel, its first template
 # arguments): the forward at d 32 and 64, with and without exp_bf16; the dQ
-# and dK/dV kernels at d 32 and 64, and the ring dK/dV kernel at d 8 and 16
-# (the depth-18 and -34 training path); the int8 forward at d 32 and 64 and its
+# and dK/dV kernels at d 32 and 64, and the ring dQ and dK/dV kernels at d 8
+# and 16 (the depth-18 and -34 training path); the int8 forward at d 32 and 64 and its
 # ring kernel at d 8 and 16, in modes int8_qk (0) and int8 (1) (the ring
 # kernel: the depth-18 and -34 opt-in paths); the stem at C 3 and 5; and the
 # f32 kernels (CUDA
@@ -443,7 +448,8 @@ TRAIN_F32_KERNELS = ("flash_fwd_lse_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32
 PATH_INSTANCES = {
     "flash_attention": [("flash_fwd_wgmma", d, e) for d in (32, 64) for e in (0, 1)],
     "flash_attention_bwd": [(kernel, d) for kernel in ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
-                            for d in (32, 64)] + [("flash_bwd_dkv_ring", d) for d in (8, 16)],
+                            for d in (32, 64)] + [(kernel, d) for kernel in (
+                                "flash_bwd_dq_ring", "flash_bwd_dkv_ring") for d in (8, 16)],
     "flash_attention_int8": [(kernel, d, f) for kernel, dims in (("flash_int8_wgmma", (32, 64)),
                                                                  ("flash_int8_ring", (8, 16)))
                              for d in dims for f in (0, 1)],
@@ -752,7 +758,7 @@ def kernel_instances(log: str) -> dict:
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv|int8)_(?:mma|wgmma)"
-                          r"|flash_(?:bwd_dkv|int8)_ring"
+                          r"|flash_(?:bwd_dq|bwd_dkv|int8)_ring"
                           r"|flash_(?:fwd|bwd_dq|bwd_dkv)_f32(?:_tiled|_small)?|stem_wgmma)"
                           r"I((?:L[ib]\d+E)+)E", entry.group(1))
             current = None if m is None else (
@@ -852,9 +858,10 @@ def phase_flash_f32():
 def phase_flash_backward():
     """The forward with lse and both backward kernels against their plain
     versions at every listed shape (the paths' shapes and the kernels' block
-    edges, ragged N and d 8 and 16 included), then each timed at batch
-    TRAIN_BATCH at the training path's two shapes, where the timed runs'
-    outputs are held against each other too."""
+    edges, ragged N and d 8 and 16 included) and the backward kernels, with
+    lse < -88, at BWD_LSE_TRAP_SHAPES; then each timed at batch TRAIN_BATCH at
+    the training path's two shapes, where the timed runs' outputs are held
+    against each other too."""
     from frn_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -871,6 +878,18 @@ def phase_flash_backward():
         check_close("flash_fwd_lse", "lse", lse, lse_ref, LSE_ATOL, 0.0, shape, errs)
         check_mean_lse("flash_fwd_lse", lse, lse_ref, shape)
         # both backward versions get the same lse and D, from the plain forward
+        delta = fa.attention_delta(o_ref, do)
+        check_backward(shape, fa.flash_bwd_dq(q, k, v, do, lse_ref, delta),
+                       fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta),
+                       fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta),
+                       fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta), errs)
+    for shape in BWD_LSE_TRAP_SHAPES:
+        q, k = _shift_scores(randn(*shape), randn(*shape))
+        v, do = randn(*shape), randn(*shape)
+        o_ref, lse_ref = fa.flash_attention_plain(q, k, v, return_lse=True)
+        if not lse_ref.max().item() < -88:
+            fail(f"the shifted scores left lse at {lse_ref.max().item():.1f} at {_shape_text(shape)}")
+        print(f"lse < -88 at {_shape_text(shape)}:", flush=True)
         delta = fa.attention_delta(o_ref, do)
         check_backward(shape, fa.flash_bwd_dq(q, k, v, do, lse_ref, delta),
                        fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta),
@@ -5066,10 +5085,9 @@ DEPTH18_SUFFIX = "_d8_16"
 # versions take 0.1-0.6 s a launch at the paths' batches
 DEPTH18_CHECK_BATCH = 2
 # rows a block owns in the d 8 and 16 mma.sync kernels: the forward's
-# (csrc/flash_attention.cu, launch_mma: 128), the ring dK/dV kernel's
-# (csrc/flash_attention_bwd.cu, dkv_rows: 128), the ring int8 forward's
-# (csrc/flash_attention_int8.cu, ring_rows: 64) and the dQ kernel's
-# (flash_common.cuh, kRows: 64)
+# (csrc/flash_attention.cu, launch_mma: 128), the ring dQ and dK/dV kernels'
+# (csrc/flash_attention_bwd.cu, dq_rows: 64, dkv_rows: 128) and the ring
+# int8 forward's (csrc/flash_attention_int8.cu, ring_rows: 64)
 MMA_ROWS = {"flash_fwd": 128, "flash_fwd_lse": 128, "flash_fwd_bf16exp": 128,
             "flash_bwd_dq": 64, "flash_bwd_dkv": 128, "flash_int8_qk": 64, "flash_int8": 64}
 # the depth-18 paths' runs: inference batches timed, the bf16 micro-step's

@@ -58,27 +58,33 @@
 //
 // At d 8 and 16 (the depth-18 and -34 training path: N 19,200 at d 8, N
 // 4,800 at d 16) the exponentials bound both kernels: 6d or 8d flops per exp
-// is far below the tensor cores' 254. The dQ kernel keeps its first, simple
-// mma.sync design: one block of 4 warps owns 64 query rows, each warp 16, with
-// the key tiles staged synchronously and dQ's B operand read from a tile
-// transposed element by element in padded shared memory. The dK/dV kernel,
-// flash_bwd_dkv_ring, follows the forward's mma.sync kernel
-// (flash_attention.cu, flash_fwd_mma): a block of dkv_warps (4) warps owns
-// dkv_rows (128) key rows, each warp dkv_key_tiles (2) 16-row tiles with K
-// and V as A fragments in registers, and walks 64-query tiles of Q and dO that
-// all threads stage by 16-byte cp.async into the forward's swizzled ring (kStages
-// slots, kAhead tiles in flight, one __syncthreads per tile). Beside it,
-// threads 0..127 carry each tile's lse and D a tile ahead in a register and
-// write them into one of two slots as the fragments read them: lse * log2(e)
-// in pairs, and -D as the C fragment that starts dP^T's accumulator, so that
-// a score costs one FFMA and one ex2 for P and one FMUL for dS. Per 16
-// queries: S^T = K Q^T and dP^T = V dO^T - D take their B fragments by
-// ldmatrix from the row-major tiles (m16n8k8 at d 8, m16n8k16 at d 16);
-// P^T = ex2(S^T log2(e) - lse log2(e)) and dS^T = P^T dP^T are packed once to
-// bf16 A fragments; dV += P^T dO and dK += dS^T Q take theirs by
-// ldmatrix.trans from the same tiles, so no tile is transposed in memory.
-// Only the ragged last tile takes the select that gives queries at or past N
-// P = 0. Each block writes its own dK and dV rows once.
+// is far below the tensor cores' 254. Both kernels follow the forward's
+// mma.sync kernel (flash_attention.cu, flash_fwd_mma): all threads stage
+// 64-row tiles of the other side by 16-byte cp.async into the forward's
+// swizzled ring (kStages slots, kAhead tiles in flight, one __syncthreads per
+// tile); B fragments come by ldmatrix from the row-major tiles for the
+// score products and by ldmatrix.trans from the same tiles for the gradient
+// products, so no tile is transposed in memory; products are m16n8k8 at d 8
+// and m16n8k16 at d 16; dP's accumulator starts at -D, so that a score costs
+// one FFMA and one ex2 for P and one FMUL for dS; only the ragged last tile
+// takes the select that gives the other side's rows at or past N P = 0; each
+// block writes its own rows once.
+//  - flash_bwd_dq_ring: a block of dq_warps (4) warps owns dq_rows (64) query
+//    rows, each warp dq_row_tiles (1) 16-row tile with Q and dO as A
+//    fragments and lse * log2(e) and -D of its rows in registers, and walks
+//    the key tiles of K and V. Per 16 keys: S = Q K^T and dP = dO V^T - D, P
+//    = ex2(S log2(e) - lse log2(e)), dS = P dP packed once to a bf16 A
+//    fragment, dQ += dS K.
+//  - flash_bwd_dkv_ring: a block of dkv_warps (4) warps owns dkv_rows (128)
+//    key rows, each warp dkv_key_tiles (2) 16-row tiles with K and V as A
+//    fragments, so that each B fragment serves both, and walks the query
+//    tiles of Q and dO. Beside the ring,
+//    threads 0..127 carry each tile's lse and D a tile ahead in a register
+//    and write them into one of two slots as the fragments read them: lse *
+//    log2(e) in pairs, and -D as the C fragment that starts dP^T's
+//    accumulator. Per 16 queries: S^T = K Q^T and dP^T = V dO^T - D; P^T =
+//    ex2(S^T log2(e) - lse log2(e)) and dS^T = P^T dP^T, each packed once to
+//    bf16 A fragments; dV += P^T dO and dK += dS^T Q.
 
 #include <math.h>
 
@@ -88,82 +94,184 @@ namespace {
 
 using namespace flash;
 
-// ------------------------------------------------------------ mma.sync kernels (d 8, 16)
+// ------------------------------------------------------------ the ring dQ kernel (d 8, 16)
 
+// Its block, by head dim: warps, each owning dq_row_tiles 16-row tiles of
+// queries, and the blocks an SM that __launch_bounds__ keeps registers for.
+// Chosen in turns on the H100 (PERF.md): 4 warps of one tile at 6 blocks an
+// SM (80 registers) beat 5 and 7 blocks, 2 and 8 warps, and two tiles a warp
+// (whose shared B fragments gained nothing here: 107-168 registers at 3-4
+// blocks an SM).
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 __nv_bfloat16* __restrict__ dq, int n) {
-  static_assert(D == 8 || D == 16, "the mma.sync backward takes head dims 8 and 16");
-  constexpr int KD = kSteps<D>();
-  __shared__ __align__(16) __nv_bfloat16 k_tile[kTile][D + kPad];   // [key][d]
-  __shared__ __align__(16) __nv_bfloat16 v_tile[kTile][D + kPad];   // [key][d]
-  __shared__ __align__(16) __nv_bfloat16 kt_tile[D][kTile + kPad];  // [d][key]
+__host__ __device__ constexpr int dq_warps() { return 4; }
+template <int D>
+__host__ __device__ constexpr int dq_row_tiles() { return 1; }
+template <int D>
+__host__ __device__ constexpr int dq_blocks_per_sm() { return 6; }
+template <int D>
+__host__ __device__ constexpr int dq_rows() { return dq_warps<D>() * 16 * dq_row_tiles<D>(); }
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const size_t base = static_cast<size_t>(blockIdx.y) * n * D;
-  const size_t rbase = static_cast<size_t>(blockIdx.y) * n;
-  const int row0 = blockIdx.x * kRows + warp * 16 + g;
-  const int row1 = row0 + 8;
-  const bool ok0 = row0 < n, ok1 = row1 < n;
-  const size_t off0 = static_cast<size_t>(ok0 ? row0 : 0) * D;
-  const size_t off1 = static_cast<size_t>(ok1 ? row1 : 0) * D;
-
-  uint32_t qa[KD][4], da[KD][4];
-  load_a_rows<D>(qa, q + base + off0, q + base + off1, ok0, ok1, t);
-  load_a_rows<D>(da, dout + base + off0, dout + base + off1, ok0, ok1, t);
-  const float lse0 = ok0 ? lse[rbase + row0] : 0.f, lse1 = ok1 ? lse[rbase + row1] : 0.f;
-  const float dl0 = ok0 ? delta[rbase + row0] : 0.f, dl1 = ok1 ? delta[rbase + row1] : 0.f;
-
-  float acc[D / 8][4];
+// One key tile (kTile keys from key0, K and V in the swizzled ring tiles kt
+// and vt) for this warp's M 16-row query tiles (Q and dO as A fragments qa
+// and da; lb = lse log2(e) and nd = -D of rows g and g + 8), 16 keys at a
+// time: S = Q K^T and dP = dO V^T - D take their B fragments by ldmatrix from
+// the row-major tiles (d 8: m16n8k8), dP's accumulator started at -D; P =
+// ex2(S log2(e) - lb) and dS = P dP are packed once to a bf16 A fragment;
+// dQ += dS K takes its B fragments by ldmatrix.trans from the same K tile.
+// Each B fragment serves the M query tiles, and each query tile's dQ product
+// follows its dS, so that one tile's dS is live at a time. With kMask (the
+// ragged last tile) keys at or past n get P = 0 by a select, whatever their
+// scores read.
+template <int D, int M, bool kMask>
+__device__ __forceinline__ void dq_tile(const uint32_t (&qa)[M][kSteps<D>()][4],
+                                        const uint32_t (&da)[M][kSteps<D>()][4],
+                                        const float (&lb)[M][2], const float (&nd)[M][2],
+                                        const __nv_bfloat16* kt, const __nv_bfloat16* vt, int key0,
+                                        int n, int lane, float (&acc)[M][D / 8][4]) {
+  const int r8 = lane & 7, mat = lane >> 3;
+  constexpr int kPair = D == 8 ? 2 : 1;  // steps that share one ldmatrix.x4.trans
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int kt = 0; kt < n; kt += kTile) {
-    __syncthreads();
-    stage_tiles<D>(kt, n, k + base, k_tile, kt_tile, v + base, v_tile, nullptr);
-    __syncthreads();
-
-    // dS = exp(Q K^T - lse) * (dO V^T - D), one 16x8 tile of keys at a time
-    uint32_t dsa[kTile / 16][4];
+  for (int k0 = 0; k0 < kTile / 16; k0 += kPair) {
+    // B fragments of dQ += dS K, transposed: d 8, K rows +0, +8, +16, +24
+    // (two steps' worth); d 16, K rows +0 chunk 0, rows +8 chunk 0, rows +0
+    // chunk 1, rows +8 chunk 1
+    uint32_t bt[4];
+    ldmatrix_x4_trans(bt, kt + (D == 8 ? swz<D>(k0 * 16 + mat * 8 + r8, 0)
+                                       : swz<D>(k0 * 16 + (mat & 1) * 8 + r8, mat >> 1)));
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t b[2];
-        b_from_rows<D>(b, k_tile[nt * 8 + g], kk, t);
-        mma_16816(s, qa[kk], b);
-        b_from_rows<D>(b, v_tile[nt * 8 + g], kk, t);
-        mma_16816(dp, da[kk], b);
+    for (int h = 0; h < kPair; ++h) {
+      const int kk = k0 + h;  // keys key0 + 16 kk ..: score tiles 2 kk, 2 kk + 1
+      // B fragments of S and dP (b). d 8: K rows +0, +8, then V rows +0, +8.
+      // d 16: rows +0 chunk 0, rows +0 chunk 1, rows +8 chunk 0, rows +8 chunk
+      // 1 of K (b[0..3]), then of V (b[4..7])
+      uint32_t b[D == 8 ? 4 : 8];
+      if constexpr (D == 8) {
+        ldmatrix_x4(b, (mat < 2 ? kt : vt) + swz<D>(kk * 16 + (mat & 1) * 8 + r8, 0));
+      } else {
+        const int off = swz<D>(kk * 16 + (mat >> 1) * 8 + r8, mat & 1);
+        ldmatrix_x4(b, kt + off);
+        ldmatrix_x4(b + 4, vt + off);
       }
-      const int key = kt + nt * 8 + 2 * t;
-      const bool in0 = key < n, in1 = key + 1 < n;
-      const float p0 = in0 ? __expf(s[0] - lse0) : 0.f;
-      const float p1 = in1 ? __expf(s[1] - lse0) : 0.f;
-      const float p2 = in0 ? __expf(s[2] - lse1) : 0.f;
-      const float p3 = in1 ? __expf(s[3] - lse1) : 0.f;
-      to_a_frag(dsa, nt, p0 * (dp[0] - dl0), p1 * (dp[1] - dl0), p2 * (dp[2] - dl1),
-                p3 * (dp[3] - dl1));
-    }
-
-    // dQ += dS K: B is K (16 keys x 8 of d), read from the transposed tile
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+      for (int m = 0; m < M; ++m) {
+        float s[2][4], dp[2][4];
 #pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        uint32_t b[2];
-        b_from_cols(b, kt_tile[j * 8 + g], kk, t);
-        mma_16816(acc[j], dsa[kk], b);
+        for (int i = 0; i < 2; ++i) {
+          s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+          dp[i][0] = dp[i][1] = nd[m][0];
+          dp[i][2] = dp[i][3] = nd[m][1];
+        }
+        if constexpr (D == 8) {
+          const uint32_t q8[2] = {qa[m][0][0], qa[m][0][1]}, o8[2] = {da[m][0][0], da[m][0][1]};
+          mma_1688(s[0], q8, b[0]);
+          mma_1688(s[1], q8, b[1]);
+          mma_1688(dp[0], o8, b[2]);
+          mma_1688(dp[1], o8, b[3]);
+        } else {
+          const uint32_t k0b[2] = {b[0], b[1]}, k1b[2] = {b[2], b[3]};
+          const uint32_t v0b[2] = {b[4], b[5]}, v1b[2] = {b[6], b[7]};
+          mma_16816(s[0], qa[m][0], k0b);
+          mma_16816(s[1], qa[m][0], k1b);
+          mma_16816(dp[0], da[m][0], v0b);
+          mma_16816(dp[1], da[m][0], v1b);
+        }
+        uint32_t dsa[4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {  // score tile 2 kk + i
+          float p0 = ex2(fmaf(s[i][0], kLog2e, -lb[m][0]));
+          float p1 = ex2(fmaf(s[i][1], kLog2e, -lb[m][0]));
+          float p2 = ex2(fmaf(s[i][2], kLog2e, -lb[m][1]));
+          float p3 = ex2(fmaf(s[i][3], kLog2e, -lb[m][1]));
+          if constexpr (kMask) {
+            const int key = key0 + kk * 16 + i * 8 + 2 * (lane & 3);
+            if (key >= n) p0 = p2 = 0.f;
+            if (key + 1 >= n) p1 = p3 = 0.f;
+          }
+          dsa[2 * i] = pack_bf16x2(p0 * dp[i][0], p1 * dp[i][1]);  // row g
+          dsa[2 * i + 1] = pack_bf16x2(p2 * dp[i][2], p3 * dp[i][3]);  // row g + 8
+        }
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          const int c = D == 8 ? 2 * h : 2 * j;  // d 8: keys +0 / +16 of the pair's matrices
+          const uint32_t bk[2] = {bt[c], bt[c + 1]};
+          mma_16816(acc[m][j], dsa, bk);
+        }
       }
     }
   }
-  store_rows<D>(dq + base, acc, row0, row1, ok0, ok1, t);
+}
+
+// dq_warps warps of dq_row_tiles 16-row query tiles each; all threads stage
+// the key tiles of K and V by 16-byte cp.async into the forward's swizzled
+// ring (kStages slots, kAhead tiles ahead), one __syncthreads a tile.
+template <int D>
+__global__ void __launch_bounds__(dq_warps<D>() * 32, dq_blocks_per_sm<D>())
+flash_bwd_dq_ring(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dq, int n) {
+  static_assert(D == 8 || D == 16, "the ring dQ kernel takes head dims 8 and 16");
+  constexpr int kThreads = dq_warps<D>() * 32, M = dq_row_tiles<D>(), KD = kSteps<D>();
+  extern __shared__ uint8_t smem_raw[];
+  __nv_bfloat16* ring = ring_base(smem_raw);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t base = static_cast<size_t>(blockIdx.y) * n * D;
+  const size_t rbase = static_cast<size_t>(blockIdx.y) * n;
+  const int row0 = blockIdx.x * dq_rows<D>() + warp * 16 * M;  // this warp's first query row
+  const int tiles = (n + kTile - 1) / kTile;
+  const bool ragged = n % kTile != 0;
+
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) {
+    if (j < tiles) {
+      __nv_bfloat16* slot = slot_tile<D>(ring, j);
+      load_kv_async<D, kThreads>(k + base, v + base, j * kTile, n, slot, slot + kTile * D);
+    }
+    cp_async_commit();
+  }
+  // Q and dO rows, lse * log2(e) and -D; rows past n read as zeros (their dS
+  // is 0 and their dQ is never stored)
+  uint32_t qa[M][KD][4], da[M][KD][4];
+  float lb[M][2], nd[M][2], acc[M][D / 8][4];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int r0 = row0 + m * 16 + g, r1 = r0 + 8;
+    const bool ok0 = r0 < n, ok1 = r1 < n;
+    const size_t off0 = static_cast<size_t>(ok0 ? r0 : 0) * D;
+    const size_t off1 = static_cast<size_t>(ok1 ? r1 : 0) * D;
+    load_a_rows<D>(qa[m], q + base + off0, q + base + off1, ok0, ok1, t);
+    load_a_rows<D>(da[m], dout + base + off0, dout + base + off1, ok0, ok1, t);
+    lb[m][0] = ok0 ? lse[rbase + r0] * kLog2e : 0.f;
+    lb[m][1] = ok1 ? lse[rbase + r1] * kLog2e : 0.f;
+    nd[m][0] = ok0 ? -delta[rbase + r0] : 0.f;
+    nd[m][1] = ok1 ? -delta[rbase + r1] : 0.f;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
+  }
+
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait<kAhead - 1>();  // this thread's copies of tile j have landed
+    __syncthreads();              // everyone's have, and tile j - 1 is no longer read
+    if (j + kAhead < tiles) {
+      __nv_bfloat16* slot = slot_tile<D>(ring, (j + kAhead) % kStages);
+      load_kv_async<D, kThreads>(k + base, v + base, (j + kAhead) * kTile, n, slot,
+                                 slot + kTile * D);
+    }
+    cp_async_commit();
+    const __nv_bfloat16* kt = slot_tile<D>(ring, j % kStages);
+    if (ragged && j == tiles - 1) {
+      dq_tile<D, M, true>(qa, da, lb, nd, kt, kt + kTile * D, j * kTile, n, lane, acc);
+    } else {
+      dq_tile<D, M, false>(qa, da, lb, nd, kt, kt + kTile * D, j * kTile, n, lane, acc);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int r0 = row0 + m * 16 + g, r1 = r0 + 8;
+    store_rows<D>(dq + base, acc[m], r0, r1, r0 < n, r1 < n, t);
+  }
 }
 
 // ------------------------------------------------------------ the ring dK/dV kernel (d 8, 16)
@@ -727,10 +835,13 @@ struct Args {
 };
 
 template <int D>
-int launch_dq_mma(const Args& a) {
-  const dim3 grid((a.n + kRows - 1) / kRows, a.batch);
-  flash_bwd_dq_mma<D><<<grid, kWarps * 32, 0, a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta,
-                                                          a.dq, a.n);
+int launch_dq_ring(const Args& a) {
+  static int set_for_device = -1;
+  const int rc = allow_smem(flash_bwd_dq_ring<D>, ring_bytes<D>(), set_for_device);
+  if (rc != 0) return rc;
+  const dim3 grid((a.n + dq_rows<D>() - 1) / dq_rows<D>(), a.batch);
+  flash_bwd_dq_ring<D><<<grid, dq_warps<D>() * 32, ring_bytes<D>(), a.stream>>>(
+      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq, a.n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -800,8 +911,8 @@ extern "C" int frn_flash_bwd_dq_bf16(const void* q, const void* k, const void* v
   if (int rc = check_args(batch, n)) return rc;
   const Args a = make_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr, batch, n, stream);
   switch (d) {
-    case 8: return launch_dq_mma<8>(a);
-    case 16: return launch_dq_mma<16>(a);
+    case 8: return launch_dq_ring<8>(a);
+    case 16: return launch_dq_ring<16>(a);
     case 32: return launch_dq_wgmma<32>(a);
     case 64: return launch_dq_wgmma<64>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -1,9 +1,10 @@
 // Fragment helpers shared by the flash-attention kernels (forward and backward).
 //
-// Every product is mma.sync m16n8k16 (bf16 in, f32 accumulate). Head dims 8,
-// 16, 32 and 64 are template parameters; a contraction over d runs in
-// kSteps<D>() steps of 16, and for d = 8 the upper half of each 16-wide
-// fragment is zero in registers (no padded copy in memory).
+// The mma.sync products are m16n8k16 (bf16 in, f32 accumulate), and m16n8k8
+// where a kernel contracts over d = 8. Head dims 8, 16, 32 and 64 are
+// template parameters; a contraction over d runs in kSteps<D>() steps of 16,
+// and for d = 8 the upper half of each 16-wide A fragment is zero in
+// registers (no padded copy in memory).
 
 #pragma once
 
@@ -13,10 +14,7 @@
 
 namespace flash {
 
-constexpr int kWarps = 4;
-constexpr int kRows = kWarps * 16;  // rows a block owns (queries or keys)
-constexpr int kTile = 64;           // rows of the other side per shared-memory tile
-constexpr int kPad = 8;             // bf16 row padding: fewer bank conflicts
+constexpr int kTile = 64;  // rows of the other side per shared-memory tile
 
 // 16-wide contraction steps over a head dim D
 template <int D>
@@ -65,68 +63,6 @@ __device__ __forceinline__ void load_a_rows(uint32_t a[][4], const __nv_bfloat16
     a[kk][2] = load_pair(r0 + c + 8, ok0 && hi);
     a[kk][3] = load_pair(r1 + c + 8, ok1 && hi);
   }
-}
-
-// B fragment (16 x 8, column-major) for contraction step kk over d, read from
-// a shared [n][d] tile row: column n = this thread's group g.
-template <int D>
-__device__ __forceinline__ void b_from_rows(uint32_t b[2], const __nv_bfloat16* row, int kk, int t) {
-  const int c = kk * 16 + 2 * t;
-  b[0] = *reinterpret_cast<const uint32_t*>(row + c);
-  b[1] = kk * 16 + 8 < D ? *reinterpret_cast<const uint32_t*>(row + c + 8) : 0u;
-}
-
-// B fragment for a contraction over 16 tile rows (keys or queries), read from
-// a transposed shared [d][row] tile: `col` is the tile row of output column g.
-__device__ __forceinline__ void b_from_cols(uint32_t b[2], const __nv_bfloat16* col, int kk, int t) {
-  b[0] = *reinterpret_cast<const uint32_t*>(col + kk * 16 + 2 * t);
-  b[1] = *reinterpret_cast<const uint32_t*>(col + kk * 16 + 2 * t + 8);
-}
-
-// Stage rows [r0, r0 + kTile) of two (n, D) bf16 matrices a and b, each into
-// a row-major shared tile and/or its transpose (a null tile is skipped); rows
-// past n are 0. One loop loads both 16-byte chunks before storing either: for
-// the dQ kernel (one transposed tile) that is faster than a loop per matrix.
-template <int D>
-__device__ __forceinline__ void stage_chunk(uint4 x, __nv_bfloat16 (*rows)[D + kPad],
-                                            __nv_bfloat16 (*tr)[kTile + kPad], int r, int c) {
-  if (rows != nullptr) *reinterpret_cast<uint4*>(&rows[r][c]) = x;
-  if (tr != nullptr) {
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) tr[c + j][r] = e[j];
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void stage_tiles(int r0, int n,
-                                            const __nv_bfloat16* __restrict__ a,
-                                            __nv_bfloat16 (*a_rows)[D + kPad],
-                                            __nv_bfloat16 (*a_tr)[kTile + kPad],
-                                            const __nv_bfloat16* __restrict__ b,
-                                            __nv_bfloat16 (*b_rows)[D + kPad],
-                                            __nv_bfloat16 (*b_tr)[kTile + kPad]) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kWarps * 32) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    uint4 xa = make_uint4(0, 0, 0, 0), xb = make_uint4(0, 0, 0, 0);
-    if (r0 + r < n) {
-      const size_t off = static_cast<size_t>(r0 + r) * D + c;
-      xa = *reinterpret_cast<const uint4*>(a + off);
-      xb = *reinterpret_cast<const uint4*>(b + off);
-    }
-    stage_chunk<D>(xa, a_rows, a_tr, r, c);
-    stage_chunk<D>(xb, b_rows, b_tr, r, c);
-  }
-}
-
-// The C fragments of score tiles 2j and 2j + 1 (16 x 8 each, f32) are the A
-// fragment of the j-th 16-wide slice of the next product: store them as bf16.
-__device__ __forceinline__ void to_a_frag(uint32_t a[][4], int nt, float c0, float c1, float c2,
-                                          float c3) {
-  a[nt / 2][(nt % 2) * 2 + 0] = pack_bf16x2(c0, c1);
-  a[nt / 2][(nt % 2) * 2 + 1] = pack_bf16x2(c2, c3);
 }
 
 __device__ __forceinline__ float quad_max(float x) {

@@ -1,19 +1,22 @@
-"""The bf16 dK/dV kernel at head dims 8 and 16 (B2b, ``flash_bwd_dkv_ring``
-in ``csrc/flash_attention_bwd.cu``): its block against the CUDA source's
-constants, the dispatch and phase 1's instances, the A/B tooling of
-``chip_smoke.py`` at the depth-18 launches, and a numpy model of the
-kernel's loop at the level of its mma.sync fragments against the JAX
-package's Pallas backward.
+"""The bf16 backward kernels at head dims 8 and 16 (B2a, ``flash_bwd_dq_ring``,
+and B2b, ``flash_bwd_dkv_ring``, in ``csrc/flash_attention_bwd.cu``): their
+blocks against the CUDA source's constants, the dispatch and phase 1's
+instances, phase 2's check where lse < -88, the A/B tooling of
+``chip_smoke.py`` at the depth-18 launches, and numpy models of the kernels'
+loops at the level of their mma.sync fragments against the JAX package's
+Pallas backward.
 
-The kernel runs only on the card, where ``chip_smoke.py`` holds it against
-``flash_bwd_dkv_plain``. The model follows the source: the ring of 64-query
-tiles (which slot each tile lands in and when), the statistics' slots as
-``put_stat`` writes them, the 16-row key tiles of each warp, the lanes'
-fragments of S^T and dP^T (C), of K, V, P^T and dS^T (A), and the ldmatrix
-and ldmatrix.trans B fragments read from the swizzled row-major tiles. Bounds
-of the JAX comparison: with bf16 inputs phase 2's gate (BWD_ATOL of each
-output's max |value|, BWD_RTOL); with f32 inputs and the bf16 rounding of P
-and dS off, the JAX tests' atol 2e-4, rtol 1e-3.
+The kernels run only on the card, where ``chip_smoke.py`` holds them against
+``flash_bwd_dq_plain`` and ``flash_bwd_dkv_plain``. The models follow the
+source: the ring of 64-row tiles of the other side (which slot each tile
+lands in and when), the dK/dV kernel's statistics' slots as ``put_stat``
+writes them and the dQ kernel's statistics in registers, the 16-row tiles of
+each warp, the lanes' fragments of the scores and dP (C), of the rows'
+operands, P and dS (A), and the ldmatrix and ldmatrix.trans B fragments read
+from the swizzled row-major tiles. Bounds of the JAX comparison: with bf16
+inputs phase 2's gate (BWD_ATOL of each output's max |value|, BWD_RTOL);
+with f32 inputs and the bf16 rounding of P and dS off, the JAX tests' atol
+2e-4, rtol 1e-3.
 """
 
 import ctypes
@@ -56,10 +59,17 @@ STAGES, AHEAD = _constant(SM90, "kStages"), _constant(SM90, "kAhead")
 
 
 def _block(d: int) -> dict:
-    """The kernel's block at head dim d, from the source."""
+    """The dK/dV kernel's block at head dim d, from the source."""
     warps, tiles = _rule("dkv_warps")[d], _rule("dkv_key_tiles")[d]
     return {"warps": warps, "key_tiles": tiles, "rows": warps * 16 * tiles,
             "blocks_per_sm": _rule("dkv_blocks_per_sm")[d]}
+
+
+def _dq_block(d: int) -> dict:
+    """The dQ kernel's block at head dim d, from the source."""
+    warps, tiles = _rule("dq_warps")[d], _rule("dq_row_tiles")[d]
+    return {"warps": warps, "row_tiles": tiles, "rows": warps * 16 * tiles,
+            "blocks_per_sm": _rule("dq_blocks_per_sm")[d]}
 
 
 # ------------------------------------------------------------ the block and the dispatch
@@ -112,6 +122,8 @@ def test_dispatch_takes_the_ring_kernel_at_d_8_and_16_and_phase_1_wants_it():
 
 def _ptxas_log(instances: dict) -> str:
     mangled = {
+        "flash_bwd_dq_ring": "_ZN12_GLOBAL__N_117flash_bwd_dq_ringILi{}EEEvPK13__nv_bfloat16S3_S3_"
+                             "S3_PKfS5_PS1_i",
         "flash_bwd_dkv_ring": "_ZN12_GLOBAL__N_118flash_bwd_dkv_ringILi{}EEEvPK13__nv_bfloat16S3_S3_"
                               "S3_PKfS5_PS1_S6_i",
         "flash_bwd_dq_wgmma": "_ZN12_GLOBAL__N_118flash_bwd_dq_wgmmaILi{}EEEv14CUtensorMap_stS1_PK13__"
@@ -155,6 +167,76 @@ def test_phase_15_counts_the_ring_kernels_blocks(shape, blocks):
     assert blocks >= H100_SMS or shape[0] == 2
 
 
+# ------------------------------------------------------------ the dQ kernel's block and dispatch
+
+
+def test_dq_launch_plan_constants_match_the_source():
+    # rows a block owns (phase 15's blocks) as the CUDA source has them (it
+    # is compiled only on the card); each block constant is a function of
+    # the head dim that device code and the host's launch both read
+    for d in (8, 16):
+        assert _dq_block(d)["rows"] == chip_smoke.MMA_ROWS["flash_bwd_dq"]
+    assert re.search(r"constexpr int dq_rows\(\) \{ return dq_warps<D>\(\) \* 16 \* "
+                     r"dq_row_tiles<D>\(\); \}", SOURCE)
+    for name in ("dq_warps", "dq_row_tiles", "dq_blocks_per_sm", "dq_rows"):
+        assert re.search(rf"template <int D>\n__host__ __device__ constexpr int {name}\(\)", SOURCE)
+
+
+@pytest.mark.parametrize("d", [8, 16])
+def test_dq_blocks_fit_an_sm(d):
+    # the ring (kStages slots of a K and a V tile, 1 KB for its alignment),
+    # 1 KB reserved a block, in the H100's 228 KB; 64 K registers leave each
+    # thread at least 64
+    s = _dq_block(d)
+    smem = STAGES * 2 * TILE * d * 2 + 1024
+    assert s["blocks_per_sm"] * (smem + 1024) <= 228 * 1024
+    assert 65536 // (s["blocks_per_sm"] * s["warps"] * 32) >= 64
+
+
+def test_the_dq_kernel_bounds_its_launch_by_its_blocks_an_sm():
+    assert re.search(r"__launch_bounds__\(dq_warps<D>\(\) \* 32, dq_blocks_per_sm<D>\(\)\)\s*"
+                     r"flash_bwd_dq_ring", SOURCE)
+    launch = SOURCE[SOURCE.index("int launch_dq_ring"):SOURCE.index("int launch_dkv_ring")]
+    assert "allow_smem(flash_bwd_dq_ring<D>, ring_bytes<D>()" in launch
+    assert "dq_warps<D>() * 32, ring_bytes<D>()" in launch
+
+
+def test_dispatch_takes_the_ring_dq_kernel_at_d_8_and_16_and_phase_1_wants_it():
+    entry = _entry("frn_flash_bwd_dq_bf16")
+    assert {int(d) for d in re.findall(r"case (\d+): return launch_dq_ring<\1>", entry)} == {8, 16}
+    assert {int(d) for d in re.findall(r"case (\d+): return launch_dq_wgmma<\1>", entry)} == {
+        32, 64}
+    assert "flash_bwd_dq_mma" not in SOURCE and "launch_dq_mma" not in SOURCE  # the first design
+    for name in ("stage_tiles", "stage_chunk", "b_from_rows", "b_from_cols", "to_a_frag", "kRows",
+                 "kWarps", "kPad"):  # what only the first design used
+        assert name not in COMMON and name not in SOURCE
+    want = [("flash_bwd_dq_ring", 8), ("flash_bwd_dq_ring", 16)]
+    assert set(want) <= set(chip_smoke.PATH_INSTANCES["flash_attention_bwd"])
+
+
+@pytest.mark.parametrize("d", [8, 16])
+def test_phase_1_reads_the_ring_dq_instance_and_refuses_its_spill_or_gap(d):
+    log = _ptxas_log({("flash_bwd_dq_ring", d): (104, 0)})
+    assert chip_smoke.kernel_instances(log) == {("flash_bwd_dq_ring", d): (104, 0, 0)}
+    every = {key: (120, 0) for key in chip_smoke.PATH_INSTANCES["flash_attention_bwd"]}
+    with pytest.raises(SystemExit):
+        chip_smoke.check_path_instances(
+            "flash_attention_bwd", _ptxas_log({**every, ("flash_bwd_dq_ring", d): (128, 8)}))
+    with pytest.raises(SystemExit):
+        chip_smoke.check_path_instances("flash_attention_bwd", _ptxas_log(
+            {k: v for k, v in every.items() if k != ("flash_bwd_dq_ring", d)}))
+
+
+@pytest.mark.parametrize("shape,blocks", [((8, 19200, 8), 2400), ((8, 4800, 16), 600),
+                                          ((2, 5655, 8), 178)])
+def test_phase_15_counts_the_ring_dq_kernels_blocks(shape, blocks):
+    # the depth-18 micro-step's launches and the ragged check shape, in
+    # blocks of the source's rows
+    rows = _dq_block(shape[2])["rows"]
+    assert chip_smoke.depth18_blocks("flash_bwd_dq", *shape) == blocks == shape[0] * -(
+        -shape[1] // rows)
+
+
 # ------------------------------------------------------------ the A/B tooling
 
 
@@ -191,11 +273,8 @@ def test_phase_other_backwards_runs_the_depth_18_launches_in_turns(monkeypatch, 
     # against the plain versions at the ragged check shape, then timed in
     # turns at depth 50's and depth 18's launches, the d 8/16 rows with
     # this revision's blocks, and summed per micro-step
-    _gen, _randn = torch.Generator, torch.randn
-    monkeypatch.setattr(torch, "Generator", lambda device=None: _gen())
-    monkeypatch.setattr(torch, "randn", lambda *a, device=None, **k: _randn(*a, **k))
+    _cpu_phase(monkeypatch)
     monkeypatch.setattr(fa, "_launch", lambda fn, q, *args: fn(*args))
-    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps, warmup=2, windows=1: (1.0, fn()))
     monkeypatch.setattr(chip_smoke, "TRAIN_BATCH", 2)
     monkeypatch.setattr(chip_smoke, "FLASH_SHAPES", ((131, 32), (70, 64)))
     monkeypatch.setattr(chip_smoke, "DEPTH18_FLASH_SHAPES", ((200, 8), (70, 16)))
@@ -215,6 +294,48 @@ def test_phase_other_backwards_runs_the_depth_18_launches_in_turns(monkeypatch, 
            "(4 launches)" in out
     assert "flash_bwd_dkv R18 this revision: 4.000 ms per micro-step (4 launches)" in out
     assert " 0 outside " in out and " outside " not in out.replace(" 0 outside ", "")
+
+
+def _cpu_phase(monkeypatch):
+    """chip_smoke's phases on the CPU: cuda generators and tensors made on
+    the CPU, each timing one call of its function."""
+    _gen, _randn = torch.Generator, torch.randn
+    monkeypatch.setattr(torch, "Generator", lambda device=None: _gen())
+    monkeypatch.setattr(torch, "randn", lambda *a, device=None, **k: _randn(*a, **k))
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps, warmup=2, windows=1: (1.0, fn()))
+
+
+def test_phase_2_holds_the_backward_where_lse_is_below_minus_88_rehearsed_on_the_cpu(
+        monkeypatch, capsys):
+    # phase 2 at tiny shapes (this revision's wrappers run their plain
+    # versions here): after the check shapes, dQ, dK and dV at the shifted
+    # scores of each BWD_LSE_TRAP_SHAPES shape against the plain versions,
+    # then the timed rows; a NaN in dQ there fails the phase
+    _cpu_phase(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "TRAIN_BATCH", 2)
+    monkeypatch.setattr(chip_smoke, "BWD_CHECK_SHAPES", ((2, 40, 8),))
+    monkeypatch.setattr(chip_smoke, "BWD_LSE_TRAP_SHAPES", ((2, 131, 16), (1, 200, 8)))
+    monkeypatch.setattr(chip_smoke, "FLASH_SHAPES", ((70, 32),))
+    assert {s[2] for s in chip_smoke.BWD_LSE_TRAP_SHAPES} == {8, 16}
+    rows = chip_smoke.phase_flash_backward()
+    assert set(rows) == set(chip_smoke.TRAIN_KERNELS)
+    lines = capsys.readouterr().out.splitlines()
+    for shape in ("B=2 N=131 d=16", "B=1 N=200 d=8"):
+        at = lines.index(f"lse < -88 at {shape}:")
+        assert [line.split(" vs plain")[0] for line in lines[at + 1:at + 4]] == [
+            "flash_bwd_dq dq", "flash_bwd_dkv dk", "flash_bwd_dkv dv"]
+        assert all(f"{shape}: max_abs_err" in line for line in lines[at + 1:at + 4])
+    plain = fa.flash_bwd_dq_plain
+
+    def nan_at_the_trap(q, *args):
+        out = plain(q, *args)
+        if q.shape[1] == 131:
+            out[0, -1, 0] = float("nan")
+        return out
+
+    monkeypatch.setattr(fa, "flash_bwd_dq", nan_at_the_trap)
+    with pytest.raises(SystemExit):
+        chip_smoke.phase_flash_backward()
 
 
 # ------------------------------------------------------------ the fragments
@@ -526,15 +647,15 @@ def test_statistics_slots_are_each_written_once_where_the_fragments_read_them(ti
 
 
 def _jax_backward(q, k, v, do, dtype, block: int = 128):
-    """(O, lse, dK, dV) of the JAX package's Pallas kernels in interpret mode
-    at ``dtype``, with blocks of ``block`` rows (N padded to a whole block),
-    as f32 numpy."""
+    """(O, lse, dQ, dK, dV) of the JAX package's Pallas kernels in interpret
+    mode at ``dtype``, with blocks of ``block`` rows (N padded to a whole
+    block), as f32 numpy."""
     qj, kj, vj, doj = (jnp.asarray(x, dtype=dtype) for x in (q, k, v, do))
     o, lse = _flash_forward(qj, kj, vj, block_q=block, block_k=block, interpret=True,
                             return_lse=True)
-    _, dk, dv = _flash_backward(qj, kj, vj, o, lse, doj, block_q=block, block_k=block,
-                                interpret=True)
-    return tuple(np.asarray(x.astype(jnp.float32)) for x in (o, lse, dk, dv))
+    dq, dk, dv = _flash_backward(qj, kj, vj, o, lse, doj, block_q=block, block_k=block,
+                                 interpret=True)
+    return tuple(np.asarray(x.astype(jnp.float32)) for x in (o, lse, dq, dk, dv))
 
 
 def _inputs(b, n, d, shift=False, bf16=False):
@@ -559,7 +680,7 @@ def test_model_matches_the_pallas_backward_at_bf16(b, n, d):
     # sums, bf16 outputs) against the Pallas backward on the same bf16
     # inputs, at phase 2's gate; the plain version beside it
     q, k, v, do = _inputs(b, n, d, bf16=True)
-    o, lse, want_dk, want_dv = _jax_backward(q, k, v, do, jnp.bfloat16)
+    o, lse, _, want_dk, want_dv = _jax_backward(q, k, v, do, jnp.bfloat16)
     lse = lse.reshape(b, n)
     delta = (do * o).sum(axis=2, dtype=np.float32)
     dk, dv, stores = _model_dkv(q, k, v, do, lse, delta)
@@ -578,7 +699,7 @@ def test_model_matches_the_pallas_backward_at_f32(b, n, d):
     # the same loop with f32 inputs and no rounding of P and dS, against the
     # Pallas backward at f32 (the JAX tests' bounds)
     q, k, v, do = _inputs(b, n, d)
-    o, lse, want_dk, want_dv = _jax_backward(q, k, v, do, jnp.float32)
+    o, lse, _, want_dk, want_dv = _jax_backward(q, k, v, do, jnp.float32)
     lse = lse.reshape(b, n)
     delta = (do * o).sum(axis=2, dtype=np.float32)
     dk, dv, stores = _model_dkv(q, k, v, do, lse, delta, rounding=False)
@@ -595,7 +716,7 @@ def test_model_is_finite_where_lse_is_below_minus_88_and_needs_the_select(d):
     # keeps P = 0, where s = 0 would give P = 2^(-lb) = inf and inf * 0 = NaN
     b, n = 2, 131
     q, k, v, do = _inputs(b, n, d, shift=True)
-    o, lse, want_dk, want_dv = _jax_backward(q, k, v, do, jnp.float32)
+    o, lse, _, want_dk, want_dv = _jax_backward(q, k, v, do, jnp.float32)
     lse = lse.reshape(b, n)
     assert lse.max() < -88
     delta = (do * o).sum(axis=2, dtype=np.float32)
@@ -607,3 +728,207 @@ def test_model_is_finite_where_lse_is_below_minus_88_and_needs_the_select(d):
                                        rtol=chip_smoke.BWD_F32_RTOL)
     dk, dv, _ = _model_dkv(q, k, v, do, lse, delta, rounding=False, select=False, stale_past_n=True)
     assert np.isnan(dv).any()
+
+
+# ------------------------------------------------------------ the dQ kernel's loop
+
+
+def _dq_b_fragments(kt, vt, kk, d, bt):
+    """The B fragments ``dq_tile`` reads for keys 16 kk.. of the swizzled K
+    and V tiles kt, vt (flat): of S's two score tiles, of dP's, and of dQ +=
+    dS K per 8 columns of d. At d 8 the transposed x4 (K rows +0, +8, +16,
+    +24) is read on even steps and serves the next one too: ``bt`` carries
+    it ([None] before the first read)."""
+    r8, mat = LANES % 8, LANES // 8
+    if d == 8:
+        b = _ldmatrix_x4(np.concatenate([kt, vt]),
+                         _swz(d, kk * 16 + (mat & 1) * 8 + r8, 0) + (mat >= 2) * TILE * d, False)
+        if kk % 2 == 0:
+            bt[0] = _ldmatrix_x4(kt, _swz(d, kk * 16 + mat * 8 + r8, 0), True)
+        h = 2 * (kk % 2)
+        return [b[:, [0]], b[:, [1]]], [b[:, [2]], b[:, [3]]], [bt[0][:, [h, h + 1]]]
+    off = _swz(d, kk * 16 + (mat >> 1) * 8 + r8, mat & 1)
+    bk, bv = _ldmatrix_x4(kt, off, False), _ldmatrix_x4(vt, off, False)
+    bt[0] = _ldmatrix_x4(kt, _swz(d, kk * 16 + (mat & 1) * 8 + r8, mat >> 1), True)
+    return ([bk[:, [0, 1]], bk[:, [2, 3]]], [bv[:, [0, 1]], bv[:, [2, 3]]],
+            [bt[0][:, [0, 1]], bt[0][:, [2, 3]]])
+
+
+def _model_dq(q, k, v, do, lse, delta, rounding=True, select=True):
+    """dQ by flash_bwd_dq_ring's loop, fragment by fragment, in f32 numpy
+    (``rounding``: dS to bf16 before its product, as at bf16; off for f32
+    inputs). Returns (dQ, stores of each output value); values stored
+    nowhere stay NaN."""
+    b, n, d = q.shape
+    blk = _dq_block(d)
+    tiles = -(-n // TILE)
+    offsets = _swz_offsets(d)
+    rows, cols = _c_cells()
+    dq = np.full_like(q, np.nan)
+    stores = np.zeros((b, n, d), int)
+    for bi in range(b):
+        def tile_rows(x, tile):
+            out = np.zeros((TILE, d), np.float32)
+            got = x[bi, tile * TILE:(tile + 1) * TILE]
+            out[:len(got)] = got
+            return out
+
+        def stat(x, r):  # a row's statistic, 0 past n
+            return np.where(r < n, x[bi, np.minimum(r, n - 1)], np.float32(0))
+
+        for row_block in range(-(-n // blk["rows"])):
+            # the ring (each slot a K tile then a V tile, swizzled) and which
+            # tile each slot holds
+            ring = np.zeros((STAGES, 2, TILE * d), np.float32)
+            ring_tile = [-1] * STAGES
+
+            def stage(tile):
+                slot = tile % STAGES
+                for part, x in enumerate((k, v)):
+                    ring[slot, part][offsets] = tile_rows(x, tile)
+                ring_tile[slot] = tile
+
+            for j in range(min(AHEAD, tiles)):
+                stage(j)
+            warps = []
+            for w in range(blk["warps"]):
+                row0 = row_block * blk["rows"] + w * 16 * blk["row_tiles"]
+                warps.append([])
+                for m in range(blk["row_tiles"]):
+                    r0 = row0 + m * 16
+                    lb = [(stat(lse, r0 + G + h * 8) * LOG2E).astype(np.float32) for h in range(2)]
+                    nd = [-stat(delta, r0 + G + h * 8) for h in range(2)]
+                    warps[-1].append({
+                        "r0": r0, "qa": _load_a_rows(q[bi], r0, n, d),
+                        "da": _load_a_rows(do[bi], r0, n, d),
+                        "lb": np.stack([lb[0], lb[0], lb[1], lb[1]], 1),
+                        "nd": np.stack([nd[0], nd[0], nd[1], nd[1]], 1).astype(np.float32),
+                        "acc": np.zeros((d // 8, 32, 4), np.float32)})
+            for j in range(tiles):
+                if j + AHEAD < tiles:
+                    stage(j + AHEAD)
+                slot = j % STAGES
+                assert ring_tile[slot] == j  # not yet overwritten
+                kt, vt = ring[slot, 0], ring[slot, 1]
+                mask = select and n % TILE != 0 and j == tiles - 1
+                for warp in warps:
+                    bt = [None]
+                    for kk in range(TILE // 16):
+                        bs, bd, bq = _dq_b_fragments(kt, vt, kk, d, bt)
+                        for mt in warp:
+                            qa = mt["qa"][0][:, :2] if d == 8 else mt["qa"][0]
+                            da = mt["da"][0][:, :2] if d == 8 else mt["da"][0]
+                            dsa = np.zeros((32, 4, 2), np.float32)
+                            for i in range(2):
+                                s = _mma(np.zeros((32, 4), np.float32), qa, bs[i])
+                                dp = _mma(mt["nd"], da, bd[i])
+                                with np.errstate(over="ignore"):
+                                    p = np.exp2((s.astype(np.float64) * LOG2E - mt["lb"])
+                                                .astype(np.float32))
+                                if mask:
+                                    key = j * TILE + kk * 16 + i * 8 + 2 * T
+                                    past = np.stack([key, key + 1, key, key + 1], 1) >= n
+                                    p = np.where(past, np.float32(0), p)
+                                with np.errstate(invalid="ignore"):
+                                    ds = (p * dp).astype(np.float32)
+                                if rounding:
+                                    ds = _bf16(ds)
+                                dsa[:, 2 * i], dsa[:, 2 * i + 1] = ds[:, :2], ds[:, 2:]
+                            with np.errstate(invalid="ignore", over="ignore"):
+                                for jd in range(d // 8):
+                                    mt["acc"][jd] = _mma(mt["acc"][jd], dsa, bq[jd])
+            for warp in warps:
+                for mt in warp:
+                    for jd in range(d // 8):
+                        r, c = mt["r0"] + rows, jd * 8 + cols
+                        ok = r < n
+                        dq[bi, r[ok], c[ok]] = mt["acc"][jd][ok]
+                        np.add.at(stores, (bi, r[ok], c[ok]), 1)
+    return dq, stores
+
+
+@pytest.mark.parametrize("d", [8, 16])
+def test_dq_ldmatrix_addresses_cover_a_tile_once(d):
+    # over a 64-key tile the B fragments dq_tile reads name each element of
+    # the K tile once for S, of the V tile once for dP and of the K tile
+    # once, transposed, for dQ: the K and V tiles written from known values
+    # come back as the B matrices of their own keys
+    kt = np.zeros(TILE * d, np.float32)
+    kt[_swz_offsets(d).ravel()] = np.arange(TILE * d, dtype=np.float32)
+    vt = kt + TILE * d
+    keys = np.arange(TILE * d).reshape(TILE, d)
+    bt = [None]
+    for kk in range(TILE // 16):
+        bs, bd, bq = _dq_b_fragments(kt, vt, kk, d, bt)
+        for i in range(2):  # score tile 2 kk + i: B[dd][key] = K[key][dd]
+            want = keys[kk * 16 + i * 8:kk * 16 + i * 8 + 8].T
+            np.testing.assert_array_equal(_b_matrix(bs[i])[0], want[:8 * bs[i].shape[1]])
+            np.testing.assert_array_equal(_b_matrix(bd[i])[0], want[:8 * bd[i].shape[1]] + TILE * d)
+        for jd in range(d // 8):  # dQ's B[key][dd] = K[key][dd] over 16 keys, 8 columns
+            np.testing.assert_array_equal(_b_matrix(bq[jd])[0],
+                                          keys[kk * 16:kk * 16 + 16, jd * 8:jd * 8 + 8])
+
+
+@pytest.mark.parametrize("d", [8, 16])
+def test_dq_block_rows_cover_each_query_once(d):
+    # warps x 16-row query tiles x (g, g + 8) over a block's rows
+    s = _dq_block(d)
+    rows, _ = _c_cells()
+    hits = np.zeros(s["rows"], int)
+    for w in range(s["warps"]):
+        for m in range(s["row_tiles"]):
+            np.add.at(hits, (w * 16 * s["row_tiles"] + m * 16 + rows[:, [0, 2]]).ravel(), 1)
+    assert (hits == 4).all()  # each row in the 4 lanes of its group
+
+
+@pytest.mark.parametrize("b,n,d", SHAPES)
+def test_dq_model_matches_the_pallas_backward_at_bf16(b, n, d):
+    # the dQ kernel's loop at bf16 (dS rounded before its product, f32 sums,
+    # a bf16 output) against the Pallas backward on the same bf16 inputs, at
+    # phase 2's gate; the plain version beside it
+    q, k, v, do = _inputs(b, n, d, bf16=True)
+    o, lse, want, _, _ = _jax_backward(q, k, v, do, jnp.bfloat16)
+    lse = lse.reshape(b, n)
+    delta = (do * o).sum(axis=2, dtype=np.float32)
+    dq, stores = _model_dq(q, k, v, do, lse, delta)
+    assert (stores == 1).all()
+    t = [torch.tensor(x).to(torch.bfloat16) for x in (q, k, v, do)]
+    plain = fa.flash_bwd_dq_plain(*t, torch.tensor(lse), torch.tensor(delta))
+    for got in (_bf16(dq), plain.float().numpy()):
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, atol=chip_smoke.BWD_ATOL * np.abs(want).max(),
+                                   rtol=chip_smoke.BWD_RTOL)
+
+
+@pytest.mark.parametrize("b,n,d", SHAPES)
+def test_dq_model_matches_the_pallas_backward_at_f32(b, n, d):
+    # the same loop with f32 inputs and no rounding of dS, against the
+    # Pallas backward at f32 (the JAX tests' bounds)
+    q, k, v, do = _inputs(b, n, d)
+    o, lse, want, _, _ = _jax_backward(q, k, v, do, jnp.float32)
+    lse = lse.reshape(b, n)
+    delta = (do * o).sum(axis=2, dtype=np.float32)
+    dq, stores = _model_dq(q, k, v, do, lse, delta, rounding=False)
+    assert (stores == 1).all()
+    np.testing.assert_allclose(dq, want, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("d", [8, 16])
+def test_dq_model_is_finite_where_lse_is_below_minus_88_and_needs_the_select(d):
+    # scores near -121 at a ragged N (the last tile holds 3 keys): the model
+    # matches the Pallas backward and is finite. The Pallas dQ runs in one
+    # block of N rows here: padded to a whole block it is NaN, as its padded
+    # keys give P = exp(-lse) = inf times their zero K rows. Without the
+    # select the model's zero-filled keys do the same
+    b, n = 2, 131
+    q, k, v, do = _inputs(b, n, d, shift=True)
+    o, lse, want, _, _ = _jax_backward(q, k, v, do, jnp.float32, block=n)
+    lse = lse.reshape(b, n)
+    assert lse.max() < -88
+    delta = (do * o).sum(axis=2, dtype=np.float32)
+    dq, _ = _model_dq(q, k, v, do, lse, delta, rounding=False)
+    assert np.isfinite(dq).all()
+    np.testing.assert_allclose(dq, want, atol=chip_smoke.F32_TRAP_ATOL * np.abs(want).max(),
+                               rtol=chip_smoke.BWD_F32_RTOL)
+    dq, _ = _model_dq(q, k, v, do, lse, delta, rounding=False, select=False)
+    assert np.isnan(dq).any()
