@@ -19,8 +19,9 @@ Phases:
      ring kernel (both modes) at d 8 and 16, and the
      f32 forward's register-blocked instances at every head dim
      (``flash_fwd_f32_tiled`` at d 32 and 64, ``flash_fwd_f32_small`` at d 8
-     and 16), the dQ and dK/dV kernels' at d 32 and 64 and their first
-     designs at d 8 and 16, must each be there, and may not spill);
+     and 16), the dQ and dK/dV kernels' at d 32 and 64, and at d 8 and 16
+     the dK/dV kernel's small one (``flash_bwd_dkv_f32_small``) and the dQ
+     kernel's first design, must each be there, and may not spill);
   2. each kernel against its plain PyTorch version on the card, at the shapes
      of its path (the forward; the forward with lse and the dQ and dK/dV
      backward kernels, ragged N and head dims 8 and 16 included, and the
@@ -41,7 +42,8 @@ Phases:
      or f32 forward (B1 and B1-lse at f32,
      at every launch of the eval and f32 train paths, with each launch's
      block count) or f32 backward (B2a and B2b at f32, at every launch of
-     the f32 train path, with each launch's block count) built by the same
+     the f32 train paths, depth 50's and depth 18's, with each launch's
+     block count) built by the same
      flags and timed in turns with this revision's at the path's shapes and
      batches;
   3. the inference path, through ``frn_tpu_torch.entry.entry()``: DSEC
@@ -370,10 +372,13 @@ INT8_CHECK_SHAPES = BWD_CHECK_SHAPES + ((2, 129, 16), (2, 131, 8))
 # the f32 training kernels (B1-lse, B2a, B2b at f32): the f32 train path's
 # shapes (DSEC stages 1 and 2 at batch 2, DDD17 at batch 4 and N 5,655,
 # ragged), one shape at each of d 8 and 16, and the block edges (N 40 at
-# every head dim: 64-row blocks at d 64, 128 below; ragged N past whole tiles)
+# every head dim: 64-row blocks at d 64, 128 below; ragged N past whole
+# tiles; one and two key rows past whole blocks of the d 8/16 dK/dV kernel:
+# 64 key rows a block at d 8, 32 at d 16)
 F32_TRAIN_CHECK_SHAPES = ((2, 19200, 32), (2, 4800, 64), (4, 5655, 32), (2, 4800, 16),
                           (2, 5655, 8), (2, 40, 8), (2, 40, 16), (2, 40, 32), (2, 40, 64),
-                          (2, 131, 32), (2, 517, 64), (2, 129, 16))
+                          (2, 131, 32), (2, 517, 64), (2, 129, 16), (2, 65, 8), (2, 129, 8),
+                          (2, 33, 16), (2, 65, 16))
 # and, with the scores shifted far below zero (lse < -88, where a key past N
 # that were not masked would give P = exp(-lse) = inf), at ragged N. There
 # column 0 of q and k is 11 and -11 (the rest N(0, 0.5^2)): column 0 of dQ
@@ -381,7 +386,7 @@ F32_TRAIN_CHECK_SHAPES = ((2, 19200, 32), (2, 4800, 64), (4, 5655, 32), (2, 4800
 # (a row of dS sums to 0), so either version's value there is rounding noise
 # of those terms, and the gradients are held at F32_TRAP_ATOL of their max
 # |value| (the largest gap on an H100 was 1.2e-4 of it, dQ at N 517, d 64)
-F32_LSE_TRAP_SHAPES = ((2, 131, 16), (4, 5655, 32), (2, 517, 64))
+F32_LSE_TRAP_SHAPES = ((2, 131, 16), (4, 5655, 32), (2, 517, 64), (2, 131, 8))
 F32_TRAP_ATOL = 1e-3
 # the bf16 backward kernels at d 8 and 16 with the scores shifted far below
 # zero (``_shift_scores``: lse < -88), at ragged N (3 keys in the last tile at
@@ -442,9 +447,9 @@ TRAIN_F32_KERNELS = ("flash_fwd_lse_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32
 # f32 kernels (CUDA
 # cores): the forward's register-blocked kernels at every head dim (its small
 # one at d 8 and 16), the dQ and the dK/dV kernels' register-blocked kernels
-# at d 32 and 64 and their first designs at d 8 and 16 (the f32 paths take d
-# 8 and 16 at depths 18 and 34). Phase 1 fails unless each is in the
-# compiler's log once, unspilled
+# at d 32 and 64, and at d 8 and 16 (the f32 paths take them at depths 18
+# and 34) the dK/dV kernel's small one and the dQ kernel's first design.
+# Phase 1 fails unless each is in the compiler's log once, unspilled
 PATH_INSTANCES = {
     "flash_attention": [("flash_fwd_wgmma", d, e) for d in (32, 64) for e in (0, 1)],
     "flash_attention_bwd": [(kernel, d) for kernel in ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
@@ -456,8 +461,9 @@ PATH_INSTANCES = {
     "stem": [("stem_wgmma", c) for c in (3, 5)],
     "flash_attention_f32": [("flash_fwd_f32_small", 8), ("flash_fwd_f32_small", 16),
                             ("flash_fwd_f32_tiled", 32), ("flash_fwd_f32_tiled", 64)],
-    "flash_attention_bwd_f32": [(f"flash_bwd_{part}_f32{tiled}", d) for part in ("dq", "dkv")
-                                for d, tiled in ((8, ""), (16, ""), (32, "_tiled"), (64, "_tiled"))],
+    "flash_attention_bwd_f32": [(f"flash_bwd_{part}_f32{kind}", d) for part, small in (
+        ("dq", ""), ("dkv", "_small")) for d, kind in ((8, small), (16, small), (32, "_tiled"),
+                                                        (64, "_tiled"))],
 }
 OPTIN_KERNELS = ("flash_fwd_bf16exp", "flash_int8_qk", "flash_int8", "int8_qk_prepass",
                  "int8_prepass", "stem")
@@ -1359,17 +1365,30 @@ def phase_other_f32_forward(others: dict) -> None:
     print_per_step(per_step)
 
 
+# ragged shapes at which every revision's f32 backward at d 8 and 16 is held
+# against the plain versions before the A/B: DDD17's N (23 key rows past
+# whole 64-row blocks and 23 queries past whole tiles) at d 8, and at d 16 5
+# key rows past whole 32-row blocks and 5 queries past whole tiles
+F32_BWD_AB_CHECKS = ((2, 5655, 8), (2, 517, 16))
+
+
 def phase_other_f32_backward(others: dict) -> None:
     """This revision's f32 backward kernels (B2a and B2b at f32) timed in turns
-    with other revisions' at every launch of the f32 train path: DSEC stages
-    1 and 2 at F32_TRAIN_BATCH, DDD17's stage 1 at DDD17_TRAIN_BATCH, held
-    against the plain versions at the f32 tolerances, each row with this
-    revision's block count. B2b's rows are the control where only the dQ
-    kernel changed."""
-    launches = [("", F32_TRAIN_BATCH, n, d) for n, d in FLASH_SHAPES]
-    launches.append((" DDD17", DDD17_TRAIN_BATCH, *DDD17_FLASH_SHAPE))
+    with other revisions' at every launch of the f32 train paths: depth 50's
+    (DSEC stages 1 and 2 at FLASH_SHAPES and F32_TRAIN_BATCH, DDD17's stage 1
+    at DDD17_TRAIN_BATCH) and depth 18's (the same at DEPTH18_FLASH_SHAPES
+    and DEPTH18_DDD17_SHAPE, rows " R18"), held against the plain versions
+    at the f32 tolerances, each row with this revision's block count; before
+    them every revision's outputs at F32_BWD_AB_CHECKS against the plain
+    versions. The other kernel's rows are the control where only one
+    changed."""
+    launches = []
+    for depth, shapes, ddd17 in (("", FLASH_SHAPES, DDD17_FLASH_SHAPE),
+                                 (" R18", DEPTH18_FLASH_SHAPES, DEPTH18_DDD17_SHAPE)):
+        launches += [(depth, F32_TRAIN_BATCH, n, d) for n, d in shapes]
+        launches.append((f"{depth} DDD17", DDD17_TRAIN_BATCH, *ddd17))
     _other_backwards_in_turns(others, launches, torch.float32, BWD_F32_ATOL, BWD_F32_RTOL,
-                              seed=12)
+                              seed=12, checks=F32_BWD_AB_CHECKS)
 
 
 def phase_other_int8(others: dict) -> None:

@@ -68,13 +68,36 @@
 // tile at 2 blocks an SM was 40% slower at d 32). The designs keep the tile
 // shapes and unroll factors that were fastest in turns.
 //
-// d 8 and 16 (the depth-18/34 f32 train CLI) keep the first designs,
-// flash_bwd_dq_f32 and flash_bwd_dkv_f32: a thread owns one row of one
-// batch, query row (dQ) or key row (dK/dV), whose own vectors stay in
-// registers for the whole launch: q, dO and the dQ accumulator, or k, v and
-// the dK and dV accumulators. The other side is staged by cp.async into a
-// two-slot ring, 64 rows a tile, and every thread of a warp reads the same
-// tile row (a broadcast). Each step takes a group of 4 tile rows at once.
+// d 8 and 16 (the depth-18/34 f32 train CLI):
+//
+// - dK/dV, flash_bwd_dkv_f32_small: register-blocked key rows, built for
+//   small d on the f32 forward's flash_fwd_f32_small map. A block of 128
+//   threads owns BK key rows of one batch (dkv_small_rows: 64 at d 8, 32 at
+//   d 16); thread (rg, qg), qg = lane % 8, owns key rows rg + 16 i (TM =
+//   BK / 16 of them: 4 at d 8, 2 at d 16) and queries qg + 8 j of each
+//   64-query tile. Its k and v rows and its dK and dV accumulators (4 TM d
+//   floats, 128 at both) stay in registers for the whole launch. Q and dO
+//   tiles, 16-byte padded rows (the 8 distinct query rows a warp reads at
+//   once fall on distinct banks), and their lse and D come through a
+//   two-slot cp.async ring, the next tile in flight, one __syncthreads a
+//   tile. Per query, streamed float4 by float4: s = k q (each float4 of q
+//   feeds TM * 4 FMAs), P = 2^(fma(s, log2 e, -lse log2 e)), dV += P dO and
+//   dP = v dO in one pass over dO (TM * 8 FMAs a float4), dS = P (dP - D),
+//   dK += dS q. P, dP and dS never leave the registers: no shared buffer and
+//   no warp barrier in the loop. Each lane ends with partial dK and dV over
+//   its own queries; the row group's 8 lanes sum them by __shfl_xor_sync
+//   (both are linear in the queries) and split the row's float4 stores.
+//   168 registers at both head dims, 3 blocks an SM (12 warps). The first
+//   design, a key row per thread in 128-row blocks, gave stage 2 (B 2,
+//   N 4,800) 76 blocks for 132 SMs, and fed each shared read to 4 FMAs
+//   (every lane of a warp read the same query row); stage 2 now has 300
+//   blocks, stage 1 (B 2, N 19,200) 600. Per query a thread issues 4 TM d
+//   = 128 FFMA and about 25 other instructions (PERF.md has the SASS).
+// - dQ keeps its first design, flash_bwd_dq_f32: a thread owns one query
+//   row of one batch, whose q, dO and dQ accumulator stay in registers for
+//   the whole launch. K and V are staged by cp.async into a two-slot ring,
+//   64 rows a tile, and every thread of a warp reads the same tile row (a
+//   broadcast). Each step takes a group of 4 tile rows at once.
 //
 // The ragged tail: tile rows past N are zero-filled in the ring. In the dQ
 // kernels a key past N would give s = 0 and P = exp(-lse), inf where
@@ -97,9 +120,9 @@ namespace {
 
 using namespace flash;
 
-// ------------------------------------------------------------ d 8 and 16: the first designs
+// ------------------------------------------------------------ d 8 and 16: dQ's first design
 
-constexpr int kThreadsBwd = 128;  // threads (rows) per block
+constexpr int kThreadsBwd = 128;  // threads per block (dQ: a query row each)
 constexpr int kTileBwd = 64;      // keys (dQ) or queries (dK/dV) per shared tile
 constexpr int kGroup = 4;         // tile rows a thread takes at once
 static_assert(kThreadsBwd == 2 * kTileBwd, "one thread copies each lse and each D of a tile");
@@ -242,107 +265,188 @@ __device__ __forceinline__ void load_stats(const float* __restrict__ lse,
     cp_async_4(dt + i, delta + off, valid);
 }
 
-// one tile of queries for the thread's key row: dV += sum_i P_i dO_i and
-// dK += sum_i dS_i Q_i; query rows at or past `valid` (kMask) add nothing
+// ------------------------------------------------------------ d 8 and 16: dK/dV, register-blocked key rows
+
+// G: the lanes of a row group, which split a tile's queries (both dK/dV kernels)
+constexpr int kQueryGroups = 8;
+
+// key rows a block owns (BK): a thread owns BK / 16 of them (TM), and their
+// k, v, dK and dV rows take 4 TM d floats of its registers, 128 at both head
+// dims (at d 16, TM 4 would take 256 before any temporaries)
+template <int D>
+__host__ __device__ constexpr int dkv_small_rows() {
+  return D == 8 ? 64 : 32;
+}
+
+// blocks an SM (__launch_bounds__ caps the registers at 65,536 / (128 x this),
+// 168): on the H100, with the query loop rolled, 4 (128 registers, 400-472
+// bytes spilled) took 3.7-4.3x the time of 3 and 2 took 18-42% more (PERF.md)
+constexpr int kDkvBlocksPerSM = 3;
+
+template <int D>
+struct DkvSmall {
+  static constexpr int kBK = dkv_small_rows<D>();
+  static constexpr int kG = kQueryGroups;
+  static constexpr int kR = kThreadsBwd / kG;     // row groups
+  static constexpr int kTM = kBK / kR;            // key rows per thread
+  static constexpr int kBQ = kTileBwd;            // queries per tile
+  static constexpr int kTN = kBQ / kG;            // a thread's queries of a tile
+  static constexpr int kS = D + 4;                // padded row stride, in floats
+  static constexpr int kT = kBQ * kS;             // floats of a Q (or a dO) tile
+  static constexpr int kSlot = 2 * kT + 2 * kBQ;  // a Q and a dO tile, their lse and D
+  static constexpr int kBytes = 4 * 2 * kSlot;    // two slots
+  static_assert(kTM * kR == kBK && kTN * kG == kBQ && D % 4 == 0,
+                "whole tiles, float4 columns");
+  static_assert(kDkvBlocksPerSM * (kBytes + 1024) <= 228 * 1024,
+                "the blocks an SM fit in shared memory");
+};
+
+// one query tile for this thread's key rows: for each of its queries
+// qg + G j in order, S^T = K q (each float4 of q feeds TM * 4 FMAs), P^T =
+// 2^(fma(s, log2 e, -lse log2 e)), dV += P^T dO and dP^T = V dO in one pass
+// over dO (each float4 feeds TM * 8 FMAs), dS^T = P^T (dP^T - D), dK += dS^T
+// q; P, dP and dS never leave the registers. The loop over the queries is
+// unrolled whole: on the H100 it took 6% less time than a rolled loop at
+// stage 1 and 12% less at stage 2, and taking 2 or 4 queries a step, or
+// holding q in registers from the S^T step to the dK step, moved it by no
+// more than 0.6% (PERF.md). kMask (the last, ragged tile): P of a query at
+// or past `valid` is 0, by a select (it may be inf there)
 template <int D, bool kMask>
-__device__ __forceinline__ void dkv_tile(const float (&kr)[D], const float (&vr)[D],
-                                         const float* __restrict__ qt, const float* __restrict__ dot,
-                                         const float* __restrict__ lt, const float* __restrict__ dt,
-                                         int valid, float (&dk)[D], float (&dv)[D]) {
-  constexpr int G = kGroup;
-#pragma unroll 1
-  for (int i0 = 0; i0 < kTileBwd; i0 += G) {
-    float s[G][2], dp[G], p[G];
+__device__ __forceinline__ void dkv_small_tile(const float4 (&kr)[DkvSmall<D>::kTM][D / 4],
+                                               const float4 (&vr)[DkvSmall<D>::kTM][D / 4],
+                                               const float* __restrict__ slot, int valid, int qg,
+                                               float (&dk)[DkvSmall<D>::kTM][D],
+                                               float (&dv)[DkvSmall<D>::kTM][D]) {
+  using T = DkvSmall<D>;
+  constexpr int TM = T::kTM, G = T::kG, C = D / 4;
+  const float* lt = slot + 2 * T::kT;
+  const float* dt = lt + T::kBQ;
 #pragma unroll
-    for (int g = 0; g < G; ++g) s[g][0] = s[g][1] = dp[g] = 0.f;
+  for (int j = 0; j < T::kTN; ++j) {
+    const int col = qg + G * j;
+    const float* qrow = slot + col * T::kS;
+    const float* orow = qrow + T::kT;
+    float p[TM], dp[TM];
 #pragma unroll
-    for (int c = 0; c < D; c += 4) {
+    for (int i = 0; i < TM; ++i) p[i] = dp[i] = 0.f;
 #pragma unroll
-      for (int g = 0; g < G; ++g)
-        s[g][c / 4 % 2] = dot4(kr + c, tile_chunk<D>(qt, i0 + g, c), s[g][c / 4 % 2]);
+    for (int c = 0; c < C; ++c) {
+      const float4 qf = *reinterpret_cast<const float4*>(qrow + 4 * c);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) fma4(p[i], kr[i][c], qf);
+    }
+    const float nlb = -(lt[col] * kLog2e);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float e = ex2(fmaf(p[i], kLog2e, nlb));
+      p[i] = kMask && col >= valid ? 0.f : e;
     }
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      p[g] = ex2(fmaf(s[g][0] + s[g][1], kLog2e, -(lt[i0 + g] * kLog2e)));
-      if (kMask && i0 + g >= valid) p[g] = 0.f;
-    }
+    for (int c = 0; c < C; ++c) {
+      const float4 of = *reinterpret_cast<const float4*>(orow + 4 * c);
 #pragma unroll
-    for (int c = 0; c < D; c += 4) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float4 o = tile_chunk<D>(dot, i0 + g, c);
-        axpy4(p[g], o, dv + c);
-        dp[g] = dot4(vr + c, o, dp[g]);
+      for (int i = 0; i < TM; ++i) {
+        axpy4(p[i], of, dv[i] + 4 * c);
+        fma4(dp[i], vr[i][c], of);
       }
     }
+    const float dl = dt[col];
 #pragma unroll
-    for (int g = 0; g < G; ++g) p[g] *= dp[g] - dt[i0 + g];  // dS
+    for (int i = 0; i < TM; ++i) p[i] *= dp[i] - dl;  // dS^T
 #pragma unroll
-    for (int c = 0; c < D; c += 4) {
+    for (int c = 0; c < C; ++c) {
+      const float4 qf = *reinterpret_cast<const float4*>(qrow + 4 * c);
 #pragma unroll
-      for (int g = 0; g < G; ++g) axpy4(p[g], tile_chunk<D>(qt, i0 + g, c), dk + c);
+      for (int i = 0; i < TM; ++i) axpy4(p[i], qf, dk[i] + 4 * c);
     }
   }
 }
 
 template <int D>
-__host__ __device__ constexpr int dkv_slot_floats() {
-  return 2 * kTileBwd * D + 2 * kTileBwd;  // a Q and a dO tile, their lse and D
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreadsBwd)
-    flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      float* __restrict__ dk, float* __restrict__ dv, int n) {
+__global__ void __launch_bounds__(kThreadsBwd, kDkvBlocksPerSM)
+    flash_bwd_dkv_f32_small(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv, int n) {
+  using T = DkvSmall<D>;
+  constexpr int TM = T::kTM, G = T::kG, R = T::kR, BQ = T::kBQ, C = D / 4;
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  float* ring = reinterpret_cast<float*>(smem_raw);
+  float* ring = reinterpret_cast<float*>(smem_raw);  // two slots
   const size_t base = static_cast<size_t>(blockIdx.y) * n * D;
   const size_t rbase = static_cast<size_t>(blockIdx.y) * n;
   q += base;
   dout += base;
   lse += rbase;
   delta += rbase;
-  const int row = blockIdx.x * kThreadsBwd + threadIdx.x;
-  const bool live = row < n;
+  const int key0 = blockIdx.x * T::kBK;
+  const int qg = threadIdx.x % G;  // queries qg + G j of every tile
+  const int rg = threadIdx.x / G;  // key rows key0 + rg + R i
 
-  float kr[D], vr[D], dka[D], dva[D];
-  load_row<D>(k + base, row, live, kr);
-  load_row<D>(v + base, row, live, vr);
-#pragma unroll
-  for (int c = 0; c < D; ++c) dka[c] = dva[c] = 0.f;
-
-  constexpr int kSlot = dkv_slot_floats<D>();
-  const int tiles = (n + kTileBwd - 1) / kTileBwd;
-  auto load_slot = [&](int t) {
-    float* slot = ring + (t % 2) * kSlot;
-    load_rows_f32<D, kTileBwd, kThreadsBwd>(q, dout, t * kTileBwd, n, slot, slot + kTileBwd * D);
-    load_stats(lse, delta, t * kTileBwd, n, slot + 2 * kTileBwd * D,
-               slot + 2 * kTileBwd * D + kTileBwd);
+  auto stage = [&](int t) {  // query tile t into its slot; rows past n zero-filled
+    float* slot = ring + (t % 2) * T::kSlot;
+    stage_rows_f32<D, BQ, T::kS, kThreadsBwd>(q, t * BQ, n, slot);
+    stage_rows_f32<D, BQ, T::kS, kThreadsBwd>(dout, t * BQ, n, slot + T::kT);
+    load_stats(lse, delta, t * BQ, n, slot + 2 * T::kT, slot + 2 * T::kT + BQ);
     cp_async_commit();
   };
-  load_slot(0);
-  for (int t = 0; t < tiles; ++t) {
-    if (t + 1 < tiles) {
-      load_slot(t + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  stage(0);
+
+  // the thread's k and v rows stay in registers (rows past n: zeros, never stored)
+  float4 kr[TM][C], vr[TM][C];
+  float dka[TM][D], dva[TM][D];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = key0 + rg + R * i;
+    const bool live = row < n;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const size_t off = base + static_cast<size_t>(live ? row : 0) * D + 4 * c;
+      kr[i][c] = live ? *reinterpret_cast<const float4*>(k + off) : make_float4(0.f, 0.f, 0.f, 0.f);
+      vr[i][c] = live ? *reinterpret_cast<const float4*>(v + off) : make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    __syncthreads();
-    const float* qt = ring + (t % 2) * kSlot;
-    const float* lt = qt + 2 * kTileBwd * D;
-    const int valid = n - t * kTileBwd;
-    if (valid < kTileBwd)
-      dkv_tile<D, true>(kr, vr, qt, qt + kTileBwd * D, lt, lt + kTileBwd, valid, dka, dva);
-    else
-      dkv_tile<D, false>(kr, vr, qt, qt + kTileBwd * D, lt, lt + kTileBwd, valid, dka, dva);
-    __syncthreads();  // the slot is refilled by the next iteration's copy
+#pragma unroll
+    for (int c = 0; c < D; ++c) dka[i][c] = dva[i][c] = 0.f;
   }
-  if (live) {
-    store_row<D>(dk + base, row, dka);
-    store_row<D>(dv + base, row, dva);
+  const int tiles = (n + BQ - 1) / BQ;
+  const bool ragged = n % BQ != 0;
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is in; every thread is done with tile t - 1 and its slot
+    if (t + 1 < tiles) stage(t + 1);
+    const float* slot = ring + (t % 2) * T::kSlot;
+    if (ragged && t == tiles - 1)
+      dkv_small_tile<D, true>(kr, vr, slot, n - t * BQ, qg, dka, dva);
+    else
+      dkv_small_tile<D, false>(kr, vr, slot, BQ, qg, dka, dva);
+  }
+  // each lane's partial dK and dV over its own queries, summed over the row
+  // group's G lanes (both are linear in the queries); the xor butterfly
+  // leaves the same sums in all G lanes
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int off = 1; off < G; off *= 2) {
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        dka[i][c] += __shfl_xor_sync(0xffffffffu, dka[i][c], off);
+        dva[i][c] += __shfl_xor_sync(0xffffffffu, dva[i][c], off);
+      }
+    }
+  }
+  // the TM rows' 2 C float4s of dK and dV, split over the G lanes: float4 u of
+  // row i (dK's first, then dV's) by lane (i 2 C + u) % G; rows past n store
+  // nothing
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = key0 + rg + R * i;
+    if (row >= n) continue;
+#pragma unroll
+    for (int u = 0; u < 2 * C; ++u) {
+      if ((i * 2 * C + u) % G != qg) continue;
+      const float* a = (u < C ? dka[i] : dva[i]) + 4 * (u % C);
+      *reinterpret_cast<float4*>((u < C ? dk : dv) + base + static_cast<size_t>(row) * D +
+                                 4 * (u % C)) = make_float4(a[0], a[1], a[2], a[3]);
+    }
   }
 }
 
@@ -357,8 +461,6 @@ constexpr int kTiledThreads = 128;
 // kPS, and the unroll factor of the loop over a tile's rows kTileUnroll.
 
 // ---- dK and dV (B2b)
-
-constexpr int kQueryGroups = 8;  // G: the lanes that share a row group
 
 // key rows a block owns (BK): at d 64, 48 (3 a thread) gives stage 2's
 // launch (B 2, N 4,800) 200 blocks over the 132 SMs, where 64 gave 150
@@ -851,14 +953,16 @@ int launch_dq_tiled(const float* q, const float* k, const float* v, const float*
 }
 
 template <int D>
-int launch_dkv(const float* q, const float* k, const float* v, const float* dout, const float* lse,
-               const float* delta, float* dk, float* dv, int batch, int n, cudaStream_t stream) {
+int launch_dkv_small(const float* q, const float* k, const float* v, const float* dout,
+                     const float* lse, const float* delta, float* dk, float* dv, int batch, int n,
+                     cudaStream_t stream) {
+  using T = DkvSmall<D>;
   static int set_for_device = -1;
-  constexpr int bytes = 2 * dkv_slot_floats<D>() * 4;
-  const int rc = allow_smem(flash_bwd_dkv_f32<D>, bytes, set_for_device);
+  const int rc = allow_smem(flash_bwd_dkv_f32_small<D>, T::kBytes, set_for_device);
   if (rc != 0) return rc;
-  const dim3 grid((n + kThreadsBwd - 1) / kThreadsBwd, batch);
-  flash_bwd_dkv_f32<D><<<grid, kThreadsBwd, bytes, stream>>>(q, k, v, dout, lse, delta, dk, dv, n);
+  const dim3 grid((n + T::kBK - 1) / T::kBK, batch);
+  flash_bwd_dkv_f32_small<D><<<grid, kThreadsBwd, T::kBytes, stream>>>(q, k, v, dout, lse, delta,
+                                                                       dk, dv, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -917,8 +1021,8 @@ extern "C" int frn_flash_bwd_dkv_f32(const void* q, const void* k, const void* v
   auto* dvf = static_cast<float*>(dv);
   auto* s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 8: return launch_dkv<8>(qf, kf, vf, of, lf, df, dkf, dvf, batch, n, s);
-    case 16: return launch_dkv<16>(qf, kf, vf, of, lf, df, dkf, dvf, batch, n, s);
+    case 8: return launch_dkv_small<8>(qf, kf, vf, of, lf, df, dkf, dvf, batch, n, s);
+    case 16: return launch_dkv_small<16>(qf, kf, vf, of, lf, df, dkf, dvf, batch, n, s);
     case 32: return launch_dkv_tiled<32>(qf, kf, vf, of, lf, df, dkf, dvf, batch, n, s);
     case 64: return launch_dkv_tiled<64>(qf, kf, vf, of, lf, df, dkf, dvf, batch, n, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -57,6 +57,9 @@ F32_SMALL_KEYS = {8: 64, 16: 64}
 # block owns and query rows per tile, by head dim
 F32_BWD_TILED_KEY_ROWS = {32: 64, 64: 48}
 F32_BWD_TILED_QUERIES = {32: 64, 64: 32}
+# and its register-blocked kernel at d 8 and 16 (dkv_small_rows): key rows a
+# block owns, by head dim; 64-query tiles (KERNEL_TILE)
+F32_BWD_SMALL_KEY_ROWS = {8: 64, 16: 32}
 # the f32 dQ kernel's register-blocked design at d 32 and 64 (the same source:
 # dq_tiled_rows, dq_tiled_keys): query rows a block owns and keys per tile
 F32_BWD_DQ_TILED_ROWS = {32: 64, 64: 48}
@@ -139,19 +142,23 @@ def f32_bwd_launch_plan(b: int, n: int, d: int, kind: str) -> dict:
     {'kernel', 'rows' (rows a block owns: query rows for dQ, key rows for
     dK/dV), 'tile' (the other side's rows per shared tile), 'blocks'}. Both
     take their register-blocked kernels at d 32 and 64
-    (``flash_bwd_dq_f32_tiled``, ``flash_bwd_dkv_f32_tiled``) and their first
-    designs at d 8 and 16 (a row per thread: 128-row blocks, 64-row
-    tiles)."""
+    (``flash_bwd_dq_f32_tiled``, ``flash_bwd_dkv_f32_tiled``). At d 8 and 16
+    dK/dV takes ``flash_bwd_dkv_f32_small`` (64 key rows a block at d 8, 32
+    at d 16, 64-query tiles; each lane's partial dK and dV over its own
+    queries summed across its row group's 8 lanes at the end) and dQ its
+    first design (a query row per thread: 128-row blocks, 64-key tiles)."""
     if kind not in ("dq", "dkv"):
         raise ValueError(f"kind must be 'dq' or 'dkv', got {kind!r}")
     if kind == "dkv" and d in F32_BWD_TILED_QUERIES:
         kernel, rows, tile = ("flash_bwd_dkv_f32_tiled", F32_BWD_TILED_KEY_ROWS[d],
                               F32_BWD_TILED_QUERIES[d])
-    elif kind == "dq" and d in F32_BWD_DQ_TILED_KEYS:
+    elif kind == "dkv":
+        kernel, rows, tile = "flash_bwd_dkv_f32_small", F32_BWD_SMALL_KEY_ROWS[d], KERNEL_TILE
+    elif d in F32_BWD_DQ_TILED_KEYS:
         kernel, rows, tile = ("flash_bwd_dq_f32_tiled", F32_BWD_DQ_TILED_ROWS[d],
                               F32_BWD_DQ_TILED_KEYS[d])
     else:
-        kernel, rows, tile = f"flash_bwd_{kind}_f32", 128, KERNEL_TILE
+        kernel, rows, tile = "flash_bwd_dq_f32", 128, KERNEL_TILE
     return {"kernel": kernel, "rows": rows, "tile": tile, "blocks": b * -(-n // rows)}
 
 

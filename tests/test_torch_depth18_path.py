@@ -227,6 +227,7 @@ def test_phase_15_kernel_checks_and_timings_rehearsed_on_the_cpu(monkeypatch, ca
         assert [s["kernel_ms"] for s in rows[kind]["per_shape"]] == [1.0, 1.0]
         assert rows[kind]["prepass_device_ms"] == (1.0 if kind == "flash_int8_qk_d8_16" else 0.5)
     assert rows["flash_int8_d8_16"]["per_shape"][0]["B"] == 4  # 2B under fused attention
-    assert re.search(r'flash_bwd_dkv_f32_d8_16 timing \{"B": 2, "N": 70, "d": 16, "blocks": 2,',
+    # 2 x 70 key rows in the small dK/dV kernel's 32-row blocks at d 16
+    assert re.search(r'flash_bwd_dkv_f32_d8_16 timing \{"B": 2, "N": 70, "d": 16, "blocks": 6,',
                      out)
     assert " 0 outside " in out and " outside " not in out.replace(" 0 outside ", "")

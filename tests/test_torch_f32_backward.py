@@ -137,9 +137,13 @@ def test_dq_launch_plan_at_the_path_shapes(shape):
 
 
 @pytest.mark.parametrize("d", [8, 16])
-def test_launch_plan_keeps_the_first_design_of_dkv_at_d_8_and_16(d):
+def test_launch_plan_takes_the_small_dkv_kernel_at_d_8_and_16(d):
+    # 64 key rows a block at d 8, 32 at d 16 (test_torch_f32_backward_small.py
+    # holds them against the source), 64-query tiles
+    rows = {8: 64, 16: 32}[d]
     assert fa.f32_bwd_launch_plan(2, 5655, d, "dkv") == {
-        "kernel": "flash_bwd_dkv_f32", "rows": 128, "tile": 64, "blocks": 2 * 45}
+        "kernel": "flash_bwd_dkv_f32_small", "rows": rows, "tile": 64,
+        "blocks": 2 * -(-5655 // rows)}
 
 
 @pytest.mark.parametrize("n", [1, 64, 65, 5655])
@@ -219,17 +223,20 @@ def _entry(name: str) -> str:
 
 
 def test_source_dispatch_matches_the_plan_and_phase_1_instances():
-    # both entry points launch the first design at d 8 and 16 and the tiled
-    # kernel at d 32 and 64: the instances phase 1 of chip_smoke.py requires
+    # both entry points launch the tiled kernel at d 32 and 64; at d 8 and 16
+    # the dQ entry its first design and the dK/dV entry its small kernel:
+    # the instances phase 1 of chip_smoke.py requires
     want = []
-    for part, tiled_dims in (("dq", fa.F32_BWD_DQ_TILED_KEYS), ("dkv", fa.F32_BWD_TILED_QUERIES)):
+    for part, tiled_dims, small in (("dq", fa.F32_BWD_DQ_TILED_KEYS, ""),
+                                    ("dkv", fa.F32_BWD_TILED_QUERIES, "_small")):
         entry = _entry(f"frn_flash_bwd_{part}_f32")
-        first = {int(d) for d in re.findall(rf"case (\d+): return launch_{part}<\1>", entry)}
+        first = {int(d) for d in re.findall(rf"case (\d+): return launch_{part}{small}<\1>",
+                                            entry)}
         tiled = {int(d) for d in re.findall(rf"case (\d+): return launch_{part}_tiled<\1>",
                                             entry)}
         assert first == {8, 16} and tiled == set(tiled_dims) == {32, 64}
         for d in first | tiled:
-            kernel = f"flash_bwd_{part}_f32" + ("_tiled" if d in tiled else "")
+            kernel = f"flash_bwd_{part}_f32" + ("_tiled" if d in tiled else small)
             assert fa.f32_bwd_launch_plan(1, 1, d, part)["kernel"] == kernel
             want.append((kernel, d))
     assert sorted(chip_smoke.PATH_INSTANCES["flash_attention_bwd_f32"]) == sorted(want)
@@ -251,7 +258,8 @@ def _ptxas_log(instances: dict) -> str:
     mangled = {"flash_bwd_dq_f32": "_ZN12_GLOBAL__N_116flash_bwd_dq_f32ILi{}EEEvPKfS2_S2_S2_S2_S2_Pfi",
                "flash_bwd_dq_f32_tiled":
                    "_ZN12_GLOBAL__N_122flash_bwd_dq_f32_tiledILi{}EEEvPKfS2_S2_S2_S2_S2_Pfi",
-               "flash_bwd_dkv_f32": "_ZN12_GLOBAL__N_117flash_bwd_dkv_f32ILi{}EEEvPKfS2_S2_S2_S2_S2_PfS3_i",
+               "flash_bwd_dkv_f32_small":
+                   "_ZN12_GLOBAL__N_123flash_bwd_dkv_f32_smallILi{}EEEvPKfS2_S2_S2_S2_S2_PfS3_i",
                "flash_bwd_dkv_f32_tiled":
                    "_ZN12_GLOBAL__N_123flash_bwd_dkv_f32_tiledILi{}EEEvPKfS2_S2_S2_S2_S2_PfS3_i"}
     return "".join(
@@ -263,7 +271,7 @@ def _ptxas_log(instances: dict) -> str:
 
 
 @pytest.mark.parametrize("kernel,d", [("flash_bwd_dkv_f32_tiled", 32), ("flash_bwd_dkv_f32_tiled", 64),
-                                      ("flash_bwd_dkv_f32", 16), ("flash_bwd_dq_f32", 64),
+                                      ("flash_bwd_dkv_f32_small", 16), ("flash_bwd_dq_f32", 64),
                                       ("flash_bwd_dq_f32_tiled", 32), ("flash_bwd_dq_f32_tiled", 64)])
 def test_phase_1_reads_the_instances_from_the_compiler_log(kernel, d):
     log = _ptxas_log({(kernel, d): (168, 0)})
@@ -392,8 +400,9 @@ def _plain_revision():
 def test_phase_other_f32_backward_runs_every_launch_in_turns(monkeypatch, capsys):
     # the phase on the CPU at tiny shapes: this revision's wrappers (their
     # plain versions here) and another revision's entry points, held against
-    # the plain versions, timed in turns at each launch of the f32 train path
-    # with this revision's block counts, and summed per micro-step
+    # the plain versions at the ragged check shapes, then timed in turns at
+    # each launch of the f32 train paths, depth 50's and depth 18's (rows
+    # " R18"), with this revision's block counts, and summed per micro-step
     _gen, _randn = torch.Generator, torch.randn
     monkeypatch.setattr(torch, "Generator", lambda device=None: _gen())
     monkeypatch.setattr(torch, "randn", lambda *a, device=None, **k: _randn(*a, **k))
@@ -401,16 +410,36 @@ def test_phase_other_f32_backward_runs_every_launch_in_turns(monkeypatch, capsys
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps, warmup=2, windows=1: (1.0, fn()))
     monkeypatch.setattr(chip_smoke, "FLASH_SHAPES", ((131, 32), (70, 64)))
     monkeypatch.setattr(chip_smoke, "DDD17_FLASH_SHAPE", (77, 32))
+    monkeypatch.setattr(chip_smoke, "DEPTH18_FLASH_SHAPES", ((131, 8), (70, 16)))
+    monkeypatch.setattr(chip_smoke, "DEPTH18_DDD17_SHAPE", (77, 8))
+    monkeypatch.setattr(chip_smoke, "F32_BWD_AB_CHECKS", ((2, 77, 8), (1, 37, 16)))
+    checked = []
+    check_close = chip_smoke.check_close
+    monkeypatch.setattr(chip_smoke, "check_close", lambda label, name, got, want, atol, rtol, shape,
+                        errs: checked.append((label, name, tuple(shape)))
+                        or check_close(label, name, got, want, atol, rtol, shape, errs))
     chip_smoke.phase_other_f32_backward({"parent/flash_attention_bwd_f32.cu": _plain_revision()})
     out = capsys.readouterr().out
     rows = [json_row for json_row in out.splitlines() if json_row.startswith("revisions timing")]
     kinds = [re.search(r'"kind": "([^"]+)"', r).group(1) for r in rows]
     assert kinds == ["flash_bwd_dq_f32", "flash_bwd_dkv_f32"] * 2 + [
-        "flash_bwd_dq_f32 DDD17", "flash_bwd_dkv_f32 DDD17"]
+        "flash_bwd_dq_f32 DDD17", "flash_bwd_dkv_f32 DDD17"] + [
+        "flash_bwd_dq_f32 R18", "flash_bwd_dkv_f32 R18"] * 2 + [
+        "flash_bwd_dq_f32 R18 DDD17", "flash_bwd_dkv_f32 R18 DDD17"]
     assert '"N": 70, "d": 64, "blocks": 4' in rows[3]  # 2 x 70 key rows in 48-row blocks
+    assert '"B": 2, "N": 70, "d": 16, "blocks": 6' in rows[9]  # 2 x 70 key rows in 32-row blocks
+    assert '"B": 4, "N": 77, "d": 8, "blocks": 8' in rows[11]  # 4 x 77 key rows in 64-row blocks
     assert "flash_bwd_dkv_f32 parent/flash_attention_bwd_f32.cu: 4.000 ms per micro-step " \
            "(4 launches)" in out
     assert "flash_bwd_dkv_f32 DDD17 this revision: 2.000 ms per micro-step (2 launches)" in out
+    assert "flash_bwd_dkv_f32 R18 this revision: 4.000 ms per micro-step (4 launches)" in out
+    assert "flash_bwd_dkv_f32 R18 DDD17 parent/flash_attention_bwd_f32.cu: 2.000 ms per " \
+           "micro-step (2 launches)" in out
+    # both revisions' dQ, dK and dV at both ragged check shapes, before any timing
+    for shape in ((2, 77, 8), (1, 37, 16)):
+        for label in ("this revision", "parent/flash_attention_bwd_f32.cu"):
+            got = {name for lab, name, s in checked[:12] if s == shape and lab.endswith(label)}
+            assert got == {"dq", "dk", "dv"}
     assert " 0 outside " in out and " outside " not in out.replace(" 0 outside ", "")
 
 
