@@ -20,8 +20,8 @@ Phases:
      f32 forward's register-blocked instances at every head dim
      (``flash_fwd_f32_tiled`` at d 32 and 64, ``flash_fwd_f32_small`` at d 8
      and 16), the dQ and dK/dV kernels' at d 32 and 64, and at d 8 and 16
-     the dK/dV kernel's small one (``flash_bwd_dkv_f32_small``) and the dQ
-     kernel's first design, must each be there, and may not spill);
+     their small ones (``flash_bwd_dq_f32_small``,
+     ``flash_bwd_dkv_f32_small``), must each be there, and may not spill);
   2. each kernel against its plain PyTorch version on the card, at the shapes
      of its path (the forward; the forward with lse and the dQ and dK/dV
      backward kernels, ragged N and head dims 8 and 16 included, and the
@@ -373,8 +373,8 @@ INT8_CHECK_SHAPES = BWD_CHECK_SHAPES + ((2, 129, 16), (2, 131, 8))
 # shapes (DSEC stages 1 and 2 at batch 2, DDD17 at batch 4 and N 5,655,
 # ragged), one shape at each of d 8 and 16, and the block edges (N 40 at
 # every head dim: 64-row blocks at d 64, 128 below; ragged N past whole
-# tiles; one and two key rows past whole blocks of the d 8/16 dK/dV kernel:
-# 64 key rows a block at d 8, 32 at d 16)
+# tiles; one and two rows past whole blocks of the d 8/16 dQ and dK/dV
+# kernels: 64 query or key rows a block at d 8, 32 at d 16)
 F32_TRAIN_CHECK_SHAPES = ((2, 19200, 32), (2, 4800, 64), (4, 5655, 32), (2, 4800, 16),
                           (2, 5655, 8), (2, 40, 8), (2, 40, 16), (2, 40, 32), (2, 40, 64),
                           (2, 131, 32), (2, 517, 64), (2, 129, 16), (2, 65, 8), (2, 129, 8),
@@ -448,7 +448,7 @@ TRAIN_F32_KERNELS = ("flash_fwd_lse_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32
 # cores): the forward's register-blocked kernels at every head dim (its small
 # one at d 8 and 16), the dQ and the dK/dV kernels' register-blocked kernels
 # at d 32 and 64, and at d 8 and 16 (the f32 paths take them at depths 18
-# and 34) the dK/dV kernel's small one and the dQ kernel's first design.
+# and 34) their small ones.
 # Phase 1 fails unless each is in the compiler's log once, unspilled
 PATH_INSTANCES = {
     "flash_attention": [("flash_fwd_wgmma", d, e) for d in (32, 64) for e in (0, 1)],
@@ -461,9 +461,8 @@ PATH_INSTANCES = {
     "stem": [("stem_wgmma", c) for c in (3, 5)],
     "flash_attention_f32": [("flash_fwd_f32_small", 8), ("flash_fwd_f32_small", 16),
                             ("flash_fwd_f32_tiled", 32), ("flash_fwd_f32_tiled", 64)],
-    "flash_attention_bwd_f32": [(f"flash_bwd_{part}_f32{kind}", d) for part, small in (
-        ("dq", ""), ("dkv", "_small")) for d, kind in ((8, small), (16, small), (32, "_tiled"),
-                                                        (64, "_tiled"))],
+    "flash_attention_bwd_f32": [(f"flash_bwd_{part}_f32{'_small' if d < 32 else '_tiled'}", d)
+                                for part in ("dq", "dkv") for d in (8, 16, 32, 64)],
 }
 OPTIN_KERNELS = ("flash_fwd_bf16exp", "flash_int8_qk", "flash_int8", "int8_qk_prepass",
                  "int8_prepass", "stem")

@@ -93,17 +93,37 @@
 //   (every lane of a warp read the same query row); stage 2 now has 300
 //   blocks, stage 1 (B 2, N 19,200) 600. Per query a thread issues 4 TM d
 //   = 128 FFMA and about 25 other instructions (PERF.md has the SASS).
-// - dQ keeps its first design, flash_bwd_dq_f32: a thread owns one query
-//   row of one batch, whose q, dO and dQ accumulator stay in registers for
-//   the whole launch. K and V are staged by cp.async into a two-slot ring,
-//   64 rows a tile, and every thread of a warp reads the same tile row (a
-//   broadcast). Each step takes a group of 4 tile rows at once.
+// - dQ, flash_bwd_dq_f32_small: the dK/dV kernel's map, mirrored. What
+//   bounds it: 6 B N^2 d flops at 67 TFLOP/s (B 2, N 19,200, d 8: 0.528 ms),
+//   all f32 FMAs, so the design feeds the FMA pipes. A block of 128 threads
+//   owns BQ query rows of one batch (dq_small_rows: 64 at d 8, 32 at d 16);
+//   thread (rg, kg), kg = lane % 8, owns query rows rg + 16 i (TM = BQ / 16:
+//   4 at d 8, 2 at d 16) and keys kg + 8 j of each 64-key tile. Its q and dO
+//   rows and its dQ accumulator (3 TM d floats, 96 at both) and its TM
+//   values of -lse log2 e and D stay in registers for the whole launch: lse
+//   and D are per query row, so nothing of them is staged. K and V tiles,
+//   16-byte padded rows (the 8 distinct key rows a warp reads at once fall on
+//   distinct banks: at d 8 lane kg starts on bank 12 kg mod 32), come
+//   through a two-slot cp.async ring, the next tile in flight, one
+//   __syncthreads a tile. Per key, float4 by float4: s = q k and dP = dO v in
+//   one pass (each float4 of k or v feeds TM * 4 FMAs), P = 2^(fma(s, log2
+//   e, -lse log2 e)), dS = P (dP - D), dQ += dS k. Each lane ends with a
+//   partial dQ over its own keys; the row group's 8 lanes sum it by
+//   __shfl_xor_sync (dQ is linear in the keys) and split the row's float4
+//   stores. The first design, a query row per thread in 128-row blocks, fed
+//   each 16-byte shared read to 4 FMAs (every lane of a warp read the same
+//   key row) in serial dot4 chains, and gave stage 2 (B 2, N 4,800) 76 blocks
+//   for 132 SMs; stage 2 now has 300 blocks, stage 1 (B 2, N 19,200) 600.
+//   149 registers at d 8, 163 at d 16, 3 blocks an SM (12 warps). Per key a
+//   thread issues 3 TM d = 96 FFMA, TM more for the exponent and 14-16
+//   other instructions (86-88% FFMA; PERF.md has the SASS and the trials).
 //
 // The ragged tail: tile rows past N are zero-filled in the ring. In the dQ
 // kernels a key past N would give s = 0 and P = exp(-lse), inf where
 // lse < -88, so its dS is set to 0 by a select, never a multiply (no inf
-// reaches the accumulator, and inf * 0 is NaN), and a query row past N reads
-// no lse or D (zeros); in the dK/dV kernels a query row past N has no lse or
+// reaches the accumulator, and inf * 0 is NaN; the d 8/16 kernel selects
+// only on the last, ragged tile), and a query row past N reads no lse or D
+// (zeros); in the dK/dV kernels a query row past N has no lse or
 // D of its own (both zero-filled, never read from past N), and its P is set
 // to 0 there by a select, so it adds nothing to dK or dV. Rows past N store
 // nothing.
@@ -120,135 +140,17 @@ namespace {
 
 using namespace flash;
 
-// ------------------------------------------------------------ d 8 and 16: dQ's first design
+// ------------------------------------------------------------ d 8 and 16
 
-constexpr int kThreadsBwd = 128;  // threads per block (dQ: a query row each)
+constexpr int kThreadsBwd = 128;  // threads per block
 constexpr int kTileBwd = 64;      // keys (dQ) or queries (dK/dV) per shared tile
-constexpr int kGroup = 4;         // tile rows a thread takes at once
 static_assert(kThreadsBwd == 2 * kTileBwd, "one thread copies each lse and each D of a tile");
-
-// row `row` of a (n, D) f32 matrix; zeros past n
-template <int D>
-__device__ __forceinline__ void load_row(const float* __restrict__ a, int row, bool live,
-                                         float (&r)[D]) {
-#pragma unroll
-  for (int c = 0; c < D; c += 4) {
-    const float4 x = live ? *reinterpret_cast<const float4*>(a + static_cast<size_t>(row) * D + c)
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
-    r[c] = x.x;
-    r[c + 1] = x.y;
-    r[c + 2] = x.z;
-    r[c + 3] = x.w;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_row(float* __restrict__ a, int row, const float (&r)[D]) {
-#pragma unroll
-  for (int c = 0; c < D; c += 4)
-    *reinterpret_cast<float4*>(a + static_cast<size_t>(row) * D + c) =
-        make_float4(r[c], r[c + 1], r[c + 2], r[c + 3]);
-}
-
-// the float4 at column c of row t of a shared [kTileBwd][D] tile
-template <int D>
-__device__ __forceinline__ float4 tile_chunk(const float* __restrict__ tile, int t, int c) {
-  return *reinterpret_cast<const float4*>(tile + t * D + c);
-}
-
-__device__ __forceinline__ float dot4(const float* a, float4 b, float acc) {
-  acc = fmaf(a[0], b.x, acc);
-  acc = fmaf(a[1], b.y, acc);
-  acc = fmaf(a[2], b.z, acc);
-  return fmaf(a[3], b.w, acc);
-}
 
 __device__ __forceinline__ void axpy4(float a, float4 x, float* y) {
   y[0] = fmaf(a, x.x, y[0]);
   y[1] = fmaf(a, x.y, y[1]);
   y[2] = fmaf(a, x.z, y[2]);
   y[3] = fmaf(a, x.w, y[3]);
-}
-
-// one tile of keys for the thread's query row: dQ += sum_j dS_j K_j; keys at
-// or past `valid` (kMask: the last, ragged tile) add nothing
-template <int D, bool kMask>
-__device__ __forceinline__ void dq_tile(const float (&qr)[D], const float (&dor)[D],
-                                        const float* __restrict__ kt, const float* __restrict__ vt,
-                                        float nlb, float dl, int valid, float (&acc)[D]) {
-#pragma unroll 1
-  for (int j0 = 0; j0 < kTileBwd; j0 += kGroup) {
-    float s[kGroup], dp[kGroup];
-#pragma unroll
-    for (int g = 0; g < kGroup; ++g) s[g] = dp[g] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D; c += 4) {
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        s[g] = dot4(qr + c, tile_chunk<D>(kt, j0 + g, c), s[g]);
-        dp[g] = dot4(dor + c, tile_chunk<D>(vt, j0 + g, c), dp[g]);
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < kGroup; ++g) {
-      const float p = ex2(fmaf(s[g], kLog2e, nlb));
-      const float ds = p * (dp[g] - dl);
-      s[g] = kMask && j0 + g >= valid ? 0.f : ds;
-    }
-#pragma unroll
-    for (int c = 0; c < D; c += 4) {
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) axpy4(s[g], tile_chunk<D>(kt, j0 + g, c), acc + c);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreadsBwd)
-    flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dq, int n) {
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  float* ring = reinterpret_cast<float*>(smem_raw);
-  const size_t base = static_cast<size_t>(blockIdx.y) * n * D;
-  const size_t rbase = static_cast<size_t>(blockIdx.y) * n;
-  k += base;
-  v += base;
-  const int row = blockIdx.x * kThreadsBwd + threadIdx.x;
-  const bool live = row < n;
-
-  float qr[D], dor[D], acc[D];
-  load_row<D>(q + base, row, live, qr);
-  load_row<D>(dout + base, row, live, dor);
-#pragma unroll
-  for (int c = 0; c < D; ++c) acc[c] = 0.f;
-  const float nlb = live ? -(lse[rbase + row] * kLog2e) : 0.f;
-  const float dl = live ? delta[rbase + row] : 0.f;
-
-  constexpr int kSlot = 2 * kTileBwd * D;  // a K and a V tile
-  const int tiles = (n + kTileBwd - 1) / kTileBwd;
-  load_rows_f32<D, kTileBwd, kThreadsBwd>(k, v, 0, n, ring, ring + kTileBwd * D);
-  cp_async_commit();
-  for (int t = 0; t < tiles; ++t) {
-    if (t + 1 < tiles) {
-      float* next = ring + ((t + 1) % 2) * kSlot;
-      load_rows_f32<D, kTileBwd, kThreadsBwd>(k, v, (t + 1) * kTileBwd, n, next, next + kTileBwd * D);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* kt = ring + (t % 2) * kSlot;
-    const int valid = n - t * kTileBwd;
-    if (valid < kTileBwd)
-      dq_tile<D, true>(qr, dor, kt, kt + kTileBwd * D, nlb, dl, valid, acc);
-    else
-      dq_tile<D, false>(qr, dor, kt, kt + kTileBwd * D, nlb, dl, valid, acc);
-    __syncthreads();  // the slot is refilled by the next iteration's copy
-  }
-  if (live) store_row<D>(dq + base, row, acc);
 }
 
 // starts the copy of rows [r0, r0 + kTileBwd) of one batch's lse and D into
@@ -265,7 +167,7 @@ __device__ __forceinline__ void load_stats(const float* __restrict__ lse,
     cp_async_4(dt + i, delta + off, valid);
 }
 
-// ------------------------------------------------------------ d 8 and 16: dK/dV, register-blocked key rows
+// ---- dK/dV, register-blocked key rows
 
 // G: the lanes of a row group, which split a tile's queries (both dK/dV kernels)
 constexpr int kQueryGroups = 8;
@@ -450,6 +352,181 @@ __global__ void __launch_bounds__(kThreadsBwd, kDkvBlocksPerSM)
   }
 }
 
+// ---- dQ, register-blocked query rows
+
+// G: the lanes of a row group, which split a tile's keys (both dQ kernels)
+constexpr int kKeyGroups = 8;
+
+// query rows a block owns (BQ): a thread owns BQ / 16 of them (TM), and their
+// q and dO rows and dQ accumulator take 3 TM d floats of its registers, 96 at
+// both head dims (149 and 163 registers in all). On the H100 in turns, 80 rows
+// at d 8 (TM 5, 168 registers) took 6% less time at stage 1 (B 2, N 19,200:
+// 480 blocks) and 15% more at DDD17 (B 4, N 5,655: 284 blocks, under one
+// wave); 48 took 7-8% more, 128 (2 blocks an SM) 42% more; 16 at d 16 (TM 1,
+// 600 blocks) 37-40% more: each float4 of k then feeds 4 FMAs (PERF.md)
+template <int D>
+__host__ __device__ constexpr int dq_small_rows() {
+  return D == 8 ? 64 : 32;
+}
+
+// blocks an SM (__launch_bounds__ caps the registers at 65,536 / (128 x this),
+// 168): on the H100, 4 (128 registers, 16 bytes spilled at both head dims)
+// took 10-16% more time (PERF.md)
+constexpr int kDqSmallBlocksPerSM = 3;
+
+template <int D>
+struct DqSmall {
+  static constexpr int kBQ = dq_small_rows<D>();
+  static constexpr int kG = kKeyGroups;
+  static constexpr int kR = kThreadsBwd / kG;   // row groups
+  static constexpr int kTM = kBQ / kR;          // query rows per thread
+  static constexpr int kBK = kTileBwd;          // keys per tile
+  static constexpr int kTN = kBK / kG;          // a thread's keys of a tile
+  static constexpr int kS = D + 4;              // padded row stride, in floats
+  static constexpr int kT = kBK * kS;           // floats of a K (or a V) tile
+  static constexpr int kSlot = 2 * kT;          // a K and a V tile
+  static constexpr int kBytes = 4 * 2 * kSlot;  // two slots
+  static_assert(kTM * kR == kBQ && kTN * kG == kBK && D % 4 == 0,
+                "whole tiles, float4 columns");
+  static_assert(kDqSmallBlocksPerSM * (kBytes + 1024) <= 228 * 1024,
+                "the blocks an SM fit in shared memory");
+};
+
+// one key tile for this thread's query rows: for each of its keys kg + G j in
+// order, S = Q k and dP = dO v in one pass over d (each float4 of k or v
+// feeds TM * 4 FMAs), P = 2^(fma(s, log2 e, -lse log2 e)), dS = P (dP - D),
+// dQ += dS k; P, dP and dS never leave the registers. The loop over the keys
+// is unrolled whole: on the H100 a rolled loop took 26% more time a
+// micro-step, 2 keys a step 3% more, 128-key tiles 2% more; k held from the
+// first pass to the last is the code the compiler makes of its second read
+// (PERF.md). kMask (the last, ragged tile): dS of a key at or past `valid` is
+// 0, by a select (P may be inf there, and inf * 0 is NaN)
+template <int D, bool kMask>
+__device__ __forceinline__ void dq_small_tile(const float4 (&qr)[DqSmall<D>::kTM][D / 4],
+                                              const float4 (&dor)[DqSmall<D>::kTM][D / 4],
+                                              const float (&nlb)[DqSmall<D>::kTM],
+                                              const float (&dl)[DqSmall<D>::kTM],
+                                              const float* __restrict__ slot, int valid, int kg,
+                                              float (&dq)[DqSmall<D>::kTM][D]) {
+  using T = DqSmall<D>;
+  constexpr int TM = T::kTM, G = T::kG, C = D / 4;
+#pragma unroll
+  for (int j = 0; j < T::kTN; ++j) {
+    const int col = kg + G * j;
+    const float* krow = slot + col * T::kS;
+    const float* vrow = krow + T::kT;
+    float s[TM], dp[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float4 kf = *reinterpret_cast<const float4*>(krow + 4 * c);
+      const float4 vf = *reinterpret_cast<const float4*>(vrow + 4 * c);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        fma4(s[i], qr[i][c], kf);
+        fma4(dp[i], dor[i][c], vf);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float ds = ex2(fmaf(s[i], kLog2e, nlb[i])) * (dp[i] - dl[i]);
+      s[i] = kMask && col >= valid ? 0.f : ds;
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float4 kf = *reinterpret_cast<const float4*>(krow + 4 * c);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) axpy4(s[i], kf, dq[i] + 4 * c);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsBwd, kDqSmallBlocksPerSM)
+    flash_bwd_dq_f32_small(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           float* __restrict__ dq, int n) {
+  using T = DqSmall<D>;
+  constexpr int TM = T::kTM, G = T::kG, R = T::kR, BK = T::kBK, C = D / 4;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);  // two slots
+  const size_t base = static_cast<size_t>(blockIdx.y) * n * D;
+  const size_t rbase = static_cast<size_t>(blockIdx.y) * n;
+  k += base;
+  v += base;
+  const int row0 = blockIdx.x * T::kBQ;
+  const int kg = threadIdx.x % G;  // keys kg + G j of every tile
+  const int rg = threadIdx.x / G;  // query rows row0 + rg + R i
+
+  auto stage = [&](int t) {  // key tile t into its slot; rows past n zero-filled
+    float* slot = ring + (t % 2) * T::kSlot;
+    stage_rows_f32<D, BK, T::kS, kThreadsBwd>(k, t * BK, n, slot);
+    stage_rows_f32<D, BK, T::kS, kThreadsBwd>(v, t * BK, n, slot + T::kT);
+    cp_async_commit();
+  };
+  stage(0);
+
+  // the thread's q and dO rows, -lse log2 e and D stay in registers (rows
+  // past n: zeros, no lse or D read, never stored)
+  float4 qr[TM][C], dor[TM][C];
+  float nlb[TM], dl[TM], acc[TM][D];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = row0 + rg + R * i;
+    const bool live = row < n;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const size_t off = base + static_cast<size_t>(live ? row : 0) * D + 4 * c;
+      qr[i][c] = live ? *reinterpret_cast<const float4*>(q + off) : make_float4(0.f, 0.f, 0.f, 0.f);
+      dor[i][c] =
+          live ? *reinterpret_cast<const float4*>(dout + off) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    nlb[i] = live ? -(lse[rbase + row] * kLog2e) : 0.f;
+    dl[i] = live ? delta[rbase + row] : 0.f;
+#pragma unroll
+    for (int c = 0; c < D; ++c) acc[i][c] = 0.f;
+  }
+  const int tiles = (n + BK - 1) / BK;
+  const bool ragged = n % BK != 0;
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is in; every thread is done with tile t - 1 and its slot
+    if (t + 1 < tiles) stage(t + 1);
+    const float* slot = ring + (t % 2) * T::kSlot;
+    if (ragged && t == tiles - 1)
+      dq_small_tile<D, true>(qr, dor, nlb, dl, slot, n - t * BK, kg, acc);
+    else
+      dq_small_tile<D, false>(qr, dor, nlb, dl, slot, BK, kg, acc);
+  }
+  // each lane's partial dQ over its own keys, summed over the row group's G
+  // lanes (dQ is linear in the keys); the xor butterfly leaves the same sums
+  // in all G lanes
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int off = 1; off < G; off *= 2) {
+#pragma unroll
+      for (int c = 0; c < D; ++c) acc[i][c] += __shfl_xor_sync(0xffffffffu, acc[i][c], off);
+    }
+  }
+  // the TM rows' C float4s, split over the G lanes: float4 u of row i by lane
+  // (i C + u) % G; rows past n store nothing
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = row0 + rg + R * i;
+    if (row >= n) continue;
+#pragma unroll
+    for (int u = 0; u < C; ++u) {
+      if ((i * C + u) % G != kg) continue;
+      const float* a = acc[i] + 4 * u;
+      *reinterpret_cast<float4*>(dq + base + static_cast<size_t>(row) * D + 4 * u) =
+          make_float4(a[0], a[1], a[2], a[3]);
+    }
+  }
+}
+
 // ------------------------------------------------------------ d 32 and 64: the tiles
 
 constexpr int kTiledThreads = 128;
@@ -514,8 +591,6 @@ struct DkvTiled {
 };
 
 // ---- dQ (B2a)
-
-constexpr int kKeyGroups = 8;  // G: the lanes that share a row group
 
 // query rows a block owns (BQ): at d 64, 48 (3 a thread) gives stage 2's
 // launch (B 2, N 4,800) 200 blocks over the 132 SMs, where 64 gave 150
@@ -927,14 +1002,16 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSM)
 // ------------------------------------------------------------ launches
 
 template <int D>
-int launch_dq(const float* q, const float* k, const float* v, const float* dout, const float* lse,
-              const float* delta, float* dq, int batch, int n, cudaStream_t stream) {
+int launch_dq_small(const float* q, const float* k, const float* v, const float* dout,
+                    const float* lse, const float* delta, float* dq, int batch, int n,
+                    cudaStream_t stream) {
+  using T = DqSmall<D>;
   static int set_for_device = -1;
-  constexpr int bytes = 2 * 2 * kTileBwd * D * 4;
-  const int rc = allow_smem(flash_bwd_dq_f32<D>, bytes, set_for_device);
+  const int rc = allow_smem(flash_bwd_dq_f32_small<D>, T::kBytes, set_for_device);
   if (rc != 0) return rc;
-  const dim3 grid((n + kThreadsBwd - 1) / kThreadsBwd, batch);
-  flash_bwd_dq_f32<D><<<grid, kThreadsBwd, bytes, stream>>>(q, k, v, dout, lse, delta, dq, n);
+  const dim3 grid((n + T::kBQ - 1) / T::kBQ, batch);
+  flash_bwd_dq_f32_small<D><<<grid, kThreadsBwd, T::kBytes, stream>>>(q, k, v, dout, lse, delta,
+                                                                      dq, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -999,8 +1076,8 @@ extern "C" int frn_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
   auto* out = static_cast<float*>(dq);
   auto* s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 8: return launch_dq<8>(qf, kf, vf, of, lf, df, out, batch, n, s);
-    case 16: return launch_dq<16>(qf, kf, vf, of, lf, df, out, batch, n, s);
+    case 8: return launch_dq_small<8>(qf, kf, vf, of, lf, df, out, batch, n, s);
+    case 16: return launch_dq_small<16>(qf, kf, vf, of, lf, df, out, batch, n, s);
     case 32: return launch_dq_tiled<32>(qf, kf, vf, of, lf, df, out, batch, n, s);
     case 64: return launch_dq_tiled<64>(qf, kf, vf, of, lf, df, out, batch, n, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

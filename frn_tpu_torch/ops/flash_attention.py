@@ -64,6 +64,9 @@ F32_BWD_SMALL_KEY_ROWS = {8: 64, 16: 32}
 # dq_tiled_rows, dq_tiled_keys): query rows a block owns and keys per tile
 F32_BWD_DQ_TILED_ROWS = {32: 64, 64: 48}
 F32_BWD_DQ_TILED_KEYS = {32: 64, 64: 32}
+# and its register-blocked kernel at d 8 and 16 (dq_small_rows): query rows a
+# block owns, by head dim; 64-key tiles (KERNEL_TILE)
+F32_BWD_SMALL_QUERY_ROWS = {8: 64, 16: 32}
 flash_fwd_launches = 0  # forward without lse (inference)
 flash_fwd_lse_launches = 0  # forward with lse (the forward of training)
 flash_fwd_f32_launches = 0  # forward on f32 inputs (inference)
@@ -142,11 +145,12 @@ def f32_bwd_launch_plan(b: int, n: int, d: int, kind: str) -> dict:
     {'kernel', 'rows' (rows a block owns: query rows for dQ, key rows for
     dK/dV), 'tile' (the other side's rows per shared tile), 'blocks'}. Both
     take their register-blocked kernels at d 32 and 64
-    (``flash_bwd_dq_f32_tiled``, ``flash_bwd_dkv_f32_tiled``). At d 8 and 16
-    dK/dV takes ``flash_bwd_dkv_f32_small`` (64 key rows a block at d 8, 32
-    at d 16, 64-query tiles; each lane's partial dK and dV over its own
-    queries summed across its row group's 8 lanes at the end) and dQ its
-    first design (a query row per thread: 128-row blocks, 64-key tiles)."""
+    (``flash_bwd_dq_f32_tiled``, ``flash_bwd_dkv_f32_tiled``) and at d 8 and
+    16 their small ones: ``flash_bwd_dkv_f32_small`` (64 key rows a block at
+    d 8, 32 at d 16, 64-query tiles) and ``flash_bwd_dq_f32_small`` (64 query
+    rows a block at d 8, 32 at d 16, 64-key tiles), each lane's partial sums
+    over its own queries or keys summed across its row group's 8 lanes at the
+    end."""
     if kind not in ("dq", "dkv"):
         raise ValueError(f"kind must be 'dq' or 'dkv', got {kind!r}")
     if kind == "dkv" and d in F32_BWD_TILED_QUERIES:
@@ -158,7 +162,7 @@ def f32_bwd_launch_plan(b: int, n: int, d: int, kind: str) -> dict:
         kernel, rows, tile = ("flash_bwd_dq_f32_tiled", F32_BWD_DQ_TILED_ROWS[d],
                               F32_BWD_DQ_TILED_KEYS[d])
     else:
-        kernel, rows, tile = "flash_bwd_dq_f32", 128, KERNEL_TILE
+        kernel, rows, tile = "flash_bwd_dq_f32_small", F32_BWD_SMALL_QUERY_ROWS[d], KERNEL_TILE
     return {"kernel": kernel, "rows": rows, "tile": tile, "blocks": b * -(-n // rows)}
 
 

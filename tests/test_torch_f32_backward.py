@@ -110,11 +110,15 @@ def test_launch_plan_at_the_path_shapes(shape):
 
 @pytest.mark.parametrize("d", [8, 16])
 def test_launch_plan_keeps_the_first_design_of_dq_at_every_head_dim(d):
-    # B2a keeps its first design at d 8 and 16 (the d 32 and 64 cases are
-    # test_launch_plan_takes_the_tiled_dq_kernel_at_d_32_and_64): 128
-    # threads, a query row each
+    # B2a at d 8 and 16 takes its small kernel, the first design's successor
+    # (the d 32 and 64 cases are
+    # test_launch_plan_takes_the_tiled_dq_kernel_at_d_32_and_64): 64 query
+    # rows a block at d 8, 32 at d 16 (test_torch_f32_dq_small.py holds them
+    # against the source), 64-key tiles
+    rows = {8: 64, 16: 32}[d]
     assert fa.f32_bwd_launch_plan(2, 4800, d, "dq") == {
-        "kernel": "flash_bwd_dq_f32", "rows": 128, "tile": 64, "blocks": 2 * -(-4800 // 128)}
+        "kernel": "flash_bwd_dq_f32_small", "rows": rows, "tile": 64,
+        "blocks": 2 * -(-4800 // rows)}
 
 
 @pytest.mark.parametrize("d", [32, 64])
@@ -167,8 +171,8 @@ def test_launch_plan_refuses_an_unknown_kind():
 
 def test_launch_plan_constants_match_the_source():
     # key rows a block owns and query rows per tile, by head dim, as the CUDA
-    # source has them (it is compiled only on the card), and the first
-    # design's tile and threads beside them
+    # source has them (it is compiled only on the card), and the d 8/16
+    # kernels' tile and threads beside them
     assert {d: _tiles(d)["bk"] for d in (32, 64)} == fa.F32_BWD_TILED_KEY_ROWS
     assert {d: _tiles(d)["bq"] for d in (32, 64)} == fa.F32_BWD_TILED_QUERIES
     assert _constant("kTileBwd") == fa.KERNEL_TILE and _constant("kThreadsBwd") == 128
@@ -223,20 +227,20 @@ def _entry(name: str) -> str:
 
 
 def test_source_dispatch_matches_the_plan_and_phase_1_instances():
-    # both entry points launch the tiled kernel at d 32 and 64; at d 8 and 16
-    # the dQ entry its first design and the dK/dV entry its small kernel:
-    # the instances phase 1 of chip_smoke.py requires
+    # both entry points launch the tiled kernel at d 32 and 64 and their
+    # small kernel at d 8 and 16: the instances phase 1 of chip_smoke.py
+    # requires
     want = []
-    for part, tiled_dims, small in (("dq", fa.F32_BWD_DQ_TILED_KEYS, ""),
-                                    ("dkv", fa.F32_BWD_TILED_QUERIES, "_small")):
+    for part, tiled_dims in (("dq", fa.F32_BWD_DQ_TILED_KEYS),
+                             ("dkv", fa.F32_BWD_TILED_QUERIES)):
         entry = _entry(f"frn_flash_bwd_{part}_f32")
-        first = {int(d) for d in re.findall(rf"case (\d+): return launch_{part}{small}<\1>",
+        first = {int(d) for d in re.findall(rf"case (\d+): return launch_{part}_small<\1>",
                                             entry)}
         tiled = {int(d) for d in re.findall(rf"case (\d+): return launch_{part}_tiled<\1>",
                                             entry)}
         assert first == {8, 16} and tiled == set(tiled_dims) == {32, 64}
         for d in first | tiled:
-            kernel = f"flash_bwd_{part}_f32" + ("_tiled" if d in tiled else small)
+            kernel = f"flash_bwd_{part}_f32" + ("_tiled" if d in tiled else "_small")
             assert fa.f32_bwd_launch_plan(1, 1, d, part)["kernel"] == kernel
             want.append((kernel, d))
     assert sorted(chip_smoke.PATH_INSTANCES["flash_attention_bwd_f32"]) == sorted(want)
@@ -255,7 +259,8 @@ def test_the_tiled_dq_kernel_bounds_its_launch_by_its_blocks_an_sm():
 
 
 def _ptxas_log(instances: dict) -> str:
-    mangled = {"flash_bwd_dq_f32": "_ZN12_GLOBAL__N_116flash_bwd_dq_f32ILi{}EEEvPKfS2_S2_S2_S2_S2_Pfi",
+    mangled = {"flash_bwd_dq_f32_small":
+                   "_ZN12_GLOBAL__N_122flash_bwd_dq_f32_smallILi{}EEEvPKfS2_S2_S2_S2_S2_Pfi",
                "flash_bwd_dq_f32_tiled":
                    "_ZN12_GLOBAL__N_122flash_bwd_dq_f32_tiledILi{}EEEvPKfS2_S2_S2_S2_S2_Pfi",
                "flash_bwd_dkv_f32_small":
@@ -271,7 +276,7 @@ def _ptxas_log(instances: dict) -> str:
 
 
 @pytest.mark.parametrize("kernel,d", [("flash_bwd_dkv_f32_tiled", 32), ("flash_bwd_dkv_f32_tiled", 64),
-                                      ("flash_bwd_dkv_f32_small", 16), ("flash_bwd_dq_f32", 64),
+                                      ("flash_bwd_dkv_f32_small", 16), ("flash_bwd_dq_f32_small", 8),
                                       ("flash_bwd_dq_f32_tiled", 32), ("flash_bwd_dq_f32_tiled", 64)])
 def test_phase_1_reads_the_instances_from_the_compiler_log(kernel, d):
     log = _ptxas_log({(kernel, d): (168, 0)})

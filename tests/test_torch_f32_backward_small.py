@@ -111,12 +111,13 @@ def test_dispatch_takes_the_small_kernel_at_d_8_and_16_and_phase_1_wants_it():
         assert plan["kernel"] == "flash_bwd_dkv_f32_small" and plan["tile"] == _block(d)["bq"]
         assert ("flash_bwd_dkv_f32_small", d) in chip_smoke.PATH_INSTANCES["flash_attention_bwd_f32"]
         assert ("flash_bwd_dkv_f32", d) not in chip_smoke.PATH_INSTANCES["flash_attention_bwd_f32"]
-    # the first design is gone with what only it used; the dQ kernel's first
-    # design keeps its helpers, and the small kernel takes over load_stats
-    for gone in (r"flash_bwd_dkv_f32[<(]", r"dkv_tile<", r"dkv_slot_floats", r"launch_dkv<"):
+    # the first design is gone with what only it used, and so is the dQ
+    # kernel's first design with its helpers (test_torch_f32_dq_small.py);
+    # the small kernels share axpy4, and this one takes over load_stats
+    for gone in (r"flash_bwd_dkv_f32[<(]", r"dkv_tile<", r"dkv_slot_floats", r"launch_dkv<",
+                 r"load_row<D>", r"store_row<D>", r"tile_chunk<D>", r"dot4\(", r"kGroup\b"):
         assert not re.search(rf"\b{gone}", SOURCE)
-    for kept in ("load_row<D>", "store_row<D>", "tile_chunk<D>", "dot4(", "axpy4(", "kGroup"):
-        assert kept in SOURCE
+    assert "axpy4(" in SOURCE
     assert SOURCE.count("load_stats(") == 2  # its definition and the small kernel's call
 
 
@@ -136,7 +137,7 @@ def test_the_launch_plan_blocks_at_the_path_shapes(d):
 
 
 _MANGLED = {
-    "flash_bwd_dq_f32": "_ZN12_GLOBAL__N_116flash_bwd_dq_f32ILi{}EEEvPKfS2_S2_S2_S2_S2_Pfi",
+    "flash_bwd_dq_f32_small": "_ZN12_GLOBAL__N_122flash_bwd_dq_f32_smallILi{}EEEvPKfS2_S2_S2_S2_S2_Pfi",
     "flash_bwd_dq_f32_tiled": "_ZN12_GLOBAL__N_122flash_bwd_dq_f32_tiledILi{}EEEvPKfS2_S2_S2_S2_S2_Pfi",
     "flash_bwd_dkv_f32_small":
         "_ZN12_GLOBAL__N_123flash_bwd_dkv_f32_smallILi{}EEEvPKfS2_S2_S2_S2_S2_PfS3_i",
