@@ -14,7 +14,8 @@ Phases:
   1. environment and build: the card's name and power limit, then every CUDA
      kernel of the port built from ``frn_tpu_torch/csrc`` (one nvcc each, in
      parallel), with each kernel instance's registers and spills (the
-     path's wgmma instances of the forward, the backward, the int8 forward
+     path's wgmma instances of the forward (B1, B3 and the exponential-free
+     B6), the backward, the int8 forward
      and the stem, the backward's ring dK/dV kernel and the int8 forward's
      ring kernel (both modes) at d 8 and 16, and the
      f32 forward's register-blocked instances at every head dim
@@ -29,13 +30,20 @@ Phases:
      forward's lse also in its mean gap, MEAN_LSE_ATOL; the f32 forward at
      the same shapes; the f32 training kernels, B1-lse, B2a and B2b at f32,
      at the f32 train path's shapes, d 8 and 16, the block edges, and with
-     lse < -88 at ragged N), then
+     lse < -88 at ragged N; the exponential-free forward B6, the
+     counterpart of ``tools/bench_flash.py``'s kernel, at the forward's
+     shapes at d 32 and 64, its output and each row's m + l), then
      timed (CUDA events) at its path's batch beside its bound and a one-call
      PyTorch yardstick (``library_ms``, never used by the port), the timed
      runs' outputs held against each other (the f32 forward at the eval
      batch, SDPA at f32 beside it; the f32 training kernels per DSEC
      micro-step at the train CLI's batch 2, SDPA at f32 and its autograd
      backward beside them, each launch's block count, and DDD17 at batch 4);
+     B6 through its path, ``frn_tpu_torch.tools.bench_flash`` at DSEC
+     stages 1 and 2 (B 8, N 19,200, d 32; B 16, N 4,800, d 64): B1's ms,
+     B6's, their difference as the exponentials' ms, share and rate, and
+     the materialized Q K^T, each beside its bound, launch counts zeroed
+     just before and read just after;
      with ``--other-source``, each
      other revision's forward entry points (B1, B1 with lse, B3) or backward
      entry points (B2a dQ, B2b dK/dV; at depth 50's and depth 18's shapes)
@@ -104,7 +112,15 @@ Phases:
      attention, and the corruption sweep over the seven OpenCV-free
      corruptions at severities 1 and 5. Then the folder protocol through
      the CLI (--corruption_root over a tree the phase writes) and a small
-     f32 evaluation on the card against the CPU. Phase 4 then evaluates
+     f32 evaluation on the card against the CPU. Before the folder protocol,
+     JPEG images: the DSEC fixture's frames re-encoded by the card
+     machine's OpenCV (quality 90, 4:2:0, one in three progressive; the
+     phase fails, naming it, if cv2 does not import there), the port's
+     ``image_io.imread`` equal to that ``cv2.imread`` on every file under
+     both flags, the host ms per 480x640 image of both, and ``cli.test``
+     DSEC bf16 over the JPEG tree and over a PNG twin of cv2's decodes (B1
+     4 times a batch, nothing else; the detections and summaries equal).
+     Phase 4 then evaluates
      in ``Trainer.fit`` (``eval_fn``) and checks the best-mAP checkpoint;
   9. the f32 training path, ``python -m frn_tpu_torch.cli.train`` (its
      ``main``) at the CLI's default f32, fusion ResNet-50 at full width from
@@ -345,6 +361,14 @@ LSE_ATOL = 1e-3
 # the port did before, leaves each row's denominator off by the sum of its
 # p's rounding errors: 1.1e-4 to 3.5e-4 there
 MEAN_LSE_ATOL = 2e-5
+# the exponential-free forward (B6) vs its plain version on bf16 outputs
+# (below 0.1 at these inputs): the same bf16 p from scores that may differ in
+# their last bits, f32 sums in another order, the output rounded to bf16, so
+# an output can land a bf16 step apart: atol two bf16 steps (2^-7) of the
+# largest |output|, rtol 2^-7; and each row's m + l (about 25 here) to the
+# scores' last bits and f32 summation order over up to 19,200 keys
+NOEXP_STEP = 2.0 ** -7
+NOEXP_ML_ATOL, NOEXP_ML_RTOL = 1e-3, 1e-5
 # backward kernels vs plain versions on bf16 outputs: both round P and dS to
 # bf16 before their products, but a P or dS can land one bf16 ulp apart
 # (__expf against exp), and such differences add up over the N keys or
@@ -435,11 +459,14 @@ KERNEL_SOURCES = {
     "int8_prepass": ("frn_tpu_torch/csrc/flash_attention_int8.cu",
                      "frn_tpu/ops/flash_attention.py:728"),
     "stem": ("frn_tpu_torch/csrc/stem.cu", "frn_tpu/ops/stem.py:71"),
+    # tools/bench_flash.py's exponential-free kernel (_kernel_noexp)
+    "flash_fwd_noexp": ("frn_tpu_torch/csrc/flash_attention.cu", "tools/bench_flash.py:23"),
 }
 TRAIN_KERNELS = ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_F32_KERNELS = ("flash_fwd_lse_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
 # the path's wgmma instances of each source, as (kernel, its first template
-# arguments): the forward at d 32 and 64, with and without exp_bf16; the dQ
+# arguments): the forward at d 32 and 64 in its three modes (B1 0, the
+# bf16-exp B3 1, the exponential-free B6 2); the dQ
 # and dK/dV kernels at d 32 and 64, and the ring dQ and dK/dV kernels at d 8
 # and 16 (the depth-18 and -34 training path); the int8 forward at d 32 and 64 and its
 # ring kernel at d 8 and 16, in modes int8_qk (0) and int8 (1) (the ring
@@ -451,7 +478,7 @@ TRAIN_F32_KERNELS = ("flash_fwd_lse_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32
 # and 34) their small ones.
 # Phase 1 fails unless each is in the compiler's log once, unspilled
 PATH_INSTANCES = {
-    "flash_attention": [("flash_fwd_wgmma", d, e) for d in (32, 64) for e in (0, 1)],
+    "flash_attention": [("flash_fwd_wgmma", d, mode) for d in (32, 64) for mode in (0, 1, 2)],
     "flash_attention_bwd": [(kernel, d) for kernel in ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
                             for d in (32, 64)] + [(kernel, d) for kernel in (
                                 "flash_bwd_dq_ring", "flash_bwd_dkv_ring") for d in (8, 16)],
@@ -809,6 +836,68 @@ def phase_flash_kernel():
                              lambda: fa.flash_attention_plain(q, k, v), lib_ms)
         check_close("flash_fwd", "o", out, ref, FLASH_ATOL, FLASH_RTOL, q.shape, errs)
     return times.row(errs["flash_fwd"], "forward")
+
+
+def phase_flash_noexp():
+    """The exponential-free forward (B6, a measuring kernel) against its plain
+    version at the forward's check shapes at d 32 and 64 (its output and each
+    row's m + l), then its path: ``frn_tpu_torch.tools.bench_flash`` at the
+    DSEC stages 1 and 2 (B 8 at N 19,200, d 32; B 16 at N 4,800, d 64),
+    which times it beside B1, Q K^T and their bounds, with the launch counts
+    zeroed just before and read just after (B6 and B1 only). Returns B6's row
+    of the kernels line (its launches: that run's), with its plain version's
+    times at both shapes."""
+    from frn_tpu_torch.ops import flash_attention as fa
+    from frn_tpu_torch.tools import bench_flash
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def qkv(b, n, d):
+        return [torch.randn((b, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(3)]
+
+    errs = {}
+    for shape in [s for s in BWD_CHECK_SHAPES if s[2] in fa.NOEXP_HEAD_DIMS]:
+        q, k, v = qkv(*shape)
+        o, ml = fa.flash_attention_noexp(q, k, v, return_ml=True)
+        o_ref, ml_ref = fa.flash_attention_noexp_plain(q, k, v, return_ml=True)
+        check_close("flash_fwd_noexp", "o", o, o_ref, NOEXP_STEP * o_ref.float().abs().max().item(),
+                    NOEXP_STEP, shape, errs)
+        check_close("flash_fwd_noexp_ml", "m + l", ml, ml_ref, NOEXP_ML_ATOL, NOEXP_ML_RTOL, shape,
+                    errs)
+
+    print(f"tools/bench_flash counterpart on {card_name_and_power_limit()}: python -m "
+          f"frn_tpu_torch.tools.bench_flash", flush=True)
+    torch.cuda.synchronize()
+    _reset_counts()
+    results = []
+    for b, n, d in bench_flash.SHAPES:
+        r = bench_flash.measure(b, n, d)
+        print(bench_flash.report(r), flush=True)
+        print(f"bench_flash {json.dumps(r)}", flush=True)
+        results.append(r)
+    torch.cuda.synchronize()
+    counts = _counts()
+    launches = counts.pop("flash_fwd_noexp")
+    others = {k: v for k, v in counts.items() if v and k != "flash_fwd"}
+    if not launches or not counts["flash_fwd"] or others:
+        fail(f"bench_flash launched B6 {launches} and B1 {counts['flash_fwd']} times, and {others}")
+
+    times = KernelTimes("flash_fwd_noexp")
+    for r in results:
+        b, n, d = r["B"], r["N"], r["d"]
+        q, k, v = qkv(b, n, d)
+        by, pr = r["bytes_bound_ms"] * 1e-3, r["products_bound_ms"] * 1e-3
+        out, ref = times.add({"B": b, "N": n, "d": d}, (by, pr),
+                             lambda: fa.flash_attention_noexp(q, k, v),
+                             lambda: fa.flash_attention_noexp_plain(q, k, v), None, count=1,
+                             extra={"b1_ms": r["b1_ms"], "exp_ms": r["exp_ms"]})
+        check_close("flash_fwd_noexp", "o", out, ref, NOEXP_STEP * ref.float().abs().max().item(),
+                    NOEXP_STEP, q.shape, errs)
+        del q, k, v, out, ref
+    row = times.row(errs["flash_fwd_noexp"], "bench_flash run (stages 1 and 2)")
+    row["launches"] = launches
+    return row
 
 
 def phase_flash_f32():
@@ -2254,6 +2343,194 @@ def write_corruption_tree(inputs: dict, root: Path, group: int) -> Path:
     return root
 
 
+# phase 8's JPEG tree: the DSEC fixture's RGB frames re-encoded by the card
+# machine's OpenCV at quality JPEG_QUALITY, 4:2:0, every JPEG_PROGRESSIVE_EVERY-th
+# progressive (named as the CSV schema names frames, <frame>.png: both readers
+# go by content); its PNG twin holds cv2.imread's decodes of those files
+JPEG_QUALITY, JPEG_PROGRESSIVE_EVERY = 90, 3
+JPEG_DECODE_REPS = 10
+
+
+def write_jpeg_trees(inputs: dict, root: Path):
+    """The DSEC fixture's JPEG tree and its PNG twin under ``root`` (images
+    only; events, labels and the checkpoint stay the fixture's). Returns
+    (the JPEG files, the eval inputs over the JPEG tree, over the twin)."""
+    from frn_tpu_torch.data import image_io
+
+    try:
+        import cv2
+    except ImportError as e:
+        fail(f"evaluation over JPEG: OpenCV (cv2) does not import on the card's machine ({e}); "
+             "the JPEG tree is written and held against cv2.imread there")
+    src = Path(inputs["dsec"]["img_dir"])
+    jpeg_dir, twin_dir = root / "dsec_jpeg", root / "dsec_twin"
+    files = []
+    for i, png in enumerate(sorted(src.rglob("*.png"))):
+        rel = png.relative_to(src)
+        progressive = int(i % JPEG_PROGRESSIVE_EVERY == 0)
+        ok, buf = cv2.imencode(".jpg", cv2.imread(str(png)), [
+            cv2.IMWRITE_JPEG_QUALITY, JPEG_QUALITY, cv2.IMWRITE_JPEG_PROGRESSIVE, progressive,
+            cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420])
+        if not ok:
+            fail(f"cv2.imencode of {png}")
+        for d in (jpeg_dir, twin_dir):
+            (d / rel).parent.mkdir(parents=True, exist_ok=True)
+        (jpeg_dir / rel).write_bytes(buf.tobytes())
+        image_io.imwrite(str(twin_dir / rel), cv2.imread(str(jpeg_dir / rel)), level=1)
+        files.append(jpeg_dir / rel)
+    over = {name: {**inputs, "dsec": {**inputs["dsec"], "img_dir": str(d)}}
+            for name, d in (("jpeg", jpeg_dir), ("twin", twin_dir))}
+    return files, over["jpeg"], over["twin"]
+
+
+def check_jpeg_sweep(root: Path) -> None:
+    """``image_io.imread`` against the card machine's ``cv2.imread`` under
+    both flags on JPEGs that machine's ``cv2.imencode`` writes: 8 sizes (1x1
+    to 480x640) x qualities 5, 50, 90, 100 x samplings 4:2:0, 4:2:2, 4:4:4,
+    4:4:0, 4:1:1 x sequential or progressive; restart intervals 1, 2, 7;
+    gray; noise at qualities 1 and 100. Fails on any mismatch, naming its
+    kind, so that a sampling where that OpenCV and the tests' disagree shows."""
+    import itertools
+
+    import cv2
+    import numpy as np
+
+    from frn_tpu_torch.data import image_io
+
+    def scene(h, w, seed):
+        rng = np.random.default_rng(seed)
+        y, x = np.mgrid[:h, :w]
+        img = np.stack([(x * 3 + y) % 256, (x * y) % 256, 128 + 100 * np.sin(x / 5.0 + y / 7.0)], -1)
+        return np.clip(img + rng.normal(0, 20, img.shape), 0, 255).astype(np.uint8)
+
+    cases = []
+    for (h, w), q, sampling, prog in itertools.product(
+            ((1, 1), (2, 3), (5, 2), (9, 17), (16, 16), (31, 45), (64, 96), (480, 640)),
+            (5, 50, 90, 100), ("420", "422", "444", "440", "411"), (0, 1)):
+        cases.append((f"{h}x{w} q {q} sampling {sampling}" + (" progressive" if prog else ""),
+                      scene(h, w, h * w + q),
+                      [cv2.IMWRITE_JPEG_QUALITY, q, cv2.IMWRITE_JPEG_PROGRESSIVE, prog,
+                       cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                       getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{sampling}")]))
+    for interval, prog in itertools.product((1, 2, 7), (0, 1)):
+        cases.append((f"restart interval {interval}" + (" progressive" if prog else ""),
+                      scene(64, 96, interval), [cv2.IMWRITE_JPEG_RST_INTERVAL, interval,
+                                                cv2.IMWRITE_JPEG_PROGRESSIVE, prog,
+                                                cv2.IMWRITE_JPEG_OPTIMIZE, 1]))
+    noise = np.random.default_rng(1).integers(0, 256, (64, 96, 3), dtype=np.uint8)
+    for prog in (0, 1):
+        cases.append((f"gray{' progressive' if prog else ''}", scene(64, 96, 3)[:, :, 0],
+                      [cv2.IMWRITE_JPEG_PROGRESSIVE, prog]))
+        for q in (1, 100):
+            cases.append((f"noise q {q}{' progressive' if prog else ''}", noise,
+                          [cv2.IMWRITE_JPEG_QUALITY, q, cv2.IMWRITE_JPEG_PROGRESSIVE, prog]))
+    t0 = time.perf_counter()
+    path = root / "sweep.jpg"
+    for kind, img, params in cases:
+        ok, buf = cv2.imencode(".jpg", img, params)
+        if not ok:
+            fail(f"cv2.imencode of the JPEG sweep's {kind}")
+        path.write_bytes(buf.tobytes())
+        for flag in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE):
+            want, got = cv2.imread(str(path), flag), image_io.imread(str(path), flag)
+            if want is None or got.shape != want.shape or not np.array_equal(got, want):
+                fail(f"image_io.imread differs from cv2.imread on the JPEG sweep's {kind} (flag {flag})")
+    print(f"JPEG sweep: image_io.imread equals OpenCV {cv2.__version__}'s cv2.imread on "
+          f"{2 * len(cases)} reads ({len(cases)} files: 8 sizes x 4 qualities x 5 samplings x "
+          f"sequential or progressive, restarts, gray, noise; both flags) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def check_jpeg_evaluation(inputs: dict, root: Path) -> None:
+    """The port's JPEG decoder on the card's machine: ``image_io.imread``
+    equal to that machine's ``cv2.imread`` on every file of the JPEG tree
+    under both flags; the host ms of both per 480x640 image; then ``cli.test``
+    DSEC bf16 over the JPEG tree and over its PNG twin (B1 4 times a batch,
+    nothing else), whose detections and summaries must be equal, and the
+    CLI's eval loop again warm over each, in turns (JPEG, PNG, PNG, JPEG)."""
+    import pickle
+
+    import cv2
+    import numpy as np
+
+    from frn_tpu_torch.data import image_io
+
+    t0 = time.perf_counter()
+    files, over_jpeg, over_twin = write_jpeg_trees(inputs, root)
+    print(f"evaluation over JPEG: {len(files)} DSEC frames re-encoded by OpenCV {cv2.__version__} "
+          f"(quality {JPEG_QUALITY}, 4:2:0, one in {JPEG_PROGRESSIVE_EVERY} progressive) and "
+          f"their PNG twin written in {time.perf_counter() - t0:.1f} s", flush=True)
+    for path in files:
+        for flag in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE):
+            want, got = cv2.imread(str(path), flag), image_io.imread(str(path), flag)
+            if want is None or got.shape != want.shape or not np.array_equal(got, want):
+                fail(f"image_io.imread differs from cv2.imread on {path.name} (flag {flag})")
+    print(f"image_io.imread equals cv2.imread on all {len(files)} JPEG files under IMREAD_COLOR "
+          f"and IMREAD_GRAYSCALE", flush=True)
+    check_jpeg_sweep(root)
+    # in turns file by file, the first reader alternating, so that the host's
+    # drift falls on both: the median of each reader's ms and of their ratio
+    reads = (("port", image_io.imread), ("cv2.imread", cv2.imread))
+    for _, read in reads:
+        read(str(files[0]))
+    times = {name: [] for name, _ in reads}
+    ratios = []
+    for rep in range(JPEG_DECODE_REPS):
+        for i, path in enumerate(files):
+            ms = {}
+            for name, read in reads[::-1] if (rep + i) % 2 else reads:
+                t0 = time.perf_counter()
+                read(str(path))
+                ms[name] = (time.perf_counter() - t0) * 1e3
+                times[name].append(ms[name])
+            ratios.append(ms["port"] / ms["cv2.imread"])
+    port_ms, cv2_ms = (statistics.median(times[name]) for name, _ in reads)
+    quartiles = statistics.quantiles(ratios, n=4)
+    print(f"JPEG decode, 480x640 BGR, host of {card_name_and_power_limit()}, in turns file by file "
+          f"over {JPEG_DECODE_REPS} x {len(files)} files: port median {port_ms:.3f} ms per image "
+          f"({1e3 / port_ms:.1f} img/s), cv2.imread {cv2_ms:.3f} ms ({1e3 / cv2_ms:.1f} img/s); "
+          f"port / cv2 per file median {statistics.median(ratios):.3f} (quartiles "
+          f"{quartiles[0]:.3f}-{quartiles[2]:.3f})", flush=True)
+
+    batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    runs = {}
+    for name, over in (("JPEG", over_jpeg), ("PNG twin", over_twin)):
+        folder = str(root / f"eval_dsec_bf16_{name.split()[0].lower()}")
+        label = f"DSEC bf16 over {name}"
+        text, counts, _ = run_eval_cli(label, "test", _cli_flags(over, "dsec", folder, "--compute_dtype",
+                                                                  "bfloat16"))
+        if counts != {**dict.fromkeys(_COUNTERS, 0), "flash_fwd": 4 * batches}:
+            fail(f"evaluation ({label}) launched {counts}, expected B1 {4 * batches} times")
+        fps, summary = check_eval_summary(label, text, folder)
+        with open(Path(folder) / "detections.txt", "rb") as f:
+            runs[name] = (fps, summary, pickle.load(f))
+    (fps_j, sum_j, det_j), (fps_p, sum_p, det_p) = runs["JPEG"], runs["PNG twin"]
+    same = len(det_j) == len(det_p) and all(
+        len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+        for a, b in zip(det_j, det_p))
+    n_det = sum(len(x) for per_image in det_j for x in per_image)
+    print(f"evaluation DSEC bf16 over JPEG vs its PNG twin: {n_det} detections, equal: {same}; "
+          f"summaries equal: {sum_j == sum_p}; {fps_j:.2f} img/s over JPEG, {fps_p:.2f} over PNG "
+          f"(the CLI's, first batch included)", flush=True)
+    if not (same and sum_j == sum_p):
+        fail("evaluation over JPEG differs from the same frames' PNG twin")
+
+    from frn_tpu_torch.eval.detections import collect_detections
+
+    loops = {"JPEG": [], "PNG twin": []}
+    built = {name: eval_model(over, "dsec", "--compute_dtype", "bfloat16")
+             for name, over in (("JPEG", over_jpeg), ("PNG twin", over_twin))}
+    for name in ("JPEG", "PNG twin", "PNG twin", "JPEG"):
+        _, ds, config, infer = built[name]
+        _, warm_s = collect_detections(ds, infer, config, batch_size=EVAL_BATCH)
+        loops[name].append(EVAL_IMAGES / warm_s)
+    print("evaluation DSEC bf16, the eval loop warm in turns (JPEG, PNG, PNG, JPEG): "
+          + "; ".join(f"{name} {', '.join(f'{v:.2f}' for v in vals)} img/s"
+                      for name, vals in loops.items()), flush=True)
+    del built
+    torch.cuda.empty_cache()
+
+
 def phase_evaluation(kernel_rows, inputs: dict, root: Path) -> None:
     """The evaluation path through ``python -m frn_tpu_torch.cli.test`` on
     the card, full width (fusion ResNet-50, feature size 256): DSEC at bf16
@@ -2334,6 +2611,7 @@ def phase_evaluation(kernel_rows, inputs: dict, root: Path) -> None:
         del infer, rgb, event
         torch.cuda.empty_cache()
     kernel_rows["flash_fwd_f32"]["launches"] = f32_launches
+    check_jpeg_evaluation(inputs, root)
 
     # the folder protocol through the CLI, at bf16 over the small fixture
     tree = write_corruption_tree(inputs, root / "corruptions", group=0)
@@ -2379,7 +2657,8 @@ _COUNTERS = {"flash_fwd": ("flash_attention", "flash_fwd_launches"),
              "flash_int8": ("flash_attention", "flash_int8_launches"),
              "int8_qk_prepass": ("flash_attention", "int8_qk_prepass_launches"),
              "int8_prepass": ("flash_attention", "int8_prepass_launches"),
-             "stem": ("stem", "stem_launches")}
+             "stem": ("stem", "stem_launches"),
+             "flash_fwd_noexp": ("flash_attention", "flash_fwd_noexp_launches")}
 
 
 def _counter_modules():
@@ -5572,7 +5851,8 @@ def main(argv=None) -> None:
     started = time.perf_counter()
     phase_environment()
     others = build_others(args.other_source) if args.other_source else {}
-    rows = {"flash_fwd": phase_flash_kernel(), "flash_fwd_f32": phase_flash_f32(),
+    rows = {"flash_fwd": phase_flash_kernel(), "flash_fwd_noexp": phase_flash_noexp(),
+            "flash_fwd_f32": phase_flash_f32(),
             **phase_flash_backward(), **phase_flash_train_f32()}
     by_name = {name: {src: lib for src, lib in others.items() if Path(src).name == name}
                for name in ("flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_int8.cu",

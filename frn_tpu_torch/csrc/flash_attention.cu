@@ -13,11 +13,23 @@
 // TPU kernel's ones lane of V sums them; the output accumulator is f32 and is
 // divided by l once, at the end.
 //
-// The kExpBf16 instances replace the same Pallas kernel with exp_bf16=True
+// The bf16-exp instances (kModeExpBf16 of the wgmma kernel, kExpBf16 of the
+// mma.sync one) replace the same Pallas kernel with exp_bf16=True
 // (flash_nonlocal_attention_bf16exp, inference only, no lse): there
 // p = bf16(exp(bf16(s - m))), m the running row max over 64-key tiles, and l
 // sums those bf16 p, as the TPU kernel's ones lane does. The key and query
 // tails of any N are masked here, so no padded copy of Q, K or V is ever made.
+//
+// The kNoExp instances (d 32 and 64, wgmma kernel only) replace the Pallas
+// kernel tools/bench_flash.py::_kernel_noexp (flash_noexp), a measuring
+// device: B1's data flow with the exponential taken out. There p = s * 1e-4
+// in f32, with no rescale of the accumulator or of l when the running max
+// moves; l sums the f32 p, P V takes bf16(p), m is still tracked, and
+// O = acc / (l + 1) in bf16 (and, on request, the row's m + l in f32). Keys
+// past N contribute nothing (the TPU tool's padded keys add -1e26 to l each,
+// so its output depends on its own padding: the two agree where N is a
+// multiple of its blocks). Its time beside B1's splits B1's into products and
+// exponentials.
 //
 // What bounds it on an H100: every score costs one exponential and 4d flops of
 // the two products. At the DSEC stage-1 shape (N = 19,200, d = 32) the
@@ -75,6 +87,11 @@
 namespace {
 
 using namespace flash;
+
+// the wgmma forward's modes: B1 (exp, p rounded to bf16 after it), B3 (the
+// bf16-exp forward) and the exponential-free measuring kernel
+constexpr int kModeExp = 0, kModeExpBf16 = 1, kModeNoExp = 2;
+constexpr float kNoExpScale = 1e-4f;
 
 // the K/V ring (flash_sm90.cuh): slot s holds a K tile and then a V tile
 template <int D, int kThreads>
@@ -153,6 +170,31 @@ __device__ __forceinline__ void softmax_any(bool last_ragged, float (&s)[kTile /
   } else {
     softmax_tile<kExpBf16, false, kSum>(s, key, n, m, l, alpha, pa);
   }
+}
+
+// The kNoExp tile: the running max over valid keys, p = s * 1e-4 (0 past N)
+// as the PV product's bf16 A fragments in pa, and this thread's f32 p added
+// to its partial row sums l (the quad's partial sums are added at the end).
+template <bool kMask>
+__device__ __forceinline__ void noexp_tile(float (&s)[kTile / 8][4], int key, int n, float (&m)[2],
+                                           float (&l)[2], uint32_t (&pa)[kTile / 16][4]) {
+#pragma unroll
+  for (int nt = 0; nt < kTile / 8; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool valid = !kMask || key + nt * 8 + (i & 1) < n;
+      const float x = s[nt][i];
+      m[i >> 1] = fmaxf(m[i >> 1], valid ? x : -INFINITY);
+      s[nt][i] = valid ? x * kNoExpScale : 0.f;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += s[nt][2 * h] + s[nt][2 * h + 1];
+      pa[nt / 2][(nt % 2) * 2 + h] = pack_bf16x2(s[nt][2 * h], s[nt][2 * h + 1]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) m[i] = quad_max(m[i]);
 }
 
 // acc rows times alpha; skipped when no row max of the warp moved (alpha = 1,
@@ -272,8 +314,10 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 // ------------------------------------------------------------ wgmma variant
 
 // kGroups warpgroups of 64 query rows each; both products are wgmma, and
-// thread 0 stages K and V by TMA (kmap, vmap: encode_tile_map of K and V)
-template <int D, bool kExpBf16, int kGroups>
+// thread 0 stages K and V by TMA (kmap, vmap: encode_tile_map of K and V).
+// kMode: kModeExp (B1, B1-lse), kModeExpBf16 (B3) or kModeNoExp (lse then
+// holds the row's m + l)
+template <int D, int kMode, int kGroups>
 __global__ void __launch_bounds__(kGroups * 128, 4 / kGroups)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
                 const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
@@ -303,7 +347,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap kmap, const __grid_constant_
       if (j < tiles) stage_tma<D>(&kmap, &vmap, j, ring, full);
     }
   }
-  if constexpr (!kExpBf16) {
+  if constexpr (kMode == kModeExp) {
     if (threadIdx.x < 64) ones[threadIdx.x] = 0x3f803f80u;  // bf16 1.0 pairs
     fence_proxy_async();  // the first __syncthreads of the loop hands them to wgmma
   }
@@ -316,8 +360,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap kmap, const __grid_constant_
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  // without kExpBf16, a tile's row sums of the bf16 p: P times a ones B (n8)
-  // on the tensor core beside P V, from zero each tile; columns equal
+  // in kModeExp, a tile's row sums of the bf16 p: P times a ones B (n8) on
+  // the tensor core beside P V, from zero each tile; columns equal
   float lsum[1][4] = {{0.f, 0.f, 0.f, 0.f}};
 
   for (int j = 0; j < tiles; ++j) {
@@ -347,21 +391,30 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap kmap, const __grid_constant_
 #pragma unroll
       for (int i = 0; i < 4; ++i) fence_reg(acc[jd][i]);
     }
-    if constexpr (!kExpBf16) {  // l += tile j - 1's sums (zero at j = 0), then zero them
+    if constexpr (kMode == kModeExp) {  // l += tile j - 1's sums (zero at j = 0), then zero them
 #pragma unroll
       for (int i = 0; i < 4; ++i) fence_reg(lsum[0][i]);
       l[0] += lsum[0][0];
       l[1] += lsum[0][2];
       lsum[0][0] = lsum[0][1] = lsum[0][2] = lsum[0][3] = 0.f;
     }
-    float alpha[2];
     uint32_t pa[kTile / 16][4];
-    softmax_any<kExpBf16, kExpBf16>(ragged && j == tiles - 1, s, j * kTile + 2 * t, n, m, l,
-                                    alpha, pa);
-    rescale(acc, alpha);
-    if constexpr (!kExpBf16) {
-      l[0] *= alpha[0];
-      l[1] *= alpha[1];
+    if constexpr (kMode == kModeNoExp) {
+      if (ragged && j == tiles - 1) {
+        noexp_tile<true>(s, j * kTile + 2 * t, n, m, l, pa);
+      } else {
+        noexp_tile<false>(s, j * kTile + 2 * t, n, m, l, pa);
+      }
+    } else {
+      constexpr bool kBf16 = kMode == kModeExpBf16;
+      float alpha[2];
+      softmax_any<kBf16, kBf16>(ragged && j == tiles - 1, s, j * kTile + 2 * t, n, m, l, alpha,
+                                pa);
+      rescale(acc, alpha);
+      if constexpr (kMode == kModeExp) {
+        l[0] *= alpha[0];
+        l[1] *= alpha[1];
+      }
     }
 
     const uint64_t vdesc = tile_desc<D>(kt + kTile * D);
@@ -369,7 +422,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap kmap, const __grid_constant_
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) {
       wgmma_m64k16<1>(acc, pa[kk], vdesc + ((16 * 2 * D) >> 4) * kk, 1);  // 16 keys on
-      if constexpr (!kExpBf16) wgmma_m64n8k16<0>(lsum[0], pa[kk], ones_desc, 1);
+      if constexpr (kMode == kModeExp) wgmma_m64n8k16<0>(lsum[0], pa[kk], ones_desc, 1);
     }
     wgmma_commit();
   }
@@ -379,14 +432,25 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap kmap, const __grid_constant_
 #pragma unroll
     for (int i = 0; i < 4; ++i) fence_reg(acc[jd][i]);
   }
-  if constexpr (!kExpBf16) {
+  if constexpr (kMode == kModeExp) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) fence_reg(lsum[0][i]);
     l[0] += lsum[0][0];
     l[1] += lsum[0][2];
   }
   float* lse_b = lse == nullptr ? nullptr : lse + static_cast<size_t>(blockIdx.y) * n;
-  write_rows<D>(o + base, lse_b, acc, m, l, row0, n, t);
+  if constexpr (kMode == kModeNoExp) {  // O = acc / (l + 1), and m + l on request
+    const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
+    const int row1 = row0 + 8;
+    store_rows<D>(o + base, acc, row0, row1, row0 < n, row1 < n, t, 1.f / (l0 + 1.f),
+                  1.f / (l1 + 1.f));
+    if (lse_b != nullptr && t == 0) {
+      if (row0 < n) lse_b[row0] = m[0] + l0;
+      if (row1 < n) lse_b[row1] = m[1] + l1;
+    }
+  } else {
+    write_rows<D>(o + base, lse_b, acc, m, l, row0, n, t);
+  }
 }
 
 // ------------------------------------------------------------ launch
@@ -410,16 +474,16 @@ int launch_mma(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool kExpBf16, int kGroups>
+template <int D, int kMode, int kGroups>
 int launch_wgmma(const Args& a) {
   static int set_for_device = -1;
-  int rc = allow_smem(flash_fwd_wgmma<D, kExpBf16, kGroups>, ring_bytes<D>(), set_for_device);
+  int rc = allow_smem(flash_fwd_wgmma<D, kMode, kGroups>, ring_bytes<D>(), set_for_device);
   CUtensorMap kmap, vmap;
   if (rc == 0) rc = encode_tile_map<D>(&kmap, a.k, a.batch, a.n);
   if (rc == 0) rc = encode_tile_map<D>(&vmap, a.v, a.batch, a.n);
   if (rc != 0) return rc;
   const dim3 grid((a.n + 64 * kGroups - 1) / (64 * kGroups), a.batch);
-  flash_fwd_wgmma<D, kExpBf16, kGroups>
+  flash_fwd_wgmma<D, kMode, kGroups>
       <<<grid, kGroups * 128, ring_bytes<D>(), a.stream>>>(kmap, vmap, a.q, a.o, a.lse, a.n);
   return static_cast<int>(cudaGetLastError());
 }
@@ -427,15 +491,18 @@ int launch_wgmma(const Args& a) {
 // By measurement on the H100 (PERF.md): at d 32 one warpgroup of 64 rows per
 // block (five warpgroups fit on an SM, four in 128-row blocks: registers); at
 // d 64 two (the ring's 66 KB of shared memory fits only three 64-row blocks on
-// an SM, two 128-row ones four warpgroups). mma.sync at d 8 and 16.
-template <bool kExpBf16>
+// an SM, two 128-row ones four warpgroups). mma.sync at d 8 and 16 (not in
+// kModeNoExp, which the wgmma kernel alone has).
+template <int kMode>
 int launch_d(int d, const Args& a) {
   if (a.batch <= 0 || a.n <= 0 || a.batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (kMode != kModeNoExp) {
+    if (d == 8) return launch_mma<8, kMode == kModeExpBf16>(a);
+    if (d == 16) return launch_mma<16, kMode == kModeExpBf16>(a);
+  }
   switch (d) {
-    case 8: return launch_mma<8, kExpBf16>(a);
-    case 16: return launch_mma<16, kExpBf16>(a);
-    case 32: return launch_wgmma<32, kExpBf16, 1>(a);
-    case 64: return launch_wgmma<64, kExpBf16, 2>(a);
+    case 32: return launch_wgmma<32, kMode, 1>(a);
+    case 64: return launch_wgmma<64, kMode, 2>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -456,11 +523,19 @@ Args make_args(const void* q, const void* k, const void* v, void* o, void* lse, 
 // this.
 extern "C" int frn_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
                                   int batch, int n, int d, void* stream) {
-  return launch_d<false>(d, make_args(q, k, v, o, lse, batch, n, stream));
+  return launch_d<kModeExp>(d, make_args(q, k, v, o, lse, batch, n, stream));
 }
 
 // The bf16-exp forward (inference only): the same arguments without lse.
 extern "C" int frn_flash_fwd_bf16exp_bf16(const void* q, const void* k, const void* v, void* o,
                                           int batch, int n, int d, void* stream) {
-  return launch_d<true>(d, make_args(q, k, v, o, nullptr, batch, n, stream));
+  return launch_d<kModeExpBf16>(d, make_args(q, k, v, o, nullptr, batch, n, stream));
+}
+
+// The exponential-free forward (a measuring kernel, d 32 and 64 only): the
+// same arguments as frn_flash_fwd_bf16, with `ml` an optional (B, N) f32
+// output of each row's m + l.
+extern "C" int frn_flash_fwd_noexp_bf16(const void* q, const void* k, const void* v, void* o,
+                                        void* ml, int batch, int n, int d, void* stream) {
+  return launch_d<kModeNoExp>(d, make_args(q, k, v, o, ml, batch, n, stream));
 }

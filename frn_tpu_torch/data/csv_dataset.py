@@ -1,12 +1,13 @@
 """CSV-label datasets for the DSEC and PKU-DDD17-Car benchmarks.
 
 Counterpart of ``frn_tpu/data/csv_dataset.py`` (the reference's
-CSVDataset_event / CSVDataset_gray, dataloader.py:26-402), reading PNGs with
-``data/image_io.py`` instead of OpenCV:
+CSVDataset_event / CSVDataset_gray, dataloader.py:26-402), reading its JPEG
+and PNG images with ``data/image_io.py`` (the pixels ``cv2.imread`` gives)
+instead of OpenCV:
   * annotation CSV rows: img_file,x1,y1,x2,y2,class (empty coords = image with no
     annotations); class-map CSV rows: name,id
   * event channel: pre-voxelized .npz (key 'arr_0', (C,H,W)) for 'voxel', or a
-    grayscale e2vid reconstruction png for 'gray'
+    grayscale e2vid reconstruction image (PNG or JPEG) for 'gray'
   * RGB path schema differs per benchmark (dataloader.py:121-126):
       dsec : <img_dir>/<seq>/images/left/rectified/<frame>.png
       ddd17: <img_dir>/<rel path with .npz -> .png>

@@ -316,8 +316,9 @@ class DSECDetDataset:
     def load_image_u8(self, seq: SequenceDirectory, idx: int) -> np.ndarray:
         """(H, W, 3) uint8 BGR; zeros for a missing file, as the JAX dataset
         gives when ``cv2.imread`` returns None. A file ``image_io`` cannot
-        decode raises (it refuses some PNG kinds OpenCV reads, and zeros there
-        would train on blank images unseen)."""
+        decode (a truncated or corrupt JPEG, a format other than JPEG and PNG)
+        raises: OpenCV returns part of a truncated JPEG, and zeros there would
+        train on blank images unseen."""
         try:
             img = image_io.imread(str(seq.image_paths[idx]))
         except FileNotFoundError:

@@ -14,9 +14,9 @@ Host-side numpy:
   * Aspect-ratio batch grouping (dataloader.py AspectRatioBasedSampler; the
     reference defines it but comments it out of training).
 
-Images are read by ``data/image_io.imread`` (BGR, as ``cv2.imread`` gives),
-which decodes PNG only: a JPEG raises ``ValueError``, where the JAX package
-reads any format through OpenCV.
+Images are read by ``data/image_io.imread``: JPEG and PNG, in BGR, the pixels
+``cv2.imread`` gives (EXIF orientation applied). Another format raises
+``ValueError``, where the JAX package reads it through OpenCV.
 """
 
 from __future__ import annotations

@@ -1,16 +1,38 @@
-"""PNG reading and writing on zlib and numpy, so that loading needs no OpenCV.
+"""Image reading (JPEG and PNG) and PNG writing without OpenCV.
 
-``imread`` returns what ``cv2.imread`` returns for the PNGs the datasets hold:
-8-bit gray, gray + alpha, RGB or RGBA, not interlaced, any of the five row
-filters. With ``IMREAD_COLOR`` (the default) it gives (H, W, 3) uint8 in BGR
-order: gray is repeated into the three channels, alpha is dropped. With
-``IMREAD_GRAYSCALE`` it gives (H, W) uint8: a color PNG is reduced as libpng
-reduces it for OpenCV (``png_set_rgb_to_gray`` with 0.299 and 0.587: the
-15-bit fixed-point weights 9797, 19234 and 3737 over R, G and B, truncated,
-and a pixel whose three values are equal kept as it is). A file that is
-missing raises ``FileNotFoundError`` (``cv2.imread`` returns None); a PNG of
-another kind (palette, 16-bit, interlaced) raises ``ValueError``, and so does
-a JPEG, with a message that names the limitation.
+``imread`` returns what ``cv2.imread`` returns, bit for bit, for every JPEG
+and PNG the datasets hold; the JAX package reads them with OpenCV, whose
+codecs are libjpeg-turbo and libpng. With ``IMREAD_COLOR`` (the default) it
+gives (H, W, 3) uint8 in BGR order, with ``IMREAD_GRAYSCALE`` (H, W) uint8.
+
+* JPEG goes to the port's native decoder (``frn_tpu_torch/native/jpeg.cpp``,
+  built by g++ at first use; see that file for what it reproduces):
+  Huffman-coded baseline, extended and progressive files with 1, 3 or 4
+  components (gray, YCbCr, RGB, CMYK, YCCK), any sampling factors libjpeg
+  takes, restart intervals. Arithmetic-coded, lossless, hierarchical and
+  12-bit files, and a truncated or corrupt one, raise ``ValueError`` naming
+  the kind. Without the library (no g++, or ``FRN_DISABLE_NATIVE``) a JPEG
+  raises ``RuntimeError`` naming the cause: no other path gives the same
+  pixels.
+* PNG is decoded on zlib and numpy: gray at bit depths 1, 2, 4, 8 and 16 (a
+  sample of 1, 2 or 4 bits scaled to 8 as libpng expands it, so 1-bit gives
+  0 and 255), gray + alpha, RGB and RGBA at 8 and 16 bits, palette at 1-8
+  bits with or without ``tRNS``, Adam7 interlace, the five row filters. As
+  OpenCV asks libpng: alpha is dropped, 16-bit samples keep their high byte,
+  gray is repeated into the three channels, and a palette is expanded to its
+  colours. Under ``IMREAD_GRAYSCALE`` a colour pixel is reduced as
+  ``png_set_rgb_to_gray`` with 0.299 and 0.587 reduces it: the 15-bit
+  weights 9797, 19234 and 3737 over R, G and B, truncated at 8 bits (a pixel
+  whose three values are equal kept as it is) and rounded at 16 bits before
+  the high byte; where a ``gAMA`` or ``sRGB`` chunk gives the file a gamma,
+  the 8-bit reduction runs through libpng's gamma tables as it does in
+  libpng (the 16-bit one raises ``ValueError``).
+* The EXIF orientation (a JPEG's first APP1 segment, a PNG's ``eXIf`` chunk)
+  turns the image as ``cv2.imread`` turns it.
+
+A file that is missing raises ``FileNotFoundError`` (``cv2.imread`` returns
+None); any other format (BMP, TIFF, WebP, GIF, ...) raises ``ValueError``
+naming it.
 
 ``imwrite`` writes uint8 (H, W) gray, or (H, W, C) with C 1, 3 (BGR) or 4
 (BGRA), as ``cv2.imwrite`` does; every row takes the same filter
@@ -19,27 +41,108 @@ a JPEG, with a message that names the limitation.
 
 from __future__ import annotations
 
+import ctypes
+import math
 import os
 import struct
 import zlib
 
 import numpy as np
 
+from frn_tpu_torch.utils import native
+
 IMREAD_COLOR = 1
 IMREAD_GRAYSCALE = 0
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _JPEG_SIGNATURE = b"\xff\xd8\xff"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # color type -> samples per pixel
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # color type -> samples per pixel
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 _GRAY_WEIGHTS = (9797, 19234, 3737)  # R, G, B in 1/32768
+# Adam7 passes: first column, first row, column step, row step
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+# other formats by their leading bytes, so that the error names them
+_OTHER_FORMATS = ((b"BM", "BMP"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
+                  (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"\xffO\xffQ", "JPEG 2000"),
+                  (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"), (b"\xff\x0a", "JPEG XL"),
+                  (b"\x00\x00\x00\x0cJXL ", "JPEG XL"), (b"v/1\x01", "OpenEXR"),
+                  (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"),
+                  (b"\x59\xa6\x6a\x95", "Sun raster"), (b"\x8aMNG", "MNG"))
+
+
+def _format_name(data: bytes) -> str:
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
+    if data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis", b"heic", b"heix", b"mif1"):
+        return "AVIF/HEIF"
+    for magic, name in _OTHER_FORMATS:
+        if data.startswith(magic):
+            return name
+    if len(data) >= 2 and data[:1] == b"P" and data[1:2] in b"123456fF":
+        return "PNM/PFM"
+    return "an unknown format"
+
+
+# ------------------------------------------------------------ EXIF orientation
+
+
+def _exif_orientation(tiff: bytes) -> int:
+    """IFD0's Orientation (tag 0x0112) of a TIFF-structured EXIF block, as
+    OpenCV's ExifReader reads it; 1 where it is absent or out of bounds."""
+    if len(tiff) < 8 or tiff[:2] not in (b"II", b"MM"):
+        return 1
+    e = "<" if tiff[:2] == b"II" else ">"
+    if struct.unpack_from(e + "H", tiff, 2)[0] != 0x2A:
+        return 1
+    ifd = struct.unpack_from(e + "I", tiff, 4)[0]
+    if ifd + 2 > len(tiff):
+        return 1
+    found = 1
+    for i in range(struct.unpack_from(e + "H", tiff, ifd)[0]):
+        at = ifd + 2 + 12 * i
+        if at + 12 > len(tiff):
+            return 1
+        if struct.unpack_from(e + "H", tiff, at)[0] == 0x0112:
+            found = struct.unpack_from(e + "H", tiff, at + 8)[0]
+    return found
+
+
+def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """OpenCV's ExifTransform: 2-4 flips, 5-8 a transpose and then a flip."""
+    if orientation in (5, 6, 7, 8):
+        img = img.swapaxes(0, 1)
+    if orientation in (2, 3, 6, 7):
+        img = img[:, ::-1]
+    if orientation in (3, 4, 7, 8):
+        img = img[::-1]
+    return np.ascontiguousarray(img)
+
+
+# ------------------------------------------------------------ JPEG
+
+
+def _jpeg(data: bytes, path: str, gray: bool):
+    """(the decoded image, its EXIF orientation) by the native decoder."""
+    lib = native.jpeg_lib()
+    buf = np.frombuffer(data, np.uint8)
+    info = np.zeros(4, np.int32)
+    err = ctypes.create_string_buffer(512)
+    rc = lib.frn_jpeg_info(buf.ctypes.data, buf.size, info.ctypes.data, err, len(err))
+    if rc == 0:
+        w, h = int(info[0]), int(info[1])
+        out = np.empty((h, w) if gray else (h, w, 3), np.uint8)
+        rc = lib.frn_jpeg_decode(buf.ctypes.data, buf.size, int(gray), out.ctypes.data, err,
+                                 len(err))
+    if rc != 0:
+        raise ValueError(f"{path}: {err.value.decode(errors='replace')}")
+    return out, int(info[3])
+
+
+# ------------------------------------------------------------ PNG
 
 
 def _chunks(data: bytes, path: str):
-    if data[:3] == _JPEG_SIGNATURE:
-        raise ValueError(f"{path}: a JPEG file; this reader decodes PNG only (the JAX package "
-                         "reads any format through OpenCV): convert the images to PNG")
-    if data[:8] != _SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
     pos = 8
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
@@ -97,53 +200,139 @@ def _unfilter_wavefront(filters, rows, bpp):
     return full.reshape(h + 1, w1, bpp)[1:, 1:].astype(np.uint8).reshape(h, stride)
 
 
-def _decode(path: str):
-    """(H, W, samples) uint8 and the PNG color type."""
-    if not os.path.isfile(path):
-        raise FileNotFoundError(path)
-    with open(path, "rb") as f:
-        data = f.read()
-    header, idat = None, []
+def _image_rows(raw: np.ndarray, w: int, h: int, depth: int, channels: int, path: str):
+    """One (sub-)image's filtered rows from ``raw`` -> (samples (h, w,
+    channels): uint8, or uint16 at depth 16; the bytes it took)."""
+    bits = depth * channels
+    stride = (w * bits + 7) // 8
+    size = h * (stride + 1)
+    if raw.size < size:
+        raise ValueError(f"{path}: {raw.size} bytes of image data for {w}x{h} at {bits} bits")
+    rows = raw[:size].reshape(h, stride + 1)
+    filters, rows = rows[:, 0], rows[:, 1:]
+    if filters.max(initial=0) > 4:
+        raise ValueError(f"{path}: unknown row filter {int(filters.max())}")
+    bpp = max(1, bits // 8)
+    unfilter = _unfilter_rows if filters.max(initial=0) <= 2 else _unfilter_wavefront
+    rows = unfilter(filters, rows, bpp)
+    if depth == 16:
+        v = rows.reshape(h, w * channels, 2).astype(np.uint16)
+        samples = (v[:, :, 0] << 8) | v[:, :, 1]
+    elif depth < 8:
+        shifts = (8 - depth) - depth * np.arange(8 // depth)  # first sample in the high bits
+        samples = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w]
+    else:
+        samples = rows
+    return samples.reshape(h, w, channels), size
+
+
+def _gamma_table(gamma: int) -> np.ndarray:
+    """libpng's png_build_8bit_table for a gamma in 1/100000: floor(255
+    (v / 255)^g + .5) between 0 and 255, identity where g is within 5% of 1."""
+    if 95000 <= gamma <= 105000:
+        return np.arange(256, dtype=np.int64)
+    v = np.arange(256)
+    t = np.array([math.floor(255 * math.pow(i / 255.0, gamma * 0.00001) + 0.5) for i in v])
+    t[0], t[255] = 0, 255
+    return t.astype(np.int64)
+
+
+def _reciprocal(g: int) -> int:  # png_reciprocal in 1/100000 fixed point
+    return int(math.floor(1e10 / g + 0.5))
+
+
+def _png(data: bytes, path: str, gray: bool):
+    """(the decoded image, its EXIF orientation), as OpenCV's PNG decoder
+    asks libpng for it."""
+    header, palette, idat, orientation, file_gamma = None, None, [], 1, None
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"eXIf":
+            orientation = _exif_orientation(body)
+        elif kind == b"gAMA" and len(body) == 4 and file_gamma is None:
+            file_gamma = struct.unpack(">I", body)[0] or None
+        elif kind == b"sRGB":
+            file_gamma = 45455  # libpng's PNG_GAMMA_sRGB_INVERSE
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color not in _CHANNELS or interlace != 0:
-        raise ValueError(f"{path}: only 8-bit gray, gray+alpha, RGB and RGBA PNGs without "
-                         f"interlacing are read (bit depth {depth}, color type {color}, "
-                         f"interlace {interlace})")
-    bpp = _CHANNELS[color]
+    if color not in _DEPTHS or depth not in _DEPTHS[color] or interlace > 1:
+        raise ValueError(f"{path}: not a valid PNG header (bit depth {depth}, color type "
+                         f"{color}, interlace {interlace})")
+    if color == 3 and palette is None:
+        raise ValueError(f"{path}: a palette PNG without PLTE")
+    channels = _CHANNELS[color]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (w * bpp + 1):
-        raise ValueError(f"{path}: {raw.size} bytes of image data for {w}x{h}x{bpp}")
-    raw = raw.reshape(h, w * bpp + 1)
-    filters, rows = raw[:, 0], raw[:, 1:]
-    if filters.max(initial=0) > 4:
-        raise ValueError(f"{path}: unknown row filter {int(filters.max())}")
-    unfilter = _unfilter_rows if filters.max(initial=0) <= 2 else _unfilter_wavefront
-    return unfilter(filters, rows, bpp).reshape(h, w, bpp), color
+    if interlace == 0:
+        img, _ = _image_rows(raw, w, h, depth, channels, path)
+    else:
+        img = np.zeros((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+        at = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx) if w > x0 else 0, -(-(h - y0) // dy) if h > y0 else 0
+            if pw and ph:
+                sub, used = _image_rows(raw[at:], pw, ph, depth, channels, path)
+                img[y0::dy, x0::dx] = sub
+                at += used
+    if color == 3:
+        if img.max(initial=0) >= len(palette):
+            raise ValueError(f"{path}: a palette index past the {len(palette)} PLTE entries")
+        img = palette[img[:, :, 0]]  # tRNS would only add the alpha that is dropped
+    elif depth < 8:
+        img = (img * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    is_gray = color in (0, 4)
+    if not is_gray:
+        img = img[:, :, :3]
+    if gray and not is_gray:
+        rgb = img.astype(np.int64)
+        r, g, b = rgb[:, :, 0], rgb[:, :, 1], rgb[:, :, 2]
+        wr, wg, wb = _GRAY_WEIGHTS
+        equal = (r == g) & (r == b)
+        gamma = file_gamma if file_gamma is not None and not 95000 <= file_gamma <= 105000 else None
+        if depth == 16:
+            if gamma is not None:
+                raise ValueError(f"{path}: a 16-bit colour PNG with a gamma is not read as gray")
+            img = ((wr * r + wg * g + wb * b + 16384) >> 15) >> 8
+        elif gamma is None:
+            img = np.where(equal, r, (wr * r + wg * g + wb * b) >> 15)
+        else:  # png_do_rgb_to_gray through gamma_to_1 and gamma_from_1
+            screen = _reciprocal(gamma)
+            to1, from1 = _gamma_table(_reciprocal(gamma)), _gamma_table(_reciprocal(screen))
+            lin = (wr * to1[r] + wg * to1[g] + wb * to1[b] + 16384) >> 15
+            img = np.where(equal, r, from1[lin])
+        return img.astype(np.uint8), orientation
+    if depth == 16:
+        img = img >> 8
+    img = img.astype(np.uint8)
+    if gray:
+        return np.ascontiguousarray(img[:, :, 0]), orientation
+    if is_gray:
+        return np.repeat(img[:, :, :1], 3, axis=2), orientation
+    return np.ascontiguousarray(img[:, :, 2::-1]), orientation
 
 
 def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:
     """BGR (H, W, 3) uint8, or gray (H, W) uint8 with ``IMREAD_GRAYSCALE``."""
-    img, color = _decode(path)
-    gray = color in (0, 4)
-    if flags == IMREAD_GRAYSCALE:
-        if gray:
-            return np.ascontiguousarray(img[:, :, 0])
-        r, g, b = (img[:, :, i].astype(np.int64) for i in range(3))
-        wr, wg, wb = _GRAY_WEIGHTS
-        y = (wr * r + wg * g + wb * b) >> 15
-        return np.where((r == g) & (r == b), r, y).astype(np.uint8)
-    if flags != IMREAD_COLOR:
+    if flags not in (IMREAD_COLOR, IMREAD_GRAYSCALE):
         raise ValueError(f"imread flags must be IMREAD_COLOR or IMREAD_GRAYSCALE, got {flags}")
-    if gray:
-        return np.repeat(img[:, :, :1], 3, axis=2)
-    return np.ascontiguousarray(img[:, :, 2::-1])
+    if not os.path.isfile(path):
+        raise FileNotFoundError(path)
+    with open(path, "rb") as f:
+        data = f.read()
+    gray = flags == IMREAD_GRAYSCALE
+    if data[:3] == _JPEG_SIGNATURE:
+        img, orientation = _jpeg(data, path, gray)
+    elif data[:8] == _SIGNATURE:
+        img, orientation = _png(data, path, gray)
+    else:
+        raise ValueError(f"{path}: {_format_name(data)} file; this reader decodes JPEG and PNG "
+                         "only (the JAX package reads other formats through OpenCV)")
+    return _orient(img, orientation)
 
 
 def _filter(img: np.ndarray, filter_type: int) -> np.ndarray:

@@ -15,6 +15,12 @@ All tensors are (B, N, d) with Q = phi, K = theta, V = g, and there is no
   (f32): with P = exp(Q K^T - lse) and D = rowsum(dO * O) in f32, the dQ
   kernel computes dS = P * (dO V^T - D) and dQ = dS K, the dK/dV kernel
   dK = dS^T Q and dV = P^T dO;
+* ``csrc/flash_attention.cu`` also holds the exponential-free forward, a
+  measuring kernel (the counterpart of ``tools/bench_flash.py``'s
+  ``flash_noexp``, bf16 at d 32 and 64): the forward's data flow with
+  p = s * 1e-4 in place of the exponential, O = sum bf16(p) V / (sum p + 1);
+  its time beside the forward's splits the forward's into products and
+  exponentials (``frn_tpu_torch.tools.bench_flash``);
 * ``csrc/flash_attention_int8.cu``: per-slice dynamic int8 quantization (a
   pre-pass kernel before the launch, ``int8_prepass``; its plain version is
   ``int8_kernel_inputs``), S = int32(Qi Ki^T) * sq * sk / 127^2, and PV in
@@ -42,6 +48,8 @@ import torch
 from frn_tpu_torch import build
 
 HEAD_DIMS = (8, 16, 32, 64)
+NOEXP_HEAD_DIMS = (32, 64)  # the exponential-free forward: the wgmma kernel's head dims
+NOEXP_SCALE = torch.tensor(1e-4, dtype=torch.float32)  # its p = s * 1e-4 (kNoExpScale)
 INT8_MODES = ("int8_qk", "int8")
 KERNEL_TILE = 64  # keys per tile of the forward kernels (B1, B3, B4)
 _LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)  # the kernels' kLog2e
@@ -76,6 +84,7 @@ flash_bwd_dkv_launches = 0
 flash_bwd_dq_f32_launches = 0
 flash_bwd_dkv_f32_launches = 0
 flash_fwd_bf16exp_launches = 0
+flash_fwd_noexp_launches = 0
 flash_int8_qk_launches = 0
 flash_int8_launches = 0
 int8_qk_prepass_launches = 0  # the int8 kernel's quantization pre-pass, by mode
@@ -97,6 +106,9 @@ def bind_forward(lib):
     lib.frn_flash_fwd_bf16.argtypes = [_P] * 5 + [_I] * 3 + [_P]
     lib.frn_flash_fwd_bf16exp_bf16.argtypes = [_P] * 4 + [_I] * 3 + [_P]
     lib.frn_flash_fwd_bf16.restype = lib.frn_flash_fwd_bf16exp_bf16.restype = _I
+    if hasattr(lib, "frn_flash_fwd_noexp_bf16"):  # an earlier revision has no such kernel
+        lib.frn_flash_fwd_noexp_bf16.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+        lib.frn_flash_fwd_noexp_bf16.restype = _I
     return lib
 
 
@@ -282,6 +294,33 @@ def flash_attention_bf16exp_plain(q, k, v, block_k: int = KERNEL_TILE) -> torch.
         return p, p
 
     return _online_softmax(q, k, v, block_k, weights)[0].to(v.dtype)
+
+
+def flash_attention_noexp_plain(q, k, v, block_k: int = KERNEL_TILE, return_ml: bool = False):
+    """The exponential-free kernel's function by its recurrence over key
+    tiles (``tools/bench_flash.py``'s ``_kernel_noexp`` on unpadded inputs):
+    f32 scores s, running row max m, p = s * 1e-4 in f32 with no rescale,
+    l += sum(p) in f32, acc += bf16(p) v in f32; O = acc / (l + 1) rounded to
+    v's dtype, and with ``return_ml`` also the row's m + l, (B, N) f32. The
+    result does not depend on ``block_k`` beyond the f32 summation order."""
+    b, n, _ = q.shape
+    tensor_core = q.is_cuda and q.dtype in (torch.bfloat16, torch.float16)
+    scale = NOEXP_SCALE.to(q.device)
+    m = torch.full((b, n, 1), float("-inf"), dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, n, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, n, v.shape[2]), dtype=torch.float32, device=q.device)
+    for start in range(0, n, block_k):
+        kb = k[:, start:start + block_k]
+        if tensor_core:
+            s = torch.bmm(q, kb.transpose(1, 2).contiguous(), out_dtype=torch.float32)
+        else:
+            s = torch.bmm(q.float(), kb.float().transpose(1, 2))
+        m = torch.maximum(m, s.amax(dim=2, keepdim=True))
+        p = s * scale
+        l = l + p.sum(dim=2, keepdim=True)
+        acc = acc + torch.bmm(p.to(v.dtype).float(), v[:, start:start + block_k].float())
+    o = (acc / (l + 1.0)).to(v.dtype)
+    return (o, (m + l).squeeze(2)) if return_ml else o
 
 
 def quantize_int8(x: torch.Tensor):
@@ -517,6 +556,37 @@ def flash_attention_bf16exp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
                 v.data_ptr(), o.data_ptr(), b, n, d)
         flash_fwd_bf16exp_launches += 1
     return o
+
+
+def flash_attention_noexp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          return_ml: bool = False):
+    """The exponential-free forward, a measuring kernel: O = sum bf16(p) v /
+    (sum p + 1) with p = (q k^T) * 1e-4, (B, N, d) bf16 at d 32 or 64, and
+    with ``return_ml`` also each row's m + l, (B, N) f32. The kernel on CUDA
+    (no fallback), ``flash_attention_noexp_plain`` on CPU; any other dtype or
+    head dim raises on both. No gradient: on CUDA an input that requires grad
+    raises."""
+    global flash_fwd_noexp_launches
+    _check_shapes(q, k, v)
+    if q.shape[2] not in NOEXP_HEAD_DIMS:
+        raise ValueError(f"the exponential-free forward takes head dims {NOEXP_HEAD_DIMS}, "
+                         f"got {q.shape[2]}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dtype != _BF16:
+            raise TypeError(f"the exponential-free forward takes bf16 {name}, got {x.dtype}")
+    if not _on_kernel_device(q):
+        return flash_attention_noexp_plain(q, k, v, return_ml=return_ml)
+    _refuse_grad("the exponential-free forward is a measuring kernel: it defines no gradient",
+                 q, k, v)
+    _check_kernel_args(q, ("q", q, _BF16), ("k", k, _BF16), ("v", v, _BF16))
+    b, n, d = q.shape
+    o = torch.empty_like(q)
+    ml = torch.empty((b, n), dtype=_F32, device=q.device) if return_ml else None
+    if o.numel():
+        _launch(_library().frn_flash_fwd_noexp_bf16, q, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(), None if ml is None else ml.data_ptr(), b, n, d)
+        flash_fwd_noexp_launches += 1
+    return (o, ml) if return_ml else o
 
 
 # slot s of each 32-key group of the int8 PV product holds key _PV_KEY_ORDER[s]:

@@ -1,15 +1,20 @@
-"""ctypes loader for the native host kernels (``frn_tpu_torch/native/voxelize.cpp``).
+"""ctypes loaders for the native host kernels: the event kernels
+(``frn_tpu_torch/native/voxelize.cpp``) and the JPEG decoder
+(``frn_tpu_torch/native/jpeg.cpp``).
 
-Counterpart of ``frn_tpu/utils/native.py``, over the port's own copy of the
-C++ source. The shared library is built on first use with g++ (a plain C ABI
-bound by ctypes, no binding library) into
-``frn_tpu_torch/_build/libfrn_native-<hash>.so``, where the hash covers the
+The event kernels are the counterpart of ``frn_tpu/utils/native.py``, over the
+port's own copy of the C++ source; the JPEG decoder stands in for the OpenCV
+that the JAX package reads images with. Each shared library is built on first
+use with g++ (a plain C ABI bound by ctypes, no binding library) into
+``frn_tpu_torch/_build/lib<name>-<hash>.so``, where the hash covers the
 source and the flags, so an edited source is rebuilt and a stale library
 never loads. Each build writes a temporary file and renames it into place,
 so processes that reach the first use at once never load a half-written
-library. Every entry point returns None where the library is unavailable
-(no g++, or ``FRN_DISABLE_NATIVE`` set), and callers take their numpy path.
-These are host kernels: they run on the CPU beside the card.
+library. The event entry points return None where the library is
+unavailable (no g++, or ``FRN_DISABLE_NATIVE`` set), and callers take their
+numpy path; ``jpeg_lib`` raises RuntimeError naming the cause instead, since
+no other path gives the same pixels. These are host kernels: they run on the
+CPU beside the card.
 """
 
 from __future__ import annotations
@@ -25,38 +30,86 @@ from typing import Optional
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parents[1] / "native" / "voxelize.cpp"
+JPEG_SOURCE = Path(__file__).resolve().parents[1] / "native" / "jpeg.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 GXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
+_jpeg_lib = None
+_jpeg_error = None  # why the JPEG library is unavailable, once a load failed
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libfrn_native-{digest}.so"
+def _path(source: Path, name: str) -> Path:
+    digest = hashlib.sha256(source.read_bytes() + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build() -> Path:
-    """Compile the library if it is missing; returns its path. Raises
-    RuntimeError with g++'s own message if the build fails."""
-    lib = library_path()
+def _build(source: Path, name: str) -> Path:
+    lib = _path(source, name)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     try:
-        proc = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+        proc = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(source)],
                               capture_output=True, text=True, timeout=120)
     except (OSError, subprocess.TimeoutExpired) as e:
-        raise RuntimeError(f"g++ could not build {SOURCE.name}: {e}") from e
+        raise RuntimeError(f"g++ could not build {source.name}: {e}") from e
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ exit {proc.returncode} building {SOURCE.name}:\n"
+        raise RuntimeError(f"g++ exit {proc.returncode} building {source.name}:\n"
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)
     return lib
+
+
+def library_path() -> Path:
+    return _path(SOURCE, "frn_native")
+
+
+def build() -> Path:
+    """Compile the event library if it is missing; returns its path. Raises
+    RuntimeError with g++'s own message if the build fails."""
+    return _build(SOURCE, "frn_native")
+
+
+def jpeg_library_path() -> Path:
+    return _path(JPEG_SOURCE, "frn_jpeg")
+
+
+def build_jpeg() -> Path:
+    """The same for the JPEG decoder."""
+    return _build(JPEG_SOURCE, "frn_jpeg")
+
+
+def jpeg_lib() -> ctypes.CDLL:
+    """The JPEG decoder's library, built at first use. Raises RuntimeError
+    naming the cause where it is unavailable: ``FRN_DISABLE_NATIVE`` set, or
+    g++ missing or failing (its message)."""
+    global _jpeg_lib, _jpeg_error
+    with _lock:
+        if _jpeg_lib is not None:
+            return _jpeg_lib
+        if os.environ.get("FRN_DISABLE_NATIVE"):
+            raise RuntimeError("JPEG images need the port's native decoder "
+                               "(frn_tpu_torch/native/jpeg.cpp), and FRN_DISABLE_NATIVE is set")
+        if _jpeg_error is None:
+            try:
+                lib = ctypes.CDLL(str(build_jpeg()))
+            except (RuntimeError, OSError) as e:
+                _jpeg_error = str(e)
+            else:
+                p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+                lib.frn_jpeg_info.argtypes = [p, i64, p, p, i32]
+                lib.frn_jpeg_decode.argtypes = [p, i64, i32, p, p, i32]
+                lib.frn_jpeg_info.restype = lib.frn_jpeg_decode.restype = i32
+                _jpeg_lib = lib
+                return lib
+        raise RuntimeError("JPEG images need the port's native decoder "
+                           f"(frn_tpu_torch/native/jpeg.cpp), which g++ could not build: "
+                           f"{_jpeg_error}")
 
 
 def get_lib() -> Optional[ctypes.CDLL]:

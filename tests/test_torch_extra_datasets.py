@@ -5,13 +5,16 @@ package reads them with OpenCV, the port with its own PNG reader, both in
 BGR), a COCO instances JSON, an Open Images metadata table, and an NCaltech101
 tree of event h5 files with their .bin boxes (skipped without h5py). Samples,
 annotations, labels and the aspect-ratio groups are held exactly: the same
-bytes decoded, the same voxelization (native in both, sums of +-1). A JPEG
-raises in the port, which decodes PNG only, where frn_tpu reads it through
-OpenCV.
+bytes decoded, the same voxelization (native in both, sums of +-1). JPEG
+images (written by OpenCV and PIL: sequential and progressive, an EXIF
+orientation) are read by the port's own decoder, pixel for pixel as
+frn_tpu's ``cv2.imread`` reads them.
 """
 
+import io
 import json
 
+import cv2
 import numpy as np
 import pytest
 
@@ -33,17 +36,38 @@ def _png(path, h, w, seed):
     imwrite(str(path), np.random.default_rng(seed).integers(0, 256, (h, w, 3), dtype=np.uint8))
 
 
+def _jpeg(h, w, seed, variant):
+    """JPEG bytes of a noisy gradient: 'baseline_420' and 'progressive_444'
+    by OpenCV, 'exif_rotated' by PIL with EXIF orientation 6 (read as w x h)."""
+    rng = np.random.default_rng(seed)
+    img = np.clip(np.mgrid[:h, :w].sum(0)[:, :, None] * [3, 5, 7] % 256
+                  + rng.normal(0, 15, (h, w, 3)), 0, 255).astype(np.uint8)
+    if variant == "exif_rotated":
+        from PIL import Image
+
+        exif = Image.Exif()
+        exif[0x0112] = 6
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG", quality=85, exif=exif.tobytes())
+        return buf.getvalue()
+    progressive = variant == "progressive_444"
+    sampling = cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444 if progressive else cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420
+    ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_PROGRESSIVE,
+                                         int(progressive), cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sampling])
+    return buf.tobytes()
+
+
 @pytest.fixture
 def coco(tmp_path):
     img_dir = tmp_path / "imgs"
     img_dir.mkdir()
     _png(img_dir / "a.png", 40, 60, 1)
     _png(img_dir / "b.png", 30, 50, 2)
-    (img_dir / "c.jpg").write_bytes(b"\xff\xd8\xff\xe0\x00\x10JFIF\x00" + bytes(64))
+    (img_dir / "c.jpg").write_bytes(_jpeg(27, 33, 3, "baseline_420"))
     data = {
         "images": [{"id": 7, "file_name": "a.png", "width": 60, "height": 40},
                    {"id": 3, "file_name": "b.png", "width": 50, "height": 30},
-                   {"id": 9, "file_name": "c.jpg", "width": 8, "height": 8}],
+                   {"id": 9, "file_name": "c.jpg", "width": 33, "height": 27}],
         "categories": [{"id": 10, "name": "cat"}, {"id": 2, "name": "dog"},
                        {"id": 5, "name": "car"}],
         "annotations": [
@@ -66,14 +90,44 @@ def test_coco_json_dataset_equals_jax(coco):
     assert [got.label_to_name(i) for i in range(3)] == [want.label_to_name(i) for i in range(3)]
     for i in range(3):
         np.testing.assert_array_equal(got.load_annotations(i), want.load_annotations(i))
-    for i in (got.image_ids.index(7), got.image_ids.index(3)):
+    for i in range(3):  # two PNGs and a JPEG
         _assert_samples_equal(got[i], want[i])
 
 
-def test_a_jpeg_raises_naming_the_limitation(coco):
-    got = textra.CocoJsonDataset(*coco)
-    with pytest.raises(ValueError, match="JPEG.*PNG only"):
-        got[got.image_ids.index(9)]
+@pytest.mark.parametrize("variant", ["baseline_420", "progressive_444", "exif_rotated"])
+def test_coco_and_oid_over_jpeg_images_equal_jax(tmp_path, variant):
+    """COCO's images are all JPEG, and OidDataset names every image <id>.jpg:
+    both datasets over real JPEG bytes, sample for sample."""
+    img_dir = tmp_path / "imgs"
+    img_dir.mkdir()
+    sizes = {"p1": (45, 61), "p2": (30, 50)}
+    for k, (name, (h, w)) in enumerate(sizes.items()):
+        (img_dir / f"{name}.jpg").write_bytes(_jpeg(h, w, k, variant))
+    turned = variant == "exif_rotated"
+    coco = {"images": [{"id": k + 1, "file_name": f"{name}.jpg", "width": h if turned else w,
+                        "height": w if turned else h} for k, (name, (h, w)) in enumerate(sizes.items())],
+            "categories": [{"id": 4, "name": "car"}, {"id": 1, "name": "person"}],
+            "annotations": [{"image_id": 1, "bbox": [3, 4, 20, 12], "category_id": 4, "iscrowd": 0},
+                            {"image_id": 2, "bbox": [1.5, 2, 9, 17], "category_id": 1}]}
+    ann_json = tmp_path / "instances.json"
+    ann_json.write_text(json.dumps(coco))
+    got, want = (m.CocoJsonDataset(str(img_dir), str(ann_json)) for m in (textra, jextra))
+    assert len(got) == len(want) == 2
+    for i in range(2):
+        np.testing.assert_array_equal(got.load_annotations(i), want.load_annotations(i))
+        _assert_samples_equal(got[i], want[i])
+
+    meta = tmp_path / "meta"
+    meta.mkdir()
+    (meta / "class-descriptions-boxable.csv").write_text("/m/01,Person\n/m/02,Car\n")
+    ann_csv = tmp_path / "ann.csv"
+    ann_csv.write_text("ImageID,LabelName,XMin,XMax,YMin,YMax\n"
+                       "p1,/m/01,0.1,0.5,0.2,0.8\np2,/m/02,0.25,0.75,0.1,0.35\n")
+    got, want = (m.OidDataset(str(img_dir), str(meta), str(ann_csv)) for m in (textra, jextra))
+    assert len(got) == len(want) == 2 and got.image_ids == want.image_ids
+    for i in range(2):
+        np.testing.assert_array_equal(got.load_annotations(i), want.load_annotations(i))
+        _assert_samples_equal(got[i], want[i])
 
 
 @pytest.fixture

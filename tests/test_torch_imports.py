@@ -85,13 +85,15 @@ def test_forbidden_prefix_is_exact():
     assert _is_forbidden("frn_tpu.config") and _is_forbidden("jax.numpy") and _is_forbidden("flax")
 
 
-# the host data layer and the trainer's instruments run on the card's
-# machine whether or not it has OpenCV, and build from the port's own copy
-# of the native source
+# the host data layer, the image reader, the trainer's instruments and the
+# flash benchmark run on the card's machine whether or not it has OpenCV,
+# import nothing of the repo's tools/ (the JAX package's harnesses), and
+# build from the port's own copy of the native sources
 NO_OPENCV = ("frn_tpu_torch/data/augment.py", "frn_tpu_torch/data/extra_datasets.py",
              "frn_tpu_torch/data/loader.py", "frn_tpu_torch/utils/native.py",
              "frn_tpu_torch/utils/profiling.py", "frn_tpu_torch/train/trainer.py",
-             "frn_tpu_torch/cli/convert_checkpoint.py")
+             "frn_tpu_torch/cli/convert_checkpoint.py", "frn_tpu_torch/data/image_io.py",
+             "frn_tpu_torch/tools/bench_flash.py")
 
 
 @pytest.mark.parametrize("relpath", NO_OPENCV)
@@ -99,9 +101,12 @@ def test_data_layer_needs_no_opencv_and_no_native_dir(relpath):
     source = (ROOT / relpath).read_text()
     for node in ast.walk(ast.parse(source)):
         if isinstance(node, ast.Import):
-            assert all(alias.name.split(".")[0] != "cv2" for alias in node.names), relpath
-        elif isinstance(node, ast.ImportFrom):
-            assert (node.module or "").split(".")[0] != "cv2", relpath
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert all(n.split(".")[0] not in ("cv2", "tools", *FORBIDDEN) for n in names), relpath
     assert '"native"' not in source or relpath == "frn_tpu_torch/utils/native.py"
 
 
@@ -109,4 +114,7 @@ def test_native_library_builds_from_the_ports_source():
     from frn_tpu_torch.utils import native
 
     assert native.SOURCE == ROOT / "frn_tpu_torch" / "native" / "voxelize.cpp"
+    assert native.JPEG_SOURCE == ROOT / "frn_tpu_torch" / "native" / "jpeg.cpp"
     assert native.BUILD_DIR == ROOT / "frn_tpu_torch" / "_build"
+    assert native.jpeg_library_path().parent == native.BUILD_DIR
+    assert native.jpeg_library_path().name.startswith("libfrn_jpeg-")
