@@ -119,7 +119,12 @@ Phases:
      ``image_io.imread`` equal to that ``cv2.imread`` on every file under
      both flags, the host ms per 480x640 image of both, and ``cli.test``
      DSEC bf16 over the JPEG tree and over a PNG twin of cv2's decodes (B1
-     4 times a batch, nothing else; the detections and summaries equal).
+     4 times a batch, nothing else; the detections and summaries equal),
+     three of whose frames are damaged as cv2.imread still reads them (a
+     JPEG cut in its scan, one with a changed byte, a PNG with a bad tEXt
+     CRC); the damage sweep (``check_damage_sweep``: JPEGs and PNGs up to
+     480x640 cut, changed at seeded bytes and given a bad ancillary CRC,
+     each read equal to cv2.imread's or None on both sides).
      Phase 4 then evaluates
      in ``Trainer.fit`` (``eval_fn``) and checks the best-mAP checkpoint;
   9. the f32 training path, ``python -m frn_tpu_torch.cli.train`` (its
@@ -145,7 +150,9 @@ Phases:
      no h5py, so each sequence reads its events from memory
      (``_ArrayEvents``, the h5 reader's window semantics) instead of the h5
      file; the h5 reader and the two CLIs' ``main`` are held on the CPU by
-     the tests. The three wires on every sample (the events wire's device
+     the tests. One frame damaged and restored: zeros where cv2.imread
+     returns None, cv2's partial frame where it reads one
+     (``check_damaged_dsec_det_frames``). The three wires on every sample (the events wire's device
      voxel equal to the host count grid, the squashed grids within
      WIRE_TANH_RTOL of the f32 wire's, h2d bytes and the voxelization's
      device ms per batch); one epoch at batch 4 on each wire (launch counts
@@ -308,6 +315,7 @@ import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2349,12 +2357,191 @@ def write_corruption_tree(inputs: dict, root: Path, group: int) -> Path:
 # go by content); its PNG twin holds cv2.imread's decodes of those files
 JPEG_QUALITY, JPEG_PROGRESSIVE_EVERY = 90, 3
 JPEG_DECODE_REPS = 10
+# frames of that tree damaged in place, each one that cv2.imread still reads:
+# a JPEG cut in its scan, a JPEG with a byte of its scan changed, and the
+# PNG frame itself with a bad CRC in a tEXt chunk (libpng drops the chunk)
+JPEG_DAMAGED_FRAMES = {1: "cut", 4: "byte", 7: "png_ancillary_crc"}
+# the damage sweep: every file cut at DAMAGE_CUTS lengths spread over it and
+# changed at DAMAGE_CHANGES seeded bytes (half in its headers, half in its
+# coded data), a PNG also given a tEXt chunk with a bad CRC
+DAMAGE_CUTS, DAMAGE_CHANGES = 32, 32
+# (file kind, damage) pairs on which this machine's OpenCV and the one the
+# CPU tests run against disagree; the port follows the tests' OpenCV, and
+# each pair left out here is named in ROADMAP's Queue C with its reason
+DAMAGE_LEFT_OUT: dict = {}
+
+
+def _png_bytes(samples, depth: int, color: int, palette=None, interlace: bool = False,
+               extra: bytes = b"") -> bytes:
+    """A PNG of (h, w, c) samples whose rows take the five filters in turn:
+    the palette and Adam7 files that cv2.imencode does not write."""
+    import zlib
+
+    import numpy as np
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    samples = samples[:, :, None] if samples.ndim == 2 else samples
+    h, w, c = samples.shape
+    bpp = max(1, depth * c // 8)
+
+    def rows(sub):
+        flat = sub.reshape(len(sub), -1).astype(np.uint8)
+        if depth < 8:
+            per = 8 // depth
+            flat = np.concatenate([flat, np.zeros((len(sub), -flat.shape[1] % per), np.uint8)], 1)
+            flat = (flat.reshape(len(sub), -1, per).astype(np.int32)
+                    << ((8 - depth) - depth * np.arange(per))).sum(2).astype(np.uint8)
+        out, prev = [], np.zeros(flat.shape[1], np.int32)
+        for r, x in enumerate(flat.astype(np.int32)):
+            a = np.concatenate([np.zeros(bpp, np.int32), x[:-bpp]])
+            cc = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])
+            pa, pb, pc = np.abs(prev - cc), np.abs(a - cc), np.abs(a + prev - 2 * cc)
+            paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, prev, cc))
+            pred = (0, a, prev, (a + prev) >> 1, paeth)[r % 5]
+            out.append(bytes([r % 5]) + ((x - pred) & 255).astype(np.uint8).tobytes())
+            prev = x
+        return b"".join(out)
+
+    if interlace:
+        passes = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+                  (0, 1, 1, 2))
+        raw = b"".join(rows(samples[y0::dy, x0::dx]) for x0, y0, dx, dy in passes
+                       if samples[y0::dy, x0::dx].size)
+    else:
+        raw = rows(samples)
+    data = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0,
+                                                              int(interlace))) + extra
+    if palette is not None:
+        data += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return data + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b"")
+
+
+def _with_bad_text_chunk(png: bytes) -> bytes:
+    """png with a tEXt chunk whose CRC is wrong, just before its first IDAT."""
+    import zlib
+
+    body = b"Comment\0damaged"
+    text = (struct.pack(">I", len(body)) + b"tEXt" + body
+            + struct.pack(">I", zlib.crc32(b"tEXt" + body) ^ 0x5A))
+    at = png.index(b"IDAT") - 4
+    return png[:at] + text + png[at:]
+
+
+def _coded_data_start(data: bytes) -> int:
+    """Where a file's coded data starts: a JPEG's first scan, a PNG's IDAT."""
+    if data.startswith(b"\x89PNG"):
+        return data.index(b"IDAT") + 4
+    sos = data.index(b"\xff\xda")
+    return sos + 2 + struct.unpack(">H", data[sos + 2:sos + 4])[0]
+
+
+def _png_length_tops(data: bytes) -> set:
+    """The top byte of each PNG chunk's length: changed, it declares a chunk
+    of up to 4 GiB, which OpenCV allocates before it finds the file short."""
+    tops, pos = set(), 8
+    while data.startswith(b"\x89PNG") and pos + 8 <= len(data):
+        tops.add(pos)
+        pos += 12 + struct.unpack(">I", data[pos:pos + 4])[0]
+    return tops
+
+
+def check_damage_sweep(root: Path) -> None:
+    """``image_io.imread`` against this machine's ``cv2.imread`` under both
+    flags on damaged files: JPEGs that its ``cv2.imencode`` writes (31x45 and
+    480x640: baseline 4:2:0, progressive, restart interval 2, gray) and PNGs
+    (480x640 8-bit RGB by ``cv2.imencode``; 4-bit palette and 8-bit Adam7
+    RGB by ``_png_bytes``), each cut at DAMAGE_CUTS lengths, changed at
+    DAMAGE_CHANGES seeded bytes and (PNG) given a tEXt chunk with a bad CRC.
+    Each read must equal cv2's bit for bit, or both sides give None (the
+    port's ``UnreadableImage``). Mismatches are gathered by (file kind,
+    damage) and fail the phase, apart from the pairs in DAMAGE_LEFT_OUT."""
+    import cv2
+    import numpy as np
+
+    from frn_tpu_torch.data import image_io
+
+    rng = np.random.default_rng(26)
+
+    def scene(h, w, seed):
+        y, x = np.mgrid[:h, :w]
+        img = np.stack([(x * 3 + y) % 256, (x * y) % 256, 128 + 100 * np.sin(x / 5.0 + y / 7.0)], -1)
+        noise = np.random.default_rng(seed).normal(0, 20, img.shape)
+        return np.clip(img + noise, 0, 255).astype(np.uint8)
+
+    files = {}
+    for h, w in ((31, 45), (480, 640)):
+        img = scene(h, w, h)
+        for kind, params in (("baseline", []), ("progressive", [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]),
+                             ("restart 2", [cv2.IMWRITE_JPEG_RST_INTERVAL, 2]), ("gray", None)):
+            ok, buf = cv2.imencode(".jpg", img[:, :, 1] if params is None else img,
+                                   [cv2.IMWRITE_JPEG_QUALITY, JPEG_QUALITY, *(params or [])])
+            if not ok:
+                fail(f"cv2.imencode of the damage sweep's {kind} JPEG")
+            files[f"JPEG {kind} {h}x{w}"] = buf.tobytes()
+    big = scene(480, 640, 5)
+    files["PNG 8-bit 480x640"] = cv2.imencode(".png", big)[1].tobytes()
+    files["PNG palette 120x160"] = _png_bytes(rng.integers(0, 16, (120, 160)), 4, 3,
+                                              palette=rng.integers(0, 256, (16, 3)))
+    files["PNG Adam7 240x320"] = _png_bytes(big[::2, ::2, ::-1], 8, 2, interlace=True)
+
+    path = root / "damaged.bin"
+    agree = {"image": 0, "none": 0}
+    mismatches: dict = {}
+    t0 = time.perf_counter()
+    for name, data in files.items():
+        kind = name.rsplit(" ", 1)[0]
+        start, tops = _coded_data_start(data), _png_length_tops(data)
+        cases = [("cut", data[:int(n)]) for n in np.linspace(2, len(data) - 1, DAMAGE_CUTS)]
+        for i in range(DAMAGE_CHANGES):
+            pos = None
+            while pos is None or pos in tops:
+                pos = int(rng.integers(0, start)) if i % 2 else int(rng.integers(start, len(data)))
+            changed = bytearray(data)
+            changed[pos] = (changed[pos] + int(rng.integers(1, 256))) % 256
+            cases.append(("byte", bytes(changed)))
+        if data.startswith(b"\x89PNG"):
+            cases.append(("ancillary CRC", _with_bad_text_chunk(data)))
+        for damage, bad in cases:
+            if (kind, damage) in DAMAGE_LEFT_OUT:
+                continue
+            path.write_bytes(bad)
+            for flag in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE):
+                want = cv2.imread(str(path), flag)
+                try:
+                    got = image_io.imread(str(path), flag)
+                except image_io.UnreadableImage:
+                    got = None
+                except ValueError as e:
+                    got = f"ValueError: {e}"
+                if want is None and got is None:
+                    agree["none"] += 1
+                elif (want is not None and isinstance(got, np.ndarray) and got.shape == want.shape
+                      and np.array_equal(got, want)):
+                    agree["image"] += 1
+                else:
+                    what = ("cv2 None" if want is None else "cv2 image") + ", port " + (
+                        "None" if got is None else got if isinstance(got, str) else "a different image")
+                    mismatches.setdefault((kind, damage), []).append(f"flag {flag}: {what}")
+    reads = agree["image"] + agree["none"] + sum(len(v) for v in mismatches.values())
+    print(f"damage sweep: {agree['image'] + agree['none']} of {reads} reads of {len(files)} files "
+          f"({DAMAGE_CUTS} cuts, {DAMAGE_CHANGES} changed bytes, PNG a bad ancillary CRC; both flags) "
+          f"agree with OpenCV {cv2.__version__}'s cv2.imread: {agree['image']} images equal, "
+          f"{agree['none']} None on both sides; left out {sorted(DAMAGE_LEFT_OUT) or 'nothing'}; "
+          f"{time.perf_counter() - t0:.1f} s on the host of {card_name_and_power_limit()}", flush=True)
+    for (kind, damage), what in sorted(mismatches.items()):
+        print(f"damage sweep mismatch: {kind}, {damage}: {len(what)} reads, e.g. {what[0]}", flush=True)
+    if mismatches:
+        fail(f"image_io.imread differs from cv2.imread on the damage sweep: {sorted(mismatches)}")
 
 
 def write_jpeg_trees(inputs: dict, root: Path):
     """The DSEC fixture's JPEG tree and its PNG twin under ``root`` (images
-    only; events, labels and the checkpoint stay the fixture's). Returns
-    (the JPEG files, the eval inputs over the JPEG tree, over the twin)."""
+    only; events, labels and the checkpoint stay the fixture's), the frames
+    of JPEG_DAMAGED_FRAMES damaged in place as cv2.imread still reads them.
+    Returns (the sound JPEG files, the damaged files, the eval inputs over
+    the JPEG tree, over the twin)."""
     from frn_tpu_torch.data import image_io
 
     try:
@@ -2362,9 +2549,12 @@ def write_jpeg_trees(inputs: dict, root: Path):
     except ImportError as e:
         fail(f"evaluation over JPEG: OpenCV (cv2) does not import on the card's machine ({e}); "
              "the JPEG tree is written and held against cv2.imread there")
+    import numpy as np
+
     src = Path(inputs["dsec"]["img_dir"])
     jpeg_dir, twin_dir = root / "dsec_jpeg", root / "dsec_twin"
-    files = []
+    files, damaged = [], []
+    rng = np.random.default_rng(8)
     for i, png in enumerate(sorted(src.rglob("*.png"))):
         rel = png.relative_to(src)
         progressive = int(i % JPEG_PROGRESSIVE_EVERY == 0)
@@ -2375,12 +2565,30 @@ def write_jpeg_trees(inputs: dict, root: Path):
             fail(f"cv2.imencode of {png}")
         for d in (jpeg_dir, twin_dir):
             (d / rel).parent.mkdir(parents=True, exist_ok=True)
-        (jpeg_dir / rel).write_bytes(buf.tobytes())
+        data, damage = buf.tobytes(), JPEG_DAMAGED_FRAMES.get(i)
+        start = _coded_data_start(data)
+        for _ in range(16):  # a damage that cv2.imread reads
+            if damage == "cut":
+                bad = data[:int(rng.integers(start + (len(data) - start) // 4, len(data) - 2))]
+            elif damage == "byte":
+                bad = bytearray(data)
+                pos = int(rng.integers(start, len(data) - 2))
+                bad[pos] = (bad[pos] + int(rng.integers(1, 256))) % 256
+                bad = bytes(bad)
+            elif damage == "png_ancillary_crc":
+                bad = _with_bad_text_chunk(png.read_bytes())
+            else:
+                bad = data
+            (jpeg_dir / rel).write_bytes(bad)
+            if cv2.imread(str(jpeg_dir / rel)) is not None:
+                break
+        else:
+            fail(f"evaluation over JPEG: no {damage} damage of {png.name} that cv2.imread reads")
         image_io.imwrite(str(twin_dir / rel), cv2.imread(str(jpeg_dir / rel)), level=1)
-        files.append(jpeg_dir / rel)
+        (damaged if damage else files).append(jpeg_dir / rel)
     over = {name: {**inputs, "dsec": {**inputs["dsec"], "img_dir": str(d)}}
             for name, d in (("jpeg", jpeg_dir), ("twin", twin_dir))}
-    return files, over["jpeg"], over["twin"]
+    return files, damaged, over["jpeg"], over["twin"]
 
 
 def check_jpeg_sweep(root: Path) -> None:
@@ -2441,13 +2649,76 @@ def check_jpeg_sweep(root: Path) -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def time_other_jpeg(other: str, frames: int = 12, reps: int = 10) -> None:
+    """Another revision's JPEG decoder (its ``native/jpeg.cpp``, built by
+    g++ with the port's flags) against this one, in turns file by file, on
+    480x640 frames that this machine's ``cv2.imencode`` writes at quality
+    JPEG_QUALITY (every third progressive): each decoder's median ms a frame
+    and the per-file ratio's median and quartiles, with the host's card
+    named. Both outputs must be equal on every frame. Needs no card:
+
+        python3 -c "import chip_smoke as c; c.time_other_jpeg('<copy>/frn_tpu_torch/native/jpeg.cpp')"
+    """
+    import ctypes
+
+    import cv2
+    import numpy as np
+
+    from frn_tpu_torch.utils import native
+
+    out_dir = Path(tempfile.mkdtemp())
+    lib_path = out_dir / "libother_jpeg.so"
+    subprocess.run(["g++", *native.GXX_FLAGS, "-o", str(lib_path), other], check=True)
+    libs = {"this": native.jpeg_lib(), "other": ctypes.CDLL(str(lib_path))}
+    for lib in libs.values():
+        lib.frn_jpeg_decode.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+                                        ctypes.c_void_p, ctypes.c_int]
+        lib.frn_jpeg_decode.restype = ctypes.c_int
+    rng = np.random.default_rng(12)
+    y, x = np.mgrid[:480, :640]
+    files = []
+    for i in range(frames):
+        img = np.stack([(x * 3 + y + 17 * i) % 256, (x * y // (i + 1)) % 256,
+                        128 + 100 * np.sin(x / (5.0 + i) + y / 7.0)], -1)
+        img = np.clip(img + rng.normal(0, 12, img.shape), 0, 255).astype(np.uint8)
+        ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, JPEG_QUALITY,
+                                             cv2.IMWRITE_JPEG_PROGRESSIVE, int(i % 3 == 0)])
+        files.append(np.frombuffer(buf.tobytes(), np.uint8))
+    err = ctypes.create_string_buffer(256)
+    outs = {name: np.empty((480, 640, 3), np.uint8) for name in libs}
+    times = {name: [] for name in libs}
+    ratios = []
+    for rep in range(reps):
+        for i, data in enumerate(files):
+            ms = {}
+            for name in (("this", "other") if (rep + i) % 2 else ("other", "this")):
+                t0 = time.perf_counter()
+                rc = libs[name].frn_jpeg_decode(data.ctypes.data, data.size, 0, outs[name].ctypes.data,
+                                                err, len(err))
+                ms[name] = (time.perf_counter() - t0) * 1e3
+                times[name].append(ms[name])
+                if rc != 0:
+                    fail(f"the {name} JPEG decoder refused a sound frame: {err.value!r}")
+            if not np.array_equal(outs["this"], outs["other"]):
+                fail(f"the other JPEG decoder ({other}) decodes frame {i} otherwise than this one")
+            ratios.append(ms["this"] / ms["other"])
+    quartiles = statistics.quantiles(ratios, n=4)
+    print(f"JPEG decoders in turns, 480x640 BGR, host of {card_name_and_power_limit()}, {reps} x "
+          f"{frames} frames: this revision median {statistics.median(times['this']):.3f} ms, "
+          f"{other} {statistics.median(times['other']):.3f} ms; this / other per file median "
+          f"{statistics.median(ratios):.3f} (quartiles {quartiles[0]:.3f}-{quartiles[2]:.3f}); "
+          "outputs equal", flush=True)
+
+
 def check_jpeg_evaluation(inputs: dict, root: Path) -> None:
     """The port's JPEG decoder on the card's machine: ``image_io.imread``
     equal to that machine's ``cv2.imread`` on every file of the JPEG tree
-    under both flags; the host ms of both per 480x640 image; then ``cli.test``
-    DSEC bf16 over the JPEG tree and over its PNG twin (B1 4 times a batch,
-    nothing else), whose detections and summaries must be equal, and the
-    CLI's eval loop again warm over each, in turns (JPEG, PNG, PNG, JPEG)."""
+    (its damaged frames included) under both flags; the JPEG sweep and the
+    damage sweep; the host ms of both per sound 480x640 image; then
+    ``cli.test`` DSEC bf16 over the JPEG tree and over its PNG twin (B1 4
+    times a batch, nothing else), whose detections and summaries must be
+    equal, and the CLI's eval loop again warm over each, in turns (JPEG,
+    PNG, PNG, JPEG)."""
     import pickle
 
     import cv2
@@ -2456,18 +2727,21 @@ def check_jpeg_evaluation(inputs: dict, root: Path) -> None:
     from frn_tpu_torch.data import image_io
 
     t0 = time.perf_counter()
-    files, over_jpeg, over_twin = write_jpeg_trees(inputs, root)
-    print(f"evaluation over JPEG: {len(files)} DSEC frames re-encoded by OpenCV {cv2.__version__} "
-          f"(quality {JPEG_QUALITY}, 4:2:0, one in {JPEG_PROGRESSIVE_EVERY} progressive) and "
-          f"their PNG twin written in {time.perf_counter() - t0:.1f} s", flush=True)
-    for path in files:
+    files, damaged, over_jpeg, over_twin = write_jpeg_trees(inputs, root)
+    print(f"evaluation over JPEG: {len(files) + len(damaged)} DSEC frames re-encoded by OpenCV "
+          f"{cv2.__version__} (quality {JPEG_QUALITY}, 4:2:0, one in {JPEG_PROGRESSIVE_EVERY} "
+          f"progressive), {len(damaged)} of them damaged as cv2.imread still reads them "
+          f"({', '.join(JPEG_DAMAGED_FRAMES.values())}), and their PNG twin written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for path in files + damaged:
         for flag in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE):
             want, got = cv2.imread(str(path), flag), image_io.imread(str(path), flag)
             if want is None or got.shape != want.shape or not np.array_equal(got, want):
                 fail(f"image_io.imread differs from cv2.imread on {path.name} (flag {flag})")
-    print(f"image_io.imread equals cv2.imread on all {len(files)} JPEG files under IMREAD_COLOR "
-          f"and IMREAD_GRAYSCALE", flush=True)
+    print(f"image_io.imread equals cv2.imread on all {len(files) + len(damaged)} files of the JPEG "
+          f"tree, the damaged ones included, under IMREAD_COLOR and IMREAD_GRAYSCALE", flush=True)
     check_jpeg_sweep(root)
+    check_damage_sweep(root)
     # in turns file by file, the first reader alternating, so that the host's
     # drift falls on both: the median of each reader's ms and of their ratio
     reads = (("port", image_io.imread), ("cv2.imread", cv2.imread))
@@ -3301,6 +3575,39 @@ def check_wire_grads(trainer, datasets, when: str, gate: bool) -> None:
              f"({gap:.3e} at {name}, theta biases {bias_gap:.3e}, over all params {norm_gap:.3e})")
 
 
+def check_damaged_dsec_det_frames(dataset) -> None:
+    """One frame of the fixture damaged in place, then restored: cut short
+    as a PNG, which this machine's cv2.imread returns None for, the loader's
+    frame must be zeros at the geometry, as ``frn_tpu``'s dataset gives
+    there; cut in its scan as a JPEG, which cv2.imread reads in part, the
+    loader's frame must be cv2's."""
+    import cv2
+    import numpy as np
+
+    seq = dataset.sequences[0]
+    path = seq.image_paths[1]
+    sound = path.read_bytes()
+    try:
+        path.write_bytes(sound[:len(sound) // 2])
+        got = dataset.load_image_u8(seq, 1)
+        if cv2.imread(str(path)) is not None:
+            fail("raw DSEC-Det: cv2.imread reads a PNG frame cut at half")
+        if got.shape != (dataset.height, dataset.width, 3) or got.any():
+            fail(f"raw DSEC-Det: a frame cv2.imread returns None for loads as {got.shape}, not zeros")
+        ok, buf = cv2.imencode(".jpg", cv2.imdecode(np.frombuffer(sound, np.uint8), cv2.IMREAD_COLOR),
+                               [cv2.IMWRITE_JPEG_QUALITY, JPEG_QUALITY])
+        data = buf.tobytes()
+        path.write_bytes(data[:(_coded_data_start(data) + len(data)) // 2])
+        want, got = cv2.imread(str(path)), dataset.load_image_u8(seq, 1)
+        if want is None or got.shape != want.shape or not np.array_equal(got, want):
+            fail("raw DSEC-Det: a JPEG frame cut in its scan loads otherwise than cv2.imread reads it")
+        print(f"raw DSEC-Det: a frame cut short loads as zeros where OpenCV {cv2.__version__}'s "
+              f"cv2.imread returns None, and as cv2's partial frame where it reads one "
+              f"({int((want == 128).all(2).sum())} grey pixels)", flush=True)
+    finally:
+        path.write_bytes(sound)
+
+
 def phase_dsec_det(kernel_rows, root: Path) -> None:
     """The raw DSEC-Det path on the card at full width (DSEC-Det 480x640,
     fusion ResNet-50, feature size 256, f32: the CLIs' defaults), through the
@@ -3352,6 +3659,7 @@ def phase_dsec_det(kernel_rows, root: Path) -> None:
     if len(datasets["f32"]) != DSEC_DET_SEQUENCES * (DSEC_DET_FRAMES - 1):
         fail(f"raw DSEC-Det: {len(datasets['f32'])} samples")
     nbytes = check_wires(datasets, streams)
+    check_damaged_dsec_det_frames(datasets["f32"])
     mark("wires checked")
 
     b = DSEC_DET_TRAIN_BATCH

@@ -144,8 +144,16 @@ class CSVDetectionDataset:
         return (img[:, :, None].astype(np.float32)) / 255.0
 
     def load_rgb(self, image_index: int) -> np.ndarray:
-        """(H, W, 3) float32 BGR in [0, 1], as the reference reads it."""
-        return image_io.imread(self.rgb_path(image_index)).astype(np.float32) / 255.0
+        """(H, W, 3) float32 BGR in [0, 1], as the reference reads it; a file
+        ``cv2.imread`` returns None for (missing, or damaged past what OpenCV
+        reads) raises ``FileNotFoundError`` naming it, as the JAX dataset
+        does."""
+        path = self.rgb_path(image_index)
+        try:
+            img = image_io.imread(path)
+        except image_io.UnreadableImage:
+            raise FileNotFoundError(path) from None
+        return img.astype(np.float32) / 255.0
 
     def load_annotations(self, image_index: int) -> np.ndarray:
         """(N, 5) [x1,y1,x2,y2,class]; degenerate boxes dropped."""

@@ -314,14 +314,17 @@ class DSECDetDataset:
         return self._annotations(det1)
 
     def load_image_u8(self, seq: SequenceDirectory, idx: int) -> np.ndarray:
-        """(H, W, 3) uint8 BGR; zeros for a missing file, as the JAX dataset
-        gives when ``cv2.imread`` returns None. A file ``image_io`` cannot
-        decode (a truncated or corrupt JPEG, a format other than JPEG and PNG)
-        raises: OpenCV returns part of a truncated JPEG, and zeros there would
-        train on blank images unseen."""
+        """(H, W, 3) uint8 BGR. Zeros wherever the JAX dataset's
+        ``cv2.imread`` returns None: a missing file, and a damaged one that
+        OpenCV gives up on (``image_io.UnreadableImage``). A damaged file that
+        OpenCV reads in part (a truncated JPEG, a PNG with a bad ancillary
+        CRC) gives the pixels OpenCV gives. A file that OpenCV reads and
+        ``image_io`` does not (another format, an arithmetic-coded JPEG)
+        raises ``ValueError``: zeros there would train on blank images
+        unseen."""
         try:
             img = image_io.imread(str(seq.image_paths[idx]))
-        except FileNotFoundError:
+        except (FileNotFoundError, image_io.UnreadableImage):
             return np.zeros((self.height, self.width, 3), np.uint8)
         if img.shape[:2] != (self.height, self.width):
             try:

@@ -15,8 +15,10 @@ Host-side numpy:
     reference defines it but comments it out of training).
 
 Images are read by ``data/image_io.imread``: JPEG and PNG, in BGR, the pixels
-``cv2.imread`` gives (EXIF orientation applied). Another format raises
-``ValueError``, where the JAX package reads it through OpenCV.
+``cv2.imread`` gives (EXIF orientation applied), a damaged file's too. Another
+format raises ``ValueError``, where the JAX package reads it through OpenCV;
+a file ``cv2.imread`` returns None for raises ``image_io.UnreadableImage``
+(a ``ValueError``), where the JAX package fails on the None.
 """
 
 from __future__ import annotations

@@ -1,19 +1,24 @@
 """Image reading (JPEG and PNG) and PNG writing without OpenCV.
 
 ``imread`` returns what ``cv2.imread`` returns, bit for bit, for every JPEG
-and PNG the datasets hold; the JAX package reads them with OpenCV, whose
-codecs are libjpeg-turbo and libpng. With ``IMREAD_COLOR`` (the default) it
-gives (H, W, 3) uint8 in BGR order, with ``IMREAD_GRAYSCALE`` (H, W) uint8.
+and PNG the datasets hold, damaged ones included; the JAX package reads them
+with OpenCV, whose codecs are libjpeg-turbo and libpng. With
+``IMREAD_COLOR`` (the default) it gives (H, W, 3) uint8 in BGR order, with
+``IMREAD_GRAYSCALE`` (H, W) uint8.
 
 * JPEG goes to the port's native decoder (``frn_tpu_torch/native/jpeg.cpp``,
   built by g++ at first use; see that file for what it reproduces):
   Huffman-coded baseline, extended and progressive files with 1, 3 or 4
   components (gray, YCbCr, RGB, CMYK, YCCK), any sampling factors libjpeg
-  takes, restart intervals. Arithmetic-coded, lossless, hierarchical and
-  12-bit files, and a truncated or corrupt one, raise ``ValueError`` naming
-  the kind. Without the library (no g++, or ``FRN_DISABLE_NATIVE``) a JPEG
-  raises ``RuntimeError`` naming the cause: no other path gives the same
-  pixels.
+  takes, restart intervals; and what libjpeg-turbo makes of a damaged one
+  under ``cv2.imread``: a truncated or corrupted file decodes to the
+  partial image OpenCV returns (the rest of a cut scan grey in a sequential
+  file, smoothed from the earlier scans in a progressive one), or raises
+  ``UnreadableImage`` where OpenCV returns None. Arithmetic-coded and
+  lossless files, and a file of more than 2^26 pixels too short for its
+  first scan, raise ``ValueError`` naming the kind. Without the library (no
+  g++, or ``FRN_DISABLE_NATIVE``) a JPEG raises ``RuntimeError`` naming the
+  cause: no other path gives the same pixels.
 * PNG is decoded on zlib and numpy: gray at bit depths 1, 2, 4, 8 and 16 (a
   sample of 1, 2 or 4 bits scaled to 8 as libpng expands it, so 1-bit gives
   0 and 255), gray + alpha, RGB and RGBA at 8 and 16 bits, palette at 1-8
@@ -26,13 +31,21 @@ gives (H, W, 3) uint8 in BGR order, with ``IMREAD_GRAYSCALE`` (H, W) uint8.
   whose three values are equal kept as it is) and rounded at 16 bits before
   the high byte; where a ``gAMA`` or ``sRGB`` chunk gives the file a gamma,
   the 8-bit reduction runs through libpng's gamma tables as it does in
-  libpng (the 16-bit one raises ``ValueError``).
+  libpng (the 16-bit one raises ``ValueError``). Damage is met as libpng
+  meets it under OpenCV's reader: an ancillary chunk with a bad CRC is
+  dropped (a ``gAMA`` so dropped gives no gamma), data after IEND is not
+  read, and a cut file, a critical chunk with a bad CRC, a broken zlib
+  stream or a header libpng refuses raise ``UnreadableImage`` (see ``_png``).
 * The EXIF orientation (a JPEG's first APP1 segment, a PNG's ``eXIf`` chunk)
   turns the image as ``cv2.imread`` turns it.
 
-A file that is missing raises ``FileNotFoundError`` (``cv2.imread`` returns
-None); any other format (BMP, TIFF, WebP, GIF, ...) raises ``ValueError``
-naming it.
+Errors: a missing file raises ``FileNotFoundError``; an existing file that
+``cv2.imread`` returns None for raises ``UnreadableImage`` (a ``ValueError``;
+also for bytes no OpenCV decoder recognizes, as a file cut before its
+signature); a file that OpenCV reads and this reader does not (BMP, TIFF,
+WebP, GIF, ..., and the JPEG kinds above) raises a plain ``ValueError``
+naming it. The datasets turn ``UnreadableImage`` into the JAX package's
+answer to the None.
 
 ``imwrite`` writes uint8 (H, W) gray, or (H, W, C) with C 1, 3 (BGR) or 4
 (BGRA), as ``cv2.imwrite`` does; every row takes the same filter
@@ -59,6 +72,8 @@ _JPEG_SIGNATURE = b"\xff\xd8\xff"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # color type -> samples per pixel
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 _GRAY_WEIGHTS = (9797, 19234, 3737)  # R, G, B in 1/32768
+_PNG_MAX_SIDE = 1_000_000  # libpng's default user limit on width and height
+_CV2_MAX_PIXELS = 1 << 30  # cv2's CV_IO_MAX_IMAGE_PIXELS
 # Adam7 passes: first column, first row, column step, row step
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
           (0, 1, 1, 2))
@@ -69,6 +84,15 @@ _OTHER_FORMATS = ((b"BM", "BMP"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
                   (b"\x00\x00\x00\x0cJXL ", "JPEG XL"), (b"v/1\x01", "OpenEXR"),
                   (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"),
                   (b"\x59\xa6\x6a\x95", "Sun raster"), (b"\x8aMNG", "MNG"))
+# the formats among them that OpenCV has no decoder for (cv2.imread returns None)
+_NO_CV2_DECODER = ("JPEG XL", "OpenEXR", "MNG", "an unknown format")
+
+
+class UnreadableImage(ValueError):
+    """An existing file that ``cv2.imread`` returns None for: a damaged JPEG
+    or PNG that libjpeg-turbo, libpng or OpenCV gives up on, or bytes no
+    OpenCV decoder recognizes. The JAX package's datasets act on that None
+    (DSEC-Det reads zeros, the CSV dataset raises ``FileNotFoundError``)."""
 
 
 def _format_name(data: bytes) -> str:
@@ -89,7 +113,8 @@ def _format_name(data: bytes) -> str:
 
 def _exif_orientation(tiff: bytes) -> int:
     """IFD0's Orientation (tag 0x0112) of a TIFF-structured EXIF block, as
-    OpenCV's ExifReader reads it; 1 where it is absent or out of bounds."""
+    OpenCV's ExifReader reads it: 1 where it is absent; where the block
+    breaks off, the entries read before it stand."""
     if len(tiff) < 8 or tiff[:2] not in (b"II", b"MM"):
         return 1
     e = "<" if tiff[:2] == b"II" else ">"
@@ -102,7 +127,7 @@ def _exif_orientation(tiff: bytes) -> int:
     for i in range(struct.unpack_from(e + "H", tiff, ifd)[0]):
         at = ifd + 2 + 12 * i
         if at + 12 > len(tiff):
-            return 1
+            break
         if struct.unpack_from(e + "H", tiff, at)[0] == 0x0112:
             found = struct.unpack_from(e + "H", tiff, at + 8)[0]
     return found
@@ -135,26 +160,47 @@ def _jpeg(data: bytes, path: str, gray: bool):
         rc = lib.frn_jpeg_decode(buf.ctypes.data, buf.size, int(gray), out.ctypes.data, err,
                                  len(err))
     if rc != 0:
-        raise ValueError(f"{path}: {err.value.decode(errors='replace')}")
+        error = UnreadableImage if rc == 2 else ValueError
+        raise error(f"{path}: {err.value.decode(errors='replace')}")
     return out, int(info[3])
 
 
 # ------------------------------------------------------------ PNG
 
 
+def _letters(kind: bytes) -> bool:
+    return all(65 <= c <= 90 or 97 <= c <= 122 for c in kind)
+
+
 def _chunks(data: bytes, path: str):
+    """(kind, body) of each chunk before IEND as OpenCV's PNG reader and
+    libpng take them, body None for an ancillary chunk with a bad CRC (libpng
+    warns and drops it). A chunk that the file cuts, a name that is not four
+    letters with the third upper-case (libpng's reserved bit), and a critical
+    chunk of an unknown kind or with a bad CRC raise ``UnreadableImage``.
+    IEND ends the stream whatever its length and CRC (OpenCV hands libpng a
+    well-formed one of its own), and nothing after it is read."""
     pos = 8
-    while pos + 8 <= len(data):
-        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + length]
-        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
-        if zlib.crc32(kind + body) != crc:
-            raise ValueError(f"{path}: bad CRC in chunk {kind!r}")
-        yield kind, body
+    while True:
+        if pos + 12 > len(data):
+            raise UnreadableImage(f"{path}: truncated PNG (the file ends before IEND)")
+        length, kind = struct.unpack_from(">I4s", data, pos)
+        end = pos + 12 + length
+        if end > len(data):
+            raise UnreadableImage(f"{path}: truncated PNG (chunk {kind!r} runs past the end)")
+        if not _letters(kind) or not 65 <= kind[2] <= 90:
+            raise UnreadableImage(f"{path}: corrupt PNG (invalid chunk name {kind!r})")
         if kind == b"IEND":
             return
-        pos += 12 + length
-    raise ValueError(f"{path}: truncated PNG (no IEND)")
+        body = data[pos + 8:pos + 8 + length]
+        crc_ok = zlib.crc32(kind + body) == struct.unpack_from(">I", data, end - 4)[0]
+        if 65 <= kind[0] <= 90:  # critical
+            if kind not in (b"IHDR", b"PLTE", b"IDAT"):
+                raise UnreadableImage(f"{path}: corrupt PNG (unknown critical chunk {kind!r})")
+            if not crc_ok:
+                raise UnreadableImage(f"{path}: corrupt PNG (bad CRC in chunk {kind!r})")
+        yield kind, body if crc_ok else None
+        pos = end
 
 
 def _paeth(a, b, c):
@@ -207,11 +253,11 @@ def _image_rows(raw: np.ndarray, w: int, h: int, depth: int, channels: int, path
     stride = (w * bits + 7) // 8
     size = h * (stride + 1)
     if raw.size < size:
-        raise ValueError(f"{path}: {raw.size} bytes of image data for {w}x{h} at {bits} bits")
+        raise UnreadableImage(f"{path}: {raw.size} bytes of image data for {w}x{h} at {bits} bits")
     rows = raw[:size].reshape(h, stride + 1)
     filters, rows = rows[:, 0], rows[:, 1:]
     if filters.max(initial=0) > 4:
-        raise ValueError(f"{path}: unknown row filter {int(filters.max())}")
+        raise UnreadableImage(f"{path}: unknown row filter {int(filters.max())}")
     bpp = max(1, bits // 8)
     unfilter = _unfilter_rows if filters.max(initial=0) <= 2 else _unfilter_wavefront
     rows = unfilter(filters, rows, bpp)
@@ -243,31 +289,67 @@ def _reciprocal(g: int) -> int:  # png_reciprocal in 1/100000 fixed point
 
 def _png(data: bytes, path: str, gray: bool):
     """(the decoded image, its EXIF orientation), as OpenCV's PNG decoder
-    asks libpng for it."""
+    asks libpng for it. Where cv2.imread returns None it raises
+    ``UnreadableImage``: a header libpng refuses, a palette image without a
+    single well-formed PLTE before its data, IDAT chunks that are missing,
+    split by another chunk or whose zlib stream is broken, cut or too short
+    for the image, a row filter above 4. A PLTE in a non-palette image, an
+    invalid ``gAMA`` or ``sRGB``, an ancillary chunk with a bad CRC and data
+    after the zlib stream are ignored, as libpng ignores them; a palette
+    index past the PLTE entries reads black, as libpng's zeroed palette
+    gives it."""
     header, palette, idat, orientation, file_gamma = None, None, [], 1, None
-    for kind, body in _chunks(data, path):
+    idat_state = 0  # 0: before IDAT, 1: in the IDAT run, 2: after it
+    for i, (kind, body) in enumerate(_chunks(data, path)):
+        if (i == 0) != (kind == b"IHDR"):
+            raise UnreadableImage(f"{path}: corrupt PNG (IHDR is not the first chunk and the only one)")
+        if idat_state == 1 and kind != b"IDAT":
+            idat_state = 2
         if kind == b"IHDR":
+            if len(body) != 13:
+                raise UnreadableImage(f"{path}: corrupt PNG (IHDR of {len(body)} bytes)")
             header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
+            if idat_state == 2:
+                raise UnreadableImage(f"{path}: corrupt PNG (IDAT chunks split by another chunk)")
+            idat_state = 1
             idat.append(body)
+        elif body is None:
+            continue  # an ancillary chunk with a bad CRC
+        elif kind == b"PLTE":
+            if header[3] == 3:
+                if palette is not None or idat_state or len(body) % 3 or not 3 <= len(body) <= 768:
+                    raise UnreadableImage(f"{path}: corrupt PNG (bad PLTE)")
+                palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"eXIf":
             orientation = _exif_orientation(body)
+        elif idat_state or palette is not None:
+            continue  # libpng takes gAMA and sRGB before PLTE and IDAT only
         elif kind == b"gAMA" and len(body) == 4 and file_gamma is None:
             file_gamma = struct.unpack(">I", body)[0] or None
-        elif kind == b"sRGB":
+        elif kind == b"sRGB" and len(body) == 1 and body[0] <= 3:
             file_gamma = 45455  # libpng's PNG_GAMMA_sRGB_INVERSE
-    if header is None:
-        raise ValueError(f"{path}: no IHDR chunk")
-    w, h, depth, color, _, _, interlace = header
-    if color not in _DEPTHS or depth not in _DEPTHS[color] or interlace > 1:
-        raise ValueError(f"{path}: not a valid PNG header (bit depth {depth}, color type "
-                         f"{color}, interlace {interlace})")
+    w, h, depth, color, compression, filter_method, interlace = header
+    if (color not in _DEPTHS or depth not in _DEPTHS[color] or interlace > 1 or compression
+            or filter_method or not 1 <= w <= _PNG_MAX_SIDE or not 1 <= h <= _PNG_MAX_SIDE):
+        raise UnreadableImage(f"{path}: not a valid PNG header ({w}x{h}, bit depth {depth}, "
+                              f"color type {color}, interlace {interlace})")
+    if w * h > _CV2_MAX_PIXELS:
+        raise ValueError(f"{path}: PNG of {w}x{h} pixels (more than 2^30, which cv2.imread "
+                         "refuses too)")
     if color == 3 and palette is None:
-        raise ValueError(f"{path}: a palette PNG without PLTE")
+        raise UnreadableImage(f"{path}: a palette PNG without PLTE before its image data")
+    if not idat:
+        raise UnreadableImage(f"{path}: a PNG without image data (no IDAT)")
     channels = _CHANNELS[color]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    stream = zlib.decompressobj()
+    try:
+        raw = stream.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise UnreadableImage(f"{path}: corrupt PNG image data ({e})") from None
+    if not stream.eof:
+        raise UnreadableImage(f"{path}: truncated PNG image data (the zlib stream does not end)")
+    raw = np.frombuffer(raw, np.uint8)
     if interlace == 0:
         img, _ = _image_rows(raw, w, h, depth, channels, path)
     else:
@@ -279,10 +361,8 @@ def _png(data: bytes, path: str, gray: bool):
                 sub, used = _image_rows(raw[at:], pw, ph, depth, channels, path)
                 img[y0::dy, x0::dx] = sub
                 at += used
-    if color == 3:
-        if img.max(initial=0) >= len(palette):
-            raise ValueError(f"{path}: a palette index past the {len(palette)} PLTE entries")
-        img = palette[img[:, :, 0]]  # tRNS would only add the alpha that is dropped
+    if color == 3:  # tRNS would only add the alpha that is dropped
+        img = np.concatenate([palette, np.zeros((256 - len(palette), 3), np.uint8)])[img[:, :, 0]]
     elif depth < 8:
         img = (img * (255 // ((1 << depth) - 1))).astype(np.uint8)
     is_gray = color in (0, 4)
@@ -330,7 +410,10 @@ def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:
     elif data[:8] == _SIGNATURE:
         img, orientation = _png(data, path, gray)
     else:
-        raise ValueError(f"{path}: {_format_name(data)} file; this reader decodes JPEG and PNG "
+        name = _format_name(data)
+        if name in _NO_CV2_DECODER:
+            raise UnreadableImage(f"{path}: {name} file, which no OpenCV decoder reads")
+        raise ValueError(f"{path}: {name} file; this reader decodes JPEG and PNG "
                          "only (the JAX package reads other formats through OpenCV)")
     return _orient(img, orientation)
 

@@ -225,24 +225,45 @@ def test_unsupported_jpeg_kinds_raise_naming_them(tmp_path, marker, kind):
         image_io.imread(str(_write(tmp_path, "x.jpg", bytes(data))))
 
 
-def test_twelve_bit_and_truncated_jpegs_raise(tmp_path):
+def test_twelve_bit_jpegs_raise(tmp_path):
+    """cv2.imread reads 8-bit samples only: None for a 12-bit frame, and the
+    None error here."""
     data = _encode(_scene(64, 96, 0))
     (_, sof, _), = [s for s in _segments(data) if s[0] == 0xC0]
     twelve = bytearray(data)
     twelve[sof + 4] = 12
-    with pytest.raises(ValueError, match="12-bit JPEG"):
-        image_io.imread(str(_write(tmp_path, "p12.jpg", bytes(twelve))))
-    for cut, what in ((len(data) - 2, "no EOI marker"), (len(data) // 2, "ends before its last block"),
-                      (100, "ends inside a marker segment")):
-        with pytest.raises(ValueError, match=what):
-            image_io.imread(str(_write(tmp_path, "cut.jpg", data[:cut])))
+    path = str(_write(tmp_path, "p12.jpg", bytes(twelve)))
+    for flag in FLAGS:
+        assert cv2.imread(path, flag) is None
+        with pytest.raises(image_io.UnreadableImage, match="12-bit JPEG"):
+            image_io.imread(path, flag)
+
+
+@pytest.mark.parametrize("cut", ["no_eoi", "half", "in_a_marker_segment"])
+def test_truncated_jpegs_read_as_cv2(tmp_path, cut):
+    """A file cut before its EOI or in its scan reads as OpenCV reads it (the
+    rest of the scan grey); one cut before its scan raises the None error,
+    where cv2.imread returns None."""
+    data = _encode(_scene(64, 96, 0))
+    size = {"no_eoi": len(data) - 2, "half": len(data) // 2, "in_a_marker_segment": 100}[cut]
+    path = _write(tmp_path, "cut.jpg", data[:size])
+    if cut == "in_a_marker_segment":
+        for flag in FLAGS:
+            assert cv2.imread(str(path), flag) is None
+            with pytest.raises(image_io.UnreadableImage, match="no frame header"):
+                image_io.imread(str(path), flag)
+    else:
+        _assert_reads_as_cv2(path)
+        if cut == "half":
+            assert (image_io.imread(str(path))[-8:] == 128).all()  # the undecoded rest: grey
 
 
 @pytest.mark.parametrize("width,height,gray,progressive,what", [
-    (65535, 65535, False, 0, r"65535x65535 pixels \(more than 2\^30"),
+    (40000, 40000, False, 0, r"40000x40000 pixels \(more than 2\^30"),
+    (65535, 65535, False, 0, r"65535x65535 pixels \(a side over libjpeg's 65500"),
     (32768, 32767, True, 0, "too short for the blocks of a scan"),
     (32768, 32767, True, 1, "too short for the blocks of a scan"),
-], ids=["over_cv2_limit", "sequential_bomb", "progressive_bomb"])
+], ids=["over_cv2_limit", "over_libjpeg_side", "sequential_bomb", "progressive_bomb"])
 def test_a_small_file_declaring_a_huge_frame_raises_without_allocating_it(
         tmp_path, width, height, gray, progressive, what):
     import resource

@@ -61,7 +61,7 @@ def test_importing_the_port_loads_no_jax():
                  "frn_tpu_torch.utils.native", "frn_tpu_torch.data.augment",
                  "frn_tpu_torch.data.extra_datasets", "frn_tpu_torch.cli.convert_checkpoint",
                  "frn_tpu_torch.parallel", "frn_tpu_torch.parallel.mesh",
-                 "frn_tpu_torch.parallel.launch"):
+                 "frn_tpu_torch.parallel.launch", "frn_tpu_torch.tools.preprocess_dsec"):
         assert name in result["imported"]
 
 
