@@ -124,7 +124,18 @@ Phases:
      JPEG cut in its scan, one with a changed byte, a PNG with a bad tEXt
      CRC); the damage sweep (``check_damage_sweep``: JPEGs and PNGs up to
      480x640 cut, changed at seeded bytes and given a bad ancillary CRC,
-     each read equal to cv2.imread's or None on both sides).
+     each read equal to cv2.imread's or None on both sides). Then the seven
+     formats OpenCV decodes with its own code (BMP, PBM/PGM/PPM, PAM, PFM,
+     Sun raster, Radiance HDR, GIF): the format sweep
+     (``check_format_sweep``: every variant of the CPU test, whole, cut
+     and changed at seeded bytes, each read equal to cv2.imread's, None or
+     an error on both sides, apart from the variants in
+     ``FORMATS_LEFT_OUT``), and ``cli.test`` DSEC bf16 over a tree of
+     480x640 frames spread over BMP 24-bit, BMP 32-bit, P6 PPM, PAM RGB and
+     Sun raster 24-bit and over its PNG twin (``check_format_evaluation``:
+     every frame equal to cv2.imread's under both flags, B1 4 times a
+     batch, the detections and summaries equal; the host ms of both readers
+     per BMP and PPM frame, in turns).
      Phase 4 then evaluates
      in ``Trainer.fit`` (``eval_fn``) and checks the best-mAP checkpoint;
   9. the f32 training path, ``python -m frn_tpu_torch.cli.train`` (its
@@ -2710,6 +2721,38 @@ def time_other_jpeg(other: str, frames: int = 12, reps: int = 10) -> None:
           "outputs equal", flush=True)
 
 
+def compare_eval_with_twin(name: str, over: dict, over_twin: dict, root: Path) -> None:
+    """``cli.test`` DSEC bf16 over a tree of frames (``over``) and over its
+    PNG twin: B1 4 times a batch and nothing else in each run, and equal
+    detections and summaries."""
+    import pickle
+
+    import numpy as np
+
+    batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    runs = []
+    for label, inputs, suffix in ((name, over, ""), ("its PNG twin", over_twin, "_twin")):
+        folder = str(root / f"eval_dsec_bf16_{name.split()[-1].lower()}{suffix}")
+        label = f"DSEC bf16 over {label}"
+        text, counts, _ = run_eval_cli(label, "test", _cli_flags(inputs, "dsec", folder, "--compute_dtype",
+                                                                  "bfloat16"))
+        if counts != {**dict.fromkeys(_COUNTERS, 0), "flash_fwd": 4 * batches}:
+            fail(f"evaluation ({label}) launched {counts}, expected B1 {4 * batches} times")
+        fps, summary = check_eval_summary(label, text, folder)
+        with open(Path(folder) / "detections.txt", "rb") as f:
+            runs.append((fps, summary, pickle.load(f)))
+    (fps_t, sum_t, det_t), (fps_p, sum_p, det_p) = runs
+    same = len(det_t) == len(det_p) and all(
+        len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+        for a, b in zip(det_t, det_p))
+    n_det = sum(len(x) for per_image in det_t for x in per_image)
+    print(f"evaluation DSEC bf16 over {name} vs its PNG twin: B1 {4 * batches} launches each, "
+          f"{n_det} detections, equal: {same}; summaries equal: {sum_t == sum_p}; {fps_t:.2f} img/s over "
+          f"{name}, {fps_p:.2f} over PNG (the CLI's, first batch included)", flush=True)
+    if not (same and sum_t == sum_p):
+        fail(f"evaluation over {name} differs from the same frames' PNG twin")
+
+
 def check_jpeg_evaluation(inputs: dict, root: Path) -> None:
     """The port's JPEG decoder on the card's machine: ``image_io.imread``
     equal to that machine's ``cv2.imread`` on every file of the JPEG tree
@@ -2719,8 +2762,6 @@ def check_jpeg_evaluation(inputs: dict, root: Path) -> None:
     times a batch, nothing else), whose detections and summaries must be
     equal, and the CLI's eval loop again warm over each, in turns (JPEG,
     PNG, PNG, JPEG)."""
-    import pickle
-
     import cv2
     import numpy as np
 
@@ -2766,28 +2807,7 @@ def check_jpeg_evaluation(inputs: dict, root: Path) -> None:
           f"port / cv2 per file median {statistics.median(ratios):.3f} (quartiles "
           f"{quartiles[0]:.3f}-{quartiles[2]:.3f})", flush=True)
 
-    batches = -(-EVAL_IMAGES // EVAL_BATCH)
-    runs = {}
-    for name, over in (("JPEG", over_jpeg), ("PNG twin", over_twin)):
-        folder = str(root / f"eval_dsec_bf16_{name.split()[0].lower()}")
-        label = f"DSEC bf16 over {name}"
-        text, counts, _ = run_eval_cli(label, "test", _cli_flags(over, "dsec", folder, "--compute_dtype",
-                                                                  "bfloat16"))
-        if counts != {**dict.fromkeys(_COUNTERS, 0), "flash_fwd": 4 * batches}:
-            fail(f"evaluation ({label}) launched {counts}, expected B1 {4 * batches} times")
-        fps, summary = check_eval_summary(label, text, folder)
-        with open(Path(folder) / "detections.txt", "rb") as f:
-            runs[name] = (fps, summary, pickle.load(f))
-    (fps_j, sum_j, det_j), (fps_p, sum_p, det_p) = runs["JPEG"], runs["PNG twin"]
-    same = len(det_j) == len(det_p) and all(
-        len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
-        for a, b in zip(det_j, det_p))
-    n_det = sum(len(x) for per_image in det_j for x in per_image)
-    print(f"evaluation DSEC bf16 over JPEG vs its PNG twin: {n_det} detections, equal: {same}; "
-          f"summaries equal: {sum_j == sum_p}; {fps_j:.2f} img/s over JPEG, {fps_p:.2f} over PNG "
-          f"(the CLI's, first batch included)", flush=True)
-    if not (same and sum_j == sum_p):
-        fail("evaluation over JPEG differs from the same frames' PNG twin")
+    compare_eval_with_twin("JPEG", over_jpeg, over_twin, root)
 
     from frn_tpu_torch.eval.detections import collect_detections
 
@@ -2803,6 +2823,202 @@ def check_jpeg_evaluation(inputs: dict, root: Path) -> None:
                       for name, vals in loops.items()), flush=True)
     del built
     torch.cuda.empty_cache()
+
+
+# phase 8's format sweep: every variant of tests/test_torch_image_formats.py
+# (built by tests/torch_image_variants.py: BMP, PBM/PGM/PPM, PAM, PFM, Sun
+# raster, Radiance HDR, GIF), each cut at FORMAT_EACH lengths and changed at
+# FORMAT_EACH seeded bytes, and its DAMAGED files at FORMAT_CUTS lengths and
+# FORMAT_CHANGES seeded bytes, as the CPU test cuts and changes them
+FORMAT_EACH, FORMAT_CUTS, FORMAT_CHANGES = 8, 32, 100
+# variants on which this machine's OpenCV and the one the CPU tests run
+# against (5.0.0) read otherwise, with the reason: their reads, whole, cut and
+# changed, are left out; the port follows the tests' OpenCV, and each is named
+# in ROADMAP's Queue C
+FORMATS_LEFT_OUT = {
+    "pam_grayscale_depth_3": "OpenCV 4.13 reads a PAM whose tuple type does not fit its depth "
+                             "(GRAYSCALE at depth 3); OpenCV 5.0 returns None",
+    "pam_rgb_depth_4": "OpenCV 4.13 reads a PAM whose tuple type does not fit its depth (RGB at "
+                       "depth 4); OpenCV 5.0 returns None",
+}
+# the format evaluation's DSEC tree: its frames spread over these lossless
+# colour kinds in turn
+FORMAT_TREE_KINDS = ("BMP 24-bit", "BMP 32-bit", "PPM P6", "PAM RGB", "Sun raster 24-bit")
+FORMAT_DECODE_REPS = 10
+
+
+def _image_variants():
+    """``tests/torch_image_variants.py``, loaded by its path: it imports
+    numpy, OpenCV, PIL where installed and the port's ``image_io``, nothing
+    of JAX."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_image_variants", Path(__file__).resolve().parent / "tests" / "torch_image_variants.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def check_format_sweep(root: Path) -> None:
+    """``image_io.imread`` against this machine's ``cv2.imread`` under both
+    flags on every variant of the CPU test of the seven formats OpenCV
+    decodes with its own code, whole, cut and changed at seeded bytes
+    (FORMAT_EACH times each, FORMAT_CUTS and FORMAT_CHANGES times the CPU
+    test's DAMAGED files): equal arrays, None on both sides (the port's
+    ``UnreadableImage``) or cv2.error against a plain ``ValueError``; a PAM
+    that OpenCV reads into uninitialized memory under a flag is refused by
+    the port there. Mismatches are gathered by (variant, damage) and fail
+    the phase; the variants in FORMATS_LEFT_OUT are not read. Prints this
+    OpenCV's Media I/O lines for the seven codecs. Needs no card:
+
+        python3 -c "import chip_smoke as c, tempfile, pathlib; c.check_format_sweep(pathlib.Path(tempfile.mkdtemp()))"
+    """
+    import cv2
+    import numpy as np
+
+    from frn_tpu_torch.data import image_io
+
+    lines = [" ".join(line.split()) for line in cv2.getBuildInformation().splitlines()
+             if line.strip().split(":")[0] in ("GIF", "HDR", "SUNRASTER", "PXM", "PFM")]
+    print(f"format sweep: OpenCV {cv2.__version__} Media I/O (BMP is always built in): "
+          + "; ".join(lines), flush=True)
+    variants_module = _image_variants()
+    variants = variants_module.variants()
+    logging = getattr(getattr(cv2, "utils", None), "logging", None)
+    if logging is not None:  # OpenCV logs each refused read; the counts below say it all
+        level = logging.getLogLevel()
+        logging.setLogLevel(logging.LOG_LEVEL_SILENT)
+    rng = np.random.default_rng(27)
+    cases = []
+    for name, data in sorted(variants.items()):
+        cuts, changes = ((FORMAT_CUTS, FORMAT_CHANGES) if name in variants_module.DAMAGED else
+                         (FORMAT_EACH, FORMAT_EACH))
+        cases.append((name, "whole", data))
+        cases += [(name, "cut", data[:int(n)]) for n in np.linspace(0, len(data) - 1, cuts)]
+        for _ in range(changes):
+            changed = bytearray(data)
+            pos = int(rng.integers(0, len(data)))
+            changed[pos] = (changed[pos] + int(rng.integers(1, 256))) % 256
+            cases.append((name, "byte", bytes(changed)))
+    path = root / "format.bin"
+    agree = {"image": 0, "none": 0, "error": 0, "undefined": 0}
+    mismatches: dict = {}
+    t0 = time.perf_counter()
+    for name, damage, data in cases:
+        if name in FORMATS_LEFT_OUT:
+            continue
+        path.write_bytes(data)
+        for flag in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE):
+            want = variants_module.read_outcome(cv2.imread, path, flag)
+            got = variants_module.read_outcome(image_io.imread, path, flag)
+            if got[0] == "undefined" and want[0] == "image":
+                agree["undefined"] += 1
+            elif want[0] == got[0] and (want[0] != "image" or (
+                    got[1].shape == want[1].shape and np.array_equal(got[1], want[1]))):
+                agree[want[0]] += 1
+            else:
+                what = f"flag {flag}: cv2 {want[0]}, port {got[0] if got[0] != want[0] else 'another image'}"
+                mismatches.setdefault((name, damage), []).append(what)
+    if logging is not None:
+        logging.setLogLevel(level)
+    reads = sum(agree.values()) + sum(len(v) for v in mismatches.values())
+    print(f"format sweep: {sum(agree.values())} of {reads} reads of {len(variants)} variants, "
+          f"{FORMAT_EACH} cuts and {FORMAT_EACH} changed bytes of each ({FORMAT_CUTS} and "
+          f"{FORMAT_CHANGES} of the CPU test's {len(variants_module.DAMAGED)} damaged files; both "
+          f"flags) agree with OpenCV {cv2.__version__}'s cv2.imread: {agree['image']} images "
+          f"equal, {agree['none']} None on both sides, {agree['error']} errors on both sides, "
+          f"{agree['undefined']} uninitialized PAM reads refused; left out "
+          f"{sorted(FORMATS_LEFT_OUT) or 'nothing'}; {time.perf_counter() - t0:.1f} s on the host of "
+          f"{card_name_and_power_limit()}", flush=True)
+    for (name, damage), what in sorted(mismatches.items()):
+        print(f"format sweep mismatch: {name}, {damage}: {len(what)} reads, e.g. {what[0]}", flush=True)
+    if mismatches:
+        fail(f"image_io.imread differs from cv2.imread on the format sweep: {sorted(mismatches)}")
+
+
+def write_format_trees(inputs: dict, root: Path):
+    """The DSEC fixture's frames (480x640) rewritten in turn as the kinds of
+    FORMAT_TREE_KINDS (under the fixture's PNG names: both readers go by
+    content) and their PNG twin of cv2.imread's decodes under ``root``.
+    Returns (the files, their kinds, the eval inputs over the tree, over the
+    twin)."""
+    import cv2
+    import numpy as np
+
+    from frn_tpu_torch.data import image_io
+
+    variants = _image_variants()
+    src = Path(inputs["dsec"]["img_dir"])
+    tree_dir, twin_dir = root / "dsec_formats", root / "dsec_formats_twin"
+    files, kinds = [], []
+    for i, png in enumerate(sorted(src.rglob("*.png"))):
+        rel, kind = png.relative_to(src), FORMAT_TREE_KINDS[i % len(FORMAT_TREE_KINDS)]
+        img = cv2.imread(str(png))
+        if kind == "BMP 32-bit":
+            bgra = np.concatenate([img, np.full(img.shape[:2] + (1,), 255, np.uint8)], axis=2)
+            data = variants.bmp(img.shape[1], img.shape[0], 32, variants.bmp_rows(bgra[::-1], 32))
+        else:
+            ext = {"BMP 24-bit": ".bmp", "PPM P6": ".ppm", "PAM RGB": ".pam", "Sun raster 24-bit": ".ras"}
+            ok, buf = cv2.imencode(ext[kind], img)
+            if not ok:
+                fail(f"evaluation over the formats: cv2.imencode of {png.name} as {kind}")
+            data = buf.tobytes()
+        for d in (tree_dir, twin_dir):
+            (d / rel).parent.mkdir(parents=True, exist_ok=True)
+        (tree_dir / rel).write_bytes(data)
+        image_io.imwrite(str(twin_dir / rel), cv2.imread(str(tree_dir / rel)), level=1)
+        files.append(tree_dir / rel)
+        kinds.append(kind)
+    over = {name: {**inputs, "dsec": {**inputs["dsec"], "img_dir": str(d)}}
+            for name, d in (("tree", tree_dir), ("twin", twin_dir))}
+    return files, kinds, over["tree"], over["twin"]
+
+
+def check_format_evaluation(inputs: dict, root: Path) -> None:
+    """The port's readers of OpenCV's own formats on the card's machine:
+    ``image_io.imread`` equal to that machine's ``cv2.imread`` on every
+    frame of a DSEC tree at full width whose frames are spread over
+    FORMAT_TREE_KINDS, under both flags; the host ms of both readers per
+    480x640 BMP and PPM frame, in turns file by file; then ``cli.test`` DSEC
+    bf16 over the tree and over its PNG twin (B1 4 times a batch, nothing
+    else), whose detections and summaries must be equal. Alone, after the
+    build:
+
+        python3 -c "import chip_smoke as c, tempfile, pathlib; c.phase_environment(); d = pathlib.Path(tempfile.mkdtemp()); c.check_format_evaluation(c.write_eval_inputs(d), d)"
+    """
+    import cv2
+    import numpy as np
+
+    from frn_tpu_torch.data import image_io
+
+    t0 = time.perf_counter()
+    files, kinds, over_tree, over_twin = write_format_trees(inputs, root)
+    for path in files:
+        for flag in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE):
+            want, got = cv2.imread(str(path), flag), image_io.imread(str(path), flag)
+            if want is None or got.shape != want.shape or not np.array_equal(got, want):
+                fail(f"image_io.imread differs from cv2.imread on {path.name} (flag {flag})")
+    print(f"evaluation over the formats: {len(files)} DSEC frames at 480x640 rewritten as "
+          f"{', '.join(f'{kinds.count(k)} {k}' for k in FORMAT_TREE_KINDS)} and their PNG twin in "
+          f"{time.perf_counter() - t0:.1f} s; image_io.imread equals OpenCV {cv2.__version__}'s "
+          "cv2.imread on every frame under IMREAD_COLOR and IMREAD_GRAYSCALE", flush=True)
+    reads = (("port", image_io.imread), ("cv2.imread", cv2.imread))
+    for kind in ("BMP 24-bit", "PPM P6"):
+        chosen = [p for p, k in zip(files, kinds) if k == kind]
+        times = {name: [] for name, _ in reads}
+        for rep in range(FORMAT_DECODE_REPS):
+            for i, path in enumerate(chosen):
+                for name, read in reads[::-1] if (rep + i) % 2 else reads:
+                    t1 = time.perf_counter()
+                    read(str(path))
+                    times[name].append((time.perf_counter() - t1) * 1e3)
+        port_ms, cv2_ms = (statistics.median(times[name]) for name, _ in reads)
+        print(f"{kind} read, 480x640 BGR, host of {card_name_and_power_limit()}, in turns file by file "
+              f"over {FORMAT_DECODE_REPS} x {len(chosen)} files: port median {port_ms:.3f} ms, "
+              f"cv2.imread {cv2_ms:.3f} ms", flush=True)
+
+    compare_eval_with_twin("the format tree", over_tree, over_twin, root)
 
 
 def phase_evaluation(kernel_rows, inputs: dict, root: Path) -> None:
@@ -2886,6 +3102,8 @@ def phase_evaluation(kernel_rows, inputs: dict, root: Path) -> None:
         torch.cuda.empty_cache()
     kernel_rows["flash_fwd_f32"]["launches"] = f32_launches
     check_jpeg_evaluation(inputs, root)
+    check_format_sweep(root)
+    check_format_evaluation(inputs, root)
 
     # the folder protocol through the CLI, at bf16 over the small fixture
     tree = write_corruption_tree(inputs, root / "corruptions", group=0)

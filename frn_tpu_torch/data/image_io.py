@@ -1,8 +1,10 @@
-"""Image reading (JPEG and PNG) and PNG writing without OpenCV.
+"""Image reading and PNG writing without OpenCV: every format whose decoder
+OpenCV has in its own code or in libjpeg-turbo and libpng.
 
-``imread`` returns what ``cv2.imread`` returns, bit for bit, for every JPEG
-and PNG the datasets hold, damaged ones included; the JAX package reads them
-with OpenCV, whose codecs are libjpeg-turbo and libpng. With
+``imread`` returns what ``cv2.imread`` returns, bit for bit, for JPEG, PNG,
+BMP, PBM/PGM/PPM, PAM, PFM, Sun raster, Radiance HDR and GIF files, damaged
+ones included; the JAX package reads them with OpenCV. OpenCV picks its
+decoder by the file's content, not its name, and so does ``imread``. With
 ``IMREAD_COLOR`` (the default) it gives (H, W, 3) uint8 in BGR order, with
 ``IMREAD_GRAYSCALE`` (H, W) uint8.
 
@@ -36,16 +38,26 @@ with OpenCV, whose codecs are libjpeg-turbo and libpng. With
   dropped (a ``gAMA`` so dropped gives no gamma), data after IEND is not
   read, and a cut file, a critical chunk with a bad CRC, a broken zlib
   stream or a header libpng refuses raise ``UnreadableImage`` (see ``_png``).
+* BMP, PBM/PGM/PPM, PAM, PFM, Sun raster, Radiance HDR and GIF follow OpenCV
+  5's own decoders, their faults included (each decoder's docstring says
+  what it reproduces): plain rows decode in numpy, and BMP's RLE4/RLE8,
+  HDR's run-length scanlines and GIF's LZW in the port's native library
+  (``frn_tpu_torch/native/codecs.cpp``, built by g++ at first use; without
+  it such a file raises ``RuntimeError`` naming the cause). Where OpenCV's
+  PAM reader leaves part of the image uninitialized (the alpha tuple types
+  under some flags) this reader raises ``ValueError``: no reader can give
+  those pixels.
 * The EXIF orientation (a JPEG's first APP1 segment, a PNG's ``eXIf`` chunk)
   turns the image as ``cv2.imread`` turns it.
 
 Errors: a missing file raises ``FileNotFoundError``; an existing file that
 ``cv2.imread`` returns None for raises ``UnreadableImage`` (a ``ValueError``;
 also for bytes no OpenCV decoder recognizes, as a file cut before its
-signature); a file that OpenCV reads and this reader does not (BMP, TIFF,
-WebP, GIF, ..., and the JPEG kinds above) raises a plain ``ValueError``
-naming it. The datasets turn ``UnreadableImage`` into the JAX package's
-answer to the None.
+signature); where ``cv2.imread`` raises ``cv2.error`` (a frame over 2^30
+pixels or 2^20 a side) this reader raises a plain ``ValueError``, as it does
+for a file that OpenCV reads and this reader does not (TIFF, WebP, JPEG
+2000, AVIF/HEIF, and the JPEG kinds above), naming it. The datasets turn
+``UnreadableImage`` into the JAX package's answer to the None.
 
 ``imwrite`` writes uint8 (H, W) gray, or (H, W, C) with C 1, 3 (BGR) or 4
 (BGRA), as ``cv2.imwrite`` does; every row takes the same filter
@@ -57,6 +69,7 @@ from __future__ import annotations
 import ctypes
 import math
 import os
+import re
 import struct
 import zlib
 
@@ -77,25 +90,23 @@ _CV2_MAX_PIXELS = 1 << 30  # cv2's CV_IO_MAX_IMAGE_PIXELS
 # Adam7 passes: first column, first row, column step, row step
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
           (0, 1, 1, 2))
-# other formats by their leading bytes, so that the error names them
-_OTHER_FORMATS = ((b"BM", "BMP"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
-                  (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"\xffO\xffQ", "JPEG 2000"),
-                  (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"), (b"\xff\x0a", "JPEG XL"),
-                  (b"\x00\x00\x00\x0cJXL ", "JPEG XL"), (b"v/1\x01", "OpenEXR"),
-                  (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"),
-                  (b"\x59\xa6\x6a\x95", "Sun raster"), (b"\x8aMNG", "MNG"))
-# the formats among them that OpenCV has no decoder for (cv2.imread returns None)
-_NO_CV2_DECODER = ("JPEG XL", "OpenEXR", "MNG", "an unknown format")
+# the formats that cv2.imread reads and this reader does not, by their
+# leading bytes, so that the error names them
+_OTHER_FORMATS = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"\xffO\xffQ", "JPEG 2000"),
+                  (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"))
 
 
 class UnreadableImage(ValueError):
-    """An existing file that ``cv2.imread`` returns None for: a damaged JPEG
-    or PNG that libjpeg-turbo, libpng or OpenCV gives up on, or bytes no
-    OpenCV decoder recognizes. The JAX package's datasets act on that None
+    """An existing file that ``cv2.imread`` returns None for: a damaged or
+    refused file that libjpeg-turbo, libpng or OpenCV's own decoders give up
+    on, or bytes no OpenCV decoder recognizes. The JAX package's datasets act on that None
     (DSEC-Det reads zeros, the CSV dataset raises ``FileNotFoundError``)."""
 
 
-def _format_name(data: bytes) -> str:
+def _format_name(data: bytes):
+    """The name of a format that cv2.imread reads and this reader refuses,
+    or None (OpenCV has no decoder for the bytes either: JPEG XL, OpenEXR
+    and MNG in the OpenCV the tests hold this reader to, or no format)."""
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "WebP"
     if data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis", b"heic", b"heix", b"mif1"):
@@ -103,9 +114,7 @@ def _format_name(data: bytes) -> str:
     for magic, name in _OTHER_FORMATS:
         if data.startswith(magic):
             return name
-    if len(data) >= 2 and data[:1] == b"P" and data[1:2] in b"123456fF":
-        return "PNM/PFM"
-    return "an unknown format"
+    return None
 
 
 # ------------------------------------------------------------ EXIF orientation
@@ -396,6 +405,661 @@ def _png(data: bytes, path: str, gray: bool):
     return np.ascontiguousarray(img[:, :, 2::-1]), orientation
 
 
+# ------------------------------------------------------------ OpenCV's own decoders
+#
+# BMP, PBM/PGM/PPM, PAM, PFM, Sun raster, Radiance HDR and GIF: OpenCV's own
+# code (grfmt_bmp, grfmt_pxm, grfmt_pam, grfmt_pfm, grfmt_sunras, grfmt_hdr
+# with rgbe, grfmt_gif), whose rules, faults included, are reproduced here as
+# cv2.imread 5.0 shows them. Plain rows decode in numpy; the run-length and
+# LZW codings go to ``frn_tpu_torch/native/codecs.cpp``.
+
+_CV2_MAX_SIDE = 1 << 20  # cv2's CV_IO_MAX_IMAGE_WIDTH and CV_IO_MAX_IMAGE_HEIGHT
+_INT_MAX = (1 << 31) - 1
+_SPACE = b" \t\n\v\f\r"  # C's isspace
+_NEWLINE = b"\n\r"
+_GRAY14 = (1868, 9617, 4899)  # B, G, R in 1/16384: OpenCV's icvCvt_BGR2Gray_8u_C3C1R
+_GRAY15 = (3735, 19235, 9798)  # B, G, R in 1/32768: cv2.cvtColor's COLOR_BGR2GRAY on uint8
+
+
+class _Stream:
+    """OpenCV's RBaseStream over the file: a read past its end raises
+    ``UnreadableImage`` (OpenCV's decoder throws there, and cv2.imread
+    returns None). ``order`` '<' reads words as RLByteStream, '>' as
+    RMByteStream."""
+
+    def __init__(self, data: bytes, path: str, pos: int = 0, order: str = "<"):
+        self.data, self.path, self.pos, self.order = data, path, pos, order
+
+    def take(self, n: int) -> bytes:
+        if n < 0 or self.pos + n > len(self.data):
+            raise UnreadableImage(f"{self.path}: the file ends inside its header or image data")
+        self.pos += n
+        return self.data[self.pos - n:self.pos]
+
+    def byte(self) -> int:
+        return self.take(1)[0]
+
+    def word(self) -> int:
+        return struct.unpack(self.order + "H", self.take(2))[0]
+
+    def int32(self) -> int:
+        return struct.unpack(self.order + "i", self.take(4))[0]
+
+    def rows(self, h: int, pitch: int) -> np.ndarray:
+        """(h, pitch) bytes from here; short of them, UnreadableImage before
+        anything is allocated."""
+        if self.pos + h * pitch > len(self.data):
+            raise UnreadableImage(f"{self.path}: {len(self.data) - self.pos} bytes of image data "
+                                  f"for {h} rows of {pitch}")
+        rows = np.frombuffer(self.data, np.uint8, h * pitch, self.pos).reshape(h, pitch)
+        self.pos += h * pitch
+        return rows
+
+
+def _check_size(w: int, h: int, path: str, kind: str) -> None:
+    """cv2.imread's validateInputImageSize, which raises cv2.error."""
+    if not (0 < w <= _CV2_MAX_SIDE and 0 < h <= _CV2_MAX_SIDE and w * h <= _CV2_MAX_PIXELS):
+        raise ValueError(f"{path}: {kind} of {w}x{h} pixels, which cv2.imread refuses with an error")
+
+
+def _gray(bgr: np.ndarray, weights=_GRAY14) -> np.ndarray:
+    """(H, W, 3) BGR -> gray by fixed-point weights over B, G, R, rounded."""
+    b, g, r = (bgr[..., i].astype(np.int32) for i in range(3))
+    shift = sum(weights).bit_length() - 1
+    return ((b * weights[0] + g * weights[1] + r * weights[2] + (1 << (shift - 1))) >> shift
+            ).astype(np.uint8)
+
+
+def _swap_rb(img: np.ndarray) -> np.ndarray:
+    """(H, W, 3) RGB <-> BGR into a new contiguous array (a copy and two
+    channel assignments take a fifth of the time of a reversed view's
+    copy)."""
+    out = np.array(img, order="C")
+    out[:, :, 0], out[:, :, 2] = img[:, :, 2], img[:, :, 0]
+    return out
+
+
+def _float_to_u8(v: np.ndarray, scale: np.float32) -> np.ndarray:
+    """v * scale in float32 (overflowing to inf as it does in OpenCV), then
+    Mat::convertTo to uint8: round half to even, saturate; a value that the
+    conversion to int32 cannot hold (NaN, |x| >= 2^31) reads 0."""
+    with np.errstate(over="ignore", invalid="ignore"):
+        x = v * scale
+        bad = ~(np.abs(x) < 2.0 ** 31)
+        return np.where(bad, 0, np.clip(np.rint(np.where(bad, 0, x)), 0, 255)).astype(np.uint8)
+
+
+def _native_error(rc: int, err, path: str, kind: str):
+    if rc != 0:
+        raise UnreadableImage(f"{path}: {kind}: {err.value.decode(errors='replace')}")
+
+
+# .................................................................. BMP
+
+
+def _bmp(data: bytes, path: str, gray: bool) -> np.ndarray:
+    """grfmt_bmp: BITMAPCOREHEADER (12 bytes) and BITMAPINFOHEADER and
+    larger (V4, V5: the fields past 40 bytes are skipped); 1, 4 and 8 bits
+    with a palette (``biClrUsed`` entries, else 2^bits; unset entries black),
+    BI_RLE4 and BI_RLE8; 16 bits as 5-5-5 (BI_RGB, or BI_BITFIELDS with
+    those masks) or 5-6-5 (BI_BITFIELDS), each sample shifted to the top of
+    its byte; 24 bits; 32 bits as B, G, R and a dropped fourth byte, or
+    (BI_BITFIELDS in a header of 56 bytes or more, none of the R, G, B masks
+    0) by its masks, scaled and reduced to gray in float as OpenCV does.
+    Rows bottom-up, or top-down where the height is negative.
+    Gray: each colour reduced by OpenCV's 14-bit weights."""
+    s = _Stream(data, path, 10)
+    offset, size = s.int32(), s.int32()
+    if size <= 0:
+        raise UnreadableImage(f"{path}: BMP header size {size}")
+    palette = np.zeros((256, 3), np.uint8)  # BGR
+    masks = None
+    if size >= 36:
+        w, h, bpp, compression = s.int32(), s.int32(), s.int32() >> 16, s.int32()
+        if not 0 <= compression <= 3:
+            raise UnreadableImage(f"{path}: BMP compression {compression}")
+        s.pos += 12
+        used = s.int32()
+        if bpp == 32 and compression == 3 and size >= 56:
+            s.pos += 4
+            masks = [s.int32() & 0xFFFFFFFF for _ in range(4)]  # R, G, B, A
+            s.pos += size - 56
+        else:
+            s.pos += size - 36
+        if bpp <= 8:
+            if not 0 <= used <= 256:
+                raise UnreadableImage(f"{path}: BMP with {used} palette entries")
+            n = used or 1 << (bpp & 31)
+            palette[:n] = np.frombuffer(s.take(4 * n), np.uint8).reshape(n, 4)[:256, :3]
+        elif bpp == 16 and compression == 3:  # R, G, B masks after the header
+            rgb = (s.int32(), s.int32(), s.int32())
+            bpp = {(0x7C00, 0x3E0, 0x1F): 15, (0xF800, 0x7E0, 0x1F): 16}.get(rgb, 0)
+        elif bpp == 16 and compression == 0:
+            bpp = 15
+    elif size == 12:
+        w, h, bpp, compression = s.word(), s.word(), s.int32() >> 16, 0
+        if bpp <= 8:
+            n = 1 << (bpp & 31)
+            palette[:n] = np.frombuffer(s.take(3 * n), np.uint8).reshape(n, 3)[:256]
+    else:
+        raise UnreadableImage(f"{path}: unknown BMP header size {size}")
+    if not (w > 0 and h != 0 and ((bpp in (1, 4, 8, 24, 32) and compression == 0)
+                                  or (bpp in (15, 16, 32) and compression in (0, 3))
+                                  or (bpp, compression) in ((4, 2), (8, 1)))):
+        raise UnreadableImage(f"{path}: BMP of {bpp} bits with compression {compression}")
+    bottom_up, h = h > 0, abs(h)
+    _check_size(w, h, path, "BMP")
+    if h * w * (1 if gray else 3) >= 1 << 30 or offset < 0:
+        raise UnreadableImage(f"{path}: BMP of {w}x{h} pixels at offset {offset}")
+    s.pos = offset
+    if compression in (1, 2):
+        lib = native.codecs_lib()
+        index = np.empty((h, w), np.uint8)
+        err = ctypes.create_string_buffer(256)
+        _native_error(lib.frn_bmp_rle(data, len(data), offset, w, h, 8 if compression == 1 else 4,
+                                      index.ctypes.data, err, len(err)), err, path, "BMP RLE")
+    else:
+        rows = s.rows(h, ((w * (16 if bpp == 15 else bpp) + 7) // 8 + 3) & -4)
+        if bpp <= 8:
+            if bpp == 8:
+                index = rows[:, :w]
+            else:
+                per = 8 // bpp
+                shifts = (8 - bpp) - bpp * np.arange(per)  # the first pixel in the high bits
+                index = ((rows[:, :, None] >> shifts) & ((1 << bpp) - 1)).reshape(h, -1)[:, :w]
+        elif bpp in (15, 16):
+            t = rows[:, :2 * w].view("<u2").astype(np.int32)
+            fields = (((t << 3) & 0xF8, (t >> 2) & 0xF8, (t >> 7) & 0xF8) if bpp == 15 else
+                      ((t << 3) & 0xF8, (t >> 3) & 0xFC, (t >> 8) & 0xF8))
+            img = np.stack(fields, axis=-1).astype(np.uint8)
+        elif bpp == 32 and masks is not None and all(masks[:3]):
+            img = _bmp_masked(rows[:, :4 * w].view("<u4"), masks)
+            if gray:  # OpenCV reduces these in float: (0.299 R + 0.587 G) + 0.114 B, truncated
+                b, g, r = (img[..., i].astype(np.float32) for i in range(3))
+                f = np.float32
+                img = ((f(0.299) * r + f(0.587) * g) + f(0.114) * b).astype(np.uint8)
+                return np.ascontiguousarray(img[::-1] if bottom_up else img)
+        else:
+            img = rows[:, :w * bpp // 8].reshape(h, w, bpp // 8)[:, :, :3]
+    if bpp <= 8:
+        img = (_gray(palette[None]).reshape(256) if gray else palette)[index]
+    elif gray:
+        img = _gray(img)
+    return np.ascontiguousarray(img[::-1] if bottom_up else img)
+
+
+def _bmp_masked(pixels: np.ndarray, masks) -> np.ndarray:
+    """grfmt_bmp's masks for 32-bit BI_BITFIELDS: each channel's bits
+    shifted down and scaled to 8 bits in float, v * (255.0f / (mask >>
+    shift)), truncated."""
+    out = []
+    for mask in (masks[2], masks[1], masks[0]):  # B, G, R
+        shift = (mask & -mask).bit_length() - 1
+        v = ((pixels.astype(np.uint64) & mask) >> shift).astype(np.float32)
+        out.append((v * (np.float32(255) / np.float32(mask >> shift))).astype(np.uint8))
+    return np.stack(out, axis=-1)
+
+
+# .................................................................. Sun raster
+
+
+def _sunras(data: bytes, path: str, gray: bool) -> np.ndarray:
+    """grfmt_sunras: depths 1, 8 (with or without an RGB colour map), 24 and
+    32 (a dropped pad byte, then B, G, R), types old (0) and standard (1);
+    rows padded to 16 bits. OpenCV's decoder tests the byte-encoded (2) and
+    RGB (3) types against a field that never holds them, so it refuses both
+    (None), and reads a map-less 1- or 8-bit file as zeros under
+    IMREAD_GRAYSCALE (its gray palette is built from a colour map only)."""
+    s = _Stream(data, path, 4, ">")
+    w, h, bpp = s.int32(), s.int32(), s.int32()
+    s.pos += 4
+    kind, map_type, map_length = s.int32(), s.int32(), s.int32()
+    pal_size = (1 << bpp) * 3 if 0 < bpp <= 8 else 0
+    if not (w > 0 and h > 0 and bpp in (1, 8, 24, 32) and kind in (0, 1)
+            and ((map_type == 0 and map_length == 0)
+                 or (map_type == 1 and 0 < map_length <= pal_size and bpp <= 8))):
+        raise UnreadableImage(f"{path}: Sun raster of type {kind}, depth {bpp}, map type {map_type} "
+                              f"of {map_length} bytes")
+    palette = np.zeros((256, 3), np.uint8)  # BGR
+    if map_length:
+        m = np.frombuffer(s.take(map_length), np.uint8)
+        n = map_length // 3
+        palette[:n] = np.stack([m[2 * n:3 * n], m[n:2 * n], m[:n]], axis=1)
+    elif bpp <= 8:
+        palette[:1 << bpp] = (np.arange(1 << bpp) * 255 // ((1 << bpp) - 1))[:, None]
+    _check_size(w, h, path, "Sun raster")
+    rows = s.rows(h, ((w * bpp + 7) // 8 + 1) & -2)
+    if bpp == 1:
+        index = np.unpackbits(rows, axis=1)[:, :w]
+    elif bpp == 8:
+        index = rows[:, :w]
+    else:  # 32 bits: a pad byte, then B, G, R
+        img = rows[:, :w * bpp // 8].reshape(h, w, bpp // 8)[:, :, bpp // 8 - 3:]
+        return _gray(img) if gray else np.ascontiguousarray(img)
+    if gray:
+        return (_gray(palette[None]).reshape(256) if map_type == 1 else
+                np.zeros(256, np.uint8))[index]
+    return palette[index]
+
+
+# .................................................................. PBM, PGM, PPM
+
+_PXM_NUMBER = re.compile(rb"(?:[ \t\n\v\f\r]+|#[^\n\r]*[\n\r])*([0-9]+)")
+_PXM_BIT = re.compile(rb"(?:[ \t\n\v\f\r]+|#[^\n\r]*[\n\r])*([0-9])")
+
+
+def _pxm_number(s: _Stream, one_digit: bool = False) -> int:
+    """grfmt_pxm's ReadNumber: whitespace and '#' comments (to a CR or LF)
+    skipped, then the digits and the one byte that ends them (P1's samples:
+    one digit, nothing after it); any other byte, the file's end or a value
+    past INT_MAX raises UnreadableImage."""
+    m = (_PXM_BIT if one_digit else _PXM_NUMBER).match(s.data, s.pos)
+    digits = m.group(1).lstrip(b"0") if m else b""
+    end = m.end() + (not one_digit) if m else 0
+    if m is None or end > len(s.data) or len(digits) > 10 or int(digits or 0) > _INT_MAX:
+        raise UnreadableImage(f"{s.path}: bad PNM header or sample at byte {s.pos}")
+    s.pos = end
+    return int(digits or 0)
+
+
+def _pxm(data: bytes, path: str, gray: bool) -> np.ndarray:
+    """grfmt_pxm, P1-P6. ASCII samples above maxval read as maxval and are
+    scaled to 8 bits by i * 255 // maxval; binary samples are taken as they
+    are, the high byte of a 16-bit one (maxval above 255); P1/P4 1 is black.
+    A PPM under IMREAD_GRAYSCALE is reduced by OpenCV's 14-bit weights."""
+    kind = data[1] - 48
+    s = _Stream(data, path, 2)
+    w, h = _pxm_number(s), _pxm_number(s)
+    maxval = _pxm_number(s) if kind not in (1, 4) else 1
+    if not (w > 0 and h > 0 and 0 < maxval < 65536):
+        raise UnreadableImage(f"{path}: PNM of {w}x{h} pixels, maxval {maxval}")
+    _check_size(w, h, path, "PNM")
+    channels = 3 if kind in (3, 6) else 1
+    if kind == 4:
+        img = np.unpackbits(s.rows(h, (w + 7) // 8), axis=1)[:, :w]
+    elif kind == 1:
+        img = np.array([_pxm_number(s, True) != 0 for _ in range(w * h)], np.uint8)
+    elif kind in (2, 3):
+        values = np.array([_pxm_number(s) for _ in range(w * h * channels)], np.int64)
+        img = np.minimum(values, maxval)
+        if maxval < 256:
+            img = img * 255 // maxval
+        else:
+            img = img >> 8
+    elif maxval < 256:
+        img = s.rows(h, w * channels)
+    else:
+        img = s.rows(h, 2 * w * channels)[:, 0::2]
+    if kind in (1, 4):  # 1 is black
+        img = (1 - img) * 255
+    img = img.astype(np.uint8).reshape(h, w, channels)
+    if channels == 3:
+        return _gray(img[:, :, ::-1]) if gray else _swap_rb(img)
+    return np.ascontiguousarray(img[:, :, 0]) if gray else np.repeat(img, 3, axis=2)
+
+
+# .................................................................. PAM
+
+_PAM_FIELDS = (b"ENDHDR", b"HEIGHT", b"WIDTH", b"DEPTH", b"MAXVAL", b"TUPLTYPE")
+_PAM_TUPLES = (b"", b"BLACKANDWHITE", b"GRAYSCALE", b"GRAYSCALE_ALPHA", b"RGB", b"RGB_ALPHA")
+
+
+def _pam_line(s: _Stream):
+    """grfmt_pam's ReadPAMHeaderLine -> (field, value) or ('#', None) for a
+    comment; UnreadableImage where OpenCV's reader fails. An identifier is
+    at most 8 bytes; the value is what follows it after any whitespace,
+    line breaks included, to a CR or LF (at most 255 bytes), trailing
+    whitespace cut."""
+    code = s.byte()
+    while code in _SPACE:
+        code = s.byte()
+    if code == 35:  # '#'
+        while s.byte() not in _NEWLINE:
+            pass
+        return "#", None
+    ident = bytearray()
+    while len(ident) < 8 and code not in _SPACE:
+        ident.append(code)
+        code = s.byte()
+    field = bytes(ident).split(b"\0")[0]
+    if code not in _SPACE or field not in _PAM_FIELDS:
+        raise UnreadableImage(f"{s.path}: bad PAM header line {bytes(ident)!r}")
+    if code in _NEWLINE:
+        return field, b""
+    code = s.byte()
+    while code in _SPACE:
+        code = s.byte()
+    value = bytearray()
+    while len(value) < 255 and code not in _NEWLINE:
+        value.append(code)
+        code = s.byte()
+    if code not in _NEWLINE:
+        raise UnreadableImage(f"{s.path}: PAM header value of more than 255 bytes")
+    while value and value[-1] in _SPACE:
+        value.pop()
+    return field, bytes(value).split(b"\0")[0]
+
+
+def _pam_int(value: bytes, path: str) -> int:
+    """grfmt_pam's ParseInt: an optional '-', digits below INT_MAX, nothing
+    after them."""
+    m = re.fullmatch(rb"(-?)([0-9]*)", value)
+    if m is None or (m.group(1) and not m.group(2)) or int(m.group(2) or 0) >= _INT_MAX:
+        raise UnreadableImage(f"{path}: PAM header number {value!r}")
+    return -int(m.group(2)) if m.group(1) else int(m.group(2) or 0)
+
+
+def _pam(data: bytes, path: str, gray: bool) -> np.ndarray:
+    """grfmt_pam, as OpenCV 5 reads it. The tuple type fixes the depth
+    (BLACKANDWHITE and GRAYSCALE 1, GRAYSCALE_ALPHA 2, RGB 3, RGB_ALPHA 4;
+    none given: depth 1, or 3 below maxval 256). Maxval 1 reads each row's
+    first bytes as packed bits, 1 white; 16-bit samples keep their high
+    byte. A depth equal to the flag's channel count is copied as it is (an
+    RGB file's R lands in the blue channel); RGB under IMREAD_GRAYSCALE is
+    reduced as if its first sample were red; gray under IMREAD_COLOR is
+    repeated. The alpha types go through OpenCV's basic_conversion, which
+    walks only the first 1/DEPTH of each row and, for gray, writes three
+    bytes a sample: where that leaves pixels unwritten (their values are
+    whatever the allocation held), this reader raises ValueError."""
+    if data[2] not in _NEWLINE:
+        raise UnreadableImage(f"{path}: PAM signature not followed by a line break")
+    s = _Stream(data, path, 3)
+    fields: dict = {}
+    while True:
+        field, value = _pam_line(s)
+        if field == b"ENDHDR":
+            break
+        if field == b"TUPLTYPE":
+            if value not in _PAM_TUPLES:
+                raise UnreadableImage(f"{path}: PAM tuple type {value!r}")
+            fields[field] = _PAM_TUPLES.index(value)
+        elif field != "#":
+            if field in fields:
+                raise UnreadableImage(f"{path}: PAM header repeats {field.decode()}")
+            fields[field] = _pam_int(value, path)
+            if field == b"MAXVAL" and fields[field] > 65535:
+                raise UnreadableImage(f"{path}: PAM maxval {fields[field]}")
+    if not {b"WIDTH", b"HEIGHT", b"DEPTH", b"MAXVAL"} <= fields.keys():
+        raise UnreadableImage(f"{path}: PAM header without WIDTH, HEIGHT, DEPTH and MAXVAL")
+    w, h, ch, maxval = (fields[k] for k in (b"WIDTH", b"HEIGHT", b"DEPTH", b"MAXVAL"))
+    tuple_type = fields.get(b"TUPLTYPE", 0) or (1 if ch == 1 and maxval == 1 else
+                                                2 if ch == 1 and maxval < 256 else
+                                                4 if ch == 3 and maxval < 256 else 0)
+    if tuple_type == 0 or (None, 1, 1, 2, 3, 4)[tuple_type] != ch:
+        raise UnreadableImage(f"{path}: PAM of depth {ch} and tuple type "
+                              f"{_PAM_TUPLES[tuple_type].decode() or 'none'}")
+    _check_size(w, h, path, "PAM")
+    depth = 2 if maxval > 255 else 1
+    rows = s.rows(h, w * ch * depth)
+    if maxval == 1:  # packed bits, 1 white
+        img = np.unpackbits(rows[:, :(w + 7) // 8], axis=1)[:, :w] * np.uint8(255)
+        return img if gray else np.repeat(img[:, :, None], 3, axis=2)
+    samples = (rows[:, 0::2] if depth == 2 else rows).reshape(h, w, ch)
+    if ch == (1 if gray else 3):
+        return np.ascontiguousarray(samples[:, :, 0] if gray else samples)
+    if ch == 1:
+        return np.repeat(samples, 3, axis=2)
+    if ch == 3:  # rgb_convert: the first sample taken as red
+        return _gray(samples, (_GRAY14[2], _GRAY14[1], _GRAY14[0]))
+    # basic_conversion over the first ceil(w / ch) samples of each row
+    m = -(-w // ch)
+    if (3 * m < w) if gray else (m < w):
+        raise ValueError(f"{path}: PAM of tuple type {_PAM_TUPLES[tuple_type].decode()} under "
+                         f"{'IMREAD_GRAYSCALE' if gray else 'IMREAD_COLOR'}: OpenCV's reader leaves "
+                         "part of it uninitialized, so no reader can give its pixels")
+    first = samples.reshape(h, -1)[:, :m * ch].reshape(h, m, ch)
+    if gray:  # three bytes a sample; what runs past a row is overwritten by the next
+        return np.ascontiguousarray(np.repeat(first[:, :, 0], 3, axis=1)[:, :w])
+    return np.ascontiguousarray(first[:, :, [2, 1, 0]] if ch == 4 else np.repeat(first[:, :, :1], 3, 2))
+
+
+# .................................................................. PFM
+
+_ATOI = re.compile(rb"[+-]?[0-9]+")
+_ATOF = re.compile(
+    rb"[+-]?(?:(0[xX](?:[0-9a-fA-F]+\.?[0-9a-fA-F]*|\.[0-9a-fA-F]+)(?:[pP][+-]?[0-9]+)?)"
+    rb"|((?:[0-9]+\.?[0-9]*|\.[0-9]+)(?:[eE][+-]?[0-9]+)?)|([iI][nN][fF](?:[iI][nN][iI][tT][yY])?)"
+    rb"|([nN][aA][nN](?:\([0-9A-Za-z_]*\))?))")
+
+
+def _pfm_token(s: _Stream) -> bytes:
+    """grfmt_pfm's read_number: the bytes up to the next whitespace (at most
+    2048, none of them above 127), as a C string."""
+    token = bytearray()
+    while len(token) < 2048:
+        c = s.byte()
+        if c >= 128:
+            raise UnreadableImage(f"{s.path}: byte {c} in the PFM header")
+        if c in _SPACE:
+            break
+        token.append(c)
+    return bytes(token).split(b"\0")[0]
+
+
+def _atoi(token: bytes) -> int:
+    """C's atoi through strtol: long saturation, then the low 32 bits."""
+    m = _ATOI.match(token)
+    v = max(-(1 << 63), min((1 << 63) - 1, int(m.group()))) if m else 0
+    return (v + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def _atof(token: bytes) -> float:
+    """C's atof (strtod on its longest valid prefix)."""
+    m = _ATOF.match(token)
+    if m is None:
+        return 0.0
+    text, sign = m.group().decode(), -1.0 if m.group().startswith(b"-") else 1.0
+    if m.group(1):
+        try:
+            return float.fromhex(text)
+        except OverflowError:
+            return sign * math.inf
+    if m.group(3) or m.group(4):
+        return sign * (math.inf if m.group(3) else math.nan)
+    return float(text)
+
+
+def _pfm(data: bytes, path: str, gray: bool) -> np.ndarray:
+    """grfmt_pfm: 'PF' colour (RGB on disk), 'Pf' gray; rows bottom to
+    top; a scale of 0 or above is big-endian, below it little-endian; the
+    floats times (float) 1/|scale|, then Mat::convertTo to uint8. OpenCV 5
+    returns None where the flag asks for the other channel count (it
+    converts into a new array and then fails its own check)."""
+    if data[2] != 10:
+        raise UnreadableImage(f"{path}: PFM signature not followed by a line feed")
+    channels = 3 if data[1] == 70 else 1  # 'F'
+    s = _Stream(data, path, 3)
+    w, h, scale = _atoi(_pfm_token(s)), _atoi(_pfm_token(s)), _atof(_pfm_token(s))
+    _check_size(w, h, path, "PFM")
+    if channels != (1 if gray else 3):
+        raise UnreadableImage(f"{path}: a {'colour' if channels == 3 else 'gray'} PFM under "
+                              f"{'IMREAD_GRAYSCALE' if gray else 'IMREAD_COLOR'}, which cv2.imread "
+                              "returns None for")
+    rows = s.rows(h, 4 * w * channels)
+    if not abs(scale) > 0:
+        raise UnreadableImage(f"{path}: PFM scale {scale}")
+    v = rows[::-1].view(">f4" if scale >= 0 else "<f4").astype(np.float32).reshape(h, w, channels)
+    img = _float_to_u8(v, np.float32(1.0 / abs(scale)))
+    return np.ascontiguousarray(img[:, :, 0] if gray else img[:, :, ::-1])
+
+
+# .................................................................. Radiance HDR
+
+_HDR_SIZE = re.compile(rb"-Y[ \t\n\v\f\r]*([ \t\n\v\f\r]*[+-]?[0-9]+)[ \t\n\v\f\r]*\+X"
+                       rb"[ \t\n\v\f\r]*([ \t\n\v\f\r]*[+-]?[0-9]+)")
+
+
+def _fgets(data: bytes, pos: int):
+    """C's fgets with a 128-byte buffer -> (the line as a C string, the
+    position after it), or None at the end of the file."""
+    if pos >= len(data):
+        return None
+    end = data.find(b"\n", pos, pos + 127)
+    end = min(pos + 127, len(data)) if end < 0 else end + 1
+    return data[pos:end].split(b"\0")[0], end
+
+
+def _hdr(data: bytes, path: str, gray: bool) -> np.ndarray:
+    """grfmt_hdr and rgbe's RGBE_ReadHeader: header lines (none a bare line
+    feed) up to exactly 'FORMAT=32-bit_rle_rgbe', an empty line, then '-Y
+    <h> +X <w>' (the only orientation read); the pixels by ``codecs.cpp``; each float
+    times 255 to uint8 as Mat::convertTo rounds it; gray from that BGR as
+    cv2.cvtColor reduces it."""
+    line = _fgets(data, 0)
+    while True:
+        if line is None:
+            raise UnreadableImage(f"{path}: Radiance HDR header cut")
+        text, pos = line
+        if text == b"\n":
+            raise UnreadableImage(f"{path}: Radiance HDR header without a FORMAT line")
+        if text == b"FORMAT=32-bit_rle_rgbe\n":
+            break
+        line = _fgets(data, pos)
+    line = _fgets(data, pos)
+    if line is None or line[0] != b"\n":
+        raise UnreadableImage(f"{path}: Radiance HDR FORMAT line not followed by an empty line")
+    line = _fgets(data, line[1])
+    m = _HDR_SIZE.match(line[0]) if line else None
+    if m is None:
+        raise UnreadableImage(f"{path}: Radiance HDR without a '-Y <height> +X <width>' line")
+    h, w = (_atoi(g.strip(_SPACE)) for g in m.groups())
+    if w <= 0 or h <= 0:
+        raise UnreadableImage(f"{path}: Radiance HDR of {w}x{h} pixels")
+    _check_size(w, h, path, "Radiance HDR")
+    pos = line[1]
+    # the fewest bytes such a frame takes (run-length scanlines of one run a
+    # channel each 127 pixels), so that a short file allocates nothing
+    least = h * (4 + 8 * -(-w // 127)) if 8 <= w <= 0x7FFF else 4 * w * h
+    if len(data) - pos < least:
+        raise UnreadableImage(f"{path}: {len(data) - pos} bytes of pixels for a {w}x{h} HDR")
+    lib = native.codecs_lib()
+    v = np.empty((h, w, 3), np.float32)
+    err = ctypes.create_string_buffer(256)
+    _native_error(lib.frn_hdr_pixels(data, len(data), pos, w, h, v.ctypes.data, err, len(err)),
+                  err, path, "Radiance HDR")
+    img = _float_to_u8(v, np.float32(255))
+    return _gray(img, _GRAY15) if gray else img
+
+
+# .................................................................. GIF
+
+
+def _gif_blocks(s: _Stream) -> list:
+    """The data sub-blocks from here to their terminator."""
+    blocks = []
+    while (n := s.byte()) != 0:
+        blocks.append(s.take(n))
+    return blocks
+
+
+def _gif(data: bytes, path: str, gray: bool) -> np.ndarray:
+    """grfmt_gif, the first frame: the logical screen filled with the
+    global table's background colour (black without a global table), the
+    frame's pixels drawn on it except where a Graphic Control Extension
+    marks them transparent; a frame without any colour table takes a gray
+    ramp (index 1 white). None where OpenCV's reader gives up: a background
+    index past the global table, a Graphic Control Extension of another
+    length than 4 or with a disposal method above 3, an application
+    extension other than NETSCAPE2.0 with a block of 3 bytes, a frame outside the
+    screen, an index past its table, LZW data that does not end the frame
+    exactly (``codecs.cpp``), a block structure broken anywhere in the file.
+    Gray as cv2.cvtColor reduces the BGR."""
+    s = _Stream(data, path, 6)
+    sw, sh = s.word(), s.word()
+    flags, background = s.byte(), s.byte()
+    s.byte()
+    if sw == 0 or sh == 0:
+        raise UnreadableImage(f"{path}: GIF screen of {sw}x{sh}")
+    table = None
+    if flags & 0x80:
+        n = 1 << ((flags & 7) + 1)
+        table = np.frombuffer(s.take(3 * n), np.uint8).reshape(n, 3)
+        if background >= n:
+            raise UnreadableImage(f"{path}: GIF background index {background} past its table")
+    start = s.pos
+    while (kind := s.byte()) != 0x3B:  # the whole file's blocks, as OpenCV counts frames
+        if kind == 0x21:
+            label, blocks = s.byte(), _gif_blocks(s)
+            # OpenCV reads a block of 3 bytes in an application extension as
+            # NETSCAPE2.0's loop count, and refuses it under another name
+            if label == 0xFF and blocks and blocks[0] != b"NETSCAPE2.0" and any(
+                    len(b) == 3 for b in blocks):
+                raise UnreadableImage(f"{path}: GIF application extension {blocks[0]!r} with a "
+                                      "block of 3 bytes")
+        elif kind == 0x2C:
+            s.take(8)
+            f = s.byte()
+            s.take(3 << ((f & 7) + 1) if f & 0x80 else 0)
+            s.byte()
+            _gif_blocks(s)
+        else:
+            raise UnreadableImage(f"{path}: GIF block {kind:#x}")
+    _check_size(sw, sh, path, "GIF")
+    s.pos, transparent = start, None
+    while (kind := s.byte()) == 0x21:
+        if s.byte() == 0xF9:
+            if s.byte() != 4:
+                raise UnreadableImage(f"{path}: GIF Graphic Control Extension not of 4 bytes")
+            packed, _, index = s.byte(), s.word(), s.byte()
+            if (packed >> 2) & 7 > 3:
+                raise UnreadableImage(f"{path}: GIF disposal method {(packed >> 2) & 7}")
+            transparent = index if packed & 1 else None
+        _gif_blocks(s)
+    if kind != 0x2C:
+        raise UnreadableImage(f"{path}: GIF without a frame")
+    left, top, w, h = s.word(), s.word(), s.word(), s.word()
+    frame_flags = s.byte()
+    if not (w > 0 and h > 0 and left + w <= sw and top + h <= sh):
+        raise UnreadableImage(f"{path}: GIF frame {w}x{h} at ({left}, {top}) off its {sw}x{sh} screen")
+    if frame_flags & 0x80:
+        n = 1 << ((frame_flags & 7) + 1)
+        colours = np.frombuffer(s.take(3 * n), np.uint8).reshape(n, 3)
+    elif table is not None:
+        colours = table
+    else:
+        colours = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
+        colours[1] = 255
+    # the most pixels LZW codes of 3 or more bits in the rest of the file can
+    # give, so that a short file allocates nothing
+    codes = 8 * (len(data) - s.pos) // 3
+    if w * h > codes * (codes + 3) // 2:
+        raise UnreadableImage(f"{path}: a {w}x{h} GIF frame from {len(data) - s.pos} bytes")
+    lib = native.codecs_lib()
+    index = np.empty((h, w), np.uint8)
+    err = ctypes.create_string_buffer(256)
+    _native_error(lib.frn_gif_lzw(data, len(data), s.pos, w * h, index.ctypes.data, err, len(err)),
+                  err, path, "GIF")
+    if frame_flags & 0x40:  # interlaced: rows stored in four passes
+        order = np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8), np.arange(2, h, 4),
+                                np.arange(1, h, 2)])
+        index[order] = index.copy()
+    drawn = np.ones_like(index, bool) if transparent is None else index != transparent
+    if int(index[drawn].max(initial=0)) >= len(colours):
+        raise UnreadableImage(f"{path}: GIF colour index past its table of {len(colours)}")
+    canvas = np.empty((sh, sw, 3), np.uint8)
+    canvas[:] = 0 if table is None else table[background]
+    frame = canvas[top:top + h, left:left + w]
+    frame[drawn] = colours[index[drawn]]
+    return _gray(canvas[:, :, ::-1], _GRAY15) if gray else _swap_rb(canvas)
+
+
+def _opencv_decoder(data: bytes):
+    """The decoder of the formats above that OpenCV would pick by content
+    (its decoders' checkSignature), or None."""
+    if data[:2] == b"BM":
+        return _bmp
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return _gif
+    if data[:6] == b"#?RGBE" or data[:10] == b"#?RADIANCE":
+        return _hdr
+    if data[:4] == b"\x59\xa6\x6a\x95":
+        return _sunras
+    if len(data) >= 3 and data[:1] == b"P" and data[2] in _SPACE:
+        return {**dict.fromkeys(b"123456", _pxm), ord("7"): _pam,
+                ord("F"): _pfm, ord("f"): _pfm}.get(data[1])
+    return None
+
+
 def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:
     """BGR (H, W, 3) uint8, or gray (H, W) uint8 with ``IMREAD_GRAYSCALE``."""
     if flags not in (IMREAD_COLOR, IMREAD_GRAYSCALE):
@@ -409,12 +1073,15 @@ def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:
         img, orientation = _jpeg(data, path, gray)
     elif data[:8] == _SIGNATURE:
         img, orientation = _png(data, path, gray)
+    elif (decoder := _opencv_decoder(data)) is not None:
+        img, orientation = decoder(data, path, gray), 1
     else:
         name = _format_name(data)
-        if name in _NO_CV2_DECODER:
-            raise UnreadableImage(f"{path}: {name} file, which no OpenCV decoder reads")
-        raise ValueError(f"{path}: {name} file; this reader decodes JPEG and PNG "
-                         "only (the JAX package reads other formats through OpenCV)")
+        if name is None:
+            raise UnreadableImage(f"{path}: bytes that no OpenCV decoder recognizes")
+        raise ValueError(f"{path}: {name} file; this reader decodes JPEG, PNG, BMP, PBM/PGM/PPM, "
+                         "PAM, PFM, Sun raster, Radiance HDR and GIF only (the JAX package reads "
+                         f"{name} through OpenCV)")
     return _orient(img, orientation)
 
 

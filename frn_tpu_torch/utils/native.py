@@ -1,9 +1,10 @@
 """ctypes loaders for the native host kernels: the event kernels
-(``frn_tpu_torch/native/voxelize.cpp``) and the JPEG decoder
-(``frn_tpu_torch/native/jpeg.cpp``).
+(``frn_tpu_torch/native/voxelize.cpp``), the JPEG decoder
+(``frn_tpu_torch/native/jpeg.cpp``) and the run-length and LZW decoders of
+BMP, Radiance HDR and GIF (``frn_tpu_torch/native/codecs.cpp``).
 
 The event kernels are the counterpart of ``frn_tpu/utils/native.py``, over the
-port's own copy of the C++ source; the JPEG decoder stands in for the OpenCV
+port's own copy of the C++ source; the image decoders stand in for the OpenCV
 that the JAX package reads images with. Each shared library is built on first
 use with g++ (a plain C ABI bound by ctypes, no binding library) into
 ``frn_tpu_torch/_build/lib<name>-<hash>.so``, where the hash covers the
@@ -12,9 +13,9 @@ never loads. Each build writes a temporary file and renames it into place,
 so processes that reach the first use at once never load a half-written
 library. The event entry points return None where the library is
 unavailable (no g++, or ``FRN_DISABLE_NATIVE`` set), and callers take their
-numpy path; ``jpeg_lib`` raises RuntimeError naming the cause instead, since
-no other path gives the same pixels. These are host kernels: they run on the
-CPU beside the card.
+numpy path; ``jpeg_lib`` and ``codecs_lib`` raise RuntimeError naming the
+cause instead, since no other path gives the same pixels. These are host
+kernels: they run on the CPU beside the card.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import numpy as np
 
 SOURCE = Path(__file__).resolve().parents[1] / "native" / "voxelize.cpp"
 JPEG_SOURCE = Path(__file__).resolve().parents[1] / "native" / "jpeg.cpp"
+CODECS_SOURCE = Path(__file__).resolve().parents[1] / "native" / "codecs.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 GXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
 
@@ -39,6 +41,8 @@ _lib = None
 _tried = False
 _jpeg_lib = None
 _jpeg_error = None  # why the JPEG library is unavailable, once a load failed
+_codecs_lib = None
+_codecs_error = None  # the same for the run-length and LZW decoders
 
 
 def _path(source: Path, name: str) -> Path:
@@ -84,32 +88,62 @@ def build_jpeg() -> Path:
     return _build(JPEG_SOURCE, "frn_jpeg")
 
 
-def jpeg_lib() -> ctypes.CDLL:
-    """The JPEG decoder's library, built at first use. Raises RuntimeError
-    naming the cause where it is unavailable: ``FRN_DISABLE_NATIVE`` set, or
-    g++ missing or failing (its message)."""
-    global _jpeg_lib, _jpeg_error
+def build_codecs() -> Path:
+    """The same for the run-length and LZW decoders."""
+    return _build(CODECS_SOURCE, "frn_codecs")
+
+
+def _image_lib(key: str, source: Path, build_fn, what: str, bind) -> ctypes.CDLL:
+    """An image decoder's library (module globals ``_<key>_lib`` and
+    ``_<key>_error``), built at first use and bound by ``bind``. Raises
+    RuntimeError naming the cause where it is unavailable:
+    ``FRN_DISABLE_NATIVE`` set, or g++ missing or failing (its message)."""
+    lib_name, error_name = f"_{key}_lib", f"_{key}_error"
     with _lock:
-        if _jpeg_lib is not None:
-            return _jpeg_lib
+        if globals()[lib_name] is not None:
+            return globals()[lib_name]
+        need = f"{what} need the port's native decoder (frn_tpu_torch/native/{source.name})"
         if os.environ.get("FRN_DISABLE_NATIVE"):
-            raise RuntimeError("JPEG images need the port's native decoder "
-                               "(frn_tpu_torch/native/jpeg.cpp), and FRN_DISABLE_NATIVE is set")
-        if _jpeg_error is None:
+            raise RuntimeError(f"{need}, and FRN_DISABLE_NATIVE is set")
+        if globals()[error_name] is None:
             try:
-                lib = ctypes.CDLL(str(build_jpeg()))
+                lib = ctypes.CDLL(str(build_fn()))
             except (RuntimeError, OSError) as e:
-                _jpeg_error = str(e)
+                globals()[error_name] = str(e)
             else:
-                p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-                lib.frn_jpeg_info.argtypes = [p, i64, p, p, i32]
-                lib.frn_jpeg_decode.argtypes = [p, i64, i32, p, p, i32]
-                lib.frn_jpeg_info.restype = lib.frn_jpeg_decode.restype = i32
-                _jpeg_lib = lib
+                bind(lib)
+                globals()[lib_name] = lib
                 return lib
-        raise RuntimeError("JPEG images need the port's native decoder "
-                           f"(frn_tpu_torch/native/jpeg.cpp), which g++ could not build: "
-                           f"{_jpeg_error}")
+        raise RuntimeError(f"{need}, which g++ could not build: {globals()[error_name]}")
+
+
+def _bind_jpeg(lib: ctypes.CDLL) -> None:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.frn_jpeg_info.argtypes = [p, i64, p, p, i32]
+    lib.frn_jpeg_decode.argtypes = [p, i64, i32, p, p, i32]
+    lib.frn_jpeg_info.restype = lib.frn_jpeg_decode.restype = i32
+
+
+def _bind_codecs(lib: ctypes.CDLL) -> None:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.frn_bmp_rle.argtypes = [p, i64, i64, i32, i32, i32, p, p, i32]
+    lib.frn_hdr_pixels.argtypes = [p, i64, i64, i32, i32, p, p, i32]
+    lib.frn_gif_lzw.argtypes = [p, i64, i64, i64, p, p, i32]
+    lib.frn_bmp_rle.restype = lib.frn_hdr_pixels.restype = lib.frn_gif_lzw.restype = i32
+
+
+def jpeg_lib() -> ctypes.CDLL:
+    """The JPEG decoder's library, built at first use; RuntimeError naming
+    the cause where it is unavailable."""
+    return _image_lib("jpeg", JPEG_SOURCE, build_jpeg, "JPEG images", _bind_jpeg)
+
+
+def codecs_lib() -> ctypes.CDLL:
+    """The run-length and LZW decoders' library (RLE BMP, Radiance HDR, GIF),
+    built at first use; RuntimeError naming the cause where it is
+    unavailable."""
+    return _image_lib("codecs", CODECS_SOURCE, build_codecs,
+                      "Run-length BMP, Radiance HDR and GIF images", _bind_codecs)
 
 
 def get_lib() -> Optional[ctypes.CDLL]:

@@ -247,7 +247,10 @@ def test_image_io_refuses_what_it_does_not_read(tmp_path):
     np.testing.assert_array_equal(image_io.imread(path), cv2.imread(path))  # 16-bit is read
     path = str(tmp_path / "x.bmp")
     cv2.imwrite(path, _image("bgr"))
-    with pytest.raises(ValueError, match="BMP file; this reader decodes JPEG and PNG only"):
+    np.testing.assert_array_equal(image_io.imread(path), cv2.imread(path))  # BMP is read
+    path = str(tmp_path / "x.tiff")
+    cv2.imwrite(path, _image("bgr"))
+    with pytest.raises(ValueError, match="TIFF file; this reader decodes JPEG, PNG, BMP"):
         image_io.imread(path)
     with pytest.raises(TypeError, match="uint8"):
         image_io.imwrite(str(tmp_path / "f.png"), np.zeros((4, 4), np.float32))

@@ -258,11 +258,11 @@ def test_png_gama_with_a_bad_crc_is_dropped_under_grayscale(tmp_path):
     assert (gray["good"] != gray["none"]).any()  # the gamma matters where it is read
 
 
-@pytest.mark.parametrize("ext", [".bmp", ".tiff", ".webp"])
+@pytest.mark.parametrize("ext", [".tiff", ".webp", ".jp2", ".avif"])
 def test_other_formats_raise_a_plain_value_error(tmp_path, ext):
     path = str(tmp_path / f"x{ext}")
-    assert cv2.imwrite(path, _scene(8, 8, 0)) and cv2.imread(path) is not None
-    with pytest.raises(ValueError, match="this reader decodes JPEG and PNG only") as info:
+    assert cv2.imwrite(path, _scene(48, 64, 0)) and cv2.imread(path) is not None
+    with pytest.raises(ValueError, match="this reader decodes JPEG, PNG, BMP") as info:
         image_io.imread(path)
     assert not isinstance(info.value, image_io.UnreadableImage)
 

@@ -423,12 +423,12 @@ def test_png_exif_orientation_turns_the_image_as_cv2(tmp_path, orientation, orde
     _assert_reads_as_cv2(_write(tmp_path, "e.png", _png(img, 8, 2, extra=_chunk(b"eXIf", tiff))))
 
 
-@pytest.mark.parametrize("fmt,name", [(".bmp", "BMP"), (".tiff", "TIFF"), (".webp", "WebP"),
-                                      (".ppm", "PNM/PFM")])
+@pytest.mark.parametrize("fmt,name", [(".tiff", "TIFF"), (".webp", "WebP"), (".jp2", "JPEG 2000"),
+                                      (".avif", "AVIF/HEIF")])
 def test_other_formats_raise_naming_them(tmp_path, fmt, name):
     path = str(tmp_path / f"x{fmt}")
-    assert cv2.imwrite(path, _scene(8, 8, 0))
-    with pytest.raises(ValueError, match=f"{name} file; this reader decodes JPEG and PNG only"):
+    assert cv2.imwrite(path, _scene(48, 64, 0))
+    with pytest.raises(ValueError, match=f"{name} file; this reader decodes JPEG, PNG, BMP"):
         image_io.imread(path)
 
 
