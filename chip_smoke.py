@@ -126,16 +126,17 @@ Phases:
      480x640 cut, changed at seeded bytes and given a bad ancillary CRC,
      each read equal to cv2.imread's or None on both sides). Then the seven
      formats OpenCV decodes with its own code (BMP, PBM/PGM/PPM, PAM, PFM,
-     Sun raster, Radiance HDR, GIF): the format sweep
-     (``check_format_sweep``: every variant of the CPU test, whole, cut
+     Sun raster, Radiance HDR, GIF) and TIFF (libtiff): the format sweep
+     (``check_format_sweep``: every variant of the CPU tests, whole, cut
      and changed at seeded bytes, each read equal to cv2.imread's, None or
      an error on both sides, apart from the variants in
      ``FORMATS_LEFT_OUT``), and ``cli.test`` DSEC bf16 over a tree of
-     480x640 frames spread over BMP 24-bit, BMP 32-bit, P6 PPM, PAM RGB and
-     Sun raster 24-bit and over its PNG twin (``check_format_evaluation``:
-     every frame equal to cv2.imread's under both flags, B1 4 times a
-     batch, the detections and summaries equal; the host ms of both readers
-     per BMP and PPM frame, in turns).
+     480x640 frames spread over BMP 24-bit, BMP 32-bit, P6 PPM, PAM RGB,
+     Sun raster 24-bit, TIFF LZW strips and TIFF Deflate tiles and over its
+     PNG twin (``check_format_evaluation``: every frame equal to
+     cv2.imread's under both flags, B1 4 times a batch, the detections and
+     summaries equal; the host ms of both readers per BMP, PPM and TIFF
+     frame, in turns).
      Phase 4 then evaluates
      in ``Trainer.fit`` (``eval_fn``) and checks the best-mAP checkpoint;
   9. the f32 training path, ``python -m frn_tpu_torch.cli.train`` (its
@@ -2826,11 +2827,13 @@ def check_jpeg_evaluation(inputs: dict, root: Path) -> None:
 
 
 # phase 8's format sweep: every variant of tests/test_torch_image_formats.py
-# (built by tests/torch_image_variants.py: BMP, PBM/PGM/PPM, PAM, PFM, Sun
-# raster, Radiance HDR, GIF), each cut at FORMAT_EACH lengths and changed at
-# FORMAT_EACH seeded bytes, and its DAMAGED files at FORMAT_CUTS lengths and
-# FORMAT_CHANGES seeded bytes, as the CPU test cuts and changes them
-FORMAT_EACH, FORMAT_CUTS, FORMAT_CHANGES = 8, 32, 100
+# and tests/test_torch_image_tiff.py (built by tests/torch_image_variants.py:
+# BMP, PBM/PGM/PPM, PAM, PFM, Sun raster, Radiance HDR, GIF, TIFF), each cut
+# at FORMAT_EACH lengths and changed at FORMAT_EACH seeded bytes, and their
+# damaged files at FORMAT_CUTS lengths and FORMAT_CHANGES seeded bytes, as
+# the CPU tests cut and change them (4 of each of some 450 variants keeps
+# the whole script well inside its time limit)
+FORMAT_EACH, FORMAT_CUTS, FORMAT_CHANGES = 4, 32, 100
 # variants on which this machine's OpenCV and the one the CPU tests run
 # against (5.0.0) read otherwise, with the reason: their reads, whole, cut and
 # changed, are left out; the port follows the tests' OpenCV, and each is named
@@ -2843,7 +2846,10 @@ FORMATS_LEFT_OUT = {
 }
 # the format evaluation's DSEC tree: its frames spread over these lossless
 # colour kinds in turn
-FORMAT_TREE_KINDS = ("BMP 24-bit", "BMP 32-bit", "PPM P6", "PAM RGB", "Sun raster 24-bit")
+FORMAT_TREE_KINDS = ("BMP 24-bit", "BMP 32-bit", "PPM P6", "PAM RGB", "Sun raster 24-bit",
+                     "TIFF LZW strips", "TIFF Deflate tiles")
+# the kinds whose reads are timed in turns with cv2.imread's
+FORMAT_TIMED_KINDS = ("BMP 24-bit", "PPM P6", "TIFF LZW strips", "TIFF Deflate tiles")
 FORMAT_DECODE_REPS = 10
 
 
@@ -2862,15 +2868,15 @@ def _image_variants():
 
 def check_format_sweep(root: Path) -> None:
     """``image_io.imread`` against this machine's ``cv2.imread`` under both
-    flags on every variant of the CPU test of the seven formats OpenCV
-    decodes with its own code, whole, cut and changed at seeded bytes
-    (FORMAT_EACH times each, FORMAT_CUTS and FORMAT_CHANGES times the CPU
-    test's DAMAGED files): equal arrays, None on both sides (the port's
+    flags on every variant of the CPU tests of the seven formats OpenCV
+    decodes with its own code and of TIFF, whole, cut and changed at seeded
+    bytes (FORMAT_EACH times each, FORMAT_CUTS and FORMAT_CHANGES times the
+    CPU tests' damaged files): equal arrays, None on both sides (the port's
     ``UnreadableImage``) or cv2.error against a plain ``ValueError``; a PAM
     that OpenCV reads into uninitialized memory under a flag is refused by
     the port there. Mismatches are gathered by (variant, damage) and fail
     the phase; the variants in FORMATS_LEFT_OUT are not read. Prints this
-    OpenCV's Media I/O lines for the seven codecs. Needs no card:
+    OpenCV's Media I/O lines for the eight codecs. Needs no card:
 
         python3 -c "import chip_smoke as c, tempfile, pathlib; c.check_format_sweep(pathlib.Path(tempfile.mkdtemp()))"
     """
@@ -2880,11 +2886,13 @@ def check_format_sweep(root: Path) -> None:
     from frn_tpu_torch.data import image_io
 
     lines = [" ".join(line.split()) for line in cv2.getBuildInformation().splitlines()
-             if line.strip().split(":")[0] in ("GIF", "HDR", "SUNRASTER", "PXM", "PFM")]
+             if line.strip().split(":")[0] in ("GIF", "HDR", "SUNRASTER", "PXM", "PFM", "TIFF")]
     print(f"format sweep: OpenCV {cv2.__version__} Media I/O (BMP is always built in): "
           + "; ".join(lines), flush=True)
     variants_module = _image_variants()
-    variants = variants_module.variants()
+    variants = {**variants_module.variants(), **variants_module.tiff_variants(),
+                **variants_module.tiff_damaged()}
+    damaged = variants_module.DAMAGED + variants_module.TIFF_DAMAGED
     logging = getattr(getattr(cv2, "utils", None), "logging", None)
     if logging is not None:  # OpenCV logs each refused read; the counts below say it all
         level = logging.getLogLevel()
@@ -2892,8 +2900,7 @@ def check_format_sweep(root: Path) -> None:
     rng = np.random.default_rng(27)
     cases = []
     for name, data in sorted(variants.items()):
-        cuts, changes = ((FORMAT_CUTS, FORMAT_CHANGES) if name in variants_module.DAMAGED else
-                         (FORMAT_EACH, FORMAT_EACH))
+        cuts, changes = (FORMAT_CUTS, FORMAT_CHANGES) if name in damaged else (FORMAT_EACH, FORMAT_EACH)
         cases.append((name, "whole", data))
         cases += [(name, "cut", data[:int(n)]) for n in np.linspace(0, len(data) - 1, cuts)]
         for _ in range(changes):
@@ -2925,7 +2932,7 @@ def check_format_sweep(root: Path) -> None:
     reads = sum(agree.values()) + sum(len(v) for v in mismatches.values())
     print(f"format sweep: {sum(agree.values())} of {reads} reads of {len(variants)} variants, "
           f"{FORMAT_EACH} cuts and {FORMAT_EACH} changed bytes of each ({FORMAT_CUTS} and "
-          f"{FORMAT_CHANGES} of the CPU test's {len(variants_module.DAMAGED)} damaged files; both "
+          f"{FORMAT_CHANGES} of the CPU tests' {len(damaged)} damaged files; both "
           f"flags) agree with OpenCV {cv2.__version__}'s cv2.imread: {agree['image']} images "
           f"equal, {agree['none']} None on both sides, {agree['error']} errors on both sides, "
           f"{agree['undefined']} uninitialized PAM reads refused; left out "
@@ -2958,6 +2965,10 @@ def write_format_trees(inputs: dict, root: Path):
         if kind == "BMP 32-bit":
             bgra = np.concatenate([img, np.full(img.shape[:2] + (1,), 255, np.uint8)], axis=2)
             data = variants.bmp(img.shape[1], img.shape[0], 32, variants.bmp_rows(bgra[::-1], 32))
+        elif kind == "TIFF LZW strips":
+            data = variants.tiff(img[:, :, ::-1], 2, compression=5, rows=8, predictor=2)
+        elif kind == "TIFF Deflate tiles":
+            data = variants.tiff(img[:, :, ::-1], 2, compression=8, tile=(64, 64), order=">")
         else:
             ext = {"BMP 24-bit": ".bmp", "PPM P6": ".ppm", "PAM RGB": ".pam", "Sun raster 24-bit": ".ras"}
             ok, buf = cv2.imencode(ext[kind], img)
@@ -2976,14 +2987,14 @@ def write_format_trees(inputs: dict, root: Path):
 
 
 def check_format_evaluation(inputs: dict, root: Path) -> None:
-    """The port's readers of OpenCV's own formats on the card's machine:
-    ``image_io.imread`` equal to that machine's ``cv2.imread`` on every
-    frame of a DSEC tree at full width whose frames are spread over
+    """The port's readers of OpenCV's own formats and TIFF on the card's
+    machine: ``image_io.imread`` equal to that machine's ``cv2.imread`` on
+    every frame of a DSEC tree at full width whose frames are spread over
     FORMAT_TREE_KINDS, under both flags; the host ms of both readers per
-    480x640 BMP and PPM frame, in turns file by file; then ``cli.test`` DSEC
-    bf16 over the tree and over its PNG twin (B1 4 times a batch, nothing
-    else), whose detections and summaries must be equal. Alone, after the
-    build:
+    480x640 frame of FORMAT_TIMED_KINDS, in turns file by file; then
+    ``cli.test`` DSEC bf16 over the tree and over its PNG twin (B1 4 times a
+    batch, nothing else), whose detections and summaries must be equal.
+    Alone, after the build:
 
         python3 -c "import chip_smoke as c, tempfile, pathlib; c.phase_environment(); d = pathlib.Path(tempfile.mkdtemp()); c.check_format_evaluation(c.write_eval_inputs(d), d)"
     """
@@ -3004,7 +3015,7 @@ def check_format_evaluation(inputs: dict, root: Path) -> None:
           f"{time.perf_counter() - t0:.1f} s; image_io.imread equals OpenCV {cv2.__version__}'s "
           "cv2.imread on every frame under IMREAD_COLOR and IMREAD_GRAYSCALE", flush=True)
     reads = (("port", image_io.imread), ("cv2.imread", cv2.imread))
-    for kind in ("BMP 24-bit", "PPM P6"):
+    for kind in FORMAT_TIMED_KINDS:
         chosen = [p for p, k in zip(files, kinds) if k == kind]
         times = {name: [] for name, _ in reads}
         for rep in range(FORMAT_DECODE_REPS):

@@ -1,9 +1,9 @@
 """Image reading and PNG writing without OpenCV: every format whose decoder
-OpenCV has in its own code or in libjpeg-turbo and libpng.
+OpenCV has in its own code or in libjpeg-turbo, libpng and libtiff.
 
 ``imread`` returns what ``cv2.imread`` returns, bit for bit, for JPEG, PNG,
-BMP, PBM/PGM/PPM, PAM, PFM, Sun raster, Radiance HDR and GIF files, damaged
-ones included; the JAX package reads them with OpenCV. OpenCV picks its
+BMP, PBM/PGM/PPM, PAM, PFM, Sun raster, Radiance HDR, GIF and TIFF files,
+damaged ones included; the JAX package reads them with OpenCV. OpenCV picks its
 decoder by the file's content, not its name, and so does ``imread``. With
 ``IMREAD_COLOR`` (the default) it gives (H, W, 3) uint8 in BGR order, with
 ``IMREAD_GRAYSCALE`` (H, W) uint8.
@@ -47,6 +47,18 @@ decoder by the file's content, not its name, and so does ``imread``. With
   PAM reader leaves part of the image uninitialized (the alpha tuple types
   under some flags) this reader raises ``ValueError``: no reader can give
   those pixels.
+* TIFF follows OpenCV's reader over libtiff 4.7.1 (see ``_tiff``): the
+  first directory of a classic or BigTIFF file, strips or tiles, planar 1
+  or 2, uncompressed, LZW (old-style codes too), Deflate, PackBits or JPEG
+  with the predictor, gray, palette, RGB(A), CMYK and YCbCr at the depths
+  libtiff's RGBA reader takes, orientations 1-4 (5-8 give None in OpenCV
+  5.0); LZW, Deflate and PackBits decode in ``frn_tpu_torch/native/tiff.cpp``
+  and JPEG strips in ``native/jpeg.cpp`` (without the library such a file
+  raises ``RuntimeError``). CCITT RLE, Group 3 and Group 4, old-style JPEG,
+  NeXT, ThunderScan, PixarLog, SGILog and CIELab, LogL and LogLuv images
+  raise ``ValueError`` naming the kind; compressions OpenCV's libtiff is
+  built without (ZSTD, LZMA, WebP, JBIG, JPEG XL, LERC), float samples and
+  the other kinds libtiff refuses raise ``UnreadableImage``.
 * The EXIF orientation (a JPEG's first APP1 segment, a PNG's ``eXIf`` chunk)
   turns the image as ``cv2.imread`` turns it.
 
@@ -55,8 +67,8 @@ Errors: a missing file raises ``FileNotFoundError``; an existing file that
 also for bytes no OpenCV decoder recognizes, as a file cut before its
 signature); where ``cv2.imread`` raises ``cv2.error`` (a frame over 2^30
 pixels or 2^20 a side) this reader raises a plain ``ValueError``, as it does
-for a file that OpenCV reads and this reader does not (TIFF, WebP, JPEG
-2000, AVIF/HEIF, and the JPEG kinds above), naming it. The datasets turn
+for a file that OpenCV reads and this reader does not (WebP, JPEG 2000,
+AVIF/HEIF, and the JPEG and TIFF kinds above), naming it. The datasets turn
 ``UnreadableImage`` into the JAX package's answer to the None.
 
 ``imwrite`` writes uint8 (H, W) gray, or (H, W, C) with C 1, 3 (BGR) or 4
@@ -67,6 +79,7 @@ for a file that OpenCV reads and this reader does not (TIFF, WebP, JPEG
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
 import re
@@ -92,8 +105,8 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), 
           (0, 1, 1, 2))
 # the formats that cv2.imread reads and this reader does not, by their
 # leading bytes, so that the error names them
-_OTHER_FORMATS = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"\xffO\xffQ", "JPEG 2000"),
-                  (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"))
+_OTHER_FORMATS = ((b"\xffO\xffQ", "JPEG 2000"), (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"))
+_TIFF_SIGNATURES = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")  # classic and BigTIFF
 
 
 class UnreadableImage(ValueError):
@@ -160,7 +173,7 @@ def _jpeg(data: bytes, path: str, gray: bool):
     """(the decoded image, its EXIF orientation) by the native decoder."""
     lib = native.jpeg_lib()
     buf = np.frombuffer(data, np.uint8)
-    info = np.zeros(4, np.int32)
+    info = np.zeros(12, np.int32)
     err = ctypes.create_string_buffer(512)
     rc = lib.frn_jpeg_info(buf.ctypes.data, buf.size, info.ctypes.data, err, len(err))
     if rc == 0:
@@ -463,11 +476,15 @@ def _check_size(w: int, h: int, path: str, kind: str) -> None:
 
 
 def _gray(bgr: np.ndarray, weights=_GRAY14) -> np.ndarray:
-    """(H, W, 3) BGR -> gray by fixed-point weights over B, G, R, rounded."""
-    b, g, r = (bgr[..., i].astype(np.int32) for i in range(3))
+    """(H, W, 3) BGR -> gray by fixed-point weights over B, G, R, rounded;
+    a band of rows at a time, so that the int32 sums stay small."""
     shift = sum(weights).bit_length() - 1
-    return ((b * weights[0] + g * weights[1] + r * weights[2] + (1 << (shift - 1))) >> shift
-            ).astype(np.uint8)
+    out = np.empty(bgr.shape[:-1], np.uint8)
+    step = max(1, (1 << 18) // max(1, int(np.prod(bgr.shape[1:-1]))))
+    for y in range(0, bgr.shape[0], step):
+        b, g, r = (bgr[y:y + step, ..., i].astype(np.int32) for i in range(3))
+        out[y:y + step] = (b * weights[0] + g * weights[1] + r * weights[2] + (1 << (shift - 1))) >> shift
+    return out
 
 
 def _swap_rb(img: np.ndarray) -> np.ndarray:
@@ -1043,6 +1060,949 @@ def _gif(data: bytes, path: str, gray: bool) -> np.ndarray:
     return _gray(canvas[:, :, ::-1], _GRAY15) if gray else _swap_rb(canvas)
 
 
+# .................................................................. TIFF
+#
+# grfmt_tiff over libtiff 4.7.1, as cv2.imread 5.0 shows them. OpenCV reads
+# every 8-bit output through libtiff's TIFFRGBAImage (TIFFReadRGBAStrip and
+# TIFFReadRGBATile, a call a strip or a tile) and converts the RGBA it gets
+# to BGR or gray; libtiff's RGBA reader does not stop on a decoding error,
+# so a damaged strip gives what its decoder wrote into a zeroed buffer. The
+# strip and tile codings decode in ``frn_tpu_torch/native/tiff.cpp`` (LZW,
+# Deflate, PackBits) and ``native/jpeg.cpp`` (JPEG); the directory, the
+# predictor and the photometric conversions here.
+
+_TIFF_WIDTH = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 13: 4, 16: 8,
+               17: 8, 18: 8}
+_TIFF_FORMAT = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 13: "I", 16: "Q", 17: "q", 18: "Q"}
+# the entry types libtiff's TIFFReadDirEntry{Short,Long,Long8}[Array] take,
+# and the range each keeps
+_TIFF_READS = {"short": ((1, 3, 4, 6, 8, 9, 16, 17), 0xFFFF), "long": ((1, 3, 4, 6, 8, 9, 13, 16, 17, 18),
+                                                                      0xFFFFFFFF),
+               "long8": ((1, 3, 4, 6, 8, 9, 16, 17), (1 << 64) - 1)}
+_TIFF_NONE, _TIFF_LZW, _TIFF_JPEG, _TIFF_DEFLATE, _TIFF_PACKBITS = 1, 5, 7, (8, 32946), 32773
+# the compressions libtiff knows that this reader leaves out, by name (those
+# that OpenCV's libtiff has no code for are refused as not configured)
+_TIFF_LEFT_OUT = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 6: "old-style JPEG",
+                  32771: "CCITT RLEW", 32766: "NeXT", 32809: "ThunderScan", 32909: "PixarLog",
+                  34676: "SGILog", 34677: "SGILog24"}
+_TIFF_NOT_CONFIGURED = (34661, 34925, 50000, 50001, 50002, 34887)  # JBIG, LZMA, ZSTD, WebP, JPEG XL, LERC
+_TIFF_MAX_COUNT = (1 << 32) - 1
+
+
+class _TiffEntryError(Exception):
+    """A directory entry that libtiff's TIFFReadDirEntry* functions refuse."""
+
+
+class _Tiff:
+    """The first directory of a TIFF as libtiff 4.7's TIFFReadDirectory
+    reads it (the fields the RGBA reader uses), or UnreadableImage where it
+    fails and TIFFOpen returns NULL."""
+
+    def __init__(self, data: bytes, path: str):
+        self.data, self.path, self.upsampled = data, path, False
+        self.e = "<" if data[:2] == b"II" else ">"
+        self.big = data[2:4] in (b"+\0", b"\0+")
+        if len(data) < (16 if self.big else 8):
+            self.fail("the file ends inside its header")
+        if self.big:
+            size, unused, off = struct.unpack_from(self.e + "HHQ", data, 4)
+            if size != 8 or unused != 0:
+                self.fail("a BigTIFF header with a bad offset size")
+        else:
+            off = struct.unpack_from(self.e + "I", data, 4)[0]
+        self.entries = self.directory(off)
+        self.read_fields()
+
+    def fail(self, why: str):
+        raise UnreadableImage(f"{self.path}: TIFF: {why}")
+
+    def directory(self, off: int) -> dict:
+        """TIFFFetchDirectory: {tag: (type, count, value field)}, the first
+        entry of a tag kept (libtiff ignores the later ones)."""
+        head, size, count_fmt = (8, 20, "Q") if self.big else (2, 12, "H")
+        if off + head > len(self.data):
+            self.fail("the directory is past the end of the file")
+        n = struct.unpack_from(self.e + count_fmt, self.data, off)[0]
+        if n > 4096:
+            self.fail(f"a directory of {n} entries")
+        if off + head + n * size > len(self.data):
+            self.fail("the directory runs past the end of the file")
+        entries = {}
+        fmt = self.e + ("HHQ8s" if self.big else "HHI4s")
+        for i in range(n):
+            tag, typ, count, value = struct.unpack_from(fmt, self.data, off + head + i * size)
+            entries.setdefault(tag, (typ, count, value))
+        return entries
+
+    def values(self, tag: int, kind: str, limit: int = None) -> list:
+        """An entry's values as TIFFReadDirEntry{Short,Long,Long8}Array
+        reads them (at most ``limit``); _TiffEntryError where it fails."""
+        typ, count, value = self.entries[tag]
+        types, top = _TIFF_READS[kind]
+        if typ not in types:
+            raise _TiffEntryError("type")
+        n = count if limit is None else min(count, limit)
+        width = _TIFF_WIDTH[typ]
+        if n == 0:
+            return []
+        if n * width > 0x7FFFFFFF:
+            raise _TiffEntryError("size")
+        inline = 8 if self.big else 4
+        if min(count, 10) * width <= inline and n * width <= inline:
+            buf, at = value, 0
+        else:
+            buf, at = self.data, struct.unpack(self.e + ("Q" if self.big else "I"), value)[0]
+            if at + n * width > len(self.data):
+                raise _TiffEntryError("io")
+        vals = struct.unpack_from(f"{self.e}{n}{_TIFF_FORMAT[typ]}", buf, at)
+        if any(v < 0 or v > top for v in vals):
+            raise _TiffEntryError("range")
+        return list(vals)
+
+    def value(self, tag: int, kind: str) -> int:
+        if self.entries[tag][1] != 1:
+            raise _TiffEntryError("count")
+        return self.values(tag, kind)[0]
+
+    def persample(self, tag: int) -> int:
+        """TIFFReadDirEntryShort, else TIFFReadDirEntryPersampleShort (a
+        value a sample, all equal) where the count is not 1."""
+        try:
+            return self.value(tag, "short")
+        except _TiffEntryError as err:
+            if str(err) != "count":
+                raise
+        if self.entries[tag][1] < self.spp:
+            raise _TiffEntryError("count")
+        vals = self.values(tag, "short")
+        if len(set(vals[:self.spp])) != 1:
+            raise _TiffEntryError("per-sample values differ")
+        return vals[0]
+
+    def floats(self, tag: int, count: int):
+        """A float array tag of a fixed count (RATIONAL, FLOAT or DOUBLE, as
+        float32), or None where it is absent or libtiff ignores it."""
+        if tag not in self.entries:
+            return None
+        typ, n, value = self.entries[tag]
+        if n != count or typ not in (5, 11, 12):
+            return None
+        width = _TIFF_WIDTH[typ] * n
+        at = struct.unpack(self.e + ("Q" if self.big else "I"), value)[0] if width > len(value) else None
+        if at is not None and at + width > len(self.data):
+            return None
+        buf = value if at is None else self.data[at:at + width]
+        if typ == 5:
+            pairs = struct.unpack(f"{self.e}{2 * n}I", buf)
+            vals = [0.0 if d == 0 else m / d for m, d in zip(pairs[0::2], pairs[1::2])]
+        else:
+            vals = struct.unpack(f"{self.e}{n}{'f' if typ == 11 else 'd'}", buf)
+        return [float(np.float32(v)) for v in vals]
+
+    def required(self, tag: int, kind: str, what: str) -> int:
+        try:
+            return self.value(tag, kind)
+        except _TiffEntryError as err:
+            self.fail(f"{what}: {err}")
+
+    def optional(self, tag: int, kind: str):
+        """A tag of TIFFReadDirectory's second pass: None where it is absent
+        or libtiff ignores it for an error."""
+        if tag not in self.entries:
+            return None
+        try:
+            return self.value(tag, kind)
+        except _TiffEntryError:
+            return None
+
+    def read_fields(self):
+        ent = self.entries
+        self.spp = self.required(277, "short", "SamplesPerPixel") if 277 in ent else 1
+        if self.spp == 0:
+            self.fail("SamplesPerPixel 0")
+        self.compression = 1
+        if 259 in ent:
+            try:
+                self.compression = self.persample(259)
+            except _TiffEntryError as err:
+                self.fail(f"Compression: {err}")
+        # the first pass
+        if 256 not in ent and 257 not in ent:
+            self.fail("no ImageWidth or ImageLength")
+        self.width = self.required(256, "long", "ImageWidth") if 256 in ent else 0
+        self.length = self.required(257, "long", "ImageLength") if 257 in ent else 0
+        self.tiled = 322 in ent or 323 in ent
+        self.tile_width = self.required(322, "long", "TileWidth") if 322 in ent else 0
+        self.tile_length = self.required(323, "long", "TileLength") if 323 in ent else 0
+        self.planar = self.required(284, "short", "PlanarConfiguration") if 284 in ent else 1
+        if self.planar not in (1, 2):
+            self.fail(f"PlanarConfiguration {self.planar}")
+        self.rows_set = 278 in ent
+        self.rows = self.required(278, "long", "RowsPerStrip") if self.rows_set else _TIFF_MAX_COUNT
+        if self.rows == 0:
+            self.fail("RowsPerStrip 0")
+        self.extras = []
+        if 338 in ent:
+            try:
+                if ent[338][1] > 0xFFFF:
+                    raise _TiffEntryError("count")
+                extras = self.values(338, "short")
+            except _TiffEntryError as err:
+                self.fail(f"ExtraSamples: {err}")
+            extras = [2 if v == 999 else v for v in extras]  # libtiff mends Corel Draw's 999
+            if len(extras) > self.spp or any(v > 2 for v in extras):
+                self.fail(f"ExtraSamples {extras}")
+            self.extras = extras
+        self.nstrips = self.count_strips()
+        if self.nstrips == 0:
+            self.fail(f"zero {'tiles' if self.tiled else 'strips'}")
+        self.per_plane = self.nstrips // self.spp if self.planar == 2 else self.nstrips
+        offsets_tags = [t for t in (273, 324) if t in ent]
+        if not offsets_tags:
+            self.fail("no StripOffsets or TileOffsets")
+        # the second pass, in directory order
+        self.bps, self.sample_format, self.colormap, bps_read = 1, 1, None, False
+        counts_tag = None
+        for tag in ent:
+            if tag in (258, 339, 280, 281):
+                try:
+                    v = self.persample(tag)
+                except _TiffEntryError as err:
+                    self.fail(f"tag {tag}: {err}")
+                if tag == 258:
+                    self.bps, bps_read = v, True
+                elif tag == 339:
+                    if not 1 <= v <= 6:
+                        self.fail(f"SampleFormat {v}")
+                    self.sample_format = v
+            elif tag in (273, 324):
+                offsets_tag = tag
+            elif tag in (279, 325):
+                counts_tag = tag
+            elif tag == 320 and bps_read and self.bps <= 24 and ent[tag][1] == 3 << self.bps:
+                try:
+                    self.colormap = np.array(self.values(320, "short"), np.int64).reshape(3, -1)
+                except _TiffEntryError:
+                    pass
+        self.photometric = self.optional(262, "short")
+        orientation = self.optional(274, "short")
+        self.orientation = orientation if orientation is not None and 1 <= orientation <= 8 else 1
+        fill = self.optional(266, "short")
+        self.fill_order = fill if fill in (1, 2) else 1
+        ink = self.optional(332, "short")
+        self.inkset = 1 if ink is None else ink
+        self.predictor = 1
+        if self.compression in (_TIFF_LZW, *_TIFF_DEFLATE):
+            predictor = self.optional(317, "short")
+            self.predictor = 1 if predictor is None else predictor
+        self.luma = self.floats(529, 3) or [0.299, 0.587, 0.114]
+        self.reference = self.floats(532, 6) or [0.0, 255.0, 128.0, 255.0, 128.0, 255.0]
+        self.ycbcr_subsampling = None
+        if 530 in ent and ent[530][1] == 2:
+            try:
+                self.ycbcr_subsampling = tuple(self.values(530, "short"))
+            except _TiffEntryError:
+                pass
+        # the strile arrays (TIFFFetchStripThing: a short one padded with 0)
+        self.offsets = self.strile_array(offsets_tag)
+        self.counts = None if counts_tag is None else self.strile_array(counts_tag)
+        # after the passes
+        cc = {0: 1, 1: 1, 3: 1, 4: 1, 2: 3, 6: 3, 8: 3, 9: 3, 10: 3, 32845: 3, 5: 4,
+              32844: 1}.get(self.photometric if self.photometric is not None else 0, 0)
+        if cc and self.spp - len(self.extras) > cc:
+            self.extras = self.extras + [0] * (self.spp - cc - len(self.extras))
+        if self.photometric == 3 and self.colormap is None:
+            if self.bps >= 8:
+                self.photometric = 2 if self.spp == 3 else 1
+            else:
+                self.fail("a palette image without a ColorMap")
+        self.mend_byte_counts()
+        if self.scanline_size() == 0:
+            self.fail("a zero scanline size")
+        if (self.tile_size() if self.tiled else self.strip_size()) == 0:
+            self.fail("a zero strip or tile size")
+
+    def strile_array(self, tag: int) -> list:
+        """TIFFFetchStripThing: a strip a value, a short array padded with
+        zeros (up to a million strips), a long one cut."""
+        try:
+            vals = self.values(tag, "long8", self.nstrips)
+        except _TiffEntryError as err:
+            self.fail(f"tag {tag}: {err}")
+        if len(vals) < self.nstrips and self.nstrips > 1000000:
+            self.fail(f"{len(vals)} values of tag {tag} for {self.nstrips} strips")
+        return vals + [0] * (self.nstrips - len(vals))
+
+    def count_strips(self) -> int:
+        def howmany(x, y):
+            return (x + y - 1) // y if x < 0xFFFFFFFF - (y - 1) else 0
+        if self.tiled:
+            dx, dy = self.tile_width, self.tile_length
+            n = 0 if dx == 0 or dy == 0 else howmany(self.width, dx) * howmany(self.length, dy)
+        else:
+            n = 1 if self.rows == _TIFF_MAX_COUNT else howmany(self.length, self.rows)
+        if self.planar == 2:
+            n *= self.spp
+        return n if n <= 0x7FFFFFFF else 0
+
+    def samples_per_row(self) -> int:
+        return self.spp if self.planar == 1 else 1
+
+    def ycbcr_blocks(self):
+        """(h, v) where libtiff sizes the data as packed YCbCr blocks (h x v
+        Y samples, then Cb and Cr): contiguous YCbCr not read through JPEG's
+        colour conversion; (0, 0) where the subsampling is not 1, 2 or 4
+        (libtiff's sizes are then 0); None otherwise."""
+        if self.photometric != 6 or self.planar != 1 or self.upsampled:
+            return None
+        sub = self.ycbcr_subsampling or (2, 2)
+        return sub if sub[0] in (1, 2, 4) and sub[1] in (1, 2, 4) else (0, 0)
+
+    def block_size(self, width: int, rows: int) -> int:
+        """TIFFVStripSize64 / TIFFVTileSize64 of packed YCbCr."""
+        h, v = self.ycbcr_blocks()
+        if h == 0 or self.spp != 3:
+            return 0
+        return (-(-width // h) * (h * v + 2) * self.bps + 7) // 8 * -(-rows // v)
+
+    def scanline_size(self) -> int:
+        if self.ycbcr_blocks() is not None and self.spp == 3:
+            h, v = self.ycbcr_blocks()
+            return 0 if h == 0 else (-(-self.width // h) * (h * v + 2) * self.bps + 7) // 8 // v
+        return (self.width * self.samples_per_row() * self.bps + 7) // 8
+
+    def tile_row_size(self) -> int:
+        return (self.tile_width * self.samples_per_row() * self.bps + 7) // 8
+
+    def tile_size(self) -> int:
+        if self.ycbcr_blocks() is not None and self.spp == 3:
+            return self.block_size(self.tile_width, self.tile_length)
+        return self.tile_row_size() * self.tile_length
+
+    def strip_rows(self) -> int:
+        return min(self.rows, self.length)
+
+    def strip_size(self, rows: int = None) -> int:
+        rows = self.strip_rows() if rows is None else rows
+        if self.ycbcr_blocks() is not None:
+            return self.block_size(self.width, rows)
+        return rows * self.scanline_size()
+
+    def mend_byte_counts(self):
+        """TIFFReadDirectory's repairs of StripByteCounts: estimated where it
+        is missing (one strip or one a plane only), bogus for a lone strip,
+        or, uncompressed, unequal in its first two strips."""
+        if self.counts is None:
+            if self.nstrips > (1 if self.planar == 1 else self.spp) or (
+                    self.planar == 2 and self.nstrips != self.spp):
+                self.fail("no StripByteCounts for more than one strip")
+            self.estimate_byte_counts()
+        elif self.nstrips == 1 and not self.tiled and self.count_looks_bad():
+            self.estimate_byte_counts()
+        elif (self.planar == 1 and self.nstrips > 2 and self.compression == 1
+              and self.counts[0] != self.counts[1] and self.counts[0] and self.counts[1]):
+            self.estimate_byte_counts()
+
+    def count_looks_bad(self) -> bool:
+        count, offset, size = self.counts[0], self.offsets[0], len(self.data)
+        if offset == 0:
+            return False
+        if count == 0:
+            return True
+        if self.compression != 1:
+            return False
+        if offset <= size and count > size - offset:
+            return True
+        return count < self.scanline_size() * self.length
+
+    def estimate_byte_counts(self):
+        """EstimateStripByteCounts."""
+        size = len(self.data)
+        if self.compression != 1:
+            space = (16 + 8 + 20 * len(self.entries) + 8) if self.big else (8 + 2 + 12 * len(self.entries) + 4)
+            for typ, count, _ in self.entries.values():
+                width = _TIFF_WIDTH.get(typ, 0)
+                if width == 0:
+                    self.fail(f"an entry of unknown type {typ}")
+                datasize = width * count
+                space += 0 if datasize <= (8 if self.big else 4) else datasize
+            space = size if size < space else size - space
+            if self.planar == 2:
+                space //= self.spp
+            self.counts = [space] * self.nstrips
+            last = self.nstrips - 1
+            if self.offsets[last] + self.counts[last] > size:
+                self.counts[last] = 0 if self.offsets[last] >= size else size - self.offsets[last]
+        elif self.tiled:
+            self.counts = [self.tile_size()] * self.nstrips
+        else:
+            rows = self.length // self.per_plane
+            self.counts = [self.scanline_size() * rows] * self.nstrips
+        if not self.rows_set:
+            self.rows = self.length
+
+    def raw(self, strip: int):
+        """TIFFFillStrip / TIFFFillTile: a strip's bytes (a view of the
+        file's), or None where libtiff cannot read them (a zero count, or
+        past the file's end)."""
+        count, offset = self.counts[strip], self.offsets[strip]
+        if count == 0:
+            return None
+        unit = self.tile_size() if self.tiled else self.strip_size()
+        if count > 1024 * 1024 and unit and (count - 4096) // 10 > unit:
+            count = unit * 10 + 4096  # libtiff's cap on a count far past the strip's size
+        if count > len(self.data) or offset > len(self.data) - count:
+            return None
+        raw = memoryview(self.data)[offset:offset + count]
+        if self.fill_order == 2:
+            raw = bytes(_BIT_REVERSE[np.frombuffer(raw, np.uint8)])
+        return raw
+
+
+_BIT_REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+
+
+def _tiff_kind_check(t: _Tiff):
+    """OpenCV's readHeader and readData checks and libtiff's
+    TIFFRGBAImageOK and TIFFRGBAImageBegin, in their order: UnreadableImage
+    where cv2.imread returns None, ValueError where it raises or where the
+    kind is left out."""
+    if t.photometric is None:
+        t.fail("no PhotometricInterpretation")
+    bps = t.bps
+    if bps == 1:
+        if t.sample_format not in (1, 2):
+            t.fail(f"SampleFormat {t.sample_format}")
+    elif bps == 4:
+        if t.photometric != 3:
+            t.fail("4-bit samples in a non-palette image")
+        if t.sample_format not in (1, 2):
+            t.fail(f"SampleFormat {t.sample_format}")
+    elif bps in (8, 10, 12, 14, 16):
+        if t.sample_format not in (1, 2):
+            t.fail(f"SampleFormat {t.sample_format}")
+    elif bps == 32:
+        if t.sample_format not in (1, 2, 3):
+            t.fail(f"SampleFormat {t.sample_format}")
+    elif bps == 64:
+        if t.sample_format != 3:
+            t.fail(f"SampleFormat {t.sample_format}")
+    else:
+        t.fail(f"{bps} bits a sample")
+    if not 1 <= t.spp <= 4:
+        t.fail(f"{t.spp} samples a pixel")
+    _check_size(t.width, t.length, t.path, "TIFF")
+    tw, th = (t.tile_width, t.tile_length) if t.tiled else (t.width, t.rows if t.rows_set else 0)
+    tw = tw or t.width
+    if th == 0 or (not t.tiled and th == _TIFF_MAX_COUNT):
+        th = t.length
+    if not (0 < tw <= 1 << 24 and 0 < th <= 1 << 24):
+        t.fail(f"tiles of {tw}x{th}")
+    if tw * th * 4 >= (1 << 30) * 95 // 100 and not t.tiled and t.spp in (1, 3, 4) and t.bps in (8, 16) \
+            and th == t.length and t.photometric in (0, 1, 2) and t.planar != 2 \
+            and (t.spp != 4 or t.extras == [1]):
+        raise ValueError(f"{t.path}: a TIFF strip of {tw}x{th} pixels, which OpenCV reads otherwise "
+                         "(TIFFReadScanline); this reader leaves it out")
+    # TIFFRGBAImageOK
+    if t.compression in _TIFF_NOT_CONFIGURED:
+        t.fail(f"compression {t.compression}, which OpenCV's libtiff is built without")
+    if bps not in (1, 2, 4, 8, 16):
+        t.fail(f"{bps} bits a sample (libtiff's RGBA reader takes 1, 2, 4, 8 and 16)")
+    if t.sample_format == 3:
+        t.fail("floating-point samples")
+    colours = t.spp - len(t.extras)
+    ph = t.photometric
+    if ph in (0, 1, 3):
+        if t.planar == 1 and t.spp != 1 and bps < 8:
+            t.fail(f"{t.spp} contiguous samples of {bps} bits")
+    elif ph == 2:
+        if colours < 3:
+            t.fail(f"RGB with {colours} colour channels")
+    elif ph == 5:
+        if t.inkset != 1:
+            t.fail(f"InkSet {t.inkset}")
+        if t.spp < 4:
+            t.fail(f"separated with {t.spp} samples")
+    elif ph == 6:
+        pass
+    elif ph in (8, 32844, 32845):
+        raise ValueError(f"{t.path}: TIFF of photometric {({8: 'CIELab', 32844: 'LogL', 32845: 'LogLuv'})[ph]}"
+                         ", which this reader leaves out")
+    else:
+        t.fail(f"photometric {ph}")
+    if t.compression in (2, 3, 4, 32771) and bps != 1:
+        t.fail(f"CCITT compression {t.compression} of {bps}-bit samples")
+    if t.compression == 6:  # old-style JPEG reads a JPEG stream, at JPEGInterchangeFormat or in the strip
+        start = t.optional(513, "long")
+        start = t.offsets[0] if start is None else start
+        if t.data[start:start + 2] != b"\xff\xd8":
+            t.fail("old-style JPEG without a JPEG stream")
+    if t.compression in _TIFF_LEFT_OUT:
+        raise ValueError(f"{t.path}: TIFF of compression {t.compression} ({_TIFF_LEFT_OUT[t.compression]}), "
+                         "which this reader leaves out")
+    if t.orientation > 4:
+        t.fail(f"orientation {t.orientation} (cv2.imread 5.0 returns None for 5-8)")
+    if tw * th * 4 >= 1 << 30:
+        t.fail(f"strips or tiles of {tw}x{th} pixels (OpenCV's RGBA buffer of 1 GiB or more)")
+    # TIFFRGBAImageBegin and PickContigCase / PickSeparateCase
+    alpha = 0
+    if t.extras:
+        alpha = {0: 1 if t.spp > 3 else 0, 1: 1, 2: 2}[t.extras[0]]
+    if not t.extras and t.spp == 4 and ph == 2:
+        alpha = 1  # DEFAULT_EXTRASAMPLE_AS_ALPHA
+    if ph == 3:
+        if t.colormap is None or t.colormap.shape[1] < 1 << bps:
+            t.fail("a palette image without a ColorMap")
+    contig = not (t.planar == 2 and t.spp > 1)
+    if ph == 6 and t.compression == _TIFF_JPEG and contig:
+        ph = 2  # JPEG-compressed YCbCr is asked for as RGB (JPEGCOLORMODE_RGB)
+    if ph == 6:  # initYCbCrConversion and the subsamplings PickContigCase has
+        luma, ref = t.luma, t.reference
+        sub = t.ycbcr_subsampling or (2, 2)
+        if (bps != 8 or t.spp != 3 or luma[1] == 0 or any(math.isnan(v) for v in luma)
+                or any(not abs(v) < 2 ** 31 for v in ref)
+                or (sub[0] << 4 | sub[1]) not in ((0x44, 0x42, 0x41, 0x22, 0x21, 0x12, 0x11) if contig else (0x11,))):
+            t.fail(f"YCbCr of {bps} bits, {t.spp} samples, subsampling {sub}")
+        return alpha, contig, tw, th
+    if contig:
+        ok = ((ph == 2 and bps in (8, 16) and t.spp >= 3) or (ph == 5 and bps == 8)
+              or (ph == 3 and bps in (1, 2, 4, 8)) or (ph in (0, 1) and bps in (1, 2, 4, 8, 16)))
+    else:
+        ok = (ph in (0, 1, 2) and bps in (8, 16)) or (ph == 5 and bps == 8 and t.spp == 4)
+    if not ok:
+        t.fail(f"photometric {t.photometric} at {bps} bits, {t.spp} samples, planar {t.planar}")
+    return alpha, contig, tw, th
+
+
+def _tiff_decode(t: _Tiff, raw: bytes, size: int, state: dict):
+    """One strip or tile decoded into ``size`` bytes: (the bytes, whether the
+    decoder succeeded)."""
+    c = t.compression
+    if c == _TIFF_NONE:
+        if len(raw) < size:
+            return np.zeros(size, np.uint8), False
+        return np.frombuffer(raw, np.uint8, size), True
+    out = np.zeros(size, np.uint8)
+    src = np.frombuffer(raw, np.uint8)
+    if c in _TIFF_DEFLATE:
+        ok = native.tiff_lib().frn_tiff_inflate(src.ctypes.data, src.size, out.ctypes.data, size)
+    elif c == _TIFF_PACKBITS:
+        ok = native.tiff_lib().frn_tiff_packbits(src.ctypes.data, src.size, out.ctypes.data, size)
+    elif c == _TIFF_LZW:
+        # libtiff picks the old-style decoder where the first strip it
+        # decodes begins 0, odd, and keeps the first strip's choice
+        if "compat" not in state:
+            state["compat"] = len(raw) >= 2 and raw[0] == 0 and raw[1] & 1
+        ok = native.tiff_lib().frn_tiff_lzw(src.ctypes.data, src.size, int(bool(state["compat"])),
+                                             out.ctypes.data, size)
+    else:  # libtiff's default state: no decoder, the zeroed buffer stands
+        return out, False
+    return out, bool(ok)
+
+
+def _tiff_samples(t: _Tiff, buf: np.ndarray, ok: bool, rows: int, width: int, per_row: int,
+                  cols: int) -> np.ndarray:
+    """A decoded strip or tile (``rows`` rows of ``width`` pixels) -> the
+    (rows, cols, samples) uint8 or uint16 that libtiff's put routine reads
+    from it: the predictor undone and 16-bit samples in host order where
+    the decoder succeeded (a failed decode skips both, as libtiff's
+    postdecode is skipped), bit-packed samples split. A tile clipped at the
+    image's right edge is walked as the put routine walks it: the gray and
+    palette ones step to the next row by a byte count that misses the
+    sample size."""
+    bps = t.bps
+    row_bytes = (width * per_row * bps + 7) // 8
+    host = buf[:rows * row_bytes]
+    if bps == 16 and ok:
+        v = host.view(t.e + "u2").reshape(rows, width * per_row)
+        if t.predictor == 2:
+            v = np.cumsum(v.reshape(rows, width, per_row), axis=1, dtype=np.uint16).reshape(rows, -1)
+        host = v.astype("<u2").view(np.uint8).reshape(-1)
+    elif bps == 8 and ok and t.predictor == 2:
+        host = np.cumsum(host.reshape(rows, width, per_row), axis=1, dtype=np.uint8).reshape(-1)
+    advance = row_bytes
+    if cols < width and t.photometric in (0, 1, 3):
+        if bps >= 8:
+            advance = cols * per_row * bps // 8 + (width - cols)
+        else:
+            advance = (cols * bps + 7) // 8 + (width - cols) // (8 // bps)
+    need = (cols * per_row * bps + 7) // 8
+    if advance == need == row_bytes:
+        rb = host.reshape(rows, row_bytes)
+    else:
+        rb = host[np.arange(rows)[:, None] * advance + np.arange(need)[None, :]]
+    if bps == 16:
+        return rb.view("<u2").reshape(rows, cols, per_row)
+    if bps == 8:
+        return rb.reshape(rows, cols, per_row)
+    per = 8 // bps
+    shifts = ((8 - bps) - bps * np.arange(per)).astype(np.uint8)
+    v = ((rb[:, :, None] >> shifts) & ((1 << bps) - 1)).reshape(rows, -1)[:, :cols * per_row]
+    return v.reshape(rows, cols, per_row)
+
+
+def _tiff_predictor_ok(t: _Tiff) -> bool:
+    """PredictorSetup: the predictor must fit the samples, or the strip is
+    not read at all."""
+    if t.predictor == 1:
+        return True
+    return t.predictor == 2 and t.bps in (8, 16, 32, 64)
+
+
+def _tiff_to_8bit(v: np.ndarray) -> np.ndarray:
+    """16-bit RGB or alpha samples as libtiff's put routines take them to 8
+    bits: (v + 128) / 257, in uint32."""
+    v = v.astype(np.uint32)
+    v += 128
+    v //= 257
+    return v
+
+
+def _tiff_rgb_contig(t: _Tiff, s: np.ndarray, alpha: int, photometric: int = None) -> np.ndarray:
+    """PickContigCase's put routines: samples -> (rows, w, 3) RGB uint8
+    (a view of ``s`` where it already is that). The arithmetic is in uint16
+    (at most 255 x 255 + 127), 16-bit samples' scaling in uint32."""
+    ph, bps = photometric or t.photometric, t.bps
+    if ph in (0, 1):
+        v = s[:, :, 0]
+        if bps == 16:
+            v = (v >> 8).astype(np.uint8)
+        if ph == 0 or bps < 8:
+            top = min((1 << bps) - 1, 255)
+            v = v.astype(np.uint16)
+            v = ((top - v if ph == 0 else v) * 255 // top).astype(np.uint8)
+        return np.broadcast_to(v[:, :, None], v.shape + (3,))
+    if ph == 3:
+        cmap = t.colormap[:, :1 << bps]
+        if (cmap >= 256).any():
+            cmap = cmap >> 8
+        cmap = (cmap & 0xFF).astype(np.uint8).T
+        return cmap[s[:, :, 0]]
+    if ph == 5:
+        k = 255 - s[:, :, 3:4].astype(np.uint16)
+        return (k * (255 - s[:, :, :3]) // 255).astype(np.uint8)
+    rgb = s[:, :, :3]
+    if bps == 8 and alpha != 2:
+        return rgb
+    if bps == 16:
+        rgb = _tiff_to_8bit(rgb)
+    if alpha == 2:
+        a = s[:, :, 3:4]
+        a = _tiff_to_8bit(a) if bps == 16 else a.astype(np.uint16)
+        rgb = (rgb.astype(np.uint16) * a + 127) // 255
+    return rgb.astype(np.uint8)
+
+
+def _tiff_rgb_separate(t: _Tiff, planes: list, alpha: int) -> np.ndarray:
+    """PickSeparateCase's put routines: planes (rows, w) -> RGB uint8."""
+    if t.photometric == 5:
+        k = 255 - planes[3].astype(np.uint16)
+        return np.stack([(k * (255 - p) // 255) for p in planes[:3]], -1).astype(np.uint8)
+    rgb = np.stack(planes[:3], -1)
+    if t.bps == 16:
+        rgb = _tiff_to_8bit(rgb)
+    if alpha == 2:
+        a = planes[3][:, :, None]
+        a = _tiff_to_8bit(a) if t.bps == 16 else a.astype(np.uint16)
+        rgb = (rgb.astype(np.uint16) * a + 127) // 255
+    return rgb.astype(np.uint8)
+
+
+def _tiff(data: bytes, path: str, gray: bool) -> np.ndarray:
+    """grfmt_tiff over libtiff 4.7.1: the first directory of a classic or
+    BigTIFF file in either byte order; strips or tiles, contiguous or planar,
+    uncompressed, LZW (with libtiff's old-style codes), Deflate, PackBits
+    or JPEG, with or without the horizontal predictor; gray and min-is-white
+    at 1, 8 and 16 bits (16 keeps its high byte), palette at 1, 4 and 8 bits
+    (a colour map whose entries all fit in 8 bits taken as 8-bit), RGB at 8
+    and 16 bits (16 scaled by (v + 128) / 257) with its extra samples
+    (unassociated alpha premultiplied as libtiff does it), CMYK at 8 bits;
+    the orientations 2-4 as libtiff and OpenCV apply them (a mirror inside
+    each tile); gray from the BGR by OpenCV's 14-bit weights. Where libtiff
+    or OpenCV refuse a file, UnreadableImage; where a decoder fails part way,
+    what libtiff's RGBA reader makes of the strip (see ``native/tiff.cpp``).
+    Orientations 5-8 read as None (OpenCV 5's own failure)."""
+    t = _Tiff(data, path)
+    alpha, contig, tw, th = _tiff_kind_check(t)
+    w, h = t.width, t.length
+    img = np.zeros((h, w, 3), np.uint8)  # BGR
+    state = {}
+    for y in range(0, h, th):
+        rows = min(th, h - y)
+        for x in range(0, w, tw):
+            cols = min(tw, w - x)
+            if t.tiled:
+                index = (y // t.tile_length) * -(-w // t.tile_width) + x // t.tile_width
+                size, rows_in, width_in = t.tile_size(), t.tile_length, t.tile_width
+            else:
+                index = y // t.rows
+                rows_in = min(t.rows, h - y)
+                size, width_in = t.strip_size(rows_in), w
+                if t.ycbcr_blocks() is not None:  # gtStripContig reads whole rows of blocks' worth
+                    v = t.ycbcr_blocks()[1]
+                    size = min(size, -(-rows_in // v) * v * t.scanline_size())
+            mirror = -1 if t.orientation in (2, 3) else 1
+            _tiff_place(img[y:y + rows, x:x + cols],
+                        _tiff_block(t, index, size, rows_in, width_in, cols, contig, alpha, state)[:rows, ::mirror])
+    if t.orientation in (3, 4):
+        img = np.ascontiguousarray(img[::-1])
+    return _gray(img) if gray else img
+
+
+def _tiff_place(dst: np.ndarray, rgb: np.ndarray) -> None:
+    """An RGB strip or tile into its place in the BGR image, a channel at a
+    time (a copy through a reversed channel axis takes several times as
+    long)."""
+    for c in range(3):
+        dst[:, :, c] = rgb[:, :, 2 - c]
+
+
+def _tiff_block(t: _Tiff, index: int, size: int, rows: int, width: int, cols: int, contig: bool,
+                alpha: int, state: dict) -> np.ndarray:
+    """One strip or tile (all its planes) -> (rows, cols, 3) RGB, as
+    gtStripContig / gtTileContig / their separate kin read it with
+    stop-on-error off; UnreadableImage where its first plane cannot be
+    read."""
+    if not _tiff_predictor_ok(t):
+        t.fail(f"predictor {t.predictor} with {t.bps}-bit samples")
+    if t.compression == _TIFF_JPEG:
+        samples = _tiff_jpeg_block(t, index, rows, width, state)[:, :cols]
+        return _tiff_rgb_contig(t, samples, alpha, photometric=2 if t.photometric == 6 else None)
+    if contig:
+        raw = t.raw(index)
+        if raw is None or not _tiff_tile_plausible(t, raw, size, size):
+            t.fail(f"strip or tile {index} cannot be read")
+        buf, ok = _tiff_decode(t, raw, size, state)
+        if t.photometric == 6:
+            return _tiff_ycbcr(t, buf, rows, width, cols)
+        return _tiff_rgb_contig(t, _tiff_samples(t, buf, ok, rows, width, t.spp, cols), alpha)
+    # gtStripSeparate / gtTileSeparate: one colour plane for gray (read as
+    # R, G and B), three otherwise, then the alpha plane (CMYK's K)
+    colours = 1 if t.photometric in (0, 1) else 3
+    if t.photometric == 5:
+        alpha = 1
+    planes = []
+    for sample in range(colours + (alpha > 0)):
+        strip = sample * t.per_plane + index
+        raw = t.raw(strip)
+        if sample == 0 and (raw is None or not _tiff_tile_plausible(t, raw, size,
+                                                                   size * (4 if alpha else 3))):
+            t.fail(f"strip or tile {strip} cannot be read")
+        buf, ok = (np.zeros(size, np.uint8), False) if raw is None else _tiff_decode(t, raw, size, state)
+        planes.append(_tiff_samples(t, buf, ok, rows, width, 1, cols)[:, :, 0])
+    if colours == 1:
+        planes = planes[:1] * 3 + planes[1:]
+    if t.photometric == 6:  # putseparate8bitYCbCr11tile
+        y_tab, cr_r, cb_b, cr_g, cb_g = _ycbcr_tables(tuple(t.luma), tuple(t.reference))
+        yy, cb, cr = y_tab[planes[0]], planes[1], planes[2]
+        out = np.stack([yy + cr_r[cr], yy + ((cb_g[cb] + cr_g[cr]) >> 16), yy + cb_b[cb]], -1)
+        return np.clip(out, 0, 255).astype(np.uint8)
+    return _tiff_rgb_separate(t, planes, alpha)
+
+
+def _tiff_ycbcr(t: _Tiff, buf: np.ndarray, rows: int, width: int, cols: int) -> np.ndarray:
+    """putcontig8bitYCbCr{11,12,21,22,41,42,44}tile: packed blocks of h x v
+    Y samples, then Cb and Cr, each pixel through TIFFYCbCrtoRGB's tables
+    (TIFFYCbCrToRGBInit: the luma coefficients and ReferenceBlackWhite in
+    float, 16-bit fixed point)."""
+    h, v = t.ycbcr_blocks()
+    size = h * v + 2
+    # the step to the next row of blocks; in a tile clipped at the image's
+    # edge, putcontig8bitYCbCr44tile skips the rest of the row in blocks of
+    # 10 bytes instead of 18
+    advance = -(-cols // h) * size + (width - cols) // h * (10 if (h, v) == (4, 4) else size)
+    data = np.zeros(-(-rows // v) * advance + size, np.uint8)
+    data[:min(data.size, buf.size)] = buf[:data.size]
+    r, c = np.arange(rows)[:, None], np.arange(cols)[None, :]
+    at = (r // v) * advance + (c // h) * size
+    y = data[at + (r % v) * h + c % h]
+    cb, cr = data[at + h * v], data[at + h * v + 1]
+    y_tab, cr_r, cb_b, cr_g, cb_g = _ycbcr_tables(tuple(t.luma), tuple(t.reference))
+    yy = y_tab[y]
+    out = np.stack([yy + cr_r[cr], yy + ((cb_g[cb] + cr_g[cr]) >> 16), yy + cb_b[cb]], -1)
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=8)
+def _ycbcr_tables(luma: tuple, ref: tuple):
+    """TIFFYCbCrToRGBInit's tables (Y, Cr->R, Cb->B, Cr->G, Cb->G), its
+    float arithmetic in float32."""
+    f32 = np.float32
+
+    def fix(x):
+        return int(float(f32(x) * f32(65536)) + 0.5)
+
+    def clamp(x, lo, hi):
+        return lo if x < lo else hi if x > hi else x
+
+    def code2v(c, rb, rw, cr):
+        rb, rw = f32(rb), f32(rw)
+        den = rw - rb if rw - rb != 0 else f32(1)
+        return f32(f32(f32(c - int(rb)) * f32(cr)) / den)
+
+    lr, lg, lb = (f32(v) for v in luma)
+    f1 = f32(2) - f32(2) * lr
+    d1 = fix(clamp(f1, 0.0, 2.0))
+    d2 = -fix(clamp(f32(f32(lr * f1) / lg), 0.0, 2.0))
+    f3 = f32(2) - f32(2) * lb
+    d3 = fix(clamp(f3, 0.0, 2.0))
+    d4 = -fix(clamp(f32(f32(lb * f3) / lg), 0.0, 2.0))
+    tabs = [np.zeros(256, np.int32) for _ in range(5)]
+    for i, x in enumerate(range(-128, 128)):
+        cr = int(clamp(code2v(x, f32(ref[4]) - f32(128), f32(ref[5]) - f32(128), 127), -128.0 * 32, 128.0 * 32))
+        cb = int(clamp(code2v(x, f32(ref[2]) - f32(128), f32(ref[3]) - f32(128), 127), -128.0 * 32, 128.0 * 32))
+        tabs[1][i] = (d1 * cr + 32768) >> 16
+        tabs[2][i] = (d3 * cb + 32768) >> 16
+        tabs[3][i] = d2 * cr
+        tabs[4][i] = d4 * cb + 32768
+        tabs[0][i] = int(clamp(code2v(x + 128, ref[0], ref[1], 255), -128.0 * 32, 128.0 * 32))
+    return tabs
+
+
+def _tiff_tile_plausible(t: _Tiff, raw: bytes, size: int, buffer: int) -> bool:
+    """_TIFFReadEncodedTileAndAllocBuffer's checks on a tile before its
+    buffer is allocated: an uncompressed tile of exactly its size, a
+    compressed one at most 1000 times smaller where the buffer passes 100
+    MB."""
+    if not t.tiled:
+        return True
+    if t.compression == _TIFF_NONE:
+        return len(raw) == size
+    return not (buffer > 100 * 1000 * 1000 and len(raw) < size // 1000)
+
+
+def _jpeg_fixup_sampling(t: _Tiff):
+    """libtiff's JPEGFixupTagsSubsampling: the subsampling read from the
+    first strip's frame header where the TIFF has no YCbCrSubsampling tag,
+    (2, 2) where that header cannot be found or has no TIFF equivalent."""
+    offset, count = t.offsets[0], t.counts[0]
+    data = t.data[offset:offset + count] if offset < len(t.data) else b""
+    pos = 0
+    while True:
+        while pos < len(data) and data[pos] != 0xFF:
+            pos += 1
+        while pos < len(data) and data[pos] == 0xFF:
+            pos += 1
+        if pos >= len(data):
+            return 2, 2
+        marker = data[pos]
+        pos += 1
+        if marker == 0xD8:
+            continue
+        if marker in (0xFE, 0xDB, 0xDA, 0xC4, 0xDD) or 0xE0 <= marker <= 0xEF:
+            if pos + 2 > len(data) or struct.unpack_from(">H", data, pos)[0] < 2:
+                return 2, 2
+            pos += struct.unpack_from(">H", data, pos)[0]
+            continue
+        if marker not in (0xC0, 0xC1, 0xC2, 0xC9, 0xCA):
+            return 2, 2
+        if pos + 2 > len(data) or struct.unpack_from(">H", data, pos)[0] != 8 + 3 * t.spp:
+            return 2, 2
+        body = data[pos + 2:pos + 8 + 3 * t.spp]
+        if len(body) < 6 + 3 * t.spp:
+            return 2, 2
+        h, v = body[7] >> 4, body[7] & 15
+        if any(body[7 + 3 * i] != 0x11 for i in range(1, t.spp)) or h not in (1, 2, 4) or v not in (1, 2, 4):
+            return 2, 2
+        return h, v
+
+
+_JPEG_TABLES_BYTES = 2748  # frn_jpeg_tables' most: 4 DQT and 8 DHT segments
+
+
+def _jpeg_tables(stream: bytes):
+    """The quantization and Huffman tables libjpeg holds after reading a
+    JPEG stream's markers up to its first SOS or EOI, as DQT and DHT
+    segments, each table slot once (``native/jpeg.cpp``'s marker reader):
+    (the segments, the marker that ended the read), or None where libjpeg
+    stops with an error."""
+    buf = np.frombuffer(stream, np.uint8)
+    out = np.zeros(_JPEG_TABLES_BYTES, np.uint8)
+    info = np.zeros(2, np.int32)
+    err = ctypes.create_string_buffer(512)
+    if native.jpeg_lib().frn_jpeg_tables(buf.ctypes.data, buf.size, out.ctypes.data, info.ctypes.data, err,
+                                         len(err)) != 0:
+        return None
+    return out[:info[0]].tobytes(), int(info[1])
+
+
+def _tiff_jpeg_tables(t: _Tiff):
+    """The tables of the JPEGTables tag as DQT and DHT segments (b"" without
+    one), or None where libjpeg would not read it as tables only ("Bogus
+    JPEGTables")."""
+    entry = t.entries.get(347)
+    if entry is None or entry[0] not in (1, 2, 6, 7) or entry[1] == 0:
+        return b""
+    typ, count, value = entry
+    inline = 8 if t.big else 4
+    if count <= inline:
+        tables = value[:count]
+    else:
+        at = struct.unpack(t.e + ("Q" if t.big else "I"), value)[0]
+        if at + count > len(t.data):
+            return b""
+        tables = t.data[at:at + count]
+    read = _jpeg_tables(tables)
+    return None if read is None or read[1] != 0xD9 else read[0]
+
+
+def _tiff_jpeg_block(t: _Tiff, index: int, rows: int, width: int, state: dict) -> np.ndarray:
+    """A strip or tile of a JPEG-compressed TIFF, as libtiff's JPEGPreDecode
+    checks it and JPEGDecode reads it: (rows, width, samples) where the
+    JPEG's rows and columns are copied into a zeroed buffer. YCbCr comes out
+    as RGB. UnreadableImage where JPEGPreDecode fails."""
+    if "tables" not in state:
+        state["tables"] = _tiff_jpeg_tables(t)  # then the tables the strips read so far define
+        state["sampling"] = (1, 1)
+        if t.photometric == 6:
+            if t.ycbcr_subsampling is not None:
+                state["sampling"] = t.ycbcr_subsampling
+            elif t.planar == 1 and t.spp == 3:
+                state["sampling"] = _jpeg_fixup_sampling(t)
+            else:
+                state["sampling"] = (2, 2)
+    if t.planar == 2:
+        raise ValueError(f"{t.path}: a JPEG-compressed TIFF with separate planes, which this reader leaves "
+                         "out")
+    tables = state["tables"]
+    raw = t.raw(index)
+    if tables is None or raw is None or raw[:2] != b"\xff\xd8":
+        t.fail(f"JPEG strip or tile {index} cannot be read")
+    # libjpeg keeps its quantization and Huffman tables from one strip to
+    # the next (libtiff reuses one decompressor): the tables it holds go in
+    # front of this strip's own, which replace them slot by slot
+    stream = b"\xff\xd8" + tables + raw[2:]
+    lib = native.jpeg_lib()
+    buf = np.frombuffer(stream, np.uint8)
+    info = np.zeros(12, np.int32)
+    err = ctypes.create_string_buffer(512)
+    rc = lib.frn_jpeg_info(buf.ctypes.data, buf.size, info.ctypes.data, err, len(err))
+    if rc == 0:
+        state["tables"] = _jpeg_tables(stream)[0]
+    if rc == 1:
+        raise ValueError(f"{t.path}: JPEG strip or tile {index}: {err.value.decode(errors='replace')}")
+    if rc != 0:
+        t.fail(f"JPEG strip or tile {index}: {err.value.decode(errors='replace')}")
+    jw, jh, nc = int(info[0]), int(info[1]), int(info[2])
+    sampling = [(int(info[4 + 2 * i]), int(info[5 + 2 * i])) for i in range(min(nc, 4))]
+    last_strip = not t.tiled and index == t.per_plane - 1
+    if jw > width or (jh > rows and not (jw == width and last_strip)) or nc != t.spp or t.bps != 8:
+        t.fail(f"a JPEG strip or tile of {jw}x{jh} with {nc} components for {width}x{rows} with {t.spp}")
+    if sampling[0] != tuple(state["sampling"]) or any(f != (1, 1) for f in sampling[1:]):
+        t.fail(f"JPEG sampling factors {sampling}")
+    ycbcr = t.photometric == 6
+    out = np.empty((jh, jw, nc), np.uint8)
+    rc = lib.frn_jpeg_decode_tiff(buf.ctypes.data, buf.size, int(ycbcr), out.ctypes.data, err, len(err))
+    if rc == 1:
+        raise ValueError(f"{t.path}: JPEG strip or tile {index}: {err.value.decode(errors='replace')}")
+    if rc != 0:
+        t.fail(f"JPEG strip or tile {index}: {err.value.decode(errors='replace')}")
+    block = np.zeros((rows, width, nc), np.uint8)
+    n = min(rows, jh)
+    block[:n, :jw] = out[:n]
+    return block
+
+
 def _opencv_decoder(data: bytes):
     """The decoder of the formats above that OpenCV would pick by content
     (its decoders' checkSignature), or None."""
@@ -1054,6 +2014,8 @@ def _opencv_decoder(data: bytes):
         return _hdr
     if data[:4] == b"\x59\xa6\x6a\x95":
         return _sunras
+    if data[:4] in _TIFF_SIGNATURES:
+        return _tiff
     if len(data) >= 3 and data[:1] == b"P" and data[2] in _SPACE:
         return {**dict.fromkeys(b"123456", _pxm), ord("7"): _pam,
                 ord("F"): _pfm, ord("f"): _pfm}.get(data[1])
@@ -1080,7 +2042,7 @@ def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:
         if name is None:
             raise UnreadableImage(f"{path}: bytes that no OpenCV decoder recognizes")
         raise ValueError(f"{path}: {name} file; this reader decodes JPEG, PNG, BMP, PBM/PGM/PPM, "
-                         "PAM, PFM, Sun raster, Radiance HDR and GIF only (the JAX package reads "
+                         "PAM, PFM, Sun raster, Radiance HDR, GIF and TIFF only (the JAX package reads "
                          f"{name} through OpenCV)")
     return _orient(img, orientation)
 

@@ -34,7 +34,11 @@
 //    any of the first ten coefficients incomplete is smoothed as
 //    libjpeg-turbo 2.1+'s decompress_smooth_data smooths it.
 // The EXIF orientation of the first APP1 segment is reported, not applied
-// (the caller turns the image as OpenCV does).
+// (the caller turns the image as OpenCV does). frn_jpeg_decode_tiff decodes a
+// strip or tile of a JPEG-compressed TIFF as libtiff's JPEG codec asks
+// libjpeg for it: YCbCr converted to RGB whatever the markers say, or the
+// components as they are; frn_jpeg_tables gives the tables that such a
+// decompressor carries from one strip to the next.
 //
 // Return codes: kCorrupt where cv2.imread returns None (libjpeg-turbo stops
 // with an error, as on a file cut before its first scan, a broken marker
@@ -55,6 +59,7 @@
 #include <exception>
 #include <new>
 #include <string>
+#include <utility>
 #include <vector>
 
 namespace {
@@ -1273,16 +1278,14 @@ ColorSpace read_header(Decoder& dec) {
   return cs;
 }
 
-void decode(const uint8_t* data, size_t size, bool gray, uint8_t* out) {
-  Decoder dec(data, size);
-  const ColorSpace cs = read_header(dec);
-  // the components the output needs: Y alone for gray from gray or YCbCr
-  const size_t needed = gray && (cs == kGray || cs == kYCbCr) ? 1 : dec.comps.size();
+// The first `needed` components' samples at full size, each (height,
+// width): the scans decoded, each block's inverse DCT (smoothed where a
+// progressive file leaves coefficients incomplete), then upsampled.
+std::vector<std::vector<uint8_t>> component_planes(Decoder& dec, size_t needed) {
   dec.consume();
   std::vector<int> latch, prev_latch;
   const bool smooth = smoothing_ok(dec, latch, prev_latch);
   const int w = dec.width, h = dec.height;
-  const size_t npix = static_cast<size_t>(w) * h;
   std::vector<std::vector<uint8_t>> planes(needed);
   for (size_t ci = 0; ci < needed; ++ci) {
     Component& c = dec.comps[ci];
@@ -1301,6 +1304,16 @@ void decode(const uint8_t* data, size_t size, bool gray, uint8_t* out) {
     }
     planes[ci] = upsample(c, samples.data(), stride, dec.hmax, dec.vmax, w, h);
   }
+  return planes;
+}
+
+void decode(const uint8_t* data, size_t size, bool gray, uint8_t* out) {
+  Decoder dec(data, size);
+  const ColorSpace cs = read_header(dec);
+  // the components the output needs: Y alone for gray from gray or YCbCr
+  const size_t needed = gray && (cs == kGray || cs == kYCbCr) ? 1 : dec.comps.size();
+  const std::vector<std::vector<uint8_t>> planes = component_planes(dec, needed);
+  const size_t npix = static_cast<size_t>(dec.width) * dec.height;
   static const YccTables t;
   if (cs == kGray || (gray && cs == kYCbCr)) {
     const uint8_t* y = planes[0].data();
@@ -1367,6 +1380,62 @@ void decode(const uint8_t* data, size_t size, bool gray, uint8_t* out) {
   }
 }
 
+// A strip or tile of a JPEG-compressed TIFF as libtiff's JPEG codec asks
+// libjpeg for it: YCbCr converted to RGB where `ycbcr` (JPEGCOLORMODE_RGB,
+// whatever the markers say), else the components as they are (libtiff sets
+// the colour spaces to JCS_UNKNOWN); samples in component order, (height,
+// width, components).
+void decode_tiff(const uint8_t* data, size_t size, bool ycbcr, uint8_t* out) {
+  Decoder dec(data, size);
+  dec.read_header();
+  const size_t nc = dec.comps.size();
+  if (ycbcr && nc != 3) fail(kCorrupt, "a YCbCr JPEG strip of " + std::to_string(nc) + " components");
+  const std::vector<std::vector<uint8_t>> planes = component_planes(dec, nc);
+  const size_t npix = static_cast<size_t>(dec.width) * dec.height;
+  static const YccTables t;
+  if (ycbcr) {  // into BGR, then R and B swapped into component order
+    ycc_to_bgr(planes[0].data(), planes[1].data(), planes[2].data(), out, npix, t);
+    for (size_t i = 0; i < npix; ++i) std::swap(out[3 * i], out[3 * i + 2]);
+    return;
+  }
+  for (size_t i = 0; i < npix; ++i)
+    for (size_t ci = 0; ci < nc; ++ci) out[nc * i + ci] = planes[ci][i];
+}
+
+// The decoder's quantization tables (16-bit, in zigzag order) and Huffman
+// tables as they were defined, as DQT and DHT segments: the bytes written.
+size_t write_tables(const Decoder& dec, uint8_t* out) {
+  uint8_t* o = out;
+  auto u16 = [&o](int v) {
+    *o++ = static_cast<uint8_t>(v >> 8);
+    *o++ = static_cast<uint8_t>(v);
+  };
+  for (int t = 0; t < 4; ++t) {
+    if (!dec.qdef[t]) continue;
+    *o++ = 0xFF;
+    *o++ = 0xDB;
+    u16(2 + 1 + 128);
+    *o++ = static_cast<uint8_t>(0x10 | t);
+    for (int i = 0; i < 64; ++i) u16(dec.qt[t][kNatural[i]]);
+  }
+  for (int ac = 0; ac < 2; ++ac) {
+    for (int slot = 0; slot < 4; ++slot) {
+      const RawTable& t = ac ? dec.ac_raw[slot] : dec.dc_raw[slot];
+      if (!t.defined) continue;
+      int count = 0;
+      for (int l = 1; l <= 16; ++l) count += t.bits[l];
+      *o++ = 0xFF;
+      *o++ = 0xC4;
+      u16(2 + 1 + 16 + count);
+      *o++ = static_cast<uint8_t>((ac << 4) | slot);
+      std::memcpy(o, t.bits + 1, 16);
+      std::memcpy(o + 16, t.vals, static_cast<size_t>(count));
+      o += 16 + count;
+    }
+  }
+  return static_cast<size_t>(o - out);
+}
+
 int report(const Error& e, char* err, int errlen) {
   if (err != nullptr && errlen > 0) std::snprintf(err, static_cast<size_t>(errlen), "%s", e.msg.c_str());
   return e.code;
@@ -1375,8 +1444,9 @@ int report(const Error& e, char* err, int errlen) {
 }  // namespace
 
 // info: width, height, components, EXIF orientation (1-8 as stored; 1 when
-// absent). Returns 0, or 1 (a kind not read) / 2 (cv2.imread returns None)
-// with a message in err.
+// absent), then the first four components' horizontal and vertical sampling
+// factors (4 + 2 x 4 values, unused ones 0). Returns 0, or 1 (a kind not
+// read) / 2 (cv2.imread returns None) with a message in err.
 extern "C" int frn_jpeg_info(const uint8_t* data, int64_t size, int32_t* info, char* err, int errlen) {
   try {
     Decoder dec(data, static_cast<size_t>(size));
@@ -1385,11 +1455,36 @@ extern "C" int frn_jpeg_info(const uint8_t* data, int64_t size, int32_t* info, c
     info[1] = dec.height;
     info[2] = static_cast<int32_t>(dec.comps.size());
     info[3] = dec.orientation;
+    for (size_t i = 0; i < 4; ++i) {
+      info[4 + 2 * i] = i < dec.comps.size() ? dec.comps[i].h : 0;
+      info[5 + 2 * i] = i < dec.comps.size() ? dec.comps[i].v : 0;
+    }
     return kOk;
   } catch (const Error& e) {
     return report(e, err, errlen);
   } catch (const std::bad_alloc&) {
     return report(Error{kUnsupported, "JPEG too large to decode in memory"}, err, errlen);
+  } catch (const std::exception& e) {
+    return report(Error{kUnsupported, std::string("JPEG not decoded: ") + e.what()}, err, errlen);
+  }
+}
+
+// The quantization and Huffman tables a decompressor holds after reading the
+// markers from SOI to the first SOS or EOI (libjpeg keeps them from one
+// stream to the next), as DQT and DHT segments into out, each defined slot
+// once: at most 4 x 133 + 8 x 277 = 2,748 bytes. info: the bytes written, the marker that ended
+// the read (0xDA or 0xD9). Same return codes.
+extern "C" int frn_jpeg_tables(const uint8_t* data, int64_t size, uint8_t* out, int32_t* info, char* err,
+                               int errlen) {
+  try {
+    Decoder dec(data, static_cast<size_t>(size));
+    if (size < 2 || data[0] != 0xFF || data[1] != 0xD8) fail(kCorrupt, "not a JPEG stream (no SOI marker)");
+    dec.in.pos = 2;
+    info[1] = dec.read_markers();
+    info[0] = static_cast<int32_t>(write_tables(dec, out));
+    return kOk;
+  } catch (const Error& e) {
+    return report(e, err, errlen);
   } catch (const std::exception& e) {
     return report(Error{kUnsupported, std::string("JPEG not decoded: ") + e.what()}, err, errlen);
   }
@@ -1401,6 +1496,23 @@ extern "C" int frn_jpeg_decode(const uint8_t* data, int64_t size, int gray, uint
                                int errlen) {
   try {
     decode(data, static_cast<size_t>(size), gray != 0, out);
+    return kOk;
+  } catch (const Error& e) {
+    return report(e, err, errlen);
+  } catch (const std::bad_alloc&) {
+    return report(Error{kUnsupported, "JPEG too large to decode in memory"}, err, errlen);
+  } catch (const std::exception& e) {
+    return report(Error{kUnsupported, std::string("JPEG not decoded: ") + e.what()}, err, errlen);
+  }
+}
+
+// A JPEG-in-TIFF strip or tile (the JPEGTables stream spliced in front) into
+// out: (height, width, components), YCbCr converted to RGB where ycbcr != 0.
+// Same return codes.
+extern "C" int frn_jpeg_decode_tiff(const uint8_t* data, int64_t size, int ycbcr, uint8_t* out, char* err,
+                                    int errlen) {
+  try {
+    decode_tiff(data, static_cast<size_t>(size), ycbcr != 0, out);
     return kOk;
   } catch (const Error& e) {
     return report(e, err, errlen);

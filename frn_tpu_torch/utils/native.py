@@ -1,7 +1,8 @@
 """ctypes loaders for the native host kernels: the event kernels
 (``frn_tpu_torch/native/voxelize.cpp``), the JPEG decoder
-(``frn_tpu_torch/native/jpeg.cpp``) and the run-length and LZW decoders of
-BMP, Radiance HDR and GIF (``frn_tpu_torch/native/codecs.cpp``).
+(``frn_tpu_torch/native/jpeg.cpp``), the run-length and LZW decoders of
+BMP, Radiance HDR and GIF (``frn_tpu_torch/native/codecs.cpp``) and TIFF's
+LZW, Deflate and PackBits decoders (``frn_tpu_torch/native/tiff.cpp``).
 
 The event kernels are the counterpart of ``frn_tpu/utils/native.py``, over the
 port's own copy of the C++ source; the image decoders stand in for the OpenCV
@@ -13,7 +14,7 @@ never loads. Each build writes a temporary file and renames it into place,
 so processes that reach the first use at once never load a half-written
 library. The event entry points return None where the library is
 unavailable (no g++, or ``FRN_DISABLE_NATIVE`` set), and callers take their
-numpy path; ``jpeg_lib`` and ``codecs_lib`` raise RuntimeError naming the
+numpy path; ``jpeg_lib``, ``codecs_lib`` and ``tiff_lib`` raise RuntimeError naming the
 cause instead, since no other path gives the same pixels. These are host
 kernels: they run on the CPU beside the card.
 """
@@ -33,6 +34,7 @@ import numpy as np
 SOURCE = Path(__file__).resolve().parents[1] / "native" / "voxelize.cpp"
 JPEG_SOURCE = Path(__file__).resolve().parents[1] / "native" / "jpeg.cpp"
 CODECS_SOURCE = Path(__file__).resolve().parents[1] / "native" / "codecs.cpp"
+TIFF_SOURCE = Path(__file__).resolve().parents[1] / "native" / "tiff.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 GXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
 
@@ -43,6 +45,8 @@ _jpeg_lib = None
 _jpeg_error = None  # why the JPEG library is unavailable, once a load failed
 _codecs_lib = None
 _codecs_error = None  # the same for the run-length and LZW decoders
+_tiff_lib = None
+_tiff_error = None  # the same for TIFF's strip decoders
 
 
 def _path(source: Path, name: str) -> Path:
@@ -93,6 +97,11 @@ def build_codecs() -> Path:
     return _build(CODECS_SOURCE, "frn_codecs")
 
 
+def build_tiff() -> Path:
+    """The same for TIFF's strip decoders."""
+    return _build(TIFF_SOURCE, "frn_tiff")
+
+
 def _image_lib(key: str, source: Path, build_fn, what: str, bind) -> ctypes.CDLL:
     """An image decoder's library (module globals ``_<key>_lib`` and
     ``_<key>_error``), built at first use and bound by ``bind``. Raises
@@ -121,7 +130,10 @@ def _bind_jpeg(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.frn_jpeg_info.argtypes = [p, i64, p, p, i32]
     lib.frn_jpeg_decode.argtypes = [p, i64, i32, p, p, i32]
+    lib.frn_jpeg_decode_tiff.argtypes = [p, i64, i32, p, p, i32]
+    lib.frn_jpeg_tables.argtypes = [p, i64, p, p, p, i32]
     lib.frn_jpeg_info.restype = lib.frn_jpeg_decode.restype = i32
+    lib.frn_jpeg_decode_tiff.restype = lib.frn_jpeg_tables.restype = i32
 
 
 def _bind_codecs(lib: ctypes.CDLL) -> None:
@@ -130,6 +142,14 @@ def _bind_codecs(lib: ctypes.CDLL) -> None:
     lib.frn_hdr_pixels.argtypes = [p, i64, i64, i32, i32, p, p, i32]
     lib.frn_gif_lzw.argtypes = [p, i64, i64, i64, p, p, i32]
     lib.frn_bmp_rle.restype = lib.frn_hdr_pixels.restype = lib.frn_gif_lzw.restype = i32
+
+
+def _bind_tiff(lib: ctypes.CDLL) -> None:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.frn_tiff_lzw.argtypes = [p, i64, i32, p, i64]
+    lib.frn_tiff_inflate.argtypes = [p, i64, p, i64]
+    lib.frn_tiff_packbits.argtypes = [p, i64, p, i64]
+    lib.frn_tiff_lzw.restype = lib.frn_tiff_inflate.restype = lib.frn_tiff_packbits.restype = i32
 
 
 def jpeg_lib() -> ctypes.CDLL:
@@ -144,6 +164,12 @@ def codecs_lib() -> ctypes.CDLL:
     unavailable."""
     return _image_lib("codecs", CODECS_SOURCE, build_codecs,
                       "Run-length BMP, Radiance HDR and GIF images", _bind_codecs)
+
+
+def tiff_lib() -> ctypes.CDLL:
+    """TIFF's LZW, Deflate and PackBits decoders' library, built at first
+    use; RuntimeError naming the cause where it is unavailable."""
+    return _image_lib("tiff", TIFF_SOURCE, build_tiff, "LZW, Deflate and PackBits TIFF images", _bind_tiff)
 
 
 def get_lib() -> Optional[ctypes.CDLL]:

@@ -250,7 +250,10 @@ def test_image_io_refuses_what_it_does_not_read(tmp_path):
     np.testing.assert_array_equal(image_io.imread(path), cv2.imread(path))  # BMP is read
     path = str(tmp_path / "x.tiff")
     cv2.imwrite(path, _image("bgr"))
-    with pytest.raises(ValueError, match="TIFF file; this reader decodes JPEG, PNG, BMP"):
+    np.testing.assert_array_equal(image_io.imread(path), cv2.imread(path))  # TIFF is read
+    path = str(tmp_path / "x.webp")
+    cv2.imwrite(path, _image("bgr"))
+    with pytest.raises(ValueError, match="WebP file; this reader decodes JPEG, PNG, BMP"):
         image_io.imread(path)
     with pytest.raises(TypeError, match="uint8"):
         image_io.imwrite(str(tmp_path / "f.png"), np.zeros((4, 4), np.float32))

@@ -18,8 +18,8 @@ is exact, under ``IMREAD_COLOR`` and ``IMREAD_GRAYSCALE``, and where
 * 32 cuts and 100 seeded byte changes of files of each format;
 * the CSV dataset and DSEC-Det over BMP and PPM frames, equal to
   ``frn_tpu``'s;
-* without the native library, run-length BMP, HDR and GIF raise
-  ``RuntimeError``.
+* without the native library, run-length BMP, HDR and GIF (and a TIFF's
+  LZW strips) raise ``RuntimeError``.
 """
 
 import dataclasses
@@ -41,7 +41,7 @@ from frn_tpu_torch.data import dsec_det as tdsec
 from frn_tpu_torch.data import image_io
 from frn_tpu_torch.utils import native
 from torch_image_variants import (DAMAGED, PAM_UNDEFINED, cv2_write, bmp, read_outcome, rle8, sub_blocks,
-                                  variants)
+                                  tiff, variants)
 
 FLAGS = (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE)
 VARIANTS = variants()
@@ -141,19 +141,21 @@ def test_a_huge_frame_raises_without_allocating_it(tmp_path):
     assert resource.getrusage(resource.RUSAGE_SELF).ru_maxrss - peak < 256 * 1024
 
 
-@pytest.mark.parametrize("name", ["bmp_rle8", "bmp_rle4", "hdr_rle", "gif_code_size_4"])
+@pytest.mark.parametrize("name", ["bmp_rle8", "bmp_rle4", "hdr_rle", "gif_code_size_4", "tiff_lzw"])
 def test_without_the_native_library_raises_naming_the_cause(tmp_path, monkeypatch, name):
     path = tmp_path / name
-    path.write_bytes(VARIANTS[name])
-    monkeypatch.setattr(native, "_codecs_lib", None)
+    # a TIFF's LZW strips decode in native/tiff.cpp, the others in codecs.cpp
+    lib = "tiff" if name.startswith("tiff") else "codecs"
+    path.write_bytes(tiff(np.arange(60).reshape(6, 10), 1, compression=5) if lib == "tiff" else VARIANTS[name])
+    monkeypatch.setattr(native, f"_{lib}_lib", None)
     monkeypatch.setenv("FRN_DISABLE_NATIVE", "1")
     with pytest.raises(RuntimeError, match="FRN_DISABLE_NATIVE"):
         image_io.imread(str(path))
     monkeypatch.delenv("FRN_DISABLE_NATIVE")
-    monkeypatch.setattr(native, "_codecs_error", None)
+    monkeypatch.setattr(native, f"_{lib}_error", None)
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
     monkeypatch.setenv("PATH", str(tmp_path))
-    with pytest.raises(RuntimeError, match="g\\+\\+ could not build codecs.cpp"):
+    with pytest.raises(RuntimeError, match=f"g\\+\\+ could not build {lib}.cpp"):
         image_io.imread(str(path))
     # the plain-row formats need no library
     for plain in ("bmp_8bit", "pnm_cv2_ppm", "pam_cv2_rgb", "ras_8bit_map", "pfm_cv2_colour"):

@@ -1,20 +1,24 @@
 """Image files of every kind that ``cv2.imread`` reads with OpenCV's own
-decoders (BMP, PBM/PGM/PPM, PAM, PFM, Sun raster, Radiance HDR, GIF), built
-byte by byte or written by ``cv2.imencode`` and PIL, for
-``tests/test_torch_image_formats.py`` on the CPU and ``chip_smoke.py``'s
+decoders (BMP, PBM/PGM/PPM, PAM, PFM, Sun raster, Radiance HDR, GIF) and
+with libtiff (TIFF), built byte by byte or written by ``cv2.imencode`` and
+PIL, for ``tests/test_torch_image_formats.py`` and
+``tests/test_torch_image_tiff.py`` on the CPU and ``chip_smoke.py``'s
 format sweep on the card's machine. Imports numpy, OpenCV and, where it is
 installed, PIL, and the port's ``image_io``; nothing of JAX.
 
 ``variants()`` -> {name: bytes}; ``PAM_UNDEFINED`` names the PAM files that
 OpenCV reads with part of the image left uninitialized under the flag
 given; ``DAMAGED`` names the files cut and changed byte by byte;
-``read_outcome`` puts what ``cv2.imread`` and the port's ``imread`` give in
-common terms.
+``tiff_variants()``, ``tiff_damaged()`` (the files of ``TIFF_DAMAGED``) and
+``tiff_left_out()`` are the same for TIFF (the last: kinds the port
+refuses by name); ``read_outcome`` puts what ``cv2.imread`` and the port's
+``imread`` give in common terms.
 """
 
 import io
 import itertools
 import struct
+import zlib
 
 import cv2
 import numpy as np
@@ -644,3 +648,453 @@ DAMAGED = ("bmp_rle8", "bmp_rle4", "bmp_8bit", "bmp_16bit_565_bitfields", "bmp_c
            "ras_8bit_map", "ras_cv2_24bit", "pfm_cv2_colour", "pfm_gray_big_endian", "hdr_rle",
            "hdr_flat_narrow", "gif_transparent_frame_in_screen", "gif_interlaced_17_rows",
            "gif_code_size_2", "gif_application_extensions")
+
+
+# ------------------------------------------------------------ TIFF
+
+_TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 6: "b", 7: "B", 8: "h", 9: "i", 11: "f", 12: "d", 16: "Q",
+               17: "q"}
+BYTE, ASCII, SHORT, LONG, RATIONAL, UNDEFINED, LONG8 = 1, 2, 3, 4, 5, 7, 16
+
+
+def packbits(data):
+    """PackBits: runs of 2-128 equal bytes, literal runs of up to 128."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j + 1 < n and data[j + 1] == data[i] and j - i < 127:
+            j += 1
+        if j > i:
+            out += bytes([257 - (j - i + 1), data[i]])
+            i = j + 1
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and not (j + 1 < n and data[j + 1] == data[j]):
+            j += 1
+        out += bytes([j - i - 1]) + bytes(data[i:j])
+        i = j
+    return bytes(out)
+
+
+def tiff_lzw(data, old_style=False):
+    """TIFF LZW as libtiff writes it: a clear code first, codes MSB first
+    whose width grows one code early, a clear code when the table reaches
+    4094, the end code last. ``old_style``: the LSB-first codes without the
+    early change that libtiff still reads (LZWDecodeCompat)."""
+    out, acc, nbits = bytearray(), 0, 0
+
+    def emit(code, size):
+        nonlocal acc, nbits
+        if old_style:
+            acc |= code << nbits
+            nbits += size
+            while nbits >= 8:
+                out.append(acc & 255)
+                acc >>= 8
+                nbits -= 8
+        else:
+            acc = (acc << size) | code
+            nbits += size
+            while nbits >= 8:
+                out.append((acc >> (nbits - 8)) & 255)
+                nbits -= 8
+            acc &= (1 << nbits) - 1
+
+    def grow(size, nxt):
+        return size + 1 if (nxt if old_style else nxt + 1) > (1 << size) and size < 12 else size
+
+    size, table, nxt, cur = 9, {}, 258, None
+    emit(256, size)
+    for k in data:
+        if cur is None:
+            cur = bytes([k])
+        elif cur + bytes([k]) in table:
+            cur += bytes([k])
+        else:
+            emit(table[cur] if len(cur) > 1 else cur[0], size)
+            table[cur + bytes([k])] = nxt
+            nxt += 1
+            size = grow(size, nxt)
+            if nxt >= 4094:
+                emit(256, size)
+                size, table, nxt = 9, {}, 258
+            cur = bytes([k])
+    if cur is not None:
+        emit(table[cur] if len(cur) > 1 else cur[0], size)
+        size = grow(size, nxt + 1)
+    emit(257, size)
+    if nbits:
+        out.append(acc & 255 if old_style else (acc << (8 - nbits)) & 255)
+    return bytes(out)
+
+
+def _tiff_rows(samples, bits, order):
+    """(h, w, c) samples -> rows of bytes (h, row bytes), each row padded to
+    a byte."""
+    h, w, c = samples.shape
+    if bits in (16, 32):
+        return samples.astype(f"{order}u{bits // 8}").view(np.uint8).reshape(h, -1)
+    if bits == 8:
+        return samples.astype(np.uint8).reshape(h, -1)
+    per = 8 // bits
+    v = samples.reshape(h, w * c).astype(np.int64)
+    v = np.concatenate([v, np.zeros((h, -v.shape[1] % per), np.int64)], 1).reshape(h, -1, per)
+    return (v << ((8 - bits) - bits * np.arange(per))).sum(2).astype(np.uint8)
+
+
+def _tiff_code(raw, compression):
+    if compression == 5:
+        return tiff_lzw(raw)
+    if compression in (8, 32946):
+        return zlib.compress(raw)
+    if compression == 32773:
+        return packbits(raw)
+    return raw
+
+
+def tiff(samples, photometric, bits=8, compression=1, predictor=None, planar=1, tile=None, rows=None,
+         order="<", big=False, tags=None, drop=(), offsets_type=None, counts_type=None, encode=None,
+         ifd_first=False, second_page=False):
+    """A TIFF of ``samples`` ((h, w) or (h, w, c) integers): strips of
+    ``rows`` rows (one strip by default) or ``tile`` (height, width) tiles,
+    planar 1 or 2, in byte order ``order``, classic or BigTIFF, the IFD after
+    the data or (``ifd_first``) before it. ``encode`` codes each strip's
+    bytes (the compression's coder by default); ``tags`` {tag: (type,
+    values)} are added or replace the writer's, ``drop`` removes tags;
+    ``second_page`` adds a second directory (a different image) after the
+    first."""
+    s = np.asarray(samples)
+    s = s[:, :, None] if s.ndim == 2 else s
+    h, w, c = s.shape
+    if predictor == 2:
+        d = s.astype(np.int64)
+        d[:, 1:] = s[:, 1:].astype(np.int64) - s[:, :-1].astype(np.int64)
+        s = d & ((1 << bits) - 1)
+    chunks = []
+    for p in [s] if planar == 1 else [s[:, :, i:i + 1] for i in range(c)]:
+        if tile:
+            th, tw = tile
+            for y in range(0, h, th):
+                for x in range(0, w, tw):
+                    t = np.zeros((th, tw, p.shape[2]), p.dtype)
+                    part = p[y:y + th, x:x + tw]
+                    t[:part.shape[0], :part.shape[1]] = part
+                    chunks.append(_tiff_rows(t, bits, order).tobytes())
+        else:
+            for y in range(0, h, rows or h):
+                chunks.append(_tiff_rows(p[y:y + (rows or h)], bits, order).tobytes())
+    chunks = [(encode or (lambda raw: _tiff_code(raw, compression)))(ch) for ch in chunks]
+    ot, ct = offsets_type or (LONG8 if big else LONG), counts_type or (LONG8 if big else LONG)
+    entries = {256: (LONG, [w]), 257: (LONG, [h]), 258: (SHORT, [bits] * c), 259: (SHORT, [compression]),
+               262: (SHORT, [photometric]), 277: (SHORT, [c])}
+    if planar != 1:
+        entries[284] = (SHORT, [planar])
+    if predictor:
+        entries[317] = (SHORT, [predictor])
+    keys = (324, 325) if tile else (273, 279)
+    if tile:
+        entries[322], entries[323] = (LONG, [tile[1]]), (LONG, [tile[0]])
+    elif rows:
+        entries[278] = (LONG, [rows])
+    entries[keys[0]] = (ot, [0] * len(chunks))
+    entries[keys[1]] = (ct, [len(x) for x in chunks])
+    entries.update(tags or {})
+    for tag in drop:
+        entries.pop(tag, None)
+    return tiff_layout(entries, chunks, keys[0] if keys[0] in entries else None, order, big, ifd_first,
+                       second_page)
+
+
+def tiff_layout(entries, chunks, offsets_tag, order="<", big=False, ifd_first=False, second_page=False):
+    """The file: header, the strips (2-byte aligned) and one IFD (sorted
+    entries, values past 4 or 8 bytes after it); the strips' offsets are
+    written into ``offsets_tag``'s entry."""
+    e, head, inline = order, 16 if big else 8, 8 if big else 4
+
+    def ifd_bytes(at, entries):
+        size = (8 if big else 2) + len(entries) * (20 if big else 12) + inline
+        ifd, extra = bytearray(struct.pack(e + ("Q" if big else "H"), len(entries))), bytearray()
+        for tag in sorted(entries):
+            typ, vals = entries[tag]
+            if typ in (ASCII, UNDEFINED) and not isinstance(vals, list):
+                raw = bytes(vals)
+            elif typ == RATIONAL:
+                raw = b"".join(struct.pack(e + "II", *pair) for pair in vals)
+            else:
+                raw = struct.pack(f"{e}{len(vals)}{_TIFF_TYPES[typ]}", *vals)
+            count = len(vals)
+            if len(raw) <= inline:
+                value = raw + bytes(inline - len(raw))
+            else:
+                value = struct.pack(e + ("Q" if big else "I"), at + size + len(extra))
+                extra += raw + bytes(len(raw) % 2)
+            ifd += struct.pack(e + ("HHQ" if big else "HHI"), tag, typ, count) + value
+        return ifd + bytes(inline), extra
+
+    def place(at):
+        blob, offs = bytearray(), []
+        for ch in chunks:
+            offs.append(at + len(blob))
+            blob += ch + bytes(len(ch) % 2)
+        return blob, offs
+
+    if ifd_first:
+        ifd, extra = ifd_bytes(head, entries)
+        blob, offs = place(head + len(ifd) + len(extra))
+    else:
+        blob, offs = place(head)
+    if offsets_tag is not None:
+        typ, _ = entries[offsets_tag]
+        entries = {**entries, offsets_tag: (typ, offs)}
+    ifd_at = head if ifd_first else head + len(blob)
+    ifd, extra = ifd_bytes(ifd_at, entries)
+    if second_page:  # a second directory after the first: another width, the same strips
+        page2_at = ifd_at + len(ifd) + len(extra)
+        ifd[-inline:] = struct.pack(e + ("Q" if big else "I"), page2_at)
+        other = {**entries, 256: (LONG, [entries[256][1][0] // 2 or 1])}
+        extra += b"".join(ifd_bytes(page2_at, other))
+    sig = (b"II" if e == "<" else b"MM")
+    header = sig + (struct.pack(e + "HHHQ", 43, 8, 0, ifd_at) if big else struct.pack(e + "HI", 42, ifd_at))
+    body = ifd + extra + blob if ifd_first else blob + ifd + extra
+    return header + bytes(body)
+
+
+def tiff_jpeg_strips(bgr, rows, sampling=cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420, quality=85,
+                     photometric=6):
+    """A JPEG-compressed TIFF whose strips are whole JPEG files written by
+    cv2.imencode (no JPEGTables): YCbCr with its subsampling tag, or RGB
+    (``photometric`` 2, read without colour conversion)."""
+    sub = {cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420: (2, 2), cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422: (2, 1),
+           cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444: (1, 1)}[sampling]
+
+    def encode(raw):
+        strip = np.frombuffer(raw, np.uint8).reshape(-1, bgr.shape[1], 3)
+        return cv2_write(".jpg", strip[:, :, ::-1], cv2.IMWRITE_JPEG_QUALITY, quality,
+                         cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sampling)
+
+    tags = {530: (SHORT, list(sub))} if photometric == 6 else {}
+    return tiff(bgr[:, :, ::-1], photometric, compression=7, rows=rows, encode=encode, tags=tags)
+
+
+def _scene(h, w, rng):
+    """Gradients, edges and noise, (h, w, 3) in 0..255."""
+    y, x = np.mgrid[:h, :w]
+    img = np.stack([(x * 9 + y * 3) % 256, (x * y) % 256, 128 + 100 * np.sin(x / 5.0 + y / 7.0)], -1)
+    return np.clip(img + rng.normal(0, 20, img.shape), 0, 255).astype(np.int64)
+
+
+def _tiff_variants_built():
+    v = {}
+    rng = _rng("tiff")
+    h, w = 13, 21
+    rgb = _scene(h, w, rng)
+    gray = rgb[:, :, 1]
+    alpha = rng.integers(0, 256, (h, w, 1))
+    wide = rgb.astype(np.int64) * 257 + rng.integers(0, 257, rgb.shape)  # 16-bit
+    names = {1: "none", 5: "lzw", 8: "deflate", 32946: "adobe_deflate", 32773: "packbits"}
+    for comp, name in names.items():
+        v[f"tiff_{name}_strips"] = tiff(rgb, 2, compression=comp, rows=5)
+        v[f"tiff_{name}_one_strip_mm"] = tiff(rgb, 2, compression=comp, order=">")
+        v[f"tiff_{name}_tiles"] = tiff(rgb, 2, compression=comp, tile=(16, 16))
+        v[f"tiff_{name}_tiles_mm_gray16"] = tiff(wide[:, :, 0], 1, bits=16, compression=comp, tile=(16, 16),
+                                                 order=">")
+        v[f"tiff_{name}_planar"] = tiff(rgb, 2, compression=comp, planar=2, rows=6)
+    for comp in (5, 8):
+        for order in "<>":
+            v[f"tiff_{names[comp]}_predictor_{order == '<' and 'ii' or 'mm'}"] = tiff(
+                rgb, 2, compression=comp, predictor=2, rows=4, order=order)
+            v[f"tiff_{names[comp]}_predictor_16bit_{order == '<' and 'ii' or 'mm'}"] = tiff(
+                wide, 2, bits=16, compression=comp, predictor=2, tile=(16, 16), order=order)
+        v[f"tiff_{names[comp]}_predictor_planar"] = tiff(rgb, 2, compression=comp, predictor=2, planar=2)
+        v[f"tiff_{names[comp]}_predictor_4bit"] = tiff(gray >> 4, 3, bits=4, compression=comp, predictor=2,
+                                                        tags={320: (SHORT, list(range(0, 65536, 1366))[:48])})
+        v[f"tiff_{names[comp]}_predictor_3"] = tiff(rgb, 2, compression=comp, predictor=3)
+    v["tiff_lzw_old_style"] = tiff(rgb, 2, compression=5, rows=7, encode=lambda raw: tiff_lzw(raw, True))
+    v["tiff_lzw_old_style_gray_predictor"] = tiff(gray, 1, compression=5, predictor=2,
+                                                  encode=lambda raw: tiff_lzw(raw, True))
+    v["tiff_lzw_long_strip"] = tiff(np.tile(rgb, (8, 10, 1)), 2, compression=5)  # the table fills
+    # the photometric kinds
+    for bits in (1, 2, 4, 8, 16):
+        top = (1 << bits) - 1
+        v[f"tiff_gray_{bits}bit"] = tiff(gray * top // 255 if bits < 16 else wide[:, :, 1], 1, bits=bits,
+                                         compression=5, rows=6)
+        v[f"tiff_min_is_white_{bits}bit"] = tiff(gray * top // 255 if bits < 16 else wide[:, :, 2], 0,
+                                                 bits=bits, compression=32773)
+    for bits in (1, 2, 4, 8, 16):
+        n = 1 << bits
+        cmap16 = rng.integers(0, 65536, 3 * n)
+        cmap8 = rng.integers(0, 256, 3 * n)
+        index = rng.integers(0, n, (h, w))
+        v[f"tiff_palette_{bits}bit"] = tiff(index, 3, bits=bits, compression=5, tags={320: (SHORT, list(cmap16))})
+        if bits <= 8:
+            v[f"tiff_palette_{bits}bit_8bit_map"] = tiff(index, 3, bits=bits, compression=8,
+                                                         tags={320: (SHORT, list(cmap8))})
+    v["tiff_palette_no_map"] = tiff(gray, 3, compression=5)
+    v["tiff_palette_1bit_no_map"] = tiff(gray & 1, 3, bits=1)
+    v["tiff_rgb_16bit"] = tiff(wide, 2, bits=16, compression=8, rows=4)
+    v["tiff_rgb_16bit_mm"] = tiff(wide, 2, bits=16, order=">")
+    for extra, name in ((None, "no_extra_samples"), (0, "unspecified"), (1, "associated"), (2, "unassociated")):
+        tags = None if extra is None else {338: (SHORT, [extra])}
+        v[f"tiff_rgba_{name}"] = tiff(np.concatenate([rgb, alpha], 2), 2, compression=5, tags=tags)
+        v[f"tiff_rgba_16bit_{name}"] = tiff(np.concatenate([wide, alpha * 257], 2), 2, bits=16, tags=tags)
+        v[f"tiff_rgba_planar_{name}"] = tiff(np.concatenate([rgb, alpha], 2), 2, planar=2, tags=tags)
+    v["tiff_gray_alpha"] = tiff(np.concatenate([gray[:, :, None], alpha], 2), 1, tags={338: (SHORT, [2])})
+    v["tiff_gray_alpha_planar"] = tiff(np.concatenate([gray[:, :, None], alpha], 2), 1, planar=2,
+                                       tags={338: (SHORT, [2])})
+    v["tiff_gray_alpha_16bit_tiles"] = tiff(np.concatenate([wide[:, :, :1], alpha * 257], 2), 1, bits=16,
+                                            tile=(16, 16), tags={338: (SHORT, [1])})
+    v["tiff_gray_16bit_planar_alpha"] = tiff(np.concatenate([wide[:, :, :1], alpha * 257], 2), 1, bits=16,
+                                             planar=2, tags={338: (SHORT, [2])})
+    v["tiff_rgb_extra_sample_count_5"] = tiff(np.concatenate([rgb, alpha, alpha], 2), 2,
+                                              tags={338: (SHORT, [2, 0])})
+    v["tiff_rgb_two_samples"] = tiff(rgb[:, :, :2], 2)
+    cmyk = np.concatenate([rgb, alpha], 2)
+    v["tiff_cmyk"] = tiff(cmyk, 5, compression=5, rows=5)
+    v["tiff_cmyk_planar"] = tiff(cmyk, 5, planar=2)
+    v["tiff_cmyk_inkset_2"] = tiff(cmyk, 5, tags={332: (SHORT, [2])})
+    v["tiff_cmyk_three_samples"] = tiff(rgb, 5)
+    v["tiff_cmyk_16bit"] = tiff(cmyk * 257, 5, bits=16)
+    # sample formats and depths libtiff's RGBA reader refuses
+    v["tiff_float32"] = tiff(rgb.astype(np.float32).view(np.uint32), 2, bits=32, tags={339: (SHORT, [3] * 3)})
+    v["tiff_uint32"] = tiff(rgb, 2, bits=32)
+    v["tiff_int8"] = tiff(gray, 1, tags={339: (SHORT, [2])})
+    v["tiff_void8"] = tiff(gray, 1, tags={339: (SHORT, [4])})
+    v["tiff_sample_format_7"] = tiff(gray, 1, tags={339: (SHORT, [7])})
+    v["tiff_12bit"] = tiff(gray, 1, tags={258: (SHORT, [12])})
+    v["tiff_bits_per_sample_differ"] = tiff(rgb, 2, tags={258: (SHORT, [8, 8, 16])})
+    v["tiff_photometric_4"] = tiff(gray, 4)
+    v["tiff_no_photometric"] = tiff(rgb, 2, drop=(262,))
+    v["tiff_no_bits_per_sample"] = tiff(gray & 1, 1, bits=1, drop=(258,))
+    # YCbCr without JPEG: packed blocks of h x v Y samples, then Cb and Cr
+    ycc = rng.integers(0, 256, 4096)
+    for h_, v_ in ((1, 1), (2, 1), (2, 2), (4, 2), (4, 4), (1, 2), (4, 1), (1, 4), (3, 2)):
+        v[f"tiff_ycbcr_{h_}{v_}"] = tiff(rgb, 6, rows=8 if v_ != 3 else None, tags={530: (SHORT, [h_, v_])},
+                                        encode=lambda raw: bytes(ycc[:len(raw)].astype(np.uint8)))
+    v["tiff_ycbcr_44_tiles_lzw"] = tiff(rgb, 6, compression=5, tile=(16, 16), tags={530: (SHORT, [4, 4])})
+    v["tiff_ycbcr_22_tiles"] = tiff(rgb, 6, tile=(16, 16), tags={530: (SHORT, [2, 2])})
+    v["tiff_ycbcr_coefficients"] = tiff(rgb, 6, compression=8, tags={
+        530: (SHORT, [1, 1]), 529: (RATIONAL, [(2126, 10000), (7152, 10000), (722, 10000)]),
+        532: (RATIONAL, [(16, 1), (235, 1), (128, 1), (240, 1), (128, 1), (240, 1)])})
+    v["tiff_ycbcr_planar"] = tiff(rgb, 6, planar=2, tags={530: (SHORT, [1, 1])})
+    # the orientations, strips and tiles (libtiff mirrors inside each tile)
+    for o in range(1, 9):
+        v[f"tiff_orientation_{o}"] = tiff(rgb, 2, rows=4, tags={274: (SHORT, [o])})
+        v[f"tiff_orientation_{o}_tiles"] = tiff(rgb, 2, compression=5, tile=(16, 16), tags={274: (SHORT, [o])})
+    v["tiff_orientation_9"] = tiff(rgb, 2, tags={274: (SHORT, [9])})
+    # the container
+    for order in "<>":
+        o = "ii" if order == "<" else "mm"
+        v[f"tiff_bigtiff_{o}"] = tiff(rgb, 2, compression=5, big=True, order=order, rows=5)
+        v[f"tiff_bigtiff_{o}_tiles_16bit"] = tiff(wide, 2, bits=16, compression=8, big=True, order=order,
+                                                  tile=(16, 32), predictor=2)
+    v["tiff_bigtiff_long_offsets"] = tiff(rgb, 2, big=True, offsets_type=LONG, counts_type=SHORT)
+    v["tiff_offsets_short"] = tiff(rgb, 2, rows=5, offsets_type=SHORT, counts_type=SHORT)
+    v["tiff_offsets_ascii"] = tiff(rgb, 2, offsets_type=ASCII)
+    v["tiff_rows_per_strip_past_height"] = tiff(rgb, 2, compression=5, tags={278: (LONG, [1000])})
+    v["tiff_rows_per_strip_zero"] = tiff(rgb, 2, tags={278: (LONG, [0])})
+    v["tiff_no_byte_counts"] = tiff(rgb, 2, drop=(279,))
+    v["tiff_no_byte_counts_lzw"] = tiff(rgb, 2, compression=5, drop=(279,))
+    v["tiff_no_byte_counts_strips"] = tiff(rgb, 2, rows=5, drop=(279,))
+    v["tiff_byte_count_short"] = tiff(rgb, 2, tags={279: (LONG, [100])})
+    v["tiff_byte_count_zero_lzw"] = tiff(rgb, 2, compression=5, tags={279: (LONG, [0])})
+    v["tiff_byte_counts_unequal"] = tiff(rgb, 2, rows=3, tags={279: (LONG, [189, 100, 189, 189, 63])})
+    v["tiff_big_uncompressed_strip"] = tiff(np.tile(rgb, (12, 8, 1)), 2)
+    v["tiff_big_uncompressed_strip_rows_past_limit"] = tiff(rgb, 2, tags={278: (LONG, [14417924])})
+    v["tiff_no_offsets"] = tiff(rgb, 2, drop=(273,))
+    v["tiff_no_width"] = tiff(rgb, 2, drop=(256,))
+    v["tiff_planar_3"] = tiff(rgb, 2, tags={284: (SHORT, [3])})
+    v["tiff_ifd_first"] = tiff(rgb, 2, compression=5, rows=4, ifd_first=True)
+    v["tiff_two_pages"] = tiff(rgb, 2, compression=8, second_page=True)
+    v["tiff_fill_order_2"] = tiff(rgb, 2, compression=5, encode=lambda raw: bytes(
+        int(f"{b:08b}"[::-1], 2) for b in tiff_lzw(raw)), tags={266: (SHORT, [2])})
+    v["tiff_tile_width_8"] = tiff(gray, 1, tile=(16, 8))
+    v["tiff_tiles_gray_alpha_clipped"] = tiff(np.concatenate([gray[:, :, None], alpha], 2), 1, tile=(16, 16),
+                                              compression=32773)
+    v["tiff_tiles_palette_1bit"] = tiff(gray & 1, 3, bits=1, tile=(16, 16), tags={320: (SHORT, [0, 65535] * 3)})
+    # compressions: not configured in OpenCV's libtiff, and unknown
+    for comp, name in ((50000, "zstd"), (34925, "lzma"), (50001, "webp"), (12345, "unknown")):
+        v[f"tiff_compression_{name}"] = tiff(gray, 1, compression=comp)
+    v["tiff_compression_unknown_min_is_white"] = tiff(gray, 0, compression=12345)
+    # JPEG strips (whole JPEG files, no JPEGTables)
+    bgr = rgb[:, :, ::-1].astype(np.uint8)
+    big = np.tile(bgr, (3, 2, 1))
+    v["tiff_jpeg_ycbcr_420"] = tiff_jpeg_strips(big, 16)
+    v["tiff_jpeg_ycbcr_422"] = tiff_jpeg_strips(big, 8, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422)
+    v["tiff_jpeg_ycbcr_444_one_strip"] = tiff_jpeg_strips(big, None, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444)
+    v["tiff_jpeg_rgb_444"] = tiff_jpeg_strips(big, 8, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444, photometric=2)
+    v["tiff_jpeg_subsampling_tag_wrong"] = tiff_jpeg_strips(big, 16).replace(
+        struct.pack("<HHIHH", 530, SHORT, 2, 2, 2), struct.pack("<HHIHH", 530, SHORT, 2, 2, 1))
+    v["tiff_jpeg_no_subsampling_tag"] = tiff(big[:, :, ::-1], 6, compression=7, rows=16, encode=lambda raw: cv2_write(
+        ".jpg", np.frombuffer(raw, np.uint8).reshape(-1, big.shape[1], 3)[:, :, ::-1]))
+    v["tiff_jpeg_gray"] = tiff(big[:, :, 1], 1, compression=7, rows=8, encode=lambda raw: cv2_write(
+        ".jpg", np.frombuffer(raw, np.uint8).reshape(-1, big.shape[1])))
+    v["tiff_jpeg_min_is_white"] = tiff(big[:, :, 1], 0, compression=7, encode=lambda raw: cv2_write(
+        ".jpg", np.frombuffer(raw, np.uint8).reshape(-1, big.shape[1])))
+    return v
+
+
+def _tiff_variants_written():
+    v = {}
+    rng = _rng("tiff written")
+    rgb = _scene(37, 53, rng).astype(np.uint8)
+    for comp, name in ((1, "none"), (5, "lzw"), (8, "deflate"), (32773, "packbits"), (32946, "adobe_deflate"),
+                       (7, "jpeg")):
+        v[f"tiff_cv2_{name}"] = cv2_write(".tiff", rgb, cv2.IMWRITE_TIFF_COMPRESSION, comp)
+        v[f"tiff_cv2_{name}_gray"] = cv2_write(".tiff", rgb[:, :, 0], cv2.IMWRITE_TIFF_COMPRESSION, comp)
+    v["tiff_cv2_default"] = cv2_write(".tiff", rgb)
+    v["tiff_cv2_16bit"] = cv2_write(".tiff", rgb.astype(np.uint16) * 257)
+    v["tiff_cv2_bgra"] = cv2_write(".tiff", np.concatenate([rgb, rgb[:, :, :1]], 2))
+    v["tiff_ccitt_8bit"] = tiff(rgb[:, :, 0], 1, compression=4, encode=bytes)
+    if Image:
+        for comp in ("raw", "tiff_lzw", "tiff_deflate", "packbits", "tiff_adobe_deflate"):
+            for mode in ("RGB", "L", "1", "P", "RGBA", "CMYK", "I;16", "LA", "YCbCr"):
+                v[f"tiff_pil_{comp}_{mode.replace(';', '_')}"] = pil_write(rgb, "TIFF", mode, compression=comp)
+        for quality, sampling in ((50, 0), (95, 1), (75, 2)):
+            v[f"tiff_pil_jpeg_q{quality}_ss{sampling}"] = pil_write(rgb, "TIFF", compression="jpeg",
+                                                                     quality=quality, subsampling=sampling)
+        v["tiff_pil_jpeg_gray"] = pil_write(rgb, "TIFF", "L", compression="jpeg")
+        v["tiff_pil_lzw_predictor"] = pil_write(rgb, "TIFF", compression="tiff_lzw", tiffinfo={317: 2})
+        v["tiff_pil_orientation_3"] = pil_write(rgb, "TIFF", compression="tiff_lzw", tiffinfo={274: 3})
+    return v
+
+
+def tiff_variants() -> dict:
+    """{name: TIFF file bytes} of every TIFF variant, deterministic."""
+    return {**_tiff_variants_built(), **_tiff_variants_written()}
+
+
+def tiff_damaged() -> dict:
+    """Small files of the kinds the damage tests cut and change (a few
+    hundred bytes each, so that every cut is read): LZW strips, Deflate
+    tiles with the predictor, PackBits, JPEG strips, a palette, BigTIFF; the
+    directory first in some, so that cuts fall in the strips."""
+    rng = _rng("tiff damaged")
+    rgb = _scene(10, 14, rng)
+    cmap = rng.integers(0, 65536, 48)
+    bgr = _scene(16, 16, rng)[:, :, ::-1].astype(np.uint8)
+    return {
+        "tiff_damaged_lzw_strips": tiff(rgb, 2, compression=5, rows=4, ifd_first=True),
+        "tiff_damaged_deflate_tiles_predictor": tiff(rgb, 2, compression=8, tile=(16, 16), predictor=2),
+        "tiff_damaged_packbits_gray": tiff(rgb[:, :, 1], 1, compression=32773, rows=3, ifd_first=True),
+        "tiff_damaged_jpeg": tiff_jpeg_strips(bgr, 8, quality=60),
+        "tiff_damaged_palette": tiff(rgb[:, :, 0] >> 4, 3, bits=4, compression=5, tags={320: (SHORT, list(cmap))}),
+        "tiff_damaged_bigtiff": tiff(rgb, 2, compression=32946, big=True, order=">", rows=5, ifd_first=True),
+    }
+
+
+TIFF_DAMAGED = ("tiff_damaged_lzw_strips", "tiff_damaged_deflate_tiles_predictor",
+                "tiff_damaged_packbits_gray", "tiff_damaged_jpeg", "tiff_damaged_palette",
+                "tiff_damaged_bigtiff")
+
+
+def tiff_left_out() -> dict:
+    """{name: (file bytes, the words the port's refusal names it by)}: TIFF
+    kinds that cv2.imread reads and the port leaves out (CIELab built here;
+    PIL writes the CCITT ones, left out without PIL)."""
+    rgb = _scene(24, 40, _rng("tiff left out")).astype(np.uint8)
+    out = {"tiff_cielab": (tiff(rgb, 8), "CIELab")}
+    if Image is None:
+        return out
+    for comp, words in (("group4", "CCITT Group 4"), ("group3", "CCITT Group 3"), ("tiff_ccitt", "CCITT RLE")):
+        out[f"tiff_{comp}"] = (pil_write(rgb, "TIFF", "1", compression=comp), words)
+    return out
